@@ -1,0 +1,120 @@
+"""Stein variational gradient descent (port of the part of
+``sigsvgd_tpu/inference/svgd.py`` the signature-kernel MPC solve runs).
+
+Update rule: with score ``s_i = ∇ log p(x_i)`` and aggregated kernel
+gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
+
+    φ_i = (Σ_j k_ij s_j − g_i) / n          (Stein velocity, ascent direction)
+    x_i ← optimizer_update(x_i, −φ_i)        (descent on −φ)
+
+The kernel terms come with the score (``ScoreResult.k_xx``/``grad_k``); the
+sampler's own analytic kernel (policy mode), ScaledSVGD/MatrixSVGD and LBFGS
+are later slices (ROADMAP.md queue 1, M5, M7 and M10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class ScoreResult(NamedTuple):
+    grad_log_p: torch.Tensor
+    k_xx: Optional[torch.Tensor] = None
+    grad_k: Optional[torch.Tensor] = None
+    loss: Optional[torch.Tensor] = None
+    aux: Any = None
+
+
+class AdamState(NamedTuple):
+    count: torch.Tensor  # int32 scalar
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+class SVGDState(NamedTuple):
+    opt_state: Any  # AdamState, or () for the raw lr update
+    step: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.adam`` exactly: ``μ←b1·μ+(1−b1)g``, ``ν←b2·ν+(1−b2)g²``,
+    bias-corrected, ``Δ = −lr·μ̂/(√(ν̂ + eps_root) + eps)``."""
+
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    eps_root: float = 0.0
+
+    def init(self, x: torch.Tensor) -> AdamState:
+        return AdamState(
+            count=torch.zeros((), dtype=torch.int32, device=x.device),
+            mu=torch.zeros_like(x),
+            nu=torch.zeros_like(x),
+        )
+
+    def update(self, g: torch.Tensor, state: AdamState):
+        mu = (1.0 - self.b1) * g + self.b1 * state.mu
+        nu = (1.0 - self.b2) * (g * g) + self.b2 * state.nu
+        count = state.count + 1
+        t = count.to(g.dtype)
+        mu_hat = mu / (1.0 - self.b1 ** t)
+        nu_hat = nu / (1.0 - self.b2 ** t)
+        upd = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
+        return -self.lr * upd, AdamState(count=count, mu=mu, nu=nu)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SVGD:
+    """First-order SVGD sampler; ``optimizer`` is an :class:`Adam` or None
+    for the raw ``lr`` update."""
+
+    optimizer: Optional[Adam] = None
+    lr: float = 1e-2
+    log_prior: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def init(self, particles: torch.Tensor) -> SVGDState:
+        opt_state = self.optimizer.init(particles) if self.optimizer else ()
+        return SVGDState(
+            opt_state=opt_state,
+            step=torch.zeros((), dtype=torch.int32, device=particles.device),
+        )
+
+    def velocity(self, x: torch.Tensor, score: ScoreResult
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stein velocity φ (particle-shaped) and the logged loss."""
+        if score.k_xx is None or score.grad_k is None:
+            raise NotImplementedError(
+                "the sampler's own kernel (policy mode) waits for ROADMAP.md "
+                "queue 1, M5"
+            )
+        n = x.shape[0]
+        s = _flat(score.grad_log_p)
+        if self.log_prior is not None:
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(True)
+                (prior_grad,) = torch.autograd.grad(self.log_prior(xx).sum(), xx)
+            s = s + _flat(prior_grad)
+        phi = ((score.k_xx @ s - _flat(score.grad_k)) / n).reshape(x.shape)
+        loss = score.loss if score.loss is not None else torch.linalg.norm(s)
+        return phi, loss
+
+    def apply_update(self, x: torch.Tensor, grad: torch.Tensor, opt_state):
+        """``grad`` is the descent direction (``-φ``)."""
+        if self.optimizer is not None:
+            updates, opt_state = self.optimizer.update(grad, opt_state)
+            return x + updates, opt_state
+        return x - self.lr * grad, opt_state
+
+    def step_update(self, x: torch.Tensor, state: SVGDState,
+                    score: ScoreResult) -> Tuple[torch.Tensor, SVGDState]:
+        phi, _loss = self.velocity(x, score)
+        x, opt_state = self.apply_update(x, -phi, state.opt_state)
+        return x, SVGDState(opt_state=opt_state, step=state.step + 1)

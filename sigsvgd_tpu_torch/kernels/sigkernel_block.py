@@ -1,0 +1,197 @@
+"""λ=0 symmetric signature-kernel Gram + gradient: K1 and its plain twin.
+
+Port of ``sigsvgd_tpu/kernels/pallas_sigkernel_block.py::block_gram_and_grad``.
+``block_gram_and_grad(X, h)`` returns ``(K [n, n], dX [n, L, C])`` with
+``dX = ½·∂Σ_{ab}K_ab/∂X``, the detached-second-argument repulsion that
+``SignatureKernel.gram_and_grad`` hands to the Stein velocity. The output is
+data, not differentiable further.
+
+On a CPU tensor the wrapper runs :func:`block_gram_and_grad_plain`; on a CUDA
+tensor it launches the hand-written kernel in ``csrc/sigkernel_block.cu`` or
+raises. The two share one arithmetic, written out in the twin below: the
+static Gram in expand form on paths pre-scaled by √(2/h), the order-0 row
+sweep, the per-cell adjoint factor ``fac``, the λ rows top-down and the
+pull-back of the row differences ``D[i][q] = dz[i][q-1] - dz[i][q]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import load
+
+_I6 = 1.0 / 6.0
+_I12 = 1.0 / 12.0
+
+# kernel envelope and tile (csrc/sigkernel_block.cu)
+MAX_L = 64
+MAX_C = 3
+TILE_ROWS = 8
+TILE_COLS = 16
+SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_bytes(L: int, C: int) -> int:
+    lc = L * C
+    nt = TILE_ROWS * TILE_COLS
+    return 4 * (lc * (TILE_ROWS + TILE_COLS) + L * TILE_COLS + 2 * lc * nt)
+
+
+def block_supported(n: int, L: int, C: int, h) -> bool:
+    """Shapes K1 takes on the card: a bandwidth, L ≤ 64, C ≤ 3 (register
+    arrays are unrolled to L, one per path channel) and the per-block shared
+    memory within Hopper's 227 KB."""
+    return (
+        h is not None
+        and n >= 2
+        and 2 <= L <= MAX_L
+        and 1 <= C <= MAX_C
+        and _smem_bytes(L, C) <= SMEM_LIMIT
+    )
+
+
+def block_flops(n: int, L: int, C: int) -> float:
+    """fp32 operations the function needs, counting an ``exp`` as one and
+    each value once (K1 recomputes static rows and z, A, B; that work is not
+    counted): per pair ``L²`` static-Gram nodes at ``2C+3`` each, and
+    ``(L-1)²`` cells at 10 (z, A, B) + 10 (forward update and adjoint
+    factor) + 2 (λ chain) + 14 + 11·C (adjoint and pull-back)."""
+    pairs = n * (n + 1) // 2
+    per_pair = L * L * (2 * C + 3) + (L - 1) ** 2 * (36 + 11 * C)
+    return float(pairs * per_pair)
+
+
+def block_bytes(n: int, L: int, C: int) -> float:
+    """Bytes K1 must move: X read once, K and dX written once."""
+    return 4.0 * (n * L * C + n * n + n * L * C)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twin.
+# ---------------------------------------------------------------------------
+
+
+def block_gram_and_grad_plain(X: torch.Tensor, h):
+    """The K1 contract in plain PyTorch, vectorised over the upper-triangle
+    pairs (a ≤ b) and sequential over the grid, with an explicit adjoint."""
+    n, L, C = X.shape
+    scale = torch.sqrt(2.0 / torch.as_tensor(h, dtype=X.dtype, device=X.device))
+    Xs = X * scale
+    iu, ju = torch.triu_indices(n, n, device=X.device)
+    seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
+    x = Xs[iu].permute(1, 2, 0).contiguous()  # [L, C, P]
+    y = Xs[ju].permute(1, 2, 0).contiguous()
+    ynh = -0.5 * (y * y).sum(1)                # [L, P]
+    xnh = -0.5 * (x * x).sum(1)
+
+    def g_row(p):
+        cross = (x[p][None] * y).sum(1)        # [L, P]
+        return torch.exp(cross + (ynh + xnh[p]))
+
+    def coefs(gup, gdn):
+        z = ((gup[1:] - gup[:-1]) - gdn[1:]) + gdn[:-1]   # [L-1, P]
+        return z, 1.0 + z * (0.5 + z * _I12), 1.0 - z * z * _I12
+
+    # forward: node rows bottom-up; fac[i, j] feeds the adjoint of cell (i, j)
+    P = iu.shape[0]
+    krow = torch.ones(L, P, dtype=X.dtype, device=X.device)
+    fac = torch.empty(L - 1, L - 1, P, dtype=X.dtype, device=X.device)
+    gdn = g_row(0)
+    for i in range(L - 1):
+        gup = g_row(i + 1)
+        z, A, B = coefs(gup, gdn)
+        new = torch.ones_like(krow)
+        for j in range(L - 1):
+            new[j + 1] = (new[j] + krow[j + 1]) * A[j] - krow[j] * B[j]
+        fac[i] = (new[:-1] + krow[1:]) * (0.5 + z * _I6) + krow[:-1] * (z * _I6)
+        krow, gdn = new, gup
+    kval = krow[L - 1]
+
+    # adjoint: λ rows top-down
+    lam = torch.zeros_like(krow)
+    lam[L - 1] = 1.0
+    gup = gdn
+    carry = torch.zeros(C, P, dtype=X.dtype, device=X.device)
+    dxr = torch.empty(L, C, P, dtype=X.dtype, device=X.device)
+    dyc = torch.zeros(L, C, P, dtype=X.dtype, device=X.device)
+    for i in range(L - 2, -1, -1):
+        gdn = g_row(i)
+        z, A, B = coefs(gup, gdn)
+        for j in range(L - 2, -1, -1):
+            lam[j] = lam[j] + lam[j + 1] * A[j]
+        t = lam[1:]                            # complete λ[i+1][j+1]
+        dz = t * fac[i] * seed
+        new = torch.zeros_like(lam)
+        new[1:] = t * A
+        new[:-1] = new[:-1] - t * B
+        D = torch.zeros_like(lam)
+        D[1:] = dz
+        D[:-1] = D[:-1] - dz
+        wh = D * gup
+        wl = -D * gdn
+        xh, xl = x[i + 1], x[i]                # [C, P]
+        dxr[i + 1] = carry + (wh[:, None] * y).sum(0) - xh * wh.sum(0)
+        carry = (wl[:, None] * y).sum(0) - xl * wl.sum(0)
+        dyc += (wh[:, None] * xh + wl[:, None] * xl) - (wh + wl)[:, None] * y
+        lam, gup = new, gdn
+    dxr[0] = carry
+
+    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    K[iu, ju] = kval
+    K[ju, iu] = kval
+    dX = torch.zeros_like(X)
+    dX.index_add_(0, iu, dxr.permute(2, 0, 1))
+    dX.index_add_(0, ju, dyc.permute(2, 0, 1))
+    return K, 0.5 * scale * dX
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _kernel_fn():
+    fn = load("sigkernel_block").sigkernel_block_gram_grad
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def block_gram_and_grad(X: torch.Tensor, h):
+    """``(K, dX)`` for paths ``X [n, L, C]`` and RBF bandwidth ``h`` (float or
+    0-d tensor). CPU tensors take the plain twin; CUDA tensors launch K1 and
+    add one to ``block_gram_and_grad.launches``."""
+    if X.device.type == "cpu":
+        return block_gram_and_grad_plain(X, h)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if X.dtype != torch.float32 or X.dim() != 3 or not X.is_contiguous():
+        raise ValueError("K1 takes a contiguous fp32 [n, L, C] tensor")
+    n, L, C = X.shape
+    if not block_supported(n, L, C, h):
+        raise NotImplementedError(
+            f"shape {(n, L, C)} is outside K1's envelope; the pair-list λ=0 "
+            "kernel that takes it is K7 in ROADMAP.md queue 2"
+        )
+    h_t = torch.as_tensor(h, dtype=torch.float32, device=X.device).reshape(1)
+    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    dX = torch.empty_like(X)
+    rowpart = torch.empty(_cdiv(n, TILE_COLS), n, L * C, dtype=X.dtype,
+                          device=X.device)
+    colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype,
+                          device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    rc = _kernel_fn()(X.data_ptr(), h_t.data_ptr(), K.data_ptr(), dX.data_ptr(),
+                      rowpart.data_ptr(), colpart.data_ptr(), n, L, C, stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+    block_gram_and_grad.launches += 1
+    return K, dX
+
+
+block_gram_and_grad.launches = 0

@@ -1,0 +1,85 @@
+"""Franka Panda binding (port of ``sigsvgd_tpu/models/robot/panda.py``):
+7 actuated joints, 9 tracked links. Reads the repository's vendored
+``robot_resources/panda/urdf/panda.urdf`` unless given another path.
+Damped-least-squares IK waits for ROADMAP queue 1, M3."""
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ..._device import resolve_device
+from .kinematics import fk_positions
+from .urdf import KinematicChain, parse_urdf
+
+_VENDORED_URDF = (
+    Path(__file__).resolve().parents[3] / "robot_resources/panda/urdf/panda.urdf"
+)
+
+TARGET_LINKS = (
+    "panda_link1",
+    "panda_link2",
+    "panda_link3",
+    "panda_link4",
+    "panda_link5",
+    "panda_link6",
+    "panda_link7",
+    "panda_link8",
+    "panda_hand",
+)
+TARGET_JOINTS = tuple(f"panda_joint{i}" for i in range(1, 8))
+
+
+def _find_urdf(urdf_path: Optional[str]) -> Path:
+    path = Path(urdf_path) if urdf_path else _VENDORED_URDF
+    if not path.exists():
+        raise FileNotFoundError(f"Panda URDF not found at {path}")
+    return path
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PandaRobot:
+    """Static Panda description + batched FK helpers on ``device``."""
+
+    chain: KinematicChain
+    target_link_indices: Tuple[int, ...]
+    device: torch.device
+
+    @staticmethod
+    def create(urdf_path: Optional[str] = None, device=None) -> "PandaRobot":
+        chain = parse_urdf(_find_urdf(urdf_path))
+        if chain.actuated_names[:7] != TARGET_JOINTS:
+            raise ValueError(f"unexpected Panda joints {chain.actuated_names}")
+        idx = tuple(chain.link_index(l) for l in TARGET_LINKS)
+        return PandaRobot(chain=chain, target_link_indices=idx,
+                          device=resolve_device(device))
+
+    @property
+    def dof(self) -> int:
+        return 7
+
+    def joint_limits(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (
+            torch.tensor(self.chain.lower[:7], dtype=torch.float32,
+                         device=self.device),
+            torch.tensor(self.chain.upper[:7], dtype=torch.float32,
+                         device=self.device),
+        )
+
+    def _pad_q(self, qs: torch.Tensor) -> torch.Tensor:
+        """Pad a 7-dof configuration with zeros for the finger joints."""
+        extra = self.chain.dof - qs.shape[-1]
+        if extra > 0:
+            pad = torch.zeros(qs.shape[:-1] + (extra,), dtype=qs.dtype,
+                              device=qs.device)
+            qs = torch.cat([qs, pad], dim=-1)
+        return qs
+
+    def qs_to_joints_xs(self, qs: torch.Tensor) -> torch.Tensor:
+        """``[..., 7] → [..., 9, 3]`` positions of the target links."""
+        return fk_positions(self.chain, self._pad_q(qs), self.target_link_indices)
+
+    def ee_position(self, qs: torch.Tensor) -> torch.Tensor:
+        return self.qs_to_joints_xs(qs)[..., -1, :]

@@ -1,0 +1,80 @@
+"""Core math utilities (port of ``sigsvgd_tpu/utils/math.py``).
+
+Elementwise helpers ``clip``, ``relu`` and ``jabs`` keep JAX's gradients at
+ties, which differ from PyTorch's own: ``jnp.clip`` and ``jnp.maximum(x, 0)``
+split a tie 0.5/0.5 (``torch.clamp`` and ``clamp_min`` give 1), and
+``jnp.abs`` has gradient 1 at 0 (``torch.abs`` gives 0).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _full_like(x: torch.Tensor, v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(device=x.device, dtype=x.dtype).expand_as(x)
+    return torch.full_like(x, float(v))
+
+
+def clip(x: torch.Tensor, low, high) -> torch.Tensor:
+    """``jnp.clip``: ``min(max(x, low), high)`` with tie gradient 0.5."""
+    return torch.minimum(torch.maximum(x, _full_like(x, low)), _full_like(x, high))
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)`` with tie gradient 0.5."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def jabs(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs`` with gradient 1 at 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def safe_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """L2 norm with a finite gradient at zero."""
+    return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
+
+
+def pw_dist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``[n, d] × [m, d] → [n, m]`` squared distances, clamped at 0."""
+    xn = torch.sum(x * x, dim=-1, keepdim=True)
+    yn = torch.sum(y * y, dim=-1, keepdim=True)
+    d2 = xn + yn.T - 2.0 * (x @ y.T)
+    return relu(d2)
+
+
+def bw_median(sq_dists: torch.Tensor, bw_scale: float = 1.0,
+              tol: float = 1e-8) -> torch.Tensor:
+    """Median-heuristic bandwidth ``bw_scale·sqrt(median/log(n+1))``; the
+    median is the lower middle order statistic (``torch.median``'s rule)."""
+    n = sq_dists.shape[0]
+    med = torch.median(sq_dists.reshape(-1))
+    h2 = med / math.log(n + 1.0)
+    return torch.clamp_min(bw_scale * torch.sqrt(h2), tol)
+
+
+def grad_gmm_log_p(samples: torch.Tensor, means: torch.Tensor,
+                   var, weights: torch.Tensor) -> torch.Tensor:
+    """Unweighted-responsibility GMM prior gradient ``-(x - w@μ)/σ²``."""
+    ss = samples.shape
+    s = samples.reshape(ss[0], -1)
+    m = means.reshape(means.shape[0], -1)
+    v = torch.as_tensor(var, dtype=s.dtype, device=s.device).expand(m.shape[-1])
+    w = weights / torch.sum(weights)
+    grad = -(s - w[None, :] @ m) / v
+    return grad.reshape(ss)
+
+
+def smoothed_box_log_prob(x: torch.Tensor, low, high,
+                          sigma: float = 0.1) -> torch.Tensor:
+    """Gaussian-smoothed uniform-box log-density over the last axis."""
+    low = torch.as_tensor(low, dtype=x.dtype, device=x.device)
+    high = torch.as_tensor(high, dtype=x.dtype, device=x.device)
+    center = 0.5 * (low + high)
+    half_width = 0.5 * (high - low)
+    out_dist = relu(jabs(x - center) - half_width)
+    log_z = torch.log(2.0 * half_width + math.sqrt(2.0 * math.pi) * sigma)
+    return torch.sum(-0.5 * (out_dist / sigma) ** 2 - log_z, dim=-1)
