@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
-   CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a;
+   CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a, one
+   process per source, with each source's ptxas lines;
 2. K1 (the λ=0 signature-kernel Gram + adjoint) against its plain PyTorch
    twin on the card, at the flagship shape [1024, 40, 2], a ragged
    [333, 40, 2] and [40, 64, 3] (the L ≤ 64 instantiation): K to atol
@@ -18,8 +19,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    solves, with K1's launch count read around them, then the two stages of
    the solve timed apart (rollout + cost gradient; Gram + adjoint) and one
    more solve traced with ``torch.profiler``;
-4. a small solve on the card held against the same solve on the CPU, where
-   the twin replaces K1.
+4. K2 (the λ=3 Gram + adjoint) against its twin at [128, 40, 2], a ragged
+   [77, 40, 2], [40, 49, 3] and the flagship [1024, 40, 2], where each of
+   K2's persistent blocks takes several tiles: K against the twin to atol
+   1e-4 (the values-only twin at the flagship shape), dX scaled against the
+   twin in fp64 to atol 4e-4 (the fp32 twin's own dX is as far from it);
+   the first launch's device memory outside the caching allocator, and the
+   times of K2 and of its twin at [1024, 40, 2] (the twin by chunks of
+   pairs) and at [128, 40, 2];
+5. the pinned order-3 solve (bench.py's ``ctrl_sig_pinned``: calibration
+   off), as phase 3, with K2's launch count;
+6. K9 (the fused RBF Stein velocity) against its twin at [1024, 280] and a
+   ragged [333, 280] (rtol 2e-4, atol 5e-5), with its time;
+7. the policy-mode solve (bench.py's ``ctrl_rbf`` with
+   ``fused_velocity=True``), as phase 3, with K9's launch count;
+8. small solves on the card held against the same solves on the CPU, where
+   the twins replace the kernels: λ=0, λ=3 and policy mode.
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -37,6 +52,8 @@ import torch
 
 N_SOLVES = 3
 OPT_STEPS = 2
+K2_TOL = (1e-4, 4e-4)   # K atol, dX scaled atol (tests/test_pallas_block3.py)
+K9_TOL = (2e-4, 5e-5)   # rtol, atol (tests/test_pallas_svgd.py)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -64,6 +81,14 @@ def host_ms(fn, iters: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def smooth_paths(n: int, L: int, C: int, gen: torch.Generator) -> torch.Tensor:
@@ -134,13 +159,8 @@ def phase_k1():
         if n == 1024:
             kernel_ms = event_ms(lambda: kb.block_gram_and_grad(X, h), 5)
             plain_ms = event_ms(lambda: kb.block_gram_and_grad_plain(X, h), 1)
-            flops, nbytes = kb.block_flops(n, 40, 2), kb.block_bytes(n, 40, 2)
             row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                       flops=flops, bytes=nbytes,
-                       bound_ms=max(flops / PEAK_FP32_FLOPS,
-                                    nbytes / PEAK_BYTES) * 1e3,
-                       bound_by=("operations" if flops / PEAK_FP32_FLOPS
-                                 >= nbytes / PEAK_BYTES else "bytes"))
+                       **bound(kb.block_flops(n, L, C), kb.block_bytes(n, L, C)))
             rows["flagship"] = row
         emit(row)
         if not (finite and k_err <= 3e-5 and dx_err <= 5e-5):
@@ -148,15 +168,14 @@ def phase_k1():
     return rows["flagship"]
 
 
-def phase_flagship():
-    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
-
-    t0 = time.perf_counter()
-    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
+def drive_solves(phase: str, prob, counter, per_solve: int, n_solves: int,
+                 gram_stage) -> dict:
+    """A few chained MPC solves of ``prob`` after a warm-up, with the
+    wrapper ``counter``'s launches read around them (it must launch
+    ``per_solve`` times a solve), the stages timed apart and one more solve
+    traced."""
     ctrl = prob.ctrl
-    if ctrl.sig_kernel.dyadic_order != 0:
-        raise AssertionError("calibration did not choose order 0")
+    t0 = time.perf_counter()
     cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(1))
     state = prob.q_start
     # warm-up solve (first-call allocations), not counted
@@ -164,10 +183,10 @@ def phase_flagship():
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    kb.block_gram_and_grad.launches = 0
+    counter.launches = 0
     finite = True
     solve_ms = []
-    for _ in range(N_SOLVES):
+    for _ in range(n_solves):
         t1 = time.perf_counter()
         a_seq, cs, data = ctrl.forward(state, cs, opt_steps=OPT_STEPS)
         state = prob.model.step(state[None], a_seq[0:1])[0]
@@ -176,17 +195,18 @@ def phase_flagship():
         finite &= bool(torch.isfinite(a_seq).all()
                        and torch.isfinite(cs.pol_mean).all()
                        and torch.isfinite(data.costs).all())
-    launches = kb.block_gram_and_grad.launches
+    launches = counter.launches
     shapes = (tuple(a_seq.shape), tuple(cs.pol_mean.shape), tuple(data.costs.shape))
     if shapes != ((ctrl.hz_len, 7), (ctrl.n_pol, ctrl.hz_len, 7),
                   (OPT_STEPS, ctrl.n_pol)):
-        raise AssertionError(f"unexpected output shapes {shapes}")
+        raise AssertionError(f"{phase}: unexpected output shapes {shapes}")
     if not finite:
-        raise AssertionError("non-finite output from the flagship solve")
-    if launches != OPT_STEPS * N_SOLVES:
-        raise AssertionError(f"K1 launched {launches} times in {N_SOLVES} solves")
+        raise AssertionError(f"{phase}: non-finite output")
+    if launches != per_solve * n_solves:
+        raise AssertionError(f"{phase}: {counter.__name__} launched {launches} "
+                             f"times in {n_solves} solves")
 
-    # the two stages bench.py separates, timed apart (launches not counted)
+    # the stages bench.py separates, timed apart (launches not counted)
     pol0 = cs.pol_mean
 
     def stage_rollout():
@@ -194,25 +214,203 @@ def phase_flagship():
         c, _tr = ctrl._rollout_costs(state, pm)
         torch.autograd.grad(c.sum(), pm)
 
+    stages = {"rollout_cost_grad": host_ms(stage_rollout, 3)}
+    stages.update(gram_stage(ctrl, state, pol0))
+    row = {"phase": phase, "n_pol": ctrl.n_pol, "hz_len": ctrl.hz_len,
+           "opt_steps": OPT_STEPS, "n_solves": n_solves,
+           "kernel_mode": ctrl.kernel_mode,
+           "ms_per_solve_median": statistics.median(solve_ms),
+           "ms_per_solve_samples": solve_ms, "launches": launches,
+           "counter": counter.__name__, "stages_ms": stages,
+           "traced_solve": traced_solve(ctrl, state, cs),
+           "setup_s": setup_s, "final_cost_min": data.costs[-1].min().item(),
+           "finite": finite}
+    if ctrl.kernel_mode == "signature":
+        row.update(dyadic_order=ctrl.sig_kernel.dyadic_order,
+                   calibration_bound=prob.calibration_bound)
+    emit(row)
+    return row
+
+
+def sig_gram_stage(ctrl, state, pol0) -> dict:
     with torch.no_grad():
         _c, trs = ctrl._rollout_costs(state, pol0)
         tau = ctrl._tau(trs).contiguous()
-    rollout_ms = host_ms(stage_rollout, 3)
-    gram_ms = host_ms(lambda: ctrl.sig_kernel.gram_and_grad(tau), 3)
-    trace = traced_solve(ctrl, state, cs)
-    row = {"phase": "flagship_solve", "n_pol": ctrl.n_pol, "hz_len": ctrl.hz_len,
-           "opt_steps": OPT_STEPS, "n_solves": N_SOLVES,
-           "dyadic_order": ctrl.sig_kernel.dyadic_order,
-           "calibration_bound": prob.calibration_bound,
-           "ms_per_solve_median": statistics.median(solve_ms),
-           "ms_per_solve_samples": solve_ms, "k1_launches": launches,
-           "stages_ms": {"rollout_cost_grad": rollout_ms,
-                         "sig_gram_adjoint": gram_ms},
-           "traced_solve": trace,
-           "setup_s": setup_s, "final_cost_min": data.costs[-1].min().item(),
-           "finite": finite}
+    return {"sig_gram_adjoint": host_ms(lambda: ctrl.sig_kernel.gram_and_grad(tau), 3)}
+
+
+def phase_flagship():
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
+    if prob.ctrl.sig_kernel.dyadic_order != 0:
+        raise AssertionError("calibration did not choose order 0")
+    return drive_solves("flagship_solve", prob, kb.block_gram_and_grad, OPT_STEPS,
+                        N_SOLVES, sig_gram_stage)["launches"]
+
+
+def phase_k2():
+    """K2 against its plain twin at small shapes and at the flagship shape:
+    K against the fp32 twin (the values-only twin at the flagship shape),
+    dX against the twin in fp64; the first launch's memory; its time and
+    the twin's at the flagship shape."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = 4.0
+    k_tol, dx_tol = K2_TOL
+    first = True
+    for n, L, C in ((128, 40, 2), (77, 40, 2), (40, 49, 3)):
+        X = smooth_paths(n, L, C, gen)
+        res = []
+        mib = device_mib_outside_allocator(
+            lambda: res.extend(kb3.block3_gram_and_grad(X, h)))
+        K, dX = res
+        Kp, dXp = kb3.block3_gram_and_grad_plain(X, h)
+        K64, dX64 = kb3.block3_gram_and_grad_plain(X.double(), h)
+        torch.cuda.synchronize()
+        k_err = (K - Kp).abs().max().item()
+        s64 = dX64.abs().max().item()
+        # dX is held against the twin in fp64: at λ=3 the fp32 twin's own dX
+        # is ~4e-4 (scaled) from it, as far as the tolerance
+        dx_err = ((dX.double() - dX64).abs().max() / s64).item()
+        finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
+        row = {"phase": "k2_vs_plain", "shape": [n, L, C], "h": h,
+               "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
+               "dx_scaled_err_vs_fp32_plain":
+                   ((dX - dXp).abs().max() / dXp.abs().max()).item(),
+               "plain_dx_scaled_err_vs_fp64":
+                   ((dXp.double() - dX64).abs().max() / s64).item(),
+               "k_max": K64.max().item(),
+               "k_err_vs_fp64": {"kernel": (K.double() - K64).abs().max().item(),
+                                 "plain": (Kp.double() - K64).abs().max().item()},
+               "finite": finite}
+        if first:
+            row["first_launch_mib_outside_allocator"] = mib
+            first = False
+        del K64, dX64
+        if n == 128:
+            row["kernel_ms"] = event_ms(lambda: kb3.block3_gram_and_grad(X, h), 3)
+            row["plain_ms"] = event_ms(lambda: kb3.block3_gram_and_grad_plain(X, h), 1)
+        emit(row)
+        if not (finite and k_err <= k_tol and dx_err <= dx_tol):
+            raise AssertionError(f"K2 disagrees with its plain twin (K) or the "
+                                 f"twin in fp64 (dX): {row}")
+
+    # the flagship shape: K2's persistent blocks each walk several tiles, so
+    # this is where per-thread scratch and shared slots are reused from one
+    # tile to the next. The full twins (fp64 for the check, fp32 for the
+    # plain time) take the pairs a chunk at a time to bound their memory.
+    n, L, C = 1024, 40, 2
+    X = smooth_paths(n, L, C, gen)
+    tiles, blocks = kb3.block3_grid(n, L, C, X.device)
+    n_tiles = tiles.shape[0]
+    if n_tiles <= blocks:
+        raise AssertionError(f"K2 at {[n, L, C]}: {n_tiles} tiles over {blocks} "
+                             "blocks, so no block takes a second tile")
+    K, dX = kb3.block3_gram_and_grad(X, h)
+    Kv = kb3.block3_gram_plain(X, h)
+    k_err = (K - Kv).abs().max().item()
+    t0 = time.perf_counter()
+    K64, dX64 = kb3.block3_gram_and_grad_plain(X.double(), h, pairs_per_chunk=4096)
+    torch.cuda.synchronize()
+    fp64_twin_s = time.perf_counter() - t0
+    s64 = dX64.abs().max().item()
+    dx_err = ((dX.double() - dX64).abs().max() / s64).item()
+    finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
+    plain = []
+    plain_ms = event_ms(lambda: plain.extend(
+        kb3.block3_gram_and_grad_plain(X, h, pairs_per_chunk=8192)), 1)
+    Kp, dXp = plain
+    row = {"phase": "k2_vs_plain", "shape": [n, L, C], "h": h,
+           "tiles": n_tiles, "persistent_blocks": blocks,
+           "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
+           "compared": "K against the values-only twin, dX against the twin in fp64",
+           "dx_scaled_err_vs_fp32_plain":
+               ((dX - dXp).abs().max() / dXp.abs().max()).item(),
+           "plain_dx_scaled_err_vs_fp64": ((dXp.double() - dX64).abs().max() / s64).item(),
+           "k_err_vs_fp64": {"kernel": (K.double() - K64).abs().max().item(),
+                             "plain": (Kp.double() - K64).abs().max().item(),
+                             "values_only_plain": (Kv.double() - K64).abs().max().item()},
+           "fp64_twin_s": fp64_twin_s, "finite": finite}
+    del K64, dX64, Kp, dXp, Kv, plain
+    torch.cuda.reset_peak_memory_stats()
+    row["kernel_ms"] = event_ms(lambda: kb3.block3_gram_and_grad(X, h), 3)
+    row["peak_allocated_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = None
+    row.update(bound(kb3.block3_flops(n, L, C), kb3.block3_bytes(n, L, C)))
     emit(row)
-    return launches
+    if not (finite and k_err <= k_tol and dx_err <= dx_tol):
+        raise AssertionError(f"K2 disagrees with its values-only twin (K) or the "
+                             f"twin in fp64 (dX): {row}")
+    return row
+
+
+def phase_pinned():
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False)
+    if prob.ctrl.sig_kernel.dyadic_order != 3:
+        raise AssertionError("the pinned controller is not at order 3")
+    return drive_solves("pinned_solve", prob, kb3.block3_gram_and_grad, OPT_STEPS,
+                        N_SOLVES, sig_gram_stage)["launches"]
+
+
+def phase_k9():
+    """K9 against its plain twin (the matmul form on cuBLAS, which is also
+    the library yardstick) at the policy solve's shape and a ragged N."""
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+    from sigsvgd_tpu_torch.utils.math import bw_median, pw_dist_sq
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rtol, atol = K9_TOL
+    rows = {}
+    for N, D in ((1024, 280), (333, 280)):
+        # policies as the solve holds them (uniform in the action range)
+        x = torch.rand((N, D), generator=gen, device="cuda") * 4.0 - 2.0
+        s = torch.randn((N, D), generator=gen, device="cuda")
+        h = bw_median(pw_dist_sq(x, x))
+        phi = kv.fused_rbf_velocity(x, s, h)
+        want = kv.rbf_velocity_plain(x, s, h)
+        torch.cuda.synchronize()
+        err = (phi - want).abs()
+        excess = (err - (atol + rtol * want.abs())).max().item()
+        finite = bool(torch.isfinite(phi).all())
+        row = {"phase": "k9_vs_plain", "shape": [N, D], "h": h.item(),
+               "max_abs_err": err.max().item(),
+               "max_excess_over_tolerance": excess, "finite": finite}
+        if N == 1024:
+            row["kernel_ms"] = event_ms(lambda: kv.fused_rbf_velocity(x, s, h), 20)
+            plain = event_ms(lambda: kv.rbf_velocity_plain(x, s, h), 20)
+            row.update(plain_ms=plain, library_ms=plain,
+                       library_call="the twin: pw_dist_sq, exp, two cuBLAS matmuls",
+                       **bound(kv.velocity_flops(N, D), kv.velocity_bytes(N, D)))
+            rows["flagship"] = row
+        emit(row)
+        if not (finite and excess <= 0.0):
+            raise AssertionError(f"K9 disagrees with its plain twin: {row}")
+    return rows["flagship"]
+
+
+def velocity_stage(ctrl, state, pol0) -> dict:
+    from sigsvgd_tpu_torch.inference.svgd import ScoreResult
+
+    sampler = ctrl._sampler()
+    score = ScoreResult(grad_log_p=torch.zeros_like(pol0))
+    return {"svgd_velocity": host_ms(lambda: sampler.velocity(pol0, score), 3)}
+
+
+def phase_policy():
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="policy",
+                         fused_velocity=True)
+    return drive_solves("policy_solve", prob, kv.fused_rbf_velocity, OPT_STEPS,
+                        N_SOLVES, velocity_stage)["launches"]
 
 
 def traced_solve(ctrl, state, cs) -> dict:
@@ -242,30 +440,55 @@ def traced_solve(ctrl, state, cs) -> dict:
 
 def phase_small_vs_cpu():
     """A small problem's first SVGD score on the card against the same score
-    on the CPU (where the twin replaces K1): costs, K and the kernel
-    gradient."""
+    on the CPU, where the twins replace the kernels: costs, and K and the
+    kernel gradient (signature modes) or the Stein velocity (policy mode,
+    K9 on the card)."""
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
     from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        prob = build_arm_mpc(device=dev, n_pol=16, hz_len=8)
-        pol = (torch.rand((16, 8, 7), generator=torch.Generator().manual_seed(2))
-               * 4.0 - 2.0).to(dev)
-        cs = prob.ctrl.init(pol_mean=pol)
-        prior = ParticleGMM(pol.reshape(16, -1), prob.ctrl._prior_var(),
-                            cs.prior_weights)
-        score, _tr = prob.ctrl._score(pol, prob.q_start, prior)
-        out[dev] = [t.detach().cpu() for t in
-                    (score.aux["costs"], score.k_xx, score.grad_k)]
-    (c0, k0, g0), (c1, k1, g1) = out["cuda"], out["cpu"]
-    errs = {"costs_rel": ((c0 - c1).abs().max() / c1.abs().max()).item(),
-            "k_abs": (k0 - k1).abs().max().item(),
-            "grad_k_scaled": ((g0 - g1).abs().max() / g1.abs().max()).item()}
-    emit({"phase": "small_solve_cuda_vs_cpu", **errs})
-    if not (errs["costs_rel"] <= 1e-5 and errs["k_abs"] <= 3e-5
-            and errs["grad_k_scaled"] <= 5e-5):
-        raise AssertionError(f"card and CPU solves disagree: {errs}")
+    cases = {
+        "lambda0": (dict(dyadic_order=0), 3e-5, 5e-5),
+        "lambda3": (dict(dyadic_order=3, calibrate=False), *K2_TOL),
+        "policy": (dict(kernel_mode="policy", fused_velocity=True), None, 1e-4),
+    }
+    for name, (kw, k_tol, g_tol) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            prob = build_arm_mpc(device=dev, n_pol=16, hz_len=8, **kw)
+            pol = (torch.rand((16, 8, 7), generator=torch.Generator().manual_seed(2))
+                   * 4.0 - 2.0).to(dev)
+            cs = prob.ctrl.init(pol_mean=pol)
+            prior = ParticleGMM(pol.reshape(16, -1), prob.ctrl._prior_var(),
+                                cs.prior_weights)
+            score, _tr = prob.ctrl._score(pol, prob.q_start, prior)
+            if k_tol is None:
+                phi, _ = prob.ctrl._sampler().velocity(pol, score)
+                got = (score.aux["costs"], None, phi)
+            else:
+                got = (score.aux["costs"], score.k_xx, score.grad_k)
+            out[dev] = [None if t is None else t.detach().cpu() for t in got]
+        (c0, k0, g0), (c1, k1, g1) = out["cuda"], out["cpu"]
+        errs = {"costs_rel": ((c0 - c1).abs().max() / c1.abs().max()).item(),
+                "grad_scaled": ((g0 - g1).abs().max() / g1.abs().max()).item()}
+        if k_tol is not None:
+            errs["k_abs"] = (k0 - k1).abs().max().item()
+        emit({"phase": "small_solve_cuda_vs_cpu", "case": name,
+              "compared": "costs, K, grad_k" if k_tol else "costs, velocity",
+              **errs})
+        if not (errs["costs_rel"] <= 1e-5 and errs["grad_scaled"] <= g_tol
+                and (k_tol is None or errs["k_abs"] <= k_tol)):
+            raise AssertionError(f"card and CPU solves disagree ({name}): {errs}")
+
+
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    """One kernel's entry; its times, error and bound are all at ``shape``."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": row["shape"],
+            "launches": launches, "max_abs_err": row["k_max_abs_err"]
+            if "k_max_abs_err" in row else row["max_abs_err"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -276,21 +499,26 @@ def main() -> int:
 
     phase_build()
     k1 = phase_k1()
-    launches = phase_flagship()
+    k1_launches = phase_flagship()
+    k2 = phase_k2()
+    k2_launches = phase_pinned()
+    k9 = phase_k9()
+    k9_launches = phase_policy()
     phase_small_vs_cpu()
-    emit({"kernels": [{
-        "name": "sigkernel_block_gram_grad (K1)",
-        "route": "cuda",
-        "source": "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
-        "replaces": "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
-        "launches": launches,
-        "max_abs_err": k1["k_max_abs_err"],
-        "ms": k1["kernel_ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,
-    }]})
+    emit({"kernels": [
+        kernel_entry("sigkernel_block_gram_grad (K1)",
+                     "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
+                     "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
+                     k1_launches, k1),
+        kernel_entry("sigkernel_block3_gram_grad (K2)",
+                     "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
+                     "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
+                     k2_launches, k2),
+        kernel_entry("svgd_velocity (K9)",
+                     "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
+                     "sigsvgd_tpu/kernels/pallas_svgd.py:37",
+                     k9_launches, k9),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,29 +1,33 @@
 """DuSt — Dual Stein variational MPC (port of
-``sigsvgd_tpu/controllers/dust.py``, signature-kernel mode).
+``sigsvgd_tpu/controllers/dust.py``, policy and signature-kernel modes).
 
 Each Stein particle is a policy (an action-mean sequence over the horizon).
 Every control step runs ``opt_steps`` SVGD iterations on the policies with
 
   * posterior ``p(θ) ∝ exp(-cost(θ)/α) · GMM-prior(θ)``,
   * the likelihood gradient from autograd through the rollout, and
-  * the signature kernel on the rollout trajectories, its gradient pulled
-    back to the policies through a second rollout.
+  * the Stein kernel either on the policies themselves (``kernel_mode=
+    "policy"``, the default: the sampler's analytic ``kernel``, through the
+    fused velocity kernel K9 when ``fused_velocity``), or the signature
+    kernel on the rollout trajectories (``"signature"``), its gradient
+    pulled back to the policies through a second rollout.
 
 ``forward`` draws nothing: with ``n_action_samples=0``, no parameter
 distribution and the "repeat" roll it is deterministic given its state.
-Policy and trajectory kernel modes, action and parameter sampling, the other
-Stein samplers and roll strategies raise ``NotImplementedError`` naming the
+The trajectory kernel mode, action and parameter sampling, the other Stein
+samplers and roll strategies raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from .._device import resolve_device
 from ..inference.svgd import SVGD, Adam, ScoreResult, SVGDState
+from ..kernels.rbf import GaussianKernel
 from ..kernels.sigkernel import SignatureKernel
 from ..models.base import DynamicsModel
 from ..models.rollout import rollout
@@ -59,21 +63,23 @@ class DuSt:
     temperature: float = 1.0
     pol_hyper_prior: bool = True
     roll_strategy: str = "repeat"
-    kernel_mode: str = "signature"
+    kernel_mode: str = "policy"  # policy | signature (trajectory: M8)
+    kernel: Any = dataclasses.field(default_factory=GaussianKernel)
     sig_kernel: SignatureKernel = dataclasses.field(
         default_factory=lambda: SignatureKernel(dyadic_order=2)
     )
     stein_sampler: str = "SVGD"
     optimizer: Optional[Adam] = None
     lr: float = 0.1
+    fused_velocity: bool = False  # K9 for the policy-mode RBF velocity
     inst_cost_fn: Optional[CostFn] = None
     term_cost_fn: Optional[CostFn] = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
         unported = {
-            "kernel_mode": (self.kernel_mode != "signature",
-                            "policy/trajectory modes: queue 1, M5 and M8"),
+            "kernel_mode": (self.kernel_mode not in ("policy", "signature"),
+                            "the trajectory mode: queue 1, M8"),
             "n_action_samples": (self.n_action_samples > 0,
                                  "the score-function likelihood: queue 1, M8"),
             "n_params_samples": (self.n_params_samples > 0,
@@ -109,7 +115,8 @@ class DuSt:
             def log_prior(pol):  # noqa: F811
                 return smoothed_box_log_prob(pol, low, high, 0.1).sum(-1)
 
-        return SVGD(optimizer=self.optimizer, lr=self.lr, log_prior=log_prior)
+        return SVGD(kernel=self.kernel, optimizer=self.optimizer, lr=self.lr,
+                    log_prior=log_prior, fused_velocity=self.fused_velocity)
 
     def init(self, pol_mean: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None) -> DuStState:
@@ -171,7 +178,10 @@ class DuSt:
 
     def _kernel_terms(self, pol_mean, state):
         """Signature Gram and its repulsion on τ, pulled back to the
-        policies through a second rollout (the VJP of τ)."""
+        policies through a second rollout (the VJP of τ); in policy mode
+        none: the sampler computes its analytic kernel on the policies."""
+        if self.kernel_mode == "policy":
+            return None, None
         pm = pol_mean.detach().requires_grad_(True)
         with torch.enable_grad():
             tau = self._tau(rollout(self.model, state, pm))

@@ -1,23 +1,26 @@
-"""The flagship MPC problem: signature-kernel DuSt on the 7-DoF Panda.
+"""The flagship MPC problem: DuSt on the 7-DoF Panda.
 
 The problem ``bench.py`` measures (``_setup``): a joint-velocity integrator
 clipped to the Panda's limits, horizon 40, 1024 policy particles, Adam(0.1),
 costs from batched FK of 9 links, 4 body points per segment, exact-SDF
-occupancy of ``bookshelf_small`` and end-effector tracking, and the Stein
-repulsion of ``SignatureKernel(dyadic_order=3, bandwidth=4.0)`` after
-``calibrate_dyadic_order`` on a warm-up rollout. ``chip_smoke.py`` and the
-tests build it here.
+occupancy of ``bookshelf_small`` and end-effector tracking. Its three
+controllers: the Stein repulsion of ``SignatureKernel(dyadic_order=3,
+bandwidth=4.0)`` after ``calibrate_dyadic_order`` on a warm-up rollout
+(``ctrl_sig``), the same kernel pinned at order 3 (``ctrl_sig_pinned``,
+``calibrate=False``), and the RBF kernel on the policies (``ctrl_rbf``,
+``kernel_mode="policy"``). ``chip_smoke.py`` and the tests build them here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from .._device import resolve_device
 from ..controllers.dust import DuSt
 from ..inference.svgd import Adam
+from ..kernels.rbf import GaussianKernel
 from ..kernels.sigkernel import SignatureKernel
 from ..models.base import DynamicsModel, ParamsDict
 from ..models.robot.panda import PandaRobot
@@ -61,7 +64,7 @@ class ArmProblem:
     inst_cost: Callable
     term_cost: Callable
     ctrl: DuSt
-    calibration_bound: float
+    calibration_bound: Optional[float]  # z³ bound of the warm-up paths
 
 
 def arm_costs(robot: PandaRobot, scene_tag: str, ee_target: torch.Tensor):
@@ -87,10 +90,15 @@ def arm_costs(robot: PandaRobot, scene_tag: str, ee_target: torch.Tensor):
 def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
                   dyadic_order: int = 3, bandwidth: float = 4.0,
                   lr: float = 0.1, scene_tag: str = "bookshelf_small",
-                  seed: int = 0) -> ArmProblem:
-    """Build the flagship problem and calibrate the signature kernel's order
-    on a warm-up rollout of policies drawn from ``seed``. Only order 0 is
-    ported (K1): a calibration that keeps the configured order raises."""
+                  seed: int = 0, calibrate: bool = True,
+                  kernel_mode: str = "signature",
+                  fused_velocity: bool = False) -> ArmProblem:
+    """Build the flagship problem. In signature mode the kernel's order is
+    calibrated on a warm-up rollout of policies drawn from ``seed`` (the
+    bound is reported either way); ``calibrate=False`` keeps
+    ``dyadic_order``, as bench's pinned controller does. ``kernel_mode=
+    "policy"`` gives bench's RBF controller, with ``fused_velocity``
+    selecting K9; it has no signature kernel to calibrate."""
     device = resolve_device(device)
     robot = PandaRobot.create(device=device)
     low, high = robot.joint_limits()
@@ -99,11 +107,19 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
     q_target = torch.tensor(Q_TARGET, dtype=torch.float32, device=device)
     ee_target = robot.ee_position(q_target[None])[0]
     inst_cost, term_cost = arm_costs(robot, scene_tag, ee_target)
+    common = dict(model=model, hz_len=hz_len, n_pol=n_pol, device=device,
+                  optimizer=Adam(lr), pol_hyper_prior=True,
+                  inst_cost_fn=inst_cost, term_cost_fn=term_cost)
+    problem = dict(robot=robot, model=model, q_start=q_start,
+                   ee_target=ee_target, inst_cost=inst_cost, term_cost=term_cost)
+    if kernel_mode == "policy":
+        ctrl = DuSt(kernel_mode="policy", kernel=GaussianKernel(),
+                    fused_velocity=fused_velocity, **common)
+        return ArmProblem(ctrl=ctrl, calibration_bound=None, **problem)
     ctrl = DuSt(
-        model=model, hz_len=hz_len, n_pol=n_pol, device=device,
-        optimizer=Adam(lr), pol_hyper_prior=True,
+        kernel_mode="signature",
         sig_kernel=SignatureKernel(dyadic_order=dyadic_order, bandwidth=bandwidth),
-        inst_cost_fn=inst_cost, term_cost_fn=term_cost,
+        **common,
     )
     gen = torch.Generator(device=device).manual_seed(seed)
     cs0 = ctrl.init(generator=gen)
@@ -111,15 +127,7 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
         _c0, trs0 = ctrl._rollout_costs(q_start, cs0.pol_mean)
         tau0 = ctrl._tau(trs0)
     bound = float(ctrl.sig_kernel.calibration_bound(tau0))
-    sig = ctrl.sig_kernel.calibrate_dyadic_order(tau0, tol=CALIBRATION_TOL)
-    if sig.dyadic_order != 0:
-        raise NotImplementedError(
-            f"calibration kept dyadic order {sig.dyadic_order} (z³ bound "
-            f"{bound:.3g} > {CALIBRATION_TOL}); its kernel K2 is not ported yet"
-        )
-    return ArmProblem(
-        robot=robot, model=model, q_start=q_start, ee_target=ee_target,
-        inst_cost=inst_cost, term_cost=term_cost,
-        ctrl=dataclasses.replace(ctrl, sig_kernel=sig),
-        calibration_bound=bound,
-    )
+    if calibrate:
+        sig = ctrl.sig_kernel.calibrate_dyadic_order(tau0, tol=CALIBRATION_TOL)
+        ctrl = dataclasses.replace(ctrl, sig_kernel=sig)
+    return ArmProblem(ctrl=ctrl, calibration_bound=bound, **problem)

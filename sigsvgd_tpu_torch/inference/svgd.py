@@ -1,5 +1,5 @@
 """Stein variational gradient descent (port of the part of
-``sigsvgd_tpu/inference/svgd.py`` the signature-kernel MPC solve runs).
+``sigsvgd_tpu/inference/svgd.py`` the DuSt MPC solves run).
 
 Update rule: with score ``s_i = ∇ log p(x_i)`` and aggregated kernel
 gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
@@ -7,9 +7,11 @@ gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
     φ_i = (Σ_j k_ij s_j − g_i) / n          (Stein velocity, ascent direction)
     x_i ← optimizer_update(x_i, −φ_i)        (descent on −φ)
 
-The kernel terms come with the score (``ScoreResult.k_xx``/``grad_k``); the
-sampler's own analytic kernel (policy mode), ScaledSVGD/MatrixSVGD and LBFGS
-are later slices (ROADMAP.md queue 1, M5, M7 and M10).
+The kernel terms come with the score (``ScoreResult.k_xx``/``grad_k``,
+signature mode) or from the sampler's own analytic kernel on the particles
+(policy mode), optionally through the fused velocity kernel (K9).
+ScaledSVGD/MatrixSVGD, ``repulsion_schedule``, ``gradient_mask`` and LBFGS
+are later slices (ROADMAP.md queue 1, M7 and M10).
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..kernels.rbf import GaussianKernel
+from ..kernels.svgd_velocity import fused_rbf_velocity
+from ..utils.math import pw_dist_sq
 
 
 class ScoreResult(NamedTuple):
@@ -74,11 +80,15 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class SVGD:
     """First-order SVGD sampler; ``optimizer`` is an :class:`Adam` or None
-    for the raw ``lr`` update."""
+    for the raw ``lr`` update. ``kernel`` is the analytic kernel used when
+    the score carries no kernel terms; ``fused_velocity`` sends a plain
+    :class:`GaussianKernel` velocity through K9."""
 
+    kernel: Any = dataclasses.field(default_factory=GaussianKernel)
     optimizer: Optional[Adam] = None
     lr: float = 1e-2
     log_prior: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    fused_velocity: bool = False
 
     def init(self, particles: torch.Tensor) -> SVGDState:
         opt_state = self.optimizer.init(particles) if self.optimizer else ()
@@ -87,14 +97,12 @@ class SVGD:
             step=torch.zeros((), dtype=torch.int32, device=particles.device),
         )
 
+    def _kernel_terms(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.kernel(_flat(x), _flat(x))
+
     def velocity(self, x: torch.Tensor, score: ScoreResult
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stein velocity φ (particle-shaped) and the logged loss."""
-        if score.k_xx is None or score.grad_k is None:
-            raise NotImplementedError(
-                "the sampler's own kernel (policy mode) waits for ROADMAP.md "
-                "queue 1, M5"
-            )
         n = x.shape[0]
         s = _flat(score.grad_log_p)
         if self.log_prior is not None:
@@ -102,7 +110,20 @@ class SVGD:
                 xx = x.detach().requires_grad_(True)
                 (prior_grad,) = torch.autograd.grad(self.log_prior(xx).sum(), xx)
             s = s + _flat(prior_grad)
-        phi = ((score.k_xx @ s - _flat(score.grad_k)) / n).reshape(x.shape)
+        # the JAX package's fourth condition, no repulsion_schedule, always
+        # holds: the port has no such field yet (M7)
+        use_fused = (self.fused_velocity and score.k_xx is None
+                     and type(self.kernel) is GaussianKernel)
+        if use_fused:
+            xf = _flat(x)
+            h = self.kernel.bandwidth(pw_dist_sq(xf, xf))  # outside the kernel
+            phi = fused_rbf_velocity(xf, s, h).reshape(x.shape)
+        else:
+            if score.k_xx is not None and score.grad_k is not None:
+                k_xx, grad_k = score.k_xx, _flat(score.grad_k)
+            else:
+                k_xx, grad_k = self._kernel_terms(x)
+            phi = ((k_xx @ s - grad_k) / n).reshape(x.shape)
         loss = score.loss if score.loss is not None else torch.linalg.norm(s)
         return phi, loss
 

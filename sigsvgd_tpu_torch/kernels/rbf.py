@@ -1,0 +1,64 @@
+"""Static kernels with analytic gradients (port of the part of
+``sigsvgd_tpu/kernels/rbf.py`` the policy-mode solve runs).
+
+``__call__(X, Y)`` returns the Gram ``K [n, m]`` or ``(K, dK)`` with
+``dK[i] = Σ_j ∂k(X_i, Y_j)/∂X_i`` (``[n, d]``, the form the SVGD update
+consumes). The scaled kernels and IMQ wait for ROADMAP.md queue 1, M5.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..utils.math import bw_median, pw_dist_sq
+
+BandwidthFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _as2d(x: torch.Tensor) -> torch.Tensor:
+    x = torch.atleast_2d(x)
+    return x.reshape(x.shape[0], -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseKernel:
+    """Bandwidth plumbing: ``bandwidth_fn`` maps the pairwise squared
+    distances to a scalar ``h``; the default is the median heuristic.
+    Only the analytic gradient is ported: ``analytic_grad=False`` raises."""
+
+    bandwidth_fn: Optional[BandwidthFn] = None
+    bw_scale: float = 1.0
+    analytic_grad: bool = True
+
+    def __post_init__(self):
+        if not self.analytic_grad:
+            raise NotImplementedError(
+                "analytic_grad=False (an autodiff kernel gradient) is not ported; "
+                "the kernels here return their analytic gradient")
+
+    def bandwidth(self, sq_dists: torch.Tensor, h=None) -> torch.Tensor:
+        if h is not None:
+            return torch.as_tensor(h, dtype=sq_dists.dtype, device=sq_dists.device)
+        if self.bandwidth_fn is not None:
+            return torch.as_tensor(self.bandwidth_fn(sq_dists), dtype=sq_dists.dtype,
+                                   device=sq_dists.device)
+        return bw_median(sq_dists, self.bw_scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianKernel(BaseKernel):
+    """``k(x, y) = exp(-½ ||x - y||² / h²)``, ``∂k/∂x = -(x - y)/h² · k``."""
+
+    def __call__(self, X, Y, h=None, compute_grad: bool = True, **_):
+        X, Y = _as2d(X), _as2d(Y)
+        d2 = pw_dist_sq(X, Y)
+        h = self.bandwidth(d2, h)
+        K = torch.exp(-0.5 * d2 / h**2)
+        if not compute_grad:
+            return K
+        # Σ_j -(x_i - y_j) K_ij = K @ Y - rowsum(K) ⊙ x_i: two matmuls, no
+        # [n, m, d] intermediate
+        dK = (K @ Y - torch.sum(K, dim=1, keepdim=True) * X) / h**2
+        return K, dK

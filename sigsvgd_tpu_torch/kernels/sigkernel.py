@@ -7,9 +7,12 @@ Discretisation, as the JAX package: with ``z = inc / 4^λ``,
 
 where ``inc`` is the double difference of the static Gram on the coarse grid.
 
-``gram_and_grad`` routes by dyadic order and device: λ=0 goes to
-``sigkernel_block.block_gram_and_grad`` (the plain twin on the CPU, K1 on the
-card). λ>0 raises: its kernel (K2) is the next slice of the port.
+``gram_and_grad`` routes by dyadic order and device, as the JAX package's
+block routes do: λ=0 goes to ``sigkernel_block.block_gram_and_grad`` (K1)
+and λ=3 to ``sigkernel_block3.block3_gram_and_grad`` (K2), each the plain
+twin on the CPU and the kernel on the card. Other orders raise: the JAX
+package takes them through its XLA wavefront and MXU routes, which are
+ROADMAP.md queue 1, M6 and M10.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from ..utils.math import bw_median, relu
 from .sigkernel_block import block_gram_and_grad
+from .sigkernel_block3 import block3_gram_and_grad
 
 
 def _pair_sq_dists(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -102,14 +106,16 @@ class SignatureKernel:
         return solve_goursat_pde(inc, self.dyadic_order).reshape(n, m)
 
     def gram_and_grad(self, X: torch.Tensor):
-        """``(K, ∂ΣK/∂X)`` with the second argument detached. λ=0 only: the
-        plain twin on the CPU, K1 on the card."""
-        if self.dyadic_order != 0:
+        """``(K, ∂ΣK/∂X)`` with the second argument detached, at λ=0 (K1)
+        or λ=3 (K2); the plain twins on the CPU."""
+        routes = {0: block_gram_and_grad, 3: block3_gram_and_grad}
+        if self.dyadic_order not in routes:
             raise NotImplementedError(
-                f"gram_and_grad at dyadic_order={self.dyadic_order} runs K2 "
-                "(ROADMAP.md queue 2), which is not ported yet"
+                f"gram_and_grad at dyadic_order={self.dyadic_order} takes the "
+                "JAX package's XLA wavefront or MXU route, not ported yet "
+                "(ROADMAP.md queue 1, M6 and M10)"
             )
-        return block_gram_and_grad(X, self._subsampled_bandwidth(X, X))
+        return routes[self.dyadic_order](X, self._subsampled_bandwidth(X, X))
 
     def calibrate_dyadic_order(self, X: torch.Tensor, tol: float = 1e-3,
                                n_sample: int = 32) -> "SignatureKernel":

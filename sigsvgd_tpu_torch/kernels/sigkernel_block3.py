@@ -1,0 +1,317 @@
+"""λ=3 symmetric signature-kernel Gram + gradient: K2 and its plain twin.
+
+Port of ``sigsvgd_tpu/kernels/pallas_sigkernel_block3.py::block3_gram_and_grad``.
+``block3_gram_and_grad(X, h)`` returns ``(K [n, n], dX [n, L, C])`` with
+``dX = ½·∂Σ_{ab}K_ab/∂X``, the same contract as K1's at dyadic order 3.
+
+The function, shared by the twin and the kernel:
+
+* statics ``g[p, q] = exp(-|x'_p - y'_q|²)`` on paths scaled by ``rsqrt(h)``.
+  The JAX kernel forms ``d² = |x'|² + |y'|² - 2x'·y'`` and clamps it at 0;
+  here ``d²`` is the sum of squared differences, which is the same function
+  (never negative, so the clamp and its masked gradient are inert: where
+  ``d² = 0`` the gradient ``2(x' - y')`` is 0 as well);
+* ``z = inc/64`` per coarse cell, shared with ``A = 1 + z/2 + z²/12`` and
+  ``B = 1 - z²/12`` by its 8×8 fine cells, and the fine-grid recurrence
+  ``k[i+1, j+1] = (k[i+1, j] + k[i, j+1])·A - k[i, j]·B`` with the product
+  by ``A`` fused into the subtraction (one rounding), as XLA compiles the
+  JAX kernel's sweep. In fp32 ``A - 1 ≈ z/2`` keeps only a few digits and
+  every ``A`` serves 64 fine cells, so these roundings are what sets fp32
+  K's distance from fp64; rounding where the JAX kernel rounds keeps the
+  port's K close to the JAX package's;
+* cotangent seed 2 off the diagonal and 1 on it over the pairs ``a ≤ b``.
+
+On a CPU tensor the wrapper runs :func:`block3_gram_and_grad_plain`; on a
+CUDA tensor it launches the hand-written kernel in
+``csrc/sigkernel_block3.cu`` or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import load
+from .sigkernel_block import _cdiv
+
+_M = 8                # fine cells per coarse cell side (2^λ)
+_ZS = 1.0 / 64.0      # z = inc / 4^λ
+_I6 = 1.0 / 6.0
+_I12 = 1.0 / 12.0
+
+# kernel envelope and tile (csrc/sigkernel_block3.cu)
+MAX_L = 64
+MAX_C = 3
+TILE_ROWS = 8
+TILE_COLS = 16
+
+
+def block3_supported(n: int, L: int, C: int, h) -> bool:
+    """Shapes K2 takes on the card: a bandwidth, n ≥ 2, L ≤ 64, C ≤ 3 (one
+    kernel instantiation per channel count). Within these bounds a block's
+    shared memory (staged paths and per-thread column-gradient slots,
+    640·L·C bytes) fits Hopper's 227 KB, and the fine grid lives in
+    per-thread device scratch, so L is not bound by on-chip memory as it is
+    on the TPU (ly1 ≤ 48)."""
+    return h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+
+
+def block3_flops(n: int, L: int, C: int) -> float:
+    """fp32 operations the function needs, counting an ``exp`` as one and
+    each value once (K2 reconstructs the primal in its backward; that work
+    is not counted): per pair ``(8(L-1))²`` fine cells at 14 (4 forward
+    update, 5 adjoint, 5 dz sums), ``(L-1)²`` coarse cells at ``36 + 6C``
+    (z, A, B and the pull-back through two static nodes) and ``L²`` static
+    nodes at ``2C+3``."""
+    pairs = n * (n + 1) // 2
+    g = _M * (L - 1)
+    per_pair = g * g * 14 + (L - 1) ** 2 * (36 + 6 * C) + L * L * (2 * C + 3)
+    return float(pairs * per_pair)
+
+
+def block3_bytes(n: int, L: int, C: int) -> float:
+    """Bytes K2 must move: X read once, K and dX written once."""
+    return 4.0 * (n * L * C + n * n + n * L * C)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twin: vectorised over the pairs a ≤ b, sequential over the
+# fine grid's anti-diagonals (each cell's arithmetic is the row sweep's),
+# with an explicit adjoint on the stored grid.
+# ---------------------------------------------------------------------------
+
+
+def _scale(X: torch.Tensor, h) -> torch.Tensor:
+    return torch.rsqrt(torch.as_tensor(h, dtype=X.dtype, device=X.device))
+
+
+def _statics(X: torch.Tensor, h, iu: torch.Tensor, ju: torch.Tensor):
+    """Scaled paths ``x, y [L, C, P]`` of the pairs ``(iu, ju)``, their
+    static Gram ``g [L, L, P]`` and the coefficients ``z, A, B [L-1, L-1,
+    P]``."""
+    L, C = X.shape[1:]
+    Xs = X * _scale(X, h)
+    x = Xs[iu].permute(1, 2, 0).contiguous()
+    y = Xs[ju].permute(1, 2, 0).contiguous()
+    d2 = torch.zeros(L, L, iu.shape[0], dtype=X.dtype, device=X.device)
+    for c in range(C):
+        d = x[:, None, c] - y[None, :, c]
+        d2 += d * d
+    g = torch.exp(-d2)
+    del d2
+    z = (((g[1:, 1:] - g[1:, :-1]) - g[:-1, 1:]) + g[:-1, :-1]) * _ZS
+    A = 1.0 + 0.5 * z + z * z * _I12
+    B = 1.0 - z * z * _I12
+    return x, y, g, z, A, B
+
+
+def _diag_cells(d: int, G: int, device):
+    """Interior nodes ``(i, d-i)`` of anti-diagonal ``d`` (1 ≤ i, j ≤ G)."""
+    ii = torch.arange(max(1, d - G), min(G, d - 1) + 1, device=device)
+    return ii, d - ii
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` rounded once: the fp32 product is exact in fp64."""
+    if a.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _forward(A: torch.Tensor, B: torch.Tensor, keep_grid: bool):
+    """Fine-grid solve by anti-diagonals. Returns ``k[G, G] [P]`` and, with
+    ``keep_grid``, the whole node grid ``[G+1, G+1, P]``."""
+    G = _M * A.shape[0]
+    P = A.shape[-1]
+    ones = torch.ones(G + 1, P, dtype=A.dtype, device=A.device)
+    grid = torch.ones(G + 1, G + 1, P, dtype=A.dtype, device=A.device) if keep_grid else None
+    prev2, prev1 = ones, ones    # node values on diagonals d-2 and d-1, by i
+    for d in range(2, 2 * G + 1):
+        ii, jj = _diag_cells(d, G, A.device)
+        ci, cj = (ii - 1) // _M, (jj - 1) // _M
+        # k[i, j] = (k[i, j-1] + k[i-1, j])·A - k[i-1, j-1]·B, cell (i-1, j-1)
+        val = _fma(prev1[ii] + prev1[ii - 1], A[ci, cj], -(prev2[ii - 1] * B[ci, cj]))
+        cur = ones.clone()
+        cur[ii] = val
+        if keep_grid:
+            grid[ii, jj] = val
+        prev2, prev1 = prev1, cur
+    return prev1[G], grid
+
+
+def _adjoint(A: torch.Tensor, B: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """``λ[i, j] = ∂(seed·k[G, G])/∂k[i, j]`` on the nodes 1..G, by
+    anti-diagonals from the top right:
+    ``λ[i, j] = λ[i, j+1]·A(i-1, j) + λ[i+1, j]·A(i, j-1) - λ[i+1, j+1]·B(i, j)``
+    (cell terms outside the grid are 0)."""
+    Lm1 = A.shape[0]
+    G = _M * Lm1
+    P = A.shape[-1]
+    lam = torch.zeros(G + 2, G + 2, P, dtype=A.dtype, device=A.device)
+    lam[G, G] = seed
+    top = Lm1 - 1
+    for d in range(2 * G - 1, 1, -1):
+        ii, jj = _diag_cells(d, G, A.device)
+        cim, ci = (ii - 1) // _M, (ii // _M).clamp(max=top)
+        cjm, cj = (jj - 1) // _M, (jj // _M).clamp(max=top)
+        lam[ii, jj] = ((lam[ii, jj + 1] * A[cim, cj] + lam[ii + 1, jj] * A[ci, cjm])
+                       - lam[ii + 1, jj + 1] * B[ci, cj])
+    return lam[: G + 1, : G + 1]
+
+
+def _pairs_gram_grad(X: torch.Tensor, h, iu: torch.Tensor, ju: torch.Tensor):
+    """K of the pairs ``(iu, ju)`` and their path gradients ``gx, gy [L, C,
+    P]`` (scaled paths, seeds 1 on the diagonal and 2 off it)."""
+    L = X.shape[1]
+    x, y, g, z, A, B = _statics(X, h, iu, ju)
+    seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
+    kval, k = _forward(A, B, keep_grid=True)
+    lam = _adjoint(A, B, seed)
+
+    # dz per coarse cell: Σ over its 8×8 fine cells of λ[i+1, j+1]·∂k/∂z,
+    # ∂k[i+1, j+1]/∂z = (k[i+1, j] + k[i, j+1])·(½ + z/6) + k[i, j]·z/6
+    Lm1, P = L - 1, iu.shape[0]
+    blk = (Lm1, _M, Lm1, _M, P)
+    lt = lam[1:, 1:].reshape(blk)
+    s1 = (lt * (k[1:, :-1] + k[:-1, 1:]).reshape(blk)).sum((1, 3))
+    s2 = (lt * k[:-1, :-1].reshape(blk)).sum((1, 3))
+    del k, lam, lt
+    dinc = ((0.5 + z * _I6) * s1 + (z * _I6) * s2) * _ZS
+
+    # pull back through the increments and the statics:
+    # dg[p, q] = dinc[p-1, q-1] - dinc[p-1, q] - dinc[p, q-1] + dinc[p, q]
+    dp = torch.zeros(L + 1, L + 1, P, dtype=X.dtype, device=X.device)
+    dp[1:L, 1:L] = dinc
+    dg = ((dp[:-1, :-1] - dp[:-1, 1:]) - dp[1:, :-1]) + dp[1:, 1:]
+    dd2 = -g * dg                                     # ∂/∂d², [L, L, P]
+    sw_x = dd2.sum(1)                                 # [L(p), P]
+    sw_y = dd2.sum(0)                                 # [L(q), P]
+    gx = 2.0 * (x * sw_x[:, None] - torch.einsum("pqP,qcP->pcP", dd2, y))
+    gy = 2.0 * (y * sw_y[:, None] - torch.einsum("pqP,pcP->qcP", dd2, x))
+    return kval, gx, gy
+
+
+def block3_gram_and_grad_plain(X: torch.Tensor, h, pairs_per_chunk: int | None = None):
+    """The K2 contract in plain PyTorch. Stores the fine grid, its adjoint
+    and their products (about ``6·(8L)²`` values per pair), so it suits
+    small shapes; ``pairs_per_chunk`` bounds that memory by solving the
+    pairs that many at a time. :func:`block3_gram_plain` gives K alone
+    without the grid."""
+    n = X.shape[0]
+    iu, ju = torch.triu_indices(n, n, device=X.device)
+    step = pairs_per_chunk or iu.shape[0]
+    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    dX = torch.zeros_like(X)
+    for p0 in range(0, iu.shape[0], step):
+        i, j = iu[p0:p0 + step], ju[p0:p0 + step]
+        kval, gx, gy = _pairs_gram_grad(X, h, i, j)
+        K[i, j] = kval
+        K[j, i] = kval
+        dX.index_add_(0, i, gx.permute(2, 0, 1))
+        dX.index_add_(0, j, gy.permute(2, 0, 1))
+    return K, 0.5 * _scale(X, h) * dX
+
+
+def block3_gram_plain(X: torch.Tensor, h) -> torch.Tensor:
+    """K alone, by the twin's forward sweep without the stored grid (two
+    diagonals per pair)."""
+    n = X.shape[0]
+    iu, ju = torch.triu_indices(n, n, device=X.device)
+    A, B = _statics(X, h, iu, ju)[4:]
+    kval, _ = _forward(A, B, keep_grid=False)
+    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    K[iu, ju] = kval
+    K[ju, iu] = kval
+    return K
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+_tiles_cache: dict = {}
+
+
+def _tile_list(n: int, device) -> torch.Tensor:
+    """``[T, 2]`` int32 (row tile, column tile) pairs holding a pair a ≤ b."""
+    key = (n, str(device))
+    if key not in _tiles_cache:
+        nI, nJ = _cdiv(n, TILE_ROWS), _cdiv(n, TILE_COLS)
+        I = torch.arange(nI).repeat_interleave(nJ)
+        J = torch.arange(nJ).repeat(nI)
+        keep = I * TILE_ROWS <= J * TILE_COLS + TILE_COLS - 1
+        _tiles_cache[key] = torch.stack([I[keep], J[keep]], 1).to(
+            device=device, dtype=torch.int32).contiguous()
+    return _tiles_cache[key]
+
+
+def _lib():
+    lib = load("sigkernel_block3")
+    lib.sigkernel_block3_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.sigkernel_block3_grid.restype = ctypes.c_int
+    lib.sigkernel_block3_gram_grad.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.sigkernel_block3_gram_grad.restype = ctypes.c_int
+    return lib
+
+
+def block3_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
+    """The tile list of a K2 launch on ``device`` and its number of
+    persistent blocks (those resident on the card, at most one per tile):
+    each block walks the list, taking about ``tiles / blocks`` tiles."""
+    tiles = _tile_list(n, device)
+    blocks = ctypes.c_int(0)
+    rc = _lib().sigkernel_block3_grid(L, C, tiles.shape[0], ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"K2 occupancy query failed: cudaError {rc}")
+    return tiles, blocks.value
+
+
+def block3_scratch_floats(L: int) -> int:
+    """Device scratch per resident pair-thread, in floats: the fine node row
+    at the top of every band (L-1 rows of G = 8(L-1)), the right-edge column
+    and the adjoint row carried between bands."""
+    g = _M * (L - 1)
+    return (L + 1) * g
+
+
+def block3_gram_and_grad(X: torch.Tensor, h):
+    """``(K, dX)`` for paths ``X [n, L, C]`` and RBF bandwidth ``h`` (float or
+    0-d tensor). CPU tensors take the plain twin; CUDA tensors launch K2 and
+    add one to ``block3_gram_and_grad.launches``."""
+    if X.device.type == "cpu":
+        return block3_gram_and_grad_plain(X, h)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if X.dtype != torch.float32 or X.dim() != 3 or not X.is_contiguous():
+        raise ValueError("K2 takes a contiguous fp32 [n, L, C] tensor")
+    n, L, C = X.shape
+    if not block3_supported(n, L, C, h):
+        raise NotImplementedError(
+            f"shape {(n, L, C)} is outside K2's envelope; the pair-list λ=3 "
+            "kernel that takes it is K4 in ROADMAP.md queue 2"
+        )
+    tiles, blocks = block3_grid(n, L, C, X.device)
+    n_tiles = tiles.shape[0]
+    # the path scale rsqrt(h), formed as the twin forms it
+    s_t = torch.rsqrt(torch.as_tensor(h, dtype=torch.float32, device=X.device)).reshape(1)
+    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    dX = torch.empty_like(X)
+    rowpart = torch.empty(_cdiv(n, TILE_COLS), n, L * C, dtype=X.dtype,
+                          device=X.device)
+    colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype,
+                          device=X.device)
+    scratch = torch.empty(blocks * TILE_ROWS * TILE_COLS
+                          * block3_scratch_floats(L), dtype=X.dtype, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    rc = _lib().sigkernel_block3_gram_grad(
+        X.data_ptr(), s_t.data_ptr(), tiles.data_ptr(), K.data_ptr(),
+        dX.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
+        scratch.data_ptr(), n_tiles, blocks, n, L, C, stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    block3_gram_and_grad.launches += 1
+    return K, dX
+
+
+block3_gram_and_grad.launches = 0

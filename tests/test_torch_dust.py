@@ -1,24 +1,33 @@
-"""The slice as a whole: the port's signature-kernel DuSt MPC solve against the
-JAX package's, from one injected controller state.
+"""The slice as a whole: the port's DuSt MPC solves against the JAX
+package's, from one injected controller state.
 
 Setup: the flagship problem of ``bench.py`` (full Panda, ``bookshelf_small``,
 exact-SDF occupancy, EE tracking, Adam(0.1), smoothed-box hyper-prior) cut to
-16 policies and horizon 8, λ=0, bandwidth 4.0. The JAX side runs its block
-route in Pallas interpret mode (``solver="pallas_small"``). The port takes
-its state from ``dust_state_from_numpy``. Two chained ``forward`` calls with
-``opt_steps=2`` run on each side.
+16 policies and horizon 8, in signature mode at bandwidth 4.0 with λ=0 (the
+JAX block route in Pallas interpret mode, ``solver="pallas_small"``) and
+with λ=3 pinned (``solver="pallas"``, the block3 route in interpret mode).
+``tests/test_torch_policy.py`` runs the same check in policy mode. The port
+takes its state from ``dust_state_from_numpy``. Two chained ``forward``
+calls with ``opt_steps=2`` run on each side.
 
-Per SVGD step, on the JAX step's own policies: costs (rtol 1e-5), K (atol
-3e-5), the kernel gradient grad_k and the Stein velocity φ (scaled by their
-max, atol 5e-5 and 1e-4: φ adds the FK-driven likelihood gradient to K@s).
+Per SVGD step, on the JAX step's own policies: costs (rtol 1e-5), K and the
+kernel gradient grad_k (scaled by its max), and the Stein velocity φ scaled
+by its max (φ adds the FK-driven likelihood gradient to K@s).
 
 The chained outputs: Adam's first steps are about ``lr·sign(φ)``, so an
 element whose φ is at fp32 noise can step either way on the two sides. The
-returned ``a_seq`` and the rolled ``pol_mean`` are compared (atol 2e-5) on
-the elements whose |φ| stayed above 1e-4·max|φ| in every step that moved
-them; the test also asserts that this excludes under 1% of them. The chained
-costs (rtol 1e-5), Adam's first moment (atol 1e-5) and the next joint state
-(atol 1e-5) are compared whole.
+returned ``a_seq`` and the rolled ``pol_mean`` are compared on the elements
+whose |φ| stayed above 1e-4·max|φ| in every step that moved them; the test
+also asserts that this excludes under 1% of them. The chained costs (rtol
+1e-5), Adam's first moment and the next joint state (atol 1e-5) are
+compared whole.
+
+In every mode φ is held at 1e-4, the chained policies at 2e-5 and the
+first moment at 1e-5. K and grad_k by mode (``MODES``): at λ=0 atol 3e-5 and
+5e-5, those of ``test_pallas_block.py``; at λ=3 1e-4 and 4e-4, those of
+``test_pallas_block3.py``; in policy mode the sampler's ``GaussianKernel``
+K at rtol 1e-5 and dK at rtol 1e-4, atol 1e-5, those of
+``tests/test_kernels.py``.
 """
 import dataclasses
 
@@ -30,6 +39,7 @@ import pytest
 import torch
 
 from sigsvgd_tpu.controllers import DuSt as JDuSt
+from sigsvgd_tpu.kernels import GaussianKernel as JGaussianKernel
 from sigsvgd_tpu.experiments.planning import create_body_points as j_body
 from sigsvgd_tpu.experiments.planning import sdf_occupancy as j_occ
 from sigsvgd_tpu.kernels import SignatureKernel as JSignatureKernel
@@ -39,14 +49,17 @@ from sigsvgd_tpu.models.robot import get_scene as j_get_scene
 from sigsvgd_tpu.utils import distributions as jdu
 from sigsvgd_tpu.utils.spaces import Box as JBox
 from sigsvgd_tpu_torch.convert import dust_state_from_numpy
-from sigsvgd_tpu_torch.experiments.arm_mpc import Q_START, Q_TARGET, build_arm_mpc
+from sigsvgd_tpu_torch.experiments.arm_mpc import (
+    CALIBRATION_TOL, Q_START, Q_TARGET, build_arm_mpc,
+)
 from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
 
 N_POL, HZ, DOF, STEPS = 16, 8, 7, 2
 
 
-def _jax_ctrl():
-    """bench.py's flagship problem (``_setup``) at this test's size."""
+def _jax_ctrl(mode):
+    """bench.py's flagship problem (``_setup``) at this test's size, with
+    the controller of ``mode`` (see ``MODES``)."""
     robot = JPandaRobot.create()
     occ = j_occ(j_get_scene("bookshelf_small"))
     low, high = robot.joint_limits()
@@ -80,14 +93,40 @@ def _jax_ctrl():
         return 10.0 * jnp.sum((ee - ee_target) ** 2, axis=-1)
 
     model = ArmModel(dt=0.05)
-    ctrl = JDuSt(
-        model=model, hz_len=HZ, n_pol=N_POL, n_action_samples=0,
-        optimizer=optax.adam(0.1), pol_hyper_prior=True,
-        inst_cost_fn=inst_cost, term_cost_fn=term_cost, kernel_mode="signature",
-        sig_kernel=JSignatureKernel(dyadic_order=0, bandwidth=4.0,
-                                    solver="pallas_small"),
-    )
+    common = dict(model=model, hz_len=HZ, n_pol=N_POL, n_action_samples=0,
+                  optimizer=optax.adam(0.1), pol_hyper_prior=True,
+                  inst_cost_fn=inst_cost, term_cost_fn=term_cost)
+    if mode["kernel_mode"] == "policy":
+        ctrl = JDuSt(kernel_mode="policy", kernel=JGaussianKernel(),
+                     fused_velocity=mode["fused_velocity"], **common)
+    else:
+        ctrl = JDuSt(kernel_mode="signature",
+                     sig_kernel=JSignatureKernel(dyadic_order=mode["order"],
+                                                 bandwidth=4.0,
+                                                 solver=mode["solver"]),
+                     **common)
     return ctrl, model
+
+
+def _port_problem(mode):
+    if mode["kernel_mode"] == "policy":
+        return build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ,
+                             kernel_mode="policy",
+                             fused_velocity=mode["fused_velocity"])
+    return build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ,
+                         dyadic_order=mode["order"], calibrate=False)
+
+
+MODES = {
+    "lambda0": dict(kernel_mode="signature", order=0, solver="pallas_small",
+                    k_atol=3e-5, gk_atol=5e-5),
+    "lambda3": dict(kernel_mode="signature", order=3, solver="pallas",
+                    k_atol=1e-4, gk_atol=4e-4),
+    # the sampler's own GaussianKernel: K at rtol 1e-5 and dK at rtol 1e-4,
+    # atol 1e-5, as tests/test_kernels.py holds it
+    "policy": dict(kernel_mode="policy", fused_velocity=False),
+    "policy_fused": dict(kernel_mode="policy", fused_velocity=True),
+}
 
 
 def _n(a):
@@ -99,12 +138,17 @@ def _scaled_close(got, want, atol):
     np.testing.assert_allclose(got / scale, want / scale, atol=atol)
 
 
-@pytest.mark.parametrize("seed", [0])
-def test_two_chained_mpc_solves_match_jax(seed):
+def run_two_chained_solves(mode_name, seed=0):
+    """Two chained solves on each side, checked as the module docstring
+    says."""
+    mode = MODES[mode_name]
     rng = np.random.default_rng(seed)
-    jctrl, jmodel = _jax_ctrl()
-    prob = build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ, dyadic_order=0)
+    jctrl, jmodel = _jax_ctrl(mode)
+    prob = _port_problem(mode)
     tctrl = prob.ctrl
+    assert tctrl.kernel_mode == mode["kernel_mode"]
+    if mode["kernel_mode"] == "signature":
+        assert tctrl.sig_kernel.dyadic_order == mode["order"]
     jsampler, tsampler = jctrl._sampler(), tctrl._sampler()
 
     pol0 = rng.uniform(-2.0, 2.0, size=(N_POL, HZ, DOF)).astype(np.float32)
@@ -142,9 +186,18 @@ def test_two_chained_mpc_solves_match_jax(seed):
             phi_t, _ = tsampler.velocity(pol_t, score_t)
             np.testing.assert_allclose(score_t.aux["costs"].numpy(),
                                        _n(score_j.aux["costs"]), rtol=1e-5)
-            np.testing.assert_allclose(score_t.k_xx.numpy(), _n(score_j.k_xx),
-                                       atol=3e-5)
-            _scaled_close(score_t.grad_k.numpy(), _n(score_j.grad_k), 5e-5)
+            if mode["kernel_mode"] == "signature":
+                np.testing.assert_allclose(score_t.k_xx.numpy(), _n(score_j.k_xx),
+                                           atol=mode["k_atol"])
+                _scaled_close(score_t.grad_k.numpy(), _n(score_j.grad_k),
+                              mode["gk_atol"])
+            else:
+                assert score_t.k_xx is None and score_j.k_xx is None
+                k_t, dk_t = tsampler._kernel_terms(pol_t)
+                k_j, dk_j = jsampler._kernel_terms(pol)
+                np.testing.assert_allclose(k_t.numpy(), _n(k_j), rtol=1e-5)
+                np.testing.assert_allclose(dk_t.numpy(), _n(dk_j), rtol=1e-4,
+                                           atol=1e-5)
             _scaled_close(phi_t.numpy(), _n(phi_j), 1e-4)
             phi = np.abs(_n(phi_j))
             keep &= phi > 1e-4 * phi.max()
@@ -161,10 +214,35 @@ def test_two_chained_mpc_solves_match_jax(seed):
         np.testing.assert_allclose(ts_new.pol_mean.numpy()[keep],
                                    _n(js_new.pol_mean)[keep], atol=2e-5)
         np.testing.assert_allclose(ts_new.svgd_state.opt_state.mu.numpy(),
-                                   _n(js_new.svgd_state.opt_state[0].mu), atol=1e-5)
+                                   _n(js_new.svgd_state.opt_state[0].mu),
+                                   atol=1e-5)
         assert int(ts_new.svgd_state.step) == int(js_new.svgd_state.step)
 
         jq = jmodel.step(jq[None], a_j[0:1])[0]
         tq = prob.model.step(tq[None], a_t[0:1])[0]
         js, ts = js_new, ts_new
     np.testing.assert_allclose(tq.numpy(), _n(jq), atol=1e-5)
+
+
+@pytest.mark.parametrize("mode_name", ["lambda0", "lambda3"], ids=["0", "lambda3"])
+def test_two_chained_mpc_solves_match_jax(mode_name):
+    run_two_chained_solves(mode_name)
+
+
+def test_build_arm_mpc_calibration_keeps_or_drops_order_3():
+    """bench.py's three controllers: a calibration whose z³ bound exceeds
+    the tolerance keeps order 3 (``_setup``), one within it drops to 0,
+    ``calibrate=False`` pins the configured order (``ctrl_sig_pinned``), and
+    policy mode has no signature kernel to calibrate (``ctrl_rbf``)."""
+    kept = build_arm_mpc(device="cpu", n_pol=8, hz_len=8, bandwidth=0.5)
+    assert kept.calibration_bound > CALIBRATION_TOL
+    assert kept.ctrl.sig_kernel.dyadic_order == 3
+    dropped = build_arm_mpc(device="cpu", n_pol=8, hz_len=8, bandwidth=4.0)
+    assert dropped.calibration_bound <= CALIBRATION_TOL
+    assert dropped.ctrl.sig_kernel.dyadic_order == 0
+    pinned = build_arm_mpc(device="cpu", n_pol=8, hz_len=8, bandwidth=4.0,
+                           calibrate=False)
+    assert pinned.ctrl.sig_kernel.dyadic_order == 3
+    assert pinned.calibration_bound == dropped.calibration_bound
+    policy = build_arm_mpc(device="cpu", n_pol=8, hz_len=8, kernel_mode="policy")
+    assert policy.ctrl.kernel_mode == "policy" and policy.calibration_bound is None

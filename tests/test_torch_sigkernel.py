@@ -16,6 +16,7 @@ from sigsvgd_tpu.kernels.sigkernel import SignatureKernel as JSignatureKernel
 from sigsvgd_tpu.kernels.sigkernel import gram_increments as j_gram_increments
 from sigsvgd_tpu.kernels.sigkernel import static_gram_rbf as j_static_gram_rbf
 from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
 from sigsvgd_tpu_torch.kernels.sigkernel import (
     SignatureKernel, gram_increments, static_gram_rbf,
 )
@@ -106,8 +107,12 @@ def test_calibration_bound_and_order_match(rng):
 
 def test_unported_routes_raise():
     X = torch.zeros(4, 5, 2)
-    with pytest.raises(NotImplementedError, match="K2"):
-        SignatureKernel(dyadic_order=3, bandwidth=1.0).gram_and_grad(X)
+    for order in (1, 2, 4):
+        with pytest.raises(NotImplementedError, match="M6"):
+            SignatureKernel(dyadic_order=order, bandwidth=1.0).gram_and_grad(X)
+    # outside K2's envelope on the card: the pair-list route K4 takes it
+    # (checked where a card is: test_torch_cuda.py)
+    assert not kb3.block3_supported(4, 65, 2, 1.0)
 
 
 def test_block_supported_envelope():
