@@ -33,8 +33,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ragged [333, 280] (rtol 2e-4, atol 5e-5), with its time;
 7. the policy-mode solve (bench.py's ``ctrl_rbf`` with
    ``fused_velocity=True``), as phase 3, with K9's launch count;
-8. small solves on the card held against the same solves on the CPU, where
-   the twins replace the kernels: λ=0, λ=3 and policy mode.
+8. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
+   against its bf16 twin and against the fp32 block propagator at the
+   planning shape [1048576, 2, 2] λ=6 (the increments of 1024 knot paths
+   at h = 1.5), a ragged [389, 4, 4] λ=6 (16 hops) and [1000, 2, 2] λ=7:
+   K and dz scaled by their max, atol 1e-3 / 2e-3 against the twin and
+   5e-3 / 1e-2 against the fp32 route; the times of both kernels, of the
+   twin and of the fp32 route, and the first launch's memory;
+9. ``planning_iter``: bench's planning shape (1024 knot particles, depth 6,
+   ``mxu_precision="default"``, T=200, ``bookshelf_small``), 3 warm-up and
+   5 timed chained SVGD iterations with K8's counters read around them
+   (one forward and one backward launch per iteration), the stage split and
+   one traced iteration;
+10. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()`` (20
+   particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
+   mean cost at the first and last iteration (it must fall), the success
+   rate and K8's launches (500 each);
+11. small solves on the card held against the same solves on the CPU, where
+   the twins replace the kernels: λ=0, λ=3, policy mode, and 3 planning
+   iterations at batch 8, T=50 in fp32 ("highest") and through K8
+   ("default", the bf16 twin on the CPU).
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -42,6 +60,7 @@ The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -54,7 +73,11 @@ N_SOLVES = 3
 OPT_STEPS = 2
 K2_TOL = (1e-4, 4e-4)   # K atol, dX scaled atol (tests/test_pallas_block3.py)
 K9_TOL = (2e-4, 5e-5)   # rtol, atol (tests/test_pallas_svgd.py)
+K8_TOL = (1e-3, 2e-3)   # K, dz scaled atol against the twin
+K8_FP32_TOL = (5e-3, 1e-2)  # against the fp32 route (tests/test_pallas_mxu_chain.py)
+PLAN_TOL = (1e-4, 1e-5)  # rtol, atol of chained planning runs (tests/test_planning.py)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
@@ -83,12 +106,17 @@ def host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def bound(flops: float, nbytes: float, bf16_flops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the fp32
+    operations over the fp32 peak, the bf16 tensor-core operations over
+    theirs, and the bytes over the memory rate."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, bf16_flops / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    row = {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if bf16_flops:
+        row["bf16_flops"] = bf16_flops
+    return row
 
 
 def smooth_paths(n: int, L: int, C: int, gen: torch.Generator) -> torch.Tensor:
@@ -400,7 +428,7 @@ def velocity_stage(ctrl, state, pol0) -> dict:
 
     sampler = ctrl._sampler()
     score = ScoreResult(grad_log_p=torch.zeros_like(pol0))
-    return {"svgd_velocity": host_ms(lambda: sampler.velocity(pol0, score), 3)}
+    return {"svgd_velocity": host_ms(lambda: sampler.velocity(pol0, score, 0), 3)}
 
 
 def phase_policy():
@@ -414,14 +442,20 @@ def phase_policy():
 
 
 def traced_solve(ctrl, state, cs) -> dict:
-    """One more solve under ``torch.profiler``: device busy time summed over
-    kernels, the traced solve's wall time and idle share, kernel launches,
-    and the kernels that take the most device time."""
+    """One more solve under ``torch.profiler``."""
+    return traced(lambda: ctrl.forward(state, cs, opt_steps=OPT_STEPS))
+
+
+def traced(fn) -> dict:
+    """``fn`` once under ``torch.profiler``: device busy time summed over
+    kernels, the traced wall time and idle share, kernel launches, and the
+    kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctrl.forward(state, cs, opt_steps=OPT_STEPS)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -462,7 +496,7 @@ def phase_small_vs_cpu():
                                 cs.prior_weights)
             score, _tr = prob.ctrl._score(pol, prob.q_start, prior)
             if k_tol is None:
-                phi, _ = prob.ctrl._sampler().velocity(pol, score)
+                phi, _ = prob.ctrl._sampler().velocity(pol, score, 0)
                 got = (score.aux["costs"], None, phi)
             else:
                 got = (score.aux["costs"], score.k_xx, score.grad_k)
@@ -480,6 +514,260 @@ def phase_small_vs_cpu():
             raise AssertionError(f"card and CPU solves disagree ({name}): {errs}")
 
 
+def knot_increments(n: int, gen: torch.Generator) -> torch.Tensor:
+    """The order-6 Gram's increments ``[n², 2, 2]`` of ``n`` planning knot
+    paths ``[n, 3, 7]`` drawn as ``run_optimisation`` draws them (uniform in
+    the Panda's joint limits), at bench's bandwidth h = 1.5."""
+    from sigsvgd_tpu_torch.kernels.sigkernel import _pair_sq_dists, gram_increments
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    lower, upper = PandaRobot.create(device="cuda").joint_limits()
+    X = lower + (upper - lower) * torch.rand((n, 3, 7), generator=gen, device="cuda")
+    inc = gram_increments(torch.exp(-_pair_sq_dists(X, X) / 1.5))
+    return inc.reshape(n * n, 2, 2).contiguous()
+
+
+def chunked_vjp(fn, inc: torch.Tensor, g: torch.Tensor, chunk: int):
+    """``(k, ∂(g·k)/∂inc)`` of ``fn`` taken ``chunk`` pairs at a time."""
+    ks, ds = [], []
+    for c0 in range(0, inc.shape[0], chunk):
+        t = inc[c0:c0 + chunk].clone().requires_grad_(True)
+        k = fn(t)
+        (d,) = torch.autograd.grad(k, t, g[c0:c0 + chunk])
+        ks.append(k.detach())
+        ds.append(d)
+    return torch.cat(ks), torch.cat(ds)
+
+
+def phase_k8():
+    """K8's forward and backward against the bf16 twin and the fp32 block
+    propagator at three shapes; times, bound and first-launch memory at the
+    planning shape."""
+    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+    from sigsvgd_tpu_torch.kernels.sigkernel import solve_goursat_pde_mxu
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the fp32 reference would not be fp32")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    chunk = 131072
+    rows = {}
+    first = True
+    for name, lam in (("planning", 6), ("ragged_16_hops", 6), ("sub2", 7)):
+        if name == "planning":
+            inc = knot_increments(1024, gen)
+        elif name == "ragged_16_hops":
+            inc = torch.randn((389, 4, 4), generator=gen, device="cuda").clamp(-2, 2)
+        else:
+            inc = torch.randn((1000, 2, 2), generator=gen, device="cuda").clamp(-2, 2)
+        B, lx1, ly1 = inc.shape
+        g = torch.randn(B, generator=gen, device="cuda")
+        out = []
+
+        def kernel_vjp():
+            t = inc.clone().requires_grad_(True)
+            k = mc.solve_goursat_pde_mxu_chain(t, lam)
+            out.extend([k.detach(), torch.autograd.grad(k, t, g)[0]])
+
+        mib = device_mib_outside_allocator(kernel_vjp)
+        k, d = out
+        kp, dp = chunked_vjp(lambda t: mc.solve_goursat_pde_mxu_chain_plain(t, lam),
+                             inc, g, chunk)
+        kr, dr = chunked_vjp(lambda t: solve_goursat_pde_mxu(t, lam), inc, g, chunk)
+        torch.cuda.synchronize()
+
+        def scaled(a, b):
+            return ((a - b).abs().max() / b.abs().max()).item()
+
+        finite = bool(torch.isfinite(k).all() and torch.isfinite(d).all())
+        row = {"phase": "k8_vs_plain", "shape": [B, lx1, ly1], "dyadic_order": lam,
+               "k_scaled_err_vs_plain": scaled(k, kp), "dz_scaled_err_vs_plain": scaled(d, dp),
+               "k_max_abs_err": (k - kp).abs().max().item(),
+               "dz_max_abs_err": (d - dp).abs().max().item(),
+               "k_scaled_err_vs_fp32": scaled(k, kr), "dz_scaled_err_vs_fp32": scaled(d, dr),
+               "plain_k_scaled_err_vs_fp32": scaled(kp, kr),
+               "k_range": [k.min().item(), k.max().item()], "finite": finite}
+        if first:
+            row["first_launch_mib_outside_allocator"] = mib
+            first = False
+        if name == "planning":
+            nbx, nby, sub = mc._geometry(lx1, ly1, lam)
+            z = (inc / float(4 ** lam)).reshape(B, lx1 * ly1).contiguous()
+            geom = (nbx, nby, sub, ly1)
+            row["blocks"] = {"forward": mc._grid(B, lx1 * ly1, 10, False),
+                             "backward": mc._grid(B, lx1 * ly1, 10, True)}
+            row["fwd_ms"] = event_ms(lambda: mc.mxu_chain_fwd(z, *geom), 5)
+            row["bwd_ms"] = event_ms(lambda: mc.mxu_chain_bwd(z, g, *geom), 3)
+
+            def twin_fwd():
+                for c0 in range(0, B, chunk):
+                    mc._plain_forward(z[c0:c0 + chunk], *geom, 10)
+
+            def twin_bwd():
+                for c0 in range(0, B, chunk):
+                    mc._plain_backward(z[c0:c0 + chunk], g[c0:c0 + chunk], *geom, 10)
+
+            row["plain_fwd_ms"] = event_ms(twin_fwd, 1)
+            row["plain_bwd_ms"] = event_ms(twin_bwd, 1)
+            row["fp32_route_fwd_bwd_ms"] = event_ms(lambda: chunked_vjp(
+                lambda t: solve_goursat_pde_mxu(t, lam), inc, g, chunk), 1)
+            row["fwd_bound"] = bound(mc.chain_flops(B, lx1, ly1, lam)[1],
+                                     mc.chain_bytes(B, lx1, ly1),
+                                     mc.chain_flops(B, lx1, ly1, lam)[0])
+            row["bwd_bound"] = bound(mc.chain_flops(B, lx1, ly1, lam, backward=True)[1],
+                                     mc.chain_bytes(B, lx1, ly1, backward=True),
+                                     mc.chain_flops(B, lx1, ly1, lam, backward=True)[0])
+            rows["planning"] = row
+        emit(row)
+        ok = (finite and row["k_scaled_err_vs_plain"] <= K8_TOL[0]
+              and row["dz_scaled_err_vs_plain"] <= K8_TOL[1]
+              and row["k_scaled_err_vs_fp32"] <= K8_FP32_TOL[0]
+              and row["dz_scaled_err_vs_fp32"] <= K8_FP32_TOL[1])
+        if not ok:
+            raise AssertionError(f"K8 disagrees with its twin or the fp32 route: {row}")
+    return rows["planning"]
+
+
+def planning_setup(batch: int, timesteps: int = 200, precision: str = "default",
+                   device: str = "cuda"):
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_planning_problem
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, planner_sampler
+
+    problem = build_planning_problem(device=device, timesteps=timesteps)
+    cfg = PlannerConfig(batch=batch, timesteps=timesteps, mxu_precision=precision)
+    svgd, score = planner_sampler(problem, cfg)
+    return problem, cfg, svgd, score
+
+
+def phase_planning_iter():
+    """Bench's planning shape: chained SVGD iterations with K8's counters
+    read around them, the stage split and one traced iteration."""
+    from sigsvgd_tpu_torch.inference.score import _grad_neg_cost
+    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    t0 = time.perf_counter()
+    problem, cfg, svgd, score = planning_setup(1024)
+    lower, upper = problem.robot.joint_limits()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = lower + (upper - lower) * torch.rand((cfg.batch, cfg.length - 2, 7),
+                                             generator=gen, device="cuda")
+    state = svgd.init(x)
+
+    def iteration(x, state):
+        return svgd.step_update(x, state, score(x, None))
+
+    for _ in range(3):  # warm-up: first-call allocations and the build
+        x, state = iteration(x, state)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    mc.mxu_chain_fwd.launches = mc.mxu_chain_bwd.launches = 0
+    iter_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        x, state = iteration(x, state)
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches)
+    if launches != (5, 5):
+        raise AssertionError(f"planning_iter: K8 launched {launches} times in 5 iterations")
+    if not (x.shape == (1024, 3, 7) and bool(torch.isfinite(x).all())):
+        raise AssertionError("planning_iter: non-finite or misshapen particles")
+
+    sc = score(x, None)
+    sig = SignatureKernel(cfg.depth, cfg.pathsig_bw, mxu_precision=cfg.mxu_precision)
+    stages = {"cost_and_gradient": host_ms(lambda: _grad_neg_cost(problem.batch_cost, x), 3),
+              "gram_and_grad": host_ms(lambda: sig.gram_and_grad(x), 3),
+              "update": host_ms(lambda: svgd.step_update(x, state, sc), 3)}
+    row = {"phase": "planning_iter", "batch": cfg.batch, "depth": cfg.depth,
+           "timesteps": cfg.timesteps, "mxu_precision": cfg.mxu_precision,
+           "ms_per_iter_median": statistics.median(iter_ms), "ms_per_iter_samples": iter_ms,
+           "k8_launches": {"forward": launches[0], "backward": launches[1]},
+           "stages_ms": stages, "traced_iteration": traced(lambda: iteration(x, state)),
+           "setup_s": setup_s, "mean_cost": sc.loss.mean().item()}
+    emit(row)
+    return launches
+
+
+def phase_planning_run():
+    """The reference's flagship run at ``PlannerConfig()`` defaults, end to
+    end through ``run_optimisation`` and ``evaluate_trajectory``."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_planning_problem
+    from sigsvgd_tpu_torch.experiments.planning import (
+        PlannerConfig, create_body_points, evaluate_trajectory, run_optimisation,
+    )
+    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+
+    cfg = PlannerConfig()
+    problem = build_planning_problem(device="cuda", timesteps=cfg.timesteps)
+    mc.mxu_chain_fwd.launches = mc.mxu_chain_bwd.launches = 0
+    t0 = time.perf_counter()
+    x, data = run_optimisation(problem, cfg,
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches)
+    ev = evaluate_trajectory(problem, x)
+    cost0, cost1 = data.loss[0].mean().item(), data.loss[-1].mean().item()
+    # every trajectory passes through both end configurations, so their own
+    # occupancy bounds the success rate (success needs max occupancy <= 0.2)
+    ends = torch.stack([problem.q_start, problem.q_target])
+    end_occ = torch.amax(problem.occupancy_fn(create_body_points(
+        problem.robot.qs_to_joints_xs(ends), problem.n_body_points)), dim=-1)
+    row = {"phase": "planning_run", "batch": cfg.batch, "n_iter": cfg.n_iter,
+           "depth": cfg.depth, "mxu_precision": cfg.mxu_precision, "wall_s": wall_s,
+           "ms_per_iter": wall_s * 1e3 / cfg.n_iter,
+           "mean_cost_first": cost0, "mean_cost_last": cost1,
+           "success_rate": ev["success"].float().mean().item(),
+           "ee_path_length_mean": ev["ee_path_length"].mean().item(),
+           "max_occ_at_start": end_occ[0].item(), "max_occ_at_target": end_occ[1].item(),
+           "k8_launches": {"forward": launches[0], "backward": launches[1]},
+           "finite": bool(torch.isfinite(x).all())}
+    emit(row)
+    if launches != (cfg.n_iter, cfg.n_iter):
+        raise AssertionError(f"planning_run: K8 launched {launches} times")
+    if not (row["finite"] and x.shape == (cfg.batch, 3, 7) and cost1 < cost0):
+        raise AssertionError(f"planning_run: the mean cost did not fall: {row}")
+    return launches
+
+
+def planning_small_vs_cpu():
+    """3 planning iterations at batch 8, T=50 on the card and on the CPU from
+    the same knots: in fp32 ("highest") and through K8 ("default", the bf16
+    twin on the CPU). Chained knots and losses at the chained-run tolerance,
+    and the first score's K and repulsion gradient at K8's."""
+    from sigsvgd_tpu_torch.experiments.planning import run_optimisation
+
+    rtol, atol = PLAN_TOL
+    for prec in ("highest", "default"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            problem, cfg, _svgd, score = planning_setup(8, timesteps=50, precision=prec,
+                                                        device=dev)
+            lower, upper = (t.cpu() for t in problem.robot.joint_limits())
+            x0 = lower + (upper - lower) * torch.rand(
+                (8, 3, 7), generator=torch.Generator().manual_seed(4))
+            x0 = x0.to(dev)
+            sc = score(x0, None)
+            cfg3 = dataclasses.replace(cfg, n_iter=3)
+            x, data = run_optimisation(problem, cfg3, x0=x0)
+            out[dev] = [t.detach().cpu() for t in (x, data.loss, sc.k_xx, sc.grad_k)]
+        (x0c, l0, k0, g0), (x1, l1, k1, g1) = out["cuda"], out["cpu"]
+        errs = {"x_abs": (x0c - x1).abs().max().item(),
+                "loss_rel": ((l0 - l1).abs() / l1.abs()).max().item(),
+                "k_scaled": ((k0 - k1).abs().max() / k1.abs().max()).item(),
+                "grad_k_scaled": ((g0 - g1).abs().max() / g1.abs().max()).item()}
+        emit({"phase": "small_solve_cuda_vs_cpu", "case": f"planning_{prec}",
+              "compared": "knots and losses after 3 iterations; first K, grad_k",
+              **errs})
+        k_tol, g_tol = (1e-5, 1e-4) if prec == "highest" else K8_TOL
+        ok = (torch.allclose(x0c, x1, rtol=rtol, atol=atol)
+              and torch.allclose(l0, l1, rtol=rtol, atol=atol)
+              and errs["k_scaled"] <= k_tol and errs["grad_k_scaled"] <= g_tol)
+        if not ok:
+            raise AssertionError(f"card and CPU planning disagree ({prec}): {errs}")
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel's entry; its times, error and bound are all at ``shape``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -489,6 +777,19 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]}
+
+
+def k8_entry(name, replaces, launches, row, which) -> dict:
+    """A K8 entry at the planning shape; ``launches`` from ``planning_iter``.
+    No single PyTorch call computes the chain, so ``library_ms`` is null;
+    the fp32 block propagator's forward + backward time is the reference."""
+    b = row[f"{which}_bound"]
+    return {"name": name, "route": "cuda", "source": "sigsvgd_tpu_torch/csrc/mxu_chain.cu",
+            "replaces": replaces, "shape": row["shape"], "launches": launches,
+            "max_abs_err": row["k_max_abs_err" if which == "fwd" else "dz_max_abs_err"],
+            "ms": row[f"{which}_ms"], "plain_ms": row[f"plain_{which}_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+            "reference_fp32_route_fwd_bwd_ms": row["fp32_route_fwd_bwd_ms"]}
 
 
 def main() -> int:
@@ -504,7 +805,11 @@ def main() -> int:
     k2_launches = phase_pinned()
     k9 = phase_k9()
     k9_launches = phase_policy()
+    k8 = phase_k8()
+    k8_launches = phase_planning_iter()
+    phase_planning_run()
     phase_small_vs_cpu()
+    planning_small_vs_cpu()
     emit({"kernels": [
         kernel_entry("sigkernel_block_gram_grad (K1)",
                      "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
@@ -518,6 +823,10 @@ def main() -> int:
                      "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
                      "sigsvgd_tpu/kernels/pallas_svgd.py:37",
                      k9_launches, k9),
+        k8_entry("mxu_chain_fwd (K8 forward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:107",
+                 k8_launches[0], k8, "fwd"),
+        k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",
+                 k8_launches[1], k8, "bwd"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

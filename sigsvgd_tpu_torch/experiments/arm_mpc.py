@@ -9,6 +9,10 @@ bandwidth=4.0)`` after ``calibrate_dyadic_order`` on a warm-up rollout
 (``ctrl_sig``), the same kernel pinned at order 3 (``ctrl_sig_pinned``,
 ``calibrate=False``), and the RBF kernel on the policies (``ctrl_rbf``,
 ``kernel_mode="policy"``). ``chip_smoke.py`` and the tests build them here.
+
+:func:`build_planning_problem` gives bench's second workload on the same
+arm and scene (``bench_planning_iter``): open-loop trajectory optimisation
+from the same start to the same target configuration.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from ..models.robot.panda import PandaRobot
 from ..models.robot.scene import get_scene
 from ..utils.math import clip
 from ..utils.spaces import Box
-from .planning import create_body_points, sdf_occupancy
+from .planning import PlanningProblem, create_body_points, sdf_occupancy
 
 DOF = 7
 Q_START = (0.0, 0.0, 0.0, -1.5, 0.0, 1.5, 0.0)
@@ -131,3 +135,21 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
         sig = ctrl.sig_kernel.calibrate_dyadic_order(tau0, tol=CALIBRATION_TOL)
         ctrl = dataclasses.replace(ctrl, sig_kernel=sig)
     return ArmProblem(ctrl=ctrl, calibration_bound=bound, **problem)
+
+
+def build_planning_problem(device=None, scene_tag: str = "bookshelf_small",
+                           timesteps: int = 200,
+                           n_body_points: int = 10) -> PlanningProblem:
+    """The planning problem ``bench.py`` measures: the Panda from
+    ``Q_START`` to ``Q_TARGET`` through ``scene_tag`` with exact-SDF
+    occupancy, ``timesteps`` spline samples and ``n_body_points`` points per
+    arm segment."""
+    device = resolve_device(device)
+    robot = PandaRobot.create(device=device)
+    return PlanningProblem(
+        robot=robot,
+        q_start=torch.tensor(Q_START, dtype=torch.float32, device=device),
+        q_target=torch.tensor(Q_TARGET, dtype=torch.float32, device=device),
+        occupancy_fn=sdf_occupancy(get_scene(scene_tag, device=device)),
+        timesteps=timesteps, n_body_points=n_body_points,
+    )

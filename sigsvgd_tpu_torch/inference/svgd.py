@@ -1,5 +1,5 @@
 """Stein variational gradient descent (port of the part of
-``sigsvgd_tpu/inference/svgd.py`` the DuSt MPC solves run).
+``sigsvgd_tpu/inference/svgd.py`` the DuSt MPC solves and the planner run).
 
 Update rule: with score ``s_i = ∇ log p(x_i)`` and aggregated kernel
 gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
@@ -10,8 +10,11 @@ gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
 The kernel terms come with the score (``ScoreResult.k_xx``/``grad_k``,
 signature mode) or from the sampler's own analytic kernel on the particles
 (policy mode), optionally through the fused velocity kernel (K9).
-ScaledSVGD/MatrixSVGD, ``repulsion_schedule``, ``gradient_mask`` and LBFGS
-are later slices (ROADMAP.md queue 1, M7 and M10).
+``repulsion_schedule(step)`` scales the kernel gradient. :meth:`SVGD.run` is
+a Python loop over the steps (PyTorch runs eagerly, so the JAX package's
+``run_host_loop`` is the same loop and is not ported separately).
+ScaledSVGD/MatrixSVGD, the hand-rolled Adagrad, ``gradient_mask`` and LBFGS
+are later slices (ROADMAP.md queue 1, M7 and M10) and raise.
 """
 from __future__ import annotations
 
@@ -42,6 +45,15 @@ class AdamState(NamedTuple):
 class SVGDState(NamedTuple):
     opt_state: Any  # AdamState, or () for the raw lr update
     step: torch.Tensor
+
+
+class RunData(NamedTuple):
+    trace: torch.Tensor  # [n_steps + 1, n, ...] particle trajectory
+    loss: torch.Tensor  # [n_steps, ...] per-step losses
+    aux: Any  # the score's aux, stacked over the steps
+
+
+ScoreFn = Callable[[torch.Tensor, Optional[torch.Generator]], ScoreResult]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,13 +94,24 @@ class SVGD:
     """First-order SVGD sampler; ``optimizer`` is an :class:`Adam` or None
     for the raw ``lr`` update. ``kernel`` is the analytic kernel used when
     the score carries no kernel terms; ``fused_velocity`` sends a plain
-    :class:`GaussianKernel` velocity through K9."""
+    :class:`GaussianKernel` velocity through K9 (not with a
+    ``repulsion_schedule``, which scales the kernel gradient apart).
+    ``adagrad=True`` and a ``gradient_mask`` raise (ROADMAP M7)."""
 
     kernel: Any = dataclasses.field(default_factory=GaussianKernel)
     optimizer: Optional[Adam] = None
     lr: float = 1e-2
+    adagrad: bool = False
     log_prior: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    repulsion_schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    gradient_mask: Optional[torch.Tensor] = None
     fused_velocity: bool = False
+
+    def __post_init__(self):
+        if self.adagrad or self.gradient_mask is not None:
+            raise NotImplementedError(
+                "SVGD adagrad and gradient_mask are not ported yet "
+                "(ROADMAP.md queue 1, M7)")
 
     def init(self, particles: torch.Tensor) -> SVGDState:
         opt_state = self.optimizer.init(particles) if self.optimizer else ()
@@ -100,7 +123,7 @@ class SVGD:
     def _kernel_terms(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.kernel(_flat(x), _flat(x))
 
-    def velocity(self, x: torch.Tensor, score: ScoreResult
+    def velocity(self, x: torch.Tensor, score: ScoreResult, step
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stein velocity φ (particle-shaped) and the logged loss."""
         n = x.shape[0]
@@ -110,9 +133,8 @@ class SVGD:
                 xx = x.detach().requires_grad_(True)
                 (prior_grad,) = torch.autograd.grad(self.log_prior(xx).sum(), xx)
             s = s + _flat(prior_grad)
-        # the JAX package's fourth condition, no repulsion_schedule, always
-        # holds: the port has no such field yet (M7)
         use_fused = (self.fused_velocity and score.k_xx is None
+                     and self.repulsion_schedule is None
                      and type(self.kernel) is GaussianKernel)
         if use_fused:
             xf = _flat(x)
@@ -123,6 +145,8 @@ class SVGD:
                 k_xx, grad_k = score.k_xx, _flat(score.grad_k)
             else:
                 k_xx, grad_k = self._kernel_terms(x)
+            if self.repulsion_schedule is not None:
+                grad_k = grad_k * self.repulsion_schedule(step)
             phi = ((k_xx @ s - grad_k) / n).reshape(x.shape)
         loss = score.loss if score.loss is not None else torch.linalg.norm(s)
         return phi, loss
@@ -136,6 +160,44 @@ class SVGD:
 
     def step_update(self, x: torch.Tensor, state: SVGDState,
                     score: ScoreResult) -> Tuple[torch.Tensor, SVGDState]:
-        phi, _loss = self.velocity(x, score)
+        phi, _loss = self.velocity(x, score, state.step)
         x, opt_state = self.apply_update(x, -phi, state.opt_state)
         return x, SVGDState(opt_state=opt_state, step=state.step + 1)
+
+    def run(self, particles: torch.Tensor, score_fn: ScoreFn, n_steps: int,
+            generator: Optional[torch.Generator] = None,
+            state: Optional[SVGDState] = None, value_fn=None
+            ) -> Tuple[torch.Tensor, SVGDState, RunData]:
+        """``n_steps`` SVGD steps; ``score_fn(x, generator)`` scores each.
+        ``state`` threads the optimizer state across calls. Returns the final
+        particles, the state, and the trace (initial particles, then each
+        step's), the per-step losses and the stacked score aux. A
+        ``value_fn`` (for line-search optimizers) raises: LBFGS is ROADMAP
+        M10."""
+        if value_fn is not None:
+            raise NotImplementedError(
+                "value_fn feeds the LBFGS line search, not ported yet "
+                "(ROADMAP.md queue 1, M10)")
+        if state is None:
+            state = self.init(particles)
+        x = particles
+        trace, losses, auxes = [particles], [], []
+        for _ in range(n_steps):
+            score = score_fn(x, generator)
+            phi, loss = self.velocity(x, score, state.step)
+            x, opt_state = self.apply_update(x, -phi, state.opt_state)
+            state = SVGDState(opt_state=opt_state, step=state.step + 1)
+            trace.append(x)
+            losses.append(loss)
+            auxes.append(score.aux)
+        return x, state, RunData(trace=torch.stack(trace),
+                                 loss=torch.stack(losses) if losses else
+                                 torch.zeros(0, device=particles.device),
+                                 aux=_stack_aux(auxes))
+
+
+def _stack_aux(auxes):
+    """Stack the per-step aux dicts over the steps (None without aux)."""
+    if not auxes or auxes[0] is None:
+        return None
+    return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}

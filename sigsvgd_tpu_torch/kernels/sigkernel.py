@@ -1,5 +1,5 @@
 """Untruncated signature kernel via the Goursat PDE (port of the subset of
-``sigsvgd_tpu/kernels/sigkernel.py`` the MPC solve needs).
+``sigsvgd_tpu/kernels/sigkernel.py`` the MPC solves and the planner need).
 
 Discretisation, as the JAX package: with ``z = inc / 4^λ``,
 
@@ -7,23 +7,32 @@ Discretisation, as the JAX package: with ``z = inc / 4^λ``,
 
 where ``inc`` is the double difference of the static Gram on the coarse grid.
 
-``gram_and_grad`` routes by dyadic order and device, as the JAX package's
-block routes do: λ=0 goes to ``sigkernel_block.block_gram_and_grad`` (K1)
-and λ=3 to ``sigkernel_block3.block3_gram_and_grad`` (K2), each the plain
-twin on the CPU and the kernel on the card. Other orders raise: the JAX
-package takes them through its XLA wavefront and MXU routes, which are
-ROADMAP.md queue 1, M6 and M10.
+Routing (``SignatureKernel._solver_kind``), as the JAX package routes on the
+TPU: λ=0 → ``sigkernel_block.block_gram_and_grad`` (K1), λ=3 →
+``sigkernel_block3.block3_gram_and_grad`` (K2); shapes the block propagator
+takes (λ ≥ 4, at most 256 block hops) → the hop chain K8
+(``mxu_chain.solve_goursat_pde_mxu_chain``) when ``mxu_precision="default"``
+and K8 takes the shape, else the fp32 block propagator
+:func:`solve_goursat_pde_mxu`. Each kernel runs its plain twin on the CPU.
+Anything else raises naming ROADMAP M6 (the wavefront's memory-bounded
+adjoint and the streamed pair-list Gram are not ported).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.math import bw_median, relu
+from .mxu_chain import chain_supported, solve_goursat_pde_mxu_chain
 from .sigkernel_block import block_gram_and_grad
 from .sigkernel_block3 import block3_gram_and_grad
+
+_MXU_PRECISIONS = ("highest", "high", "default")
 
 
 def _pair_sq_dists(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -69,6 +78,114 @@ def solve_goursat_pde(inc: torch.Tensor, dyadic_order: int = 0) -> torch.Tensor:
     return row[gy]
 
 
+# ---------------------------------------------------------------------------
+# Block-propagator solver (high dyadic orders). Within one m×m block of fine
+# cells sharing one z the recurrence is linear with constant coefficients:
+# its south row + west column (2m+1 nodes) map to its north row + east
+# column by M(z) = Σ_d z^d M_d, with data-independent basis matrices M_d.
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=8)
+def _propagator_polys(m: int, degree: int) -> np.ndarray:
+    """Basis matrices ``M_d [degree+1, 2m+1, 2m+1]`` (float32 numpy, cached)
+    with ``out = Σ_d z^d M_d @ in`` for one m×m constant-z block:
+
+    in  = [south row nodes i=0..m] ++ [west col nodes j=1..m]
+    out = [north row nodes i=0..m] ++ [east col nodes j=1..m]
+
+    The port's own copy of the JAX package's function (float64 polynomial
+    algebra, rounded once to float32)."""
+    D = degree
+    nb = 2 * m + 1
+    a = np.zeros(D + 1)
+    a[0] = 1.0
+    if D >= 1:
+        a[1] = 0.5
+    if D >= 2:
+        a[2] = 1.0 / 12.0
+    bp = np.zeros(D + 1)
+    bp[0] = 1.0
+    if D >= 2:
+        bp[2] = -1.0 / 12.0
+
+    def pmul(p, q):
+        out = np.zeros_like(p)
+        for d in range(D + 1):
+            if q[d] != 0.0:
+                out[:, d:] += p[:, : D + 1 - d] * q[d]
+        return out
+
+    # node polynomials [nb(basis), D+1]; south row = basis e_0..e_m
+    prev = [np.zeros((nb, D + 1)) for _ in range(m + 1)]
+    for i in range(m + 1):
+        prev[i][i, 0] = 1.0
+    east = []
+    for j in range(1, m + 1):
+        row = [np.zeros((nb, D + 1))]
+        row[0][m + j, 0] = 1.0  # west input node (0, j)
+        for i in range(1, m + 1):
+            row.append(pmul(prev[i] + row[i - 1], a) - pmul(prev[i - 1], bp))
+        east.append(row[m])
+        prev = row
+    outs = prev + east  # north row (i=0..m at j=m) ++ east col (j=1..m)
+    M = np.stack([np.stack([o[:, d] for o in outs]) for d in range(D + 1)])
+    return np.ascontiguousarray(M, dtype=np.float32)
+
+
+def solve_goursat_pde_mxu(inc: torch.Tensor, dyadic_order: int,
+                          degree: int = 10) -> torch.Tensor:
+    """Block-propagator PDE solve ``inc [B, lx1, ly1]`` → ``[B]`` in full
+    fp32 (the JAX package's XLA ``"mxu"`` route at ``precision="highest"``):
+    each hop is one fp32 matmul against all degree slices (TF32 stays off,
+    ``sigsvgd_tpu_torch/__init__.py``), the last input node folds in as a
+    rank-1 term, then the degree contraction with powers of z by repeated
+    multiplication. Blocks are ``m = min(64, 2^λ)`` fine cells wide.
+    Differentiable by autograd; each hop is checkpointed, so the backward
+    recomputes its ``[B, D+1, 2m+1]`` temporary."""
+    b, lx1, ly1 = inc.shape
+    lam = dyadic_order
+    m = min(64, 1 << lam)
+    sub = (1 << lam) // m
+    nbx, nby = lx1 * sub, ly1 * sub
+    Md = torch.from_numpy(_propagator_polys(m, degree)).to(inc.device)
+    D1, nb = Md.shape[0], Md.shape[1]
+    Md_main = Md[:, :, :-1].reshape(D1 * nb, nb - 1)  # [(D+1)·nb, nb-1]
+    Md_last = Md[:, :, -1]                             # [D+1, nb]
+    z = inc / float(4 ** lam)
+
+    def prop(inp, zcell):
+        pows = [torch.ones_like(zcell)]
+        for _ in range(degree):
+            pows.append(pows[-1] * zcell)
+        zp = torch.stack(pows, dim=1)  # [B, D+1]
+        tmp = (inp[:, :-1] @ Md_main.T).reshape(-1, D1, nb)
+        tmp = tmp + inp[:, -1][:, None, None] * Md_last[None]
+        return torch.einsum("bkf,bk->bf", tmp, zp)
+
+    rows = [torch.ones(b, m + 1, dtype=inc.dtype, device=inc.device)] * nbx
+    for J in range(nby):
+        west = torch.ones(b, m, dtype=inc.dtype, device=inc.device)
+        for I in range(nbx):
+            inp = torch.cat([rows[I], west], dim=-1)
+            zc = z[:, I // sub, J // sub]
+            if torch.is_grad_enabled() and (inp.requires_grad or zc.requires_grad):
+                out = checkpoint(prop, inp, zc, use_reentrant=False)
+            else:
+                out = prop(inp, zc)
+            rows[I] = out[:, : m + 1]
+            west = out[:, m + 1:]
+    return rows[-1][:, m]
+
+
+def _mxu_eligible(lx1: int, ly1: int, dyadic_order: int) -> bool:
+    if dyadic_order < 4:
+        return False
+    m = min(64, 1 << dyadic_order)
+    sub = (1 << dyadic_order) // m
+    return (lx1 * sub) * (ly1 * sub) <= 256  # unrolled block count cap
+
+
 @dataclasses.dataclass(frozen=True)
 class SignatureKernel:
     """Untruncated signature kernel with an RBF static kernel.
@@ -77,10 +194,46 @@ class SignatureKernel:
       dyadic_order: grid refinement exponent λ.
       bandwidth: fixed static-kernel bandwidth ``h`` (κ = exp(-d²/h)); if
         None, the median heuristic.
+      mxu_degree: degree of the block propagator's series in z.
+      mxu_precision: "default" sends block-propagator shapes K8 takes to the
+        hop chain (bf16 products, fp32 accumulation), as the JAX package
+        does on the TPU; "highest" and "high" take the fp32 block
+        propagator. The port has no 3-pass bf16 product, so "high" runs as
+        "highest" (full fp32).
     """
 
     dyadic_order: int = 3
     bandwidth: Optional[float] = None
+    mxu_degree: int = 10
+    mxu_precision: str = "highest"
+
+    # above this many floats for the [n, m, L, L'] static-Gram tensor the JAX
+    # package streams the Gram by pair chunks (not ported: M6)
+    _DENSE_LIMIT = 2 * 10**8
+
+    def __post_init__(self):
+        if self.mxu_precision not in _MXU_PRECISIONS:
+            raise ValueError(f"mxu_precision must be one of {_MXU_PRECISIONS}, "
+                             f"got {self.mxu_precision!r}")
+
+    def _solver_kind(self, lx1: int, ly1: int) -> str:
+        """``"block"`` (K1, λ=0), ``"block3"`` (K2, λ=3), ``"mxu_chain"``
+        (K8) or ``"mxu"`` (the fp32 block propagator); raises for shapes
+        that only the JAX package's wavefront routes take."""
+        lam = self.dyadic_order
+        if lam == 0:
+            return "block"
+        if lam == 3:
+            return "block3"
+        if _mxu_eligible(lx1, ly1, lam):
+            if self.mxu_precision == "default" and chain_supported(lx1, ly1, lam):
+                return "mxu_chain"
+            return "mxu"
+        raise NotImplementedError(
+            f"dyadic_order={lam} at {lx1 + 1}x{ly1 + 1}-node paths takes the "
+            "JAX package's XLA wavefront route with its memory-bounded adjoint, "
+            "not ported yet (ROADMAP.md queue 1, M6)"
+        )
 
     def _bandwidth_from(self, d2_flat: torch.Tensor):
         if self.bandwidth is not None:
@@ -98,24 +251,72 @@ class SignatureKernel:
         d2s = _pair_sq_dists(X[:ns], Y[:ms])
         return self._bandwidth_from(d2s.reshape(ns, -1))
 
+    def _solve(self, inc: torch.Tensor) -> torch.Tensor:
+        lx1, ly1 = inc.shape[-2:]
+        lam = self.dyadic_order
+        if _mxu_eligible(lx1, ly1, lam):
+            if self._solver_kind(lx1, ly1) == "mxu_chain":
+                return solve_goursat_pde_mxu_chain(inc, lam, self.mxu_degree)
+            return solve_goursat_pde_mxu(inc, lam, self.mxu_degree)
+        return solve_goursat_pde(inc, lam)
+
     def gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-        """Full Gram ``K [n, m]`` by the plain solver (any order)."""
+        """Full Gram ``K [n, m]`` from the dense static Gram: block-propagator
+        shapes by K8 or the fp32 propagator (differentiable), any other order
+        by the plain forward solver. Above ``_DENSE_LIMIT`` floats of static
+        Gram it raises (the JAX package streams those by pair chunks, with a
+        bandwidth estimated from a 256×256 block)."""
         n, m = X.shape[0], Y.shape[0]
+        if n * m * X.shape[1] * Y.shape[1] > self._DENSE_LIMIT:
+            raise NotImplementedError(
+                f"a {n}x{m} Gram of {X.shape[1]}- and {Y.shape[1]}-node paths is "
+                "above the dense limit; the streamed pair-list Gram that takes it "
+                "is not ported yet (ROADMAP.md queue 1, M6)"
+            )
         inc = gram_increments(self._static_gram(X, Y))
         inc = inc.reshape(n * m, X.shape[1] - 1, Y.shape[1] - 1)
-        return solve_goursat_pde(inc, self.dyadic_order).reshape(n, m)
+        return self._solve(inc).reshape(n, m)
+
+    def _dense_grad_ok(self, n: int, lx1: int) -> bool:
+        """Whether :meth:`gram_and_grad` takes the dense full-Gram route: the
+        block-propagator kinds, within the JAX package's memory guards (the
+        K8 route's z/dz temporaries, the fp32 route's checkpointed hop
+        inputs, each at most 3.5e9 bytes)."""
+        kind = self._solver_kind(lx1, lx1)
+        if kind not in ("mxu", "mxu_chain"):
+            return False
+        if n * n * (lx1 + 1) ** 2 > self._DENSE_LIMIT:
+            return False
+        if kind == "mxu_chain":
+            return n * n * 128 * 4 * 2 <= 3.5e9
+        m = min(64, 1 << self.dyadic_order)
+        sub = (1 << self.dyadic_order) // m
+        hops = (lx1 * sub) ** 2
+        return n * n * hops * (2 * m + 1) * 4 * 1.5 <= 3.5e9
 
     def gram_and_grad(self, X: torch.Tensor):
-        """``(K, ∂ΣK/∂X)`` with the second argument detached, at λ=0 (K1)
-        or λ=3 (K2); the plain twins on the CPU."""
-        routes = {0: block_gram_and_grad, 3: block3_gram_and_grad}
-        if self.dyadic_order not in routes:
+        """``(K, Σ_j ∂₁k(x_i, x_j))``: the Gram and its gradient with the
+        second argument detached. λ=0 and λ=3 take K1 and K2 (their plain
+        twins on the CPU); block-propagator shapes take the dense route,
+        ``gram(X, X.detach())`` under autograd (K8's two kernels on the card
+        at ``mxu_precision="default"``)."""
+        n, L = X.shape[0], X.shape[1]
+        kind = self._solver_kind(L - 1, L - 1)
+        if kind == "block":
+            return block_gram_and_grad(X, self._subsampled_bandwidth(X, X))
+        if kind == "block3":
+            return block3_gram_and_grad(X, self._subsampled_bandwidth(X, X))
+        if not self._dense_grad_ok(n, L - 1):
             raise NotImplementedError(
-                f"gram_and_grad at dyadic_order={self.dyadic_order} takes the "
-                "JAX package's XLA wavefront or MXU route, not ported yet "
-                "(ROADMAP.md queue 1, M6 and M10)"
+                f"gram_and_grad of {n} paths at dyadic_order={self.dyadic_order} "
+                "is above the dense route's memory guard; the gathered pair-list "
+                "route is not ported yet (ROADMAP.md queue 1, M6)"
             )
-        return routes[self.dyadic_order](X, self._subsampled_bandwidth(X, X))
+        with torch.enable_grad():
+            x = X.detach().requires_grad_(True)
+            K = self.gram(x, X.detach())
+            (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach(), dX
 
     def calibrate_dyadic_order(self, X: torch.Tensor, tol: float = 1e-3,
                                n_sample: int = 32) -> "SignatureKernel":

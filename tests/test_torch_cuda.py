@@ -5,7 +5,11 @@
 * K2 (λ=3 Gram + adjoint): K atol 1e-4, dX scaled atol 4e-4 (against the
   twin in fp64), those of ``tests/test_pallas_block3.py``;
 * K9 (fused RBF Stein velocity): rtol 2e-4, atol 5e-5, those of
-  ``tests/test_pallas_svgd.py``.
+  ``tests/test_pallas_svgd.py``;
+* K8 (the order ≥ 6 hop chain, forward and backward): K and dz scaled by
+  their max, atol 1e-3 and 2e-3 (twin and kernel round to bf16 in the same
+  places, but a hop input that differs in its last fp32 bit can round to
+  another bf16).
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -15,10 +19,13 @@ so it runs on a machine without it:
 import pytest
 import torch
 
+from sigsvgd_tpu_torch.kernels import mxu_chain as mc
 from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
 from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
-from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+from sigsvgd_tpu_torch.kernels.sigkernel import (
+    SignatureKernel, _pair_sq_dists, gram_increments,
+)
 from sigsvgd_tpu_torch.utils.math import bw_median, pw_dist_sq
 
 
@@ -111,3 +118,70 @@ def test_k9_matches_plain_twin_on_the_card(cuda_device, N, D):
     assert kv.fused_rbf_velocity.launches == before + 1
     want = kv.rbf_velocity_plain(x, s, h)
     torch.testing.assert_close(phi.cpu(), want.cpu(), rtol=2e-4, atol=5e-5)
+
+
+def _knot_increments(device, n, lam_paths=3, seed=0):
+    """Increments of the planning Gram: ``n`` knot paths [n, 3, 7] uniform
+    in ±2.5 rad, RBF statics at h = 1.5 → ``[n², 2, 2]``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = (torch.rand((n, lam_paths, 7), generator=g, device=device) - 0.5) * 5.0
+    inc = gram_increments(torch.exp(-_pair_sq_dists(X, X) / 1.5))
+    return inc.reshape(n * n, lam_paths - 1, lam_paths - 1).contiguous()
+
+
+def _clipped_normal(device, b, lx1, ly1, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((b, lx1, ly1), generator=g, device=device).clamp(-2, 2)
+
+
+def _scaled(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["planning_131072x2x2_l6", "ragged_389x4x4_l6",
+                                  "sub2_1000x2x2_l7"])
+def test_k8_matches_plain_twin_on_the_card(cuda_device, case):
+    if case.startswith("planning"):
+        inc, lam = _knot_increments(cuda_device, 363)[:131072], 6
+    elif case.startswith("ragged"):
+        inc, lam = _clipped_normal(cuda_device, 389, 4, 4), 6
+    else:
+        inc, lam = _clipped_normal(cuda_device, 1000, 2, 2), 7
+    g = torch.randn(inc.shape[0], generator=torch.Generator(device=cuda_device)
+                    .manual_seed(5), device=cuda_device)
+    before = (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches)
+    t = inc.clone().requires_grad_(True)
+    k = mc.solve_goursat_pde_mxu_chain(t, lam)
+    (d,) = torch.autograd.grad(k, t, g)
+    assert (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    tp = inc.clone().requires_grad_(True)
+    kp = mc.solve_goursat_pde_mxu_chain_plain(tp, lam)
+    (dp,) = torch.autograd.grad(kp, tp, g)
+    assert torch.isfinite(k).all() and torch.isfinite(d).all()
+    assert _scaled(k, kp) <= 1e-3
+    assert _scaled(d, dp) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_k8_raises_outside_its_envelope(cuda_device):
+    with pytest.raises(ValueError, match="block hops"):
+        mc.solve_goursat_pde_mxu_chain(torch.zeros(4, 9, 9, device=cuda_device), 6)
+    with pytest.raises(ValueError, match="dyadic_order"):
+        mc.solve_goursat_pde_mxu_chain(torch.zeros(4, 2, 2, device=cuda_device), 5)
+    with pytest.raises(ValueError, match="hops"):
+        mc.mxu_chain_fwd(torch.zeros(4, 81, device=cuda_device), 9, 9, 1, 9)
+
+
+@pytest.mark.cuda
+def test_k8_launches_once_each_per_gram_and_grad(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    X = (torch.rand((1024, 3, 7), generator=g, device=cuda_device) - 0.5) * 5.0
+    before = (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches)
+    K, dX = SignatureKernel(6, 1.5, mxu_precision="default").gram_and_grad(X)
+    torch.cuda.synchronize()
+    assert (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert K.shape == (1024, 1024) and dX.shape == (1024, 3, 7)
+    assert torch.isfinite(K).all() and torch.isfinite(dX).all()

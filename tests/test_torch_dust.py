@@ -183,7 +183,7 @@ def run_two_chained_solves(mode_name, seed=0):
             phi_j, _ = j_velocity(pol, score_j, jnp.asarray(t))
             pol_t = torch.from_numpy(_n(pol))
             score_t, _ = tctrl._score(pol_t, tq_j, prior_t)
-            phi_t, _ = tsampler.velocity(pol_t, score_t)
+            phi_t, _ = tsampler.velocity(pol_t, score_t, torch.tensor(t))
             np.testing.assert_allclose(score_t.aux["costs"].numpy(),
                                        _n(score_j.aux["costs"]), rtol=1e-5)
             if mode["kernel_mode"] == "signature":

@@ -106,10 +106,14 @@ def test_calibration_bound_and_order_match(rng):
 
 
 def test_unported_routes_raise():
-    X = torch.zeros(4, 5, 2)
-    for order in (1, 2, 4):
+    # orders 1 and 2, and order 4 beyond the block propagator's 256 hops
+    # (20² at 21-node paths), take the JAX package's wavefront route (M6);
+    # order 4 at 5-node paths is a block-propagator shape
+    # (test_torch_mxu_chain.py)
+    for order, L in ((1, 5), (2, 5), (4, 21)):
         with pytest.raises(NotImplementedError, match="M6"):
-            SignatureKernel(dyadic_order=order, bandwidth=1.0).gram_and_grad(X)
+            SignatureKernel(dyadic_order=order, bandwidth=1.0).gram_and_grad(
+                torch.zeros(4, L, 2))
     # outside K2's envelope on the card: the pair-list route K4 takes it
     # (checked where a card is: test_torch_cuda.py)
     assert not kb3.block3_supported(4, 65, 2, 1.0)
