@@ -49,10 +49,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
    mean cost at the first and last iteration (it must fall), the success
    rate and K8's launches (500 each);
-11. small solves on the card held against the same solves on the CPU, where
-   the twins replace the kernels: λ=0, λ=3, policy mode, and 3 planning
-   iterations at batch 8, T=50 in fp32 ("highest") and through K8
-   ("default", the bf16 twin on the CPU).
+11. K4 (the λ=3 pair-list forward and fp32 backward) against its twin at
+   the flagship upper-triangle pair list of [1024, 40, 2] (524,800 pairs:
+   the first and the last 16,384 held, the last solved by the later passes
+   of the backward's persistent threads, all of them timed), [77, 40, 2] ×
+   [64, 33, 2] random pairs, [40, 49, 3] (ly1 = 48) and [64, 17, 7]: K to atol 1e-4,
+   dX and dY (the pairs' gradients summed per path) scaled against the
+   twin in fp64 to atol 4e-4; times, bound, the twin's times and the
+   residuals' memory;
+12. K6 (the bf16 delta-form backward) against its bf16 twin at [128, 40, 2],
+   [77, 41, 4] and the flagship pair list, where each persistent thread
+   takes several pair couples (rel ≤ 2e-2, cos ≥ 0.999), and against K4's
+   backward on the same residuals (rel < 0.25, cos > 0.98); its time
+   against K4's backward at the flagship pair list;
+13. the pinned solve with ``grad_precision="bf16"``, as phase 5, right after
+   it: K4's forward and K6 launch twice a solve, K2 and K4's backward never;
+14. ``streamed_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at [1024, 40,
+   2] × [1024, 40, 2] (1,048,576 pairs) and its gradient with respect to X:
+   time, launches, peak memory, rows 0..63 and 960..1023 held against the
+   twin;
+15. small solves on the card held against the same solves on the CPU, where
+   the twins replace the kernels: λ=0, λ=3, λ=3 with the bf16 adjoint,
+   policy mode, and 3 planning iterations at batch 8, T=50 in fp32
+   ("highest") and through K8 ("default", the bf16 twin on the CPU).
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -75,9 +94,14 @@ K2_TOL = (1e-4, 4e-4)   # K atol, dX scaled atol (tests/test_pallas_block3.py)
 K9_TOL = (2e-4, 5e-5)   # rtol, atol (tests/test_pallas_svgd.py)
 K8_TOL = (1e-3, 2e-3)   # K, dz scaled atol against the twin
 K8_FP32_TOL = (5e-3, 1e-2)  # against the fp32 route (tests/test_pallas_mxu_chain.py)
+K4_TOL = K2_TOL         # K atol, tiles' gradients scaled atol against the fp64 twin
+K6_TOL = (2e-2, 0.999)  # rel, cos against the bf16 twin
+K6_FP32_TOL = (0.25, 0.98)  # rel, cos against K4's backward (test_bf16_delta_adjoint_matches_fp32)
+BF16_SOLVE_TOL = (1e-4, 1e-2)  # K atol, grad_k scaled (tests/test_torch_dust.py, lambda3_bf16)
 PLAN_TOL = (1e-4, 1e-5)  # rtol, atol of chained planning runs (tests/test_planning.py)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+PEAK_BF16_SIMT_FLOPS = 134e12  # H100 SXM, bf16 on the CUDA cores (Hopper white paper)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
@@ -196,12 +220,11 @@ def phase_k1():
     return rows["flagship"]
 
 
-def drive_solves(phase: str, prob, counter, per_solve: int, n_solves: int,
-                 gram_stage) -> dict:
+def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage) -> dict:
     """A few chained MPC solves of ``prob`` after a warm-up, with the
-    wrapper ``counter``'s launches read around them (it must launch
-    ``per_solve`` times a solve), the stages timed apart and one more solve
-    traced."""
+    launches of each wrapper in ``counters`` read around them (each must
+    launch its given number of times a solve), the stages timed apart and
+    one more solve traced."""
     ctrl = prob.ctrl
     t0 = time.perf_counter()
     cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(1))
@@ -211,7 +234,8 @@ def drive_solves(phase: str, prob, counter, per_solve: int, n_solves: int,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    counter.launches = 0
+    for counter in counters:
+        counter.launches = 0
     finite = True
     solve_ms = []
     for _ in range(n_solves):
@@ -223,16 +247,17 @@ def drive_solves(phase: str, prob, counter, per_solve: int, n_solves: int,
         finite &= bool(torch.isfinite(a_seq).all()
                        and torch.isfinite(cs.pol_mean).all()
                        and torch.isfinite(data.costs).all())
-    launches = counter.launches
+    launches = {c.__name__: c.launches for c in counters}
     shapes = (tuple(a_seq.shape), tuple(cs.pol_mean.shape), tuple(data.costs.shape))
     if shapes != ((ctrl.hz_len, 7), (ctrl.n_pol, ctrl.hz_len, 7),
                   (OPT_STEPS, ctrl.n_pol)):
         raise AssertionError(f"{phase}: unexpected output shapes {shapes}")
     if not finite:
         raise AssertionError(f"{phase}: non-finite output")
-    if launches != per_solve * n_solves:
-        raise AssertionError(f"{phase}: {counter.__name__} launched {launches} "
-                             f"times in {n_solves} solves")
+    want = {c.__name__: per_solve * n_solves for c, per_solve in counters.items()}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches} in {n_solves} solves, "
+                             f"expected {want}")
 
     # the stages bench.py separates, timed apart (launches not counted)
     pol0 = cs.pol_mean
@@ -249,7 +274,7 @@ def drive_solves(phase: str, prob, counter, per_solve: int, n_solves: int,
            "kernel_mode": ctrl.kernel_mode,
            "ms_per_solve_median": statistics.median(solve_ms),
            "ms_per_solve_samples": solve_ms, "launches": launches,
-           "counter": counter.__name__, "stages_ms": stages,
+           "stages_ms": stages,
            "traced_solve": traced_solve(ctrl, state, cs),
            "setup_s": setup_s, "final_cost_min": data.costs[-1].min().item(),
            "finite": finite}
@@ -274,8 +299,9 @@ def phase_flagship():
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
     if prob.ctrl.sig_kernel.dyadic_order != 0:
         raise AssertionError("calibration did not choose order 0")
-    return drive_solves("flagship_solve", prob, kb.block_gram_and_grad, OPT_STEPS,
-                        N_SOLVES, sig_gram_stage)["launches"]
+    row = drive_solves("flagship_solve", prob, {kb.block_gram_and_grad: OPT_STEPS},
+                       N_SOLVES, sig_gram_stage)
+    return row["launches"]["block_gram_and_grad"]
 
 
 def phase_k2():
@@ -377,14 +403,27 @@ def phase_k2():
 
 
 def phase_pinned():
+    """The pinned order-3 solve with K2, then the same solve with the bf16
+    adjoint (the pair list: K4's forward and K6), in one call."""
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
     from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 
-    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False)
-    if prob.ctrl.sig_kernel.dyadic_order != 3:
-        raise AssertionError("the pinned controller is not at order 3")
-    return drive_solves("pinned_solve", prob, kb3.block3_gram_and_grad, OPT_STEPS,
-                        N_SOLVES, sig_gram_stage)["launches"]
+    launches = {}
+    for phase, prec, counters in (
+            ("pinned_solve", "fp32",
+             {kb3.block3_gram_and_grad: OPT_STEPS, kf.fused_forward: 0,
+              kf.fused_backward: 0, kf.fused_backward_bf16: 0}),
+            ("bf16_pinned_solve", "bf16",
+             {kb3.block3_gram_and_grad: 0, kf.fused_forward: OPT_STEPS,
+              kf.fused_backward: 0, kf.fused_backward_bf16: OPT_STEPS})):
+        prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False,
+                             grad_precision=prec)
+        if prob.ctrl.sig_kernel.dyadic_order != 3:
+            raise AssertionError("the pinned controller is not at order 3")
+        row = drive_solves(phase, prob, counters, N_SOLVES, sig_gram_stage)
+        launches.update({(phase, k): v for k, v in row["launches"].items()})
+    return launches
 
 
 def phase_k9():
@@ -437,8 +476,9 @@ def phase_policy():
 
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="policy",
                          fused_velocity=True)
-    return drive_solves("policy_solve", prob, kv.fused_rbf_velocity, OPT_STEPS,
-                        N_SOLVES, velocity_stage)["launches"]
+    row = drive_solves("policy_solve", prob, {kv.fused_rbf_velocity: OPT_STEPS},
+                       N_SOLVES, velocity_stage)
+    return row["launches"]["fused_rbf_velocity"]
 
 
 def traced_solve(ctrl, state, cs) -> dict:
@@ -483,6 +523,8 @@ def phase_small_vs_cpu():
     cases = {
         "lambda0": (dict(dyadic_order=0), 3e-5, 5e-5),
         "lambda3": (dict(dyadic_order=3, calibrate=False), *K2_TOL),
+        "lambda3_bf16": (dict(dyadic_order=3, calibrate=False, grad_precision="bf16"),
+                         *BF16_SOLVE_TOL),
         "policy": (dict(kernel_mode="policy", fused_velocity=True), None, 1e-4),
     }
     for name, (kw, k_tol, g_tol) in cases.items():
@@ -768,6 +810,284 @@ def planning_small_vs_cpu():
             raise AssertionError(f"card and CPU planning disagree ({prec}): {errs}")
 
 
+def pair_tiles(X: torch.Tensor, Y: torch.Tensor, ix, iy, h: float):
+    """Scaled tiles ``[L, C, P]`` of the pairs ``(X[ix], Y[iy])``."""
+    return ((X * h ** -0.5)[ix].permute(1, 2, 0).contiguous(),
+            (Y * h ** -0.5)[iy].permute(1, 2, 0).contiguous())
+
+
+def triu_tiles(X: torch.Tensor, h: float):
+    """Scaled tiles of the upper-triangle pairs a ≤ b of ``X``, their
+    ``gram_and_grad`` seeds (1 on the diagonal, 2 off it) and indices."""
+    iu, ju = torch.triu_indices(X.shape[0], X.shape[0], device=X.device)
+    seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
+    return (*pair_tiles(X, X, iu, ju, h), seed, iu, ju)
+
+
+def scatter(d, idx, n):
+    """Per-path sums ``[n, L, C]`` (fp64) of pair-tile gradients ``d [L, C, P]``."""
+    out = torch.zeros(n, d.shape[0], d.shape[1], dtype=torch.float64, device=d.device)
+    return out.index_add_(0, idx, d.double().permute(2, 0, 1))
+
+
+def twin_in_chunks(fn, xt, yt, g, chunk):
+    """``fn(xt, yt, g)`` on ``chunk`` pairs at a time; outputs concatenated
+    along the pair axis (the last)."""
+    outs = [fn(xt[..., c0:c0 + chunk], yt[..., c0:c0 + chunk], g[c0:c0 + chunk])
+            for c0 in range(0, xt.shape[-1], chunk)]
+    return [torch.cat(o, dim=-1) for o in zip(*outs)]
+
+
+def scaled_err(got, want) -> float:
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+def rel_cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a - b).norm() / b.norm()).item(), (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_k4():
+    """K4's forward and fp32 backward against the twin at four pair lists:
+    K against the fp32 twin; dX and dY (the pairs' tile gradients summed per
+    path, as autograd returns them) against the twin in fp64, on the first
+    16,384 pairs and, where the backward's persistent threads each take
+    several pairs, also on the last 16,384, which its loop's last passes
+    solve. At the flagship list (asserted to hold more pairs than threads)
+    the times of both kernels and of the twin, the bound and the residuals'
+    memory."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h = 4.0
+    k_tol, d_tol = K4_TOL
+    rows = {}
+    cases = []
+
+    def triu_case(name, n, L, C):
+        xt, yt, seed, iu, ju = triu_tiles(smooth_paths(n, L, C, gen), h)
+        cases.append((name, [n, L, C], iu, ju, n, n, xt, yt, seed))
+
+    triu_case("flagship_triu", 1024, 40, 2)
+    Xa, Ya = smooth_paths(77, 40, 2, gen), smooth_paths(64, 33, 2, gen)
+    ia = torch.randint(0, 77, (5000,), generator=gen, device="cuda")
+    ja = torch.randint(0, 64, (5000,), generator=gen, device="cuda")
+    cases.append(("random_77x40_64x33", [[77, 40, 2], [64, 33, 2]], ia, ja, 77, 64,
+                  *pair_tiles(Xa, Ya, ia, ja, h),
+                  torch.randn(5000, generator=gen, device="cuda")))
+    triu_case("triu_40x49x3", 40, 49, 3)
+    triu_case("triu_64x17x7", 64, 17, 7)
+    for name, shape, ix, iy, nx, ny, xt, yt, g in cases:
+        P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
+        threads = kf.bwd_grid(Ly - 1, C, False, P) * kf.NT_BWD
+        hold = min(P, 16384)
+        held = torch.arange(hold, device="cuda")
+        if P > threads:
+            held = torch.cat([held, torch.arange(max(hold, P - hold), P, device="cuda")])
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+        torch.cuda.synchronize()
+        fwd_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        dx, dy = kf.fused_backward(xt, yt, ck, rc, g)
+        torch.cuda.synchronize()
+        sl = (xt[..., held], yt[..., held], g[held])
+        kp, dxp, dyp = twin_in_chunks(kf.fused_pairs_plain, *sl, 2048)
+        _, dx64, dy64 = twin_in_chunks(
+            lambda a, b, c: kf.fused_pairs_plain(a.double(), b.double(), c.double()), *sl, 2048)
+        # a pair's tile gradient is its own, so the held slice of the
+        # kernel's is the kernel's gradient of the held pairs
+        dx, dy = dx[..., held], dy[..., held]
+        ixh, iyh = ix[held], iy[held]
+        dX, dY = scatter(dx, ixh, nx), scatter(dy, iyh, ny)
+        dX64, dY64 = scatter(dx64, ixh, nx), scatter(dy64, iyh, ny)
+        k_err = (k[held] - kp).abs().max().item()
+        dx_err, dy_err = scaled_err(dX, dX64), scaled_err(dY, dY64)
+        finite = bool(torch.isfinite(k).all() and torch.isfinite(dx).all()
+                      and torch.isfinite(dy).all())
+        row = {"phase": "k4_vs_plain", "case": name, "shape": shape, "pairs": P,
+               "backward_threads": threads, "pairs_held": held.numel(),
+               "tail_held": P > threads, "h": h, "k_max_abs_err": k_err,
+               "dX_scaled_err_vs_fp64": dx_err, "dY_scaled_err_vs_fp64": dy_err,
+               "plain_dX_scaled_err_vs_fp64": scaled_err(scatter(dxp, ixh, nx), dX64),
+               "dX_max_abs_err_vs_fp64": (dX - dX64).abs().max().item(),
+               "tile_dx_scaled_err_vs_fp64": scaled_err(dx, dx64),
+               "plain_tile_dx_scaled_err_vs_fp64": scaled_err(dxp, dx64),
+               "k_range": [k.min().item(), k.max().item()],
+               "residual_mib": kf.residual_bytes(P, Lx - 1, Ly - 1) / 2**20,
+               "forward_peak_mib": fwd_peak_mib, "finite": finite}
+        del dx64, dy64, dxp, dyp
+        if name == "flagship_triu":
+            if P <= threads:
+                raise AssertionError(f"K4's backward took {P} pairs on {threads} threads: "
+                                     "its loop's later passes went unchecked")
+            row["fwd_ms"] = event_ms(lambda: kf.fused_forward(xt, yt, residuals=True), 3)
+            row["bwd_ms"] = event_ms(lambda: kf.fused_backward(xt, yt, ck, rc, g), 3)
+            row["values_only_fwd_ms"] = event_ms(
+                lambda: kf.fused_forward(xt, yt, residuals=False), 3)
+            row["blocks"] = {"backward": kf.bwd_grid(Ly - 1, C, False, P),
+                             "bf16": kf.bwd_grid(Ly - 1, C, True, P)}
+            row["plain_fwd_ms"] = event_ms(lambda: twin_in_chunks(
+                lambda a, b, c: kf.fused_forward_plain(a, b, False), xt, yt, g, 16384), 1)
+            row["plain_bwd_ms"] = event_ms(lambda: twin_in_chunks(
+                lambda a, b, c: kf.fused_backward_plain(a, b, c), xt, yt, g, 8192), 1)
+            row["fwd_bound"] = bound(kf.fused_flops(P, Lx, Ly, C)[0],
+                                     kf.fused_bytes(P, Lx, Ly, C))
+            row["bwd_bound"] = bound(kf.fused_flops(P, Lx, Ly, C, "backward")[0],
+                                     kf.fused_bytes(P, Lx, Ly, C, "backward"))
+            rows["flagship"] = dict(row, tiles=(xt, yt, g, ck, rc))
+        emit(row)
+        if not (finite and k_err <= k_tol and dx_err <= d_tol and dy_err <= d_tol):
+            raise AssertionError(f"K4 disagrees with its twin: {row}")
+    return rows["flagship"]
+
+
+def phase_k6(k4):
+    """K6 against its bf16 twin and against K4's backward on the same
+    residuals, at two small lists and at the flagship pair list, where each
+    persistent thread takes several pair couples (asserted); its time
+    against K4's backward there."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    h = 4.0
+    for n, L, C in ((128, 40, 2), (77, 41, 4)):
+        xt, yt, g = triu_tiles(smooth_paths(n, L, C, gen), h)[:3]  # P odd at n = 77
+        k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+        dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, g)
+        t0 = time.perf_counter()
+        dxp, dyp = kf.fused_backward_bf16_plain(xt, yt, ck, rc, g)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        dx32, dy32 = kf.fused_backward(xt, yt, ck, rc, g)
+        got = torch.cat([dx.flatten(), dy.flatten()])
+        rel, cos = rel_cos(got, torch.cat([dxp.flatten(), dyp.flatten()]))
+        rel32, cos32 = rel_cos(got, torch.cat([dx32.flatten(), dy32.flatten()]))
+        twin_rel32, twin_cos32 = rel_cos(torch.cat([dxp.flatten(), dyp.flatten()]),
+                                         torch.cat([dx32.flatten(), dy32.flatten()]))
+        finite = bool(torch.isfinite(dx).all() and torch.isfinite(dy).all())
+        row = {"phase": "k6_vs_plain", "shape": [n, L, C], "pairs": xt.shape[2], "h": h,
+               "rel_vs_twin": rel, "cos_vs_twin": cos,
+               "max_abs_err_vs_twin": (got - torch.cat([dxp.flatten(), dyp.flatten()])
+                                       ).abs().max().item(),
+               "rel_vs_fp32": rel32, "cos_vs_fp32": cos32,
+               "twin_rel_vs_fp32": twin_rel32, "twin_cos_vs_fp32": twin_cos32,
+               "twin_s": twin_s, "finite": finite}
+        emit(row)
+        ok = (finite and rel <= K6_TOL[0] and cos >= K6_TOL[1]
+              and rel32 < K6_FP32_TOL[0] and cos32 > K6_FP32_TOL[1])
+        if not ok:
+            raise AssertionError(f"K6 disagrees with its twin or K4's backward: {row}")
+
+    xt, yt, g, ck, rc = k4["tiles"]
+    P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
+    threads = kf.bwd_grid(Ly - 1, C, True, P) * kf.NT_BWD
+    if (P + 1) // 2 <= threads:
+        raise AssertionError(f"K6 took {(P + 1) // 2} pair couples on {threads} threads: "
+                             "its loop's later passes went unchecked")
+    dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, g)
+    got = torch.cat([dx.flatten(), dy.flatten()])
+    del dx, dy
+    dx32, dy32 = kf.fused_backward(xt, yt, ck, rc, g)
+    rel32, cos32 = rel_cos(got, torch.cat([dx32.flatten(), dy32.flatten()]))
+    del dx32, dy32
+    plain = {}
+
+    def run_plain():
+        plain["d"] = kf.fused_backward_bf16_plain(xt, yt, ck, rc, g)
+
+    plain_ms = event_ms(run_plain, 1)
+    twin = torch.cat([t.flatten() for t in plain.pop("d")])
+    rel, cos = rel_cos(got, twin)
+    fp32, bf16 = kf.fused_flops(P, Lx, Ly, C, "bf16")
+    t_ops = fp32 / PEAK_FP32_FLOPS + bf16 / PEAK_BF16_SIMT_FLOPS
+    t_bytes = kf.fused_bytes(P, Lx, Ly, C, "bf16") / PEAK_BYTES
+    row = {"phase": "k6_vs_plain", "case": "flagship_triu", "shape": [1024, 40, 2],
+           "pairs": P, "threads": threads, "rel_vs_twin": rel, "cos_vs_twin": cos,
+           "max_abs_err": (got - twin).abs().max().item(),
+           "rel_vs_fp32": rel32, "cos_vs_fp32": cos32,
+           "k6_ms": event_ms(lambda: kf.fused_backward_bf16(xt, yt, ck, rc, g), 3),
+           "k4_bwd_ms": event_ms(lambda: kf.fused_backward(xt, yt, ck, rc, g), 3),
+           "plain_ms": plain_ms, "flops": fp32, "bf16_flops": bf16,
+           "bytes": kf.fused_bytes(P, Lx, Ly, C, "bf16"),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    emit(row)
+    if not (rel <= K6_TOL[0] and cos >= K6_TOL[1]
+            and rel32 < K6_FP32_TOL[0] and cos32 > K6_FP32_TOL[1]):
+        raise AssertionError(f"K6 disagrees with its twin or K4's backward at the "
+                             f"flagship list: {row}")
+    return row
+
+
+def phase_streamed_gram():
+    """``gram(X, Y)`` above the dense limit at [1024, 40, 2] × [1024, 40, 2]
+    and its gradient with respect to X; rows 0..63 and 960..1023 held
+    against the twin (the tail's pairs fall in the last passes of K4's
+    persistent backward, asserted)."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h = 4.0
+    X, Y = smooth_paths(1024, 40, 2, gen), smooth_paths(1024, 40, 2, gen)
+    kern = SignatureKernel(dyadic_order=3, bandwidth=h)
+    counters = (kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
+
+    def run():
+        x = X.clone().requires_grad_(True)
+        K = kern.gram(x, Y)
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach(), dX
+
+    run()  # warm-up
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K, dX = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    launches = {c.__name__: c.launches for c in counters}
+    _, chunk, nb = kern._chunk_plan(39, 39, 1024 * 1024, 2, X.device)
+
+    threads = kf.bwd_grid(39, 2, False, chunk) * kf.NT_BWD
+    if chunk <= threads:
+        raise AssertionError(f"streamed_gram: {chunk} pairs a chunk on {threads} threads")
+    rows = torch.cat([torch.arange(64), torch.arange(960, 1024)]).cuda()
+    nr = rows.numel()
+    iu = rows.repeat_interleave(1024)
+    ju = torch.arange(1024, device="cuda").repeat(nr)
+    xt, yt = pair_tiles(X, Y, iu, ju, h)
+    ones = torch.ones(iu.shape[0], device="cuda")
+    (kp,) = twin_in_chunks(lambda a, b, c: kf.fused_forward_plain(a, b, False),
+                           xt, yt, ones, 8192)
+    _, dx64, _ = twin_in_chunks(
+        lambda a, b, c: kf.fused_pairs_plain(a.double(), b.double(), c.double()),
+        xt, yt, ones, 2048)
+    dX64 = scatter(dx64, torch.arange(nr, device="cuda").repeat_interleave(1024), nr) * h ** -0.5
+    k_err = (K[rows].reshape(-1) - kp).abs().max().item()
+    dx_err = scaled_err(dX[rows], dX64)
+    finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
+    row = {"phase": "streamed_gram", "shape": [[1024, 40, 2], [1024, 40, 2]],
+           "pairs": 1024 * 1024, "h": h, "chunk": chunk, "chunks": nb,
+           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "backward_threads": threads, "rows_held": [[0, 63], [960, 1023]],
+           "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
+           "k_range": [K.min().item(), K.max().item()], "finite": finite}
+    emit(row)
+    want = {"fused_forward": 2 * nb, "fused_backward": nb, "fused_backward_bf16": 0}
+    if launches != want:
+        raise AssertionError(f"streamed_gram: launches {launches}, expected {want}")
+    if not (finite and K.shape == (1024, 1024) and k_err <= K4_TOL[0]
+            and dx_err <= K4_TOL[1]):
+        raise AssertionError(f"streamed_gram disagrees with the twin: {row}")
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel's entry; its times, error and bound are all at ``shape``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -792,6 +1112,20 @@ def k8_entry(name, replaces, launches, row, which) -> dict:
             "reference_fp32_route_fwd_bwd_ms": row["fp32_route_fwd_bwd_ms"]}
 
 
+def fused_entry(name, replaces, launches, row, which, by_path) -> dict:
+    """A K4 entry at the flagship pair list; ``launches`` from the path that
+    runs it (the bf16 pinned solve for the forward, the streamed Gram for
+    the backward). No PyTorch call computes the sweep, so ``library_ms`` is
+    null."""
+    b = row[f"{which}_bound"]
+    return {"name": name, "route": "cuda", "source": "sigsvgd_tpu_torch/csrc/sigkernel_fused.cu",
+            "replaces": replaces, "shape": row["shape"], "pairs": row["pairs"],
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": row["k_max_abs_err" if which == "fwd" else "dX_max_abs_err_vs_fp64"],
+            "ms": row[f"{which}_ms"], "plain_ms": row[f"plain_{which}_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -802,12 +1136,16 @@ def main() -> int:
     k1 = phase_k1()
     k1_launches = phase_flagship()
     k2 = phase_k2()
-    k2_launches = phase_pinned()
+    pinned = phase_pinned()
     k9 = phase_k9()
     k9_launches = phase_policy()
     k8 = phase_k8()
     k8_launches = phase_planning_iter()
     phase_planning_run()
+    k4 = phase_k4()
+    k6 = phase_k6(k4)
+    k4.pop("tiles")
+    streamed = phase_streamed_gram()
     phase_small_vs_cpu()
     planning_small_vs_cpu()
     emit({"kernels": [
@@ -818,7 +1156,7 @@ def main() -> int:
         kernel_entry("sigkernel_block3_gram_grad (K2)",
                      "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
                      "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
-                     k2_launches, k2),
+                     pinned[("pinned_solve", "block3_gram_and_grad")], k2),
         kernel_entry("svgd_velocity (K9)",
                      "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
                      "sigsvgd_tpu/kernels/pallas_svgd.py:37",
@@ -827,6 +1165,23 @@ def main() -> int:
                  k8_launches[0], k8, "fwd"),
         k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",
                  k8_launches[1], k8, "bwd"),
+        fused_entry("fused_forward (K4 forward)", "sigsvgd_tpu/kernels/pallas_sigkernel.py:242",
+                    pinned[("bf16_pinned_solve", "fused_forward")], k4, "fwd",
+                    {"bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_forward")],
+                     "streamed_gram": streamed["launches"]["fused_forward"]}),
+        fused_entry("fused_backward (K4 backward)", "sigsvgd_tpu/kernels/pallas_sigkernel.py:735",
+                    streamed["launches"]["fused_backward"], k4, "bwd",
+                    {"streamed_gram": streamed["launches"]["fused_backward"],
+                     "bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_backward")]}),
+        {"name": "fused_backward_bf16 (K6)", "route": "cuda",
+         "source": "sigsvgd_tpu_torch/csrc/sigkernel_fused.cu",
+         "replaces": "sigsvgd_tpu/kernels/pallas_sigkernel.py:823", "shape": k6["shape"],
+         "launches": pinned[("bf16_pinned_solve", "fused_backward_bf16")],
+         "launches_by_path": {"bf16_pinned_solve":
+                              pinned[("bf16_pinned_solve", "fused_backward_bf16")]},
+         "max_abs_err": k6["max_abs_err"],
+         "ms": k6["k6_ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -96,13 +96,16 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
                   lr: float = 0.1, scene_tag: str = "bookshelf_small",
                   seed: int = 0, calibrate: bool = True,
                   kernel_mode: str = "signature",
-                  fused_velocity: bool = False) -> ArmProblem:
+                  fused_velocity: bool = False,
+                  grad_precision: str = "fp32") -> ArmProblem:
     """Build the flagship problem. In signature mode the kernel's order is
     calibrated on a warm-up rollout of policies drawn from ``seed`` (the
     bound is reported either way); ``calibrate=False`` keeps
-    ``dyadic_order``, as bench's pinned controller does. ``kernel_mode=
-    "policy"`` gives bench's RBF controller, with ``fused_velocity``
-    selecting K9; it has no signature kernel to calibrate."""
+    ``dyadic_order``, as bench's pinned controller does, and
+    ``grad_precision`` is the signature kernel's adjoint precision ("bf16":
+    the λ=3 pair list with K6). ``kernel_mode="policy"`` gives bench's RBF
+    controller, with ``fused_velocity`` selecting K9; it has no signature
+    kernel to calibrate."""
     device = resolve_device(device)
     robot = PandaRobot.create(device=device)
     low, high = robot.joint_limits()
@@ -122,7 +125,8 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
         return ArmProblem(ctrl=ctrl, calibration_bound=None, **problem)
     ctrl = DuSt(
         kernel_mode="signature",
-        sig_kernel=SignatureKernel(dyadic_order=dyadic_order, bandwidth=bandwidth),
+        sig_kernel=SignatureKernel(dyadic_order=dyadic_order, bandwidth=bandwidth,
+                                   grad_precision=grad_precision),
         **common,
     )
     gen = torch.Generator(device=device).manual_seed(seed)

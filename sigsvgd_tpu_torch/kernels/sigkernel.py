@@ -8,14 +8,20 @@ Discretisation, as the JAX package: with ``z = inc / 4^λ``,
 where ``inc`` is the double difference of the static Gram on the coarse grid.
 
 Routing (``SignatureKernel._solver_kind``), as the JAX package routes on the
-TPU: λ=0 → ``sigkernel_block.block_gram_and_grad`` (K1), λ=3 →
-``sigkernel_block3.block3_gram_and_grad`` (K2); shapes the block propagator
-takes (λ ≥ 4, at most 256 block hops) → the hop chain K8
-(``mxu_chain.solve_goursat_pde_mxu_chain``) when ``mxu_precision="default"``
-and K8 takes the shape, else the fp32 block propagator
-:func:`solve_goursat_pde_mxu`. Each kernel runs its plain twin on the CPU.
-Anything else raises naming ROADMAP M6 (the wavefront's memory-bounded
-adjoint and the streamed pair-list Gram are not ported).
+TPU: λ=0 → ``sigkernel_block.block_gram_and_grad`` (K1); λ=3 with ly1 ≤ 48
+→ the ``"pallas"`` kind: ``gram_and_grad`` takes
+``sigkernel_block3.block3_gram_and_grad`` (K2) at ``grad_precision="fp32"``
+inside K2's envelope, else the gathered upper-triangle pair list through
+``sigkernel_fused`` (K4's forward, then K4's fp32 backward or, at
+``grad_precision="bf16"`` inside JAX's bf16 envelope, K6); ``gram`` above
+``_DENSE_LIMIT`` streams pair chunks through K4, and so does the dense λ=3
+``gram`` on the card. Shapes the block propagator takes (λ ≥ 4, at most 256
+block hops) → the hop chain K8 (``mxu_chain.solve_goursat_pde_mxu_chain``)
+when ``mxu_precision="default"`` and K8 takes the shape, else the fp32 block
+propagator :func:`solve_goursat_pde_mxu`. Each kernel runs its plain twin on
+the CPU. What the slice does not port raises naming its ROADMAP item: the
+wavefront (M6), the λ=0 pair list (K7), the pair solve on given increments
+(K5).
 """
 from __future__ import annotations
 
@@ -30,9 +36,13 @@ from torch.utils.checkpoint import checkpoint
 from ..utils.math import bw_median, relu
 from .mxu_chain import chain_supported, solve_goursat_pde_mxu_chain
 from .sigkernel_block import block_gram_and_grad
-from .sigkernel_block3 import block3_gram_and_grad
+from .sigkernel_block3 import block3_gram_and_grad, block3_supported
+from .sigkernel_fused import (
+    chunk_pair_bytes, fused_supported, pair_gram_fused, pallas_supported,
+)
 
 _MXU_PRECISIONS = ("highest", "high", "default")
+_GRAD_PRECISIONS = ("fp32", "bf16")
 
 
 def _pair_sq_dists(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -200,35 +210,45 @@ class SignatureKernel:
         does on the TPU; "highest" and "high" take the fp32 block
         propagator. The port has no 3-pass bf16 product, so "high" runs as
         "highest" (full fp32).
+      grad_precision: adjoint of the λ=3 pair-list route: "fp32" (K4's exact
+        adjoint) or "bf16" (K6's first-order delta form, gradient-grade
+        only; values are unchanged). As in the JAX package, "bf16" skips
+        the block route and falls back to the fp32 adjoint outside its
+        envelope (ly1 ≤ 40, C ≤ 4).
     """
 
     dyadic_order: int = 3
     bandwidth: Optional[float] = None
     mxu_degree: int = 10
     mxu_precision: str = "highest"
+    grad_precision: str = "fp32"
 
-    # above this many floats for the [n, m, L, L'] static-Gram tensor the JAX
-    # package streams the Gram by pair chunks (not ported: M6)
+    # above this many floats for the [n, m, L, L'] static-Gram tensor the
+    # Gram streams by pair chunks
     _DENSE_LIMIT = 2 * 10**8
 
     def __post_init__(self):
         if self.mxu_precision not in _MXU_PRECISIONS:
             raise ValueError(f"mxu_precision must be one of {_MXU_PRECISIONS}, "
                              f"got {self.mxu_precision!r}")
+        if self.grad_precision not in _GRAD_PRECISIONS:
+            raise ValueError(f"grad_precision must be one of {_GRAD_PRECISIONS}, "
+                             f"got {self.grad_precision!r}")
 
     def _solver_kind(self, lx1: int, ly1: int) -> str:
-        """``"block"`` (K1, λ=0), ``"block3"`` (K2, λ=3), ``"mxu_chain"``
-        (K8) or ``"mxu"`` (the fp32 block propagator); raises for shapes
-        that only the JAX package's wavefront routes take."""
+        """``"block"`` (K1, λ=0), ``"pallas"`` (λ=3, ly1 ≤ 48: K2 or the
+        K4/K6 pair list), ``"mxu_chain"`` (K8) or ``"mxu"`` (the fp32 block
+        propagator); raises for shapes that only the JAX package's wavefront
+        routes take."""
         lam = self.dyadic_order
         if lam == 0:
             return "block"
-        if lam == 3:
-            return "block3"
         if _mxu_eligible(lx1, ly1, lam):
             if self.mxu_precision == "default" and chain_supported(lx1, ly1, lam):
                 return "mxu_chain"
             return "mxu"
+        if pallas_supported(lx1, ly1, lam):
+            return "pallas"
         raise NotImplementedError(
             f"dyadic_order={lam} at {lx1 + 1}x{ly1 + 1}-node paths takes the "
             "JAX package's XLA wavefront route with its memory-bounded adjoint, "
@@ -243,6 +263,115 @@ class SignatureKernel:
     def _static_gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         d2 = _pair_sq_dists(X, Y)
         return torch.exp(-d2 / self._bandwidth_from(d2.reshape(X.shape[0], -1)))
+
+    def _fused_precision(self, lx1: int, ly1: int, n_channels: int, h) -> str:
+        """The adjoint a fused pair-list call gets: ``grad_precision`` inside
+        its envelope, else fp32 (JAX's silent upgrade); raises where only
+        the pair solve on given increments (K5) takes the shape."""
+        lam = self.dyadic_order
+        if fused_supported(lx1, ly1, lam, n_channels, "rbf", h, self.grad_precision):
+            return self.grad_precision
+        if fused_supported(lx1, ly1, lam, n_channels, "rbf", h):
+            return "fp32"
+        raise NotImplementedError(
+            f"{n_channels}-channel paths are outside the fused λ=3 pair-list "
+            "route; the pair solve on given increments that takes them is K5 "
+            "(ROADMAP.md queue 2)"
+        )
+
+    def _chunk_plan(self, lx1: int, ly1: int, total: int, n_channels: int, device):
+        """(solver kind, pair-chunk size, chunk count) for ``total`` pairs,
+        sized by the device: a quarter of the card's memory over each pair's
+        residuals, path tiles and gradients, or 2e9 bytes over the twin's
+        stored grids on the CPU. Never pads a short list up to the budget."""
+        kind = self._solver_kind(lx1, ly1)
+        if device.type == "cuda":
+            budget = torch.cuda.get_device_properties(device).total_memory // 4
+        else:
+            budget = 2 * 10**9
+        per_pair = chunk_pair_bytes(lx1, ly1, n_channels, device.type)
+        chunk = max(1, min(total, budget // per_pair))
+        return kind, chunk, -(-total // chunk)
+
+    @staticmethod
+    def _pad_pair_list(arrays, nb, chunk, total):
+        """Pad each 1-d array with zeros to ``nb·chunk`` (index 0, cotangent
+        0: a padded pair adds nothing) and cut it into ``[nb, chunk]``."""
+        pad = nb * chunk - total
+        if pad:
+            arrays = [torch.cat([a, a.new_zeros(pad)]) for a in arrays]
+        return [a.reshape(nb, chunk) for a in arrays]
+
+    def _block_values(self, X, Y, ixc, iyc, h) -> torch.Tensor:
+        """K values of one pair chunk by the fused route (K4)."""
+        prec = self._fused_precision(X.shape[1] - 1, Y.shape[1] - 1, X.shape[2], h)
+        return pair_gram_fused(X, Y, ixc, iyc, h, grad_precision=prec)
+
+    def _pair_values(self, X, Y, ix, iy, h) -> torch.Tensor:
+        """K values of the pair list ``(ix, iy)``, chunk by chunk; under
+        autograd each chunk is checkpointed (its backward reruns K4's
+        forward instead of keeping every chunk's residuals), as the JAX
+        package's ``jax.checkpoint`` does."""
+        lx1, ly1 = X.shape[1] - 1, Y.shape[1] - 1
+        total = ix.shape[0]
+        kind, chunk, nb = self._chunk_plan(lx1, ly1, total, X.shape[2], X.device)
+        if kind == "block":
+            raise NotImplementedError(
+                "a λ=0 Gram by pair list takes the λ=0 pair-list kernel K7, "
+                "not ported yet (ROADMAP.md queue 2)"
+            )
+        if kind != "pallas":
+            raise NotImplementedError(
+                f"a dyadic_order={self.dyadic_order} Gram by pair list takes the "
+                "JAX package's streamed block-propagator route, not ported yet "
+                "(ROADMAP.md queue 1, M6)"
+            )
+        ix, iy = self._pad_pair_list([ix, iy], nb, chunk, total)
+        grad = torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (X, Y, h))
+        outs = []
+        for c in range(nb):
+            if grad:
+                outs.append(checkpoint(self._block_values, X, Y, ix[c], iy[c], h,
+                                       use_reentrant=False))
+            else:
+                outs.append(self._block_values(X, Y, ix[c], iy[c], h))
+        return torch.cat(outs)[:total]
+
+    def _gram_chunked_pairs(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        """Streamed full Gram: nothing O(n·m·L²) is materialised; the
+        bandwidth comes from the first 256×256 path block."""
+        n, m = X.shape[0], Y.shape[0]
+        h = self._subsampled_bandwidth(X, Y)
+        idx = torch.arange(n * m, device=X.device)
+        return self._pair_values(X, Y, idx // m, idx % m, h).reshape(n, m)
+
+    def _pair_gram_and_grad(self, X: torch.Tensor, h):
+        """``(K, dX)`` from the gathered upper-triangle pair list, chunk by
+        chunk: the chunk's values by :meth:`_block_values` (K4's forward)
+        and their gradient under autograd (K4's or K6's backward) with seed
+        1 on the diagonal and 2 off it; both tiles' gradients reach dX
+        through the gathers, then ×0.5."""
+        n, L, C = X.shape
+        iu, ju = torch.triu_indices(n, n, device=X.device)
+        total = iu.shape[0]
+        _, chunk, nb = self._chunk_plan(L - 1, L - 1, total, C, X.device)
+        seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
+        ix, iy, sc = self._pad_pair_list([iu, ju, seed], nb, chunk, total)
+        x = X.detach().requires_grad_(True)
+        dX = torch.zeros_like(X)
+        vals = []
+        for c in range(nb):
+            with torch.enable_grad():
+                k = self._block_values(x, x, ix[c], iy[c], h)
+                (d,) = torch.autograd.grad(k, x, sc[c])
+            dX += d
+            vals.append(k.detach())
+        vals = torch.cat(vals)[:total]
+        K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+        K[iu, ju] = vals
+        K[ju, iu] = vals
+        return K, 0.5 * dX
 
     def _subsampled_bandwidth(self, X: torch.Tensor, Y: torch.Tensor):
         """Bandwidth from the first ``256×256`` path block (the JAX
@@ -261,20 +390,24 @@ class SignatureKernel:
         return solve_goursat_pde(inc, lam)
 
     def gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-        """Full Gram ``K [n, m]`` from the dense static Gram: block-propagator
-        shapes by K8 or the fp32 propagator (differentiable), any other order
-        by the plain forward solver. Above ``_DENSE_LIMIT`` floats of static
-        Gram it raises (the JAX package streams those by pair chunks, with a
-        bandwidth estimated from a 256×256 block)."""
+        """Full Gram ``K [n, m]``, differentiable. Above ``_DENSE_LIMIT``
+        floats of static Gram it streams pair chunks through K4, with a
+        bandwidth from the first 256×256 path block. Below it the bandwidth
+        is the median over the whole dense distance tensor; block-propagator
+        shapes go to K8 or the fp32 propagator, λ=3 to K4 over all n·m pairs
+        on the card (the plain solve on the CPU), any other order to the
+        plain forward solver."""
         n, m = X.shape[0], Y.shape[0]
+        lx1, ly1 = X.shape[1] - 1, Y.shape[1] - 1
         if n * m * X.shape[1] * Y.shape[1] > self._DENSE_LIMIT:
-            raise NotImplementedError(
-                f"a {n}x{m} Gram of {X.shape[1]}- and {Y.shape[1]}-node paths is "
-                "above the dense limit; the streamed pair-list Gram that takes it "
-                "is not ported yet (ROADMAP.md queue 1, M6)"
-            )
-        inc = gram_increments(self._static_gram(X, Y))
-        inc = inc.reshape(n * m, X.shape[1] - 1, Y.shape[1] - 1)
+            return self._gram_chunked_pairs(X, Y)
+        d2 = _pair_sq_dists(X, Y)
+        h = self._bandwidth_from(d2.reshape(n, -1))
+        if X.device.type == "cuda" and pallas_supported(lx1, ly1, self.dyadic_order):
+            del d2
+            idx = torch.arange(n * m, device=X.device)
+            return self._pair_values(X, Y, idx // m, idx % m, h).reshape(n, m)
+        inc = gram_increments(torch.exp(-d2 / h)).reshape(n * m, lx1, ly1)
         return self._solve(inc).reshape(n, m)
 
     def _dense_grad_ok(self, n: int, lx1: int) -> bool:
@@ -296,21 +429,32 @@ class SignatureKernel:
 
     def gram_and_grad(self, X: torch.Tensor):
         """``(K, Σ_j ∂₁k(x_i, x_j))``: the Gram and its gradient with the
-        second argument detached. λ=0 and λ=3 take K1 and K2 (their plain
-        twins on the CPU); block-propagator shapes take the dense route,
-        ``gram(X, X.detach())`` under autograd (K8's two kernels on the card
-        at ``mxu_precision="default"``)."""
-        n, L = X.shape[0], X.shape[1]
-        kind = self._solver_kind(L - 1, L - 1)
-        if kind == "block":
+        second argument detached. λ=0 takes K1; λ=3 takes K2 at fp32 inside
+        its envelope, else the pair list (K4, and K6 at bf16); the kernels'
+        plain twins on the CPU. Block-propagator shapes take the dense
+        route, ``gram(X, X.detach())`` under autograd (K8's two kernels on
+        the card at ``mxu_precision="default"``)."""
+        n, L, C = X.shape
+        if self.dyadic_order == 0:
             return block_gram_and_grad(X, self._subsampled_bandwidth(X, X))
-        if kind == "block3":
-            return block3_gram_and_grad(X, self._subsampled_bandwidth(X, X))
+        if self.dyadic_order == 3:
+            h = self._subsampled_bandwidth(X, X)
+            pallas = pallas_supported(L - 1, L - 1, 3)
+            if (self.grad_precision == "fp32" or not pallas) and block3_supported(n, L, C, h):
+                return block3_gram_and_grad(X, h)
+            if not pallas:
+                raise NotImplementedError(
+                    f"{L}-node paths with {C} channels are outside K2's envelope and "
+                    "the λ=3 pair list's (ly1 ≤ 48); the JAX package takes them by "
+                    "its XLA wavefront route, not ported yet (ROADMAP.md queue 1, M6)"
+                )
+            return self._pair_gram_and_grad(X, h)
         if not self._dense_grad_ok(n, L - 1):
             raise NotImplementedError(
                 f"gram_and_grad of {n} paths at dyadic_order={self.dyadic_order} "
                 "is above the dense route's memory guard; the gathered pair-list "
-                "route is not ported yet (ROADMAP.md queue 1, M6)"
+                "route of the block propagator is not ported yet (ROADMAP.md "
+                "queue 1, M6)"
             )
         with torch.enable_grad():
             x = X.detach().requires_grad_(True)

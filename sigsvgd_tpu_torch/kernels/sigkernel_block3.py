@@ -33,11 +33,7 @@ import torch
 
 from ._build import load
 from .sigkernel_block import _cdiv
-
-_M = 8                # fine cells per coarse cell side (2^λ)
-_ZS = 1.0 / 64.0      # z = inc / 4^λ
-_I6 = 1.0 / 6.0
-_I12 = 1.0 / 12.0
+from .sigkernel_fused import _M, fused_pairs_plain, grid_forward, pair_statics
 
 # kernel envelope and tile (csrc/sigkernel_block3.cu)
 MAX_L = 64
@@ -75,9 +71,9 @@ def block3_bytes(n: int, L: int, C: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch twin: vectorised over the pairs a ≤ b, sequential over the
-# fine grid's anti-diagonals (each cell's arithmetic is the row sweep's),
-# with an explicit adjoint on the stored grid.
+# Plain PyTorch twin: the λ=3 pair twin of ``sigkernel_fused`` on the pairs
+# a ≤ b (vectorised over the pairs, the fine grid swept by anti-diagonals,
+# an explicit adjoint on the stored grid).
 # ---------------------------------------------------------------------------
 
 
@@ -85,110 +81,10 @@ def _scale(X: torch.Tensor, h) -> torch.Tensor:
     return torch.rsqrt(torch.as_tensor(h, dtype=X.dtype, device=X.device))
 
 
-def _statics(X: torch.Tensor, h, iu: torch.Tensor, ju: torch.Tensor):
-    """Scaled paths ``x, y [L, C, P]`` of the pairs ``(iu, ju)``, their
-    static Gram ``g [L, L, P]`` and the coefficients ``z, A, B [L-1, L-1,
-    P]``."""
-    L, C = X.shape[1:]
+def _pair_tiles(X: torch.Tensor, h, iu: torch.Tensor, ju: torch.Tensor):
+    """Scaled path tiles ``x, y [L, C, P]`` of the pairs ``(iu, ju)``."""
     Xs = X * _scale(X, h)
-    x = Xs[iu].permute(1, 2, 0).contiguous()
-    y = Xs[ju].permute(1, 2, 0).contiguous()
-    d2 = torch.zeros(L, L, iu.shape[0], dtype=X.dtype, device=X.device)
-    for c in range(C):
-        d = x[:, None, c] - y[None, :, c]
-        d2 += d * d
-    g = torch.exp(-d2)
-    del d2
-    z = (((g[1:, 1:] - g[1:, :-1]) - g[:-1, 1:]) + g[:-1, :-1]) * _ZS
-    A = 1.0 + 0.5 * z + z * z * _I12
-    B = 1.0 - z * z * _I12
-    return x, y, g, z, A, B
-
-
-def _diag_cells(d: int, G: int, device):
-    """Interior nodes ``(i, d-i)`` of anti-diagonal ``d`` (1 ≤ i, j ≤ G)."""
-    ii = torch.arange(max(1, d - G), min(G, d - 1) + 1, device=device)
-    return ii, d - ii
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a·b + c`` rounded once: the fp32 product is exact in fp64."""
-    if a.dtype != torch.float32:
-        return a * b + c
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _forward(A: torch.Tensor, B: torch.Tensor, keep_grid: bool):
-    """Fine-grid solve by anti-diagonals. Returns ``k[G, G] [P]`` and, with
-    ``keep_grid``, the whole node grid ``[G+1, G+1, P]``."""
-    G = _M * A.shape[0]
-    P = A.shape[-1]
-    ones = torch.ones(G + 1, P, dtype=A.dtype, device=A.device)
-    grid = torch.ones(G + 1, G + 1, P, dtype=A.dtype, device=A.device) if keep_grid else None
-    prev2, prev1 = ones, ones    # node values on diagonals d-2 and d-1, by i
-    for d in range(2, 2 * G + 1):
-        ii, jj = _diag_cells(d, G, A.device)
-        ci, cj = (ii - 1) // _M, (jj - 1) // _M
-        # k[i, j] = (k[i, j-1] + k[i-1, j])·A - k[i-1, j-1]·B, cell (i-1, j-1)
-        val = _fma(prev1[ii] + prev1[ii - 1], A[ci, cj], -(prev2[ii - 1] * B[ci, cj]))
-        cur = ones.clone()
-        cur[ii] = val
-        if keep_grid:
-            grid[ii, jj] = val
-        prev2, prev1 = prev1, cur
-    return prev1[G], grid
-
-
-def _adjoint(A: torch.Tensor, B: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """``λ[i, j] = ∂(seed·k[G, G])/∂k[i, j]`` on the nodes 1..G, by
-    anti-diagonals from the top right:
-    ``λ[i, j] = λ[i, j+1]·A(i-1, j) + λ[i+1, j]·A(i, j-1) - λ[i+1, j+1]·B(i, j)``
-    (cell terms outside the grid are 0)."""
-    Lm1 = A.shape[0]
-    G = _M * Lm1
-    P = A.shape[-1]
-    lam = torch.zeros(G + 2, G + 2, P, dtype=A.dtype, device=A.device)
-    lam[G, G] = seed
-    top = Lm1 - 1
-    for d in range(2 * G - 1, 1, -1):
-        ii, jj = _diag_cells(d, G, A.device)
-        cim, ci = (ii - 1) // _M, (ii // _M).clamp(max=top)
-        cjm, cj = (jj - 1) // _M, (jj // _M).clamp(max=top)
-        lam[ii, jj] = ((lam[ii, jj + 1] * A[cim, cj] + lam[ii + 1, jj] * A[ci, cjm])
-                       - lam[ii + 1, jj + 1] * B[ci, cj])
-    return lam[: G + 1, : G + 1]
-
-
-def _pairs_gram_grad(X: torch.Tensor, h, iu: torch.Tensor, ju: torch.Tensor):
-    """K of the pairs ``(iu, ju)`` and their path gradients ``gx, gy [L, C,
-    P]`` (scaled paths, seeds 1 on the diagonal and 2 off it)."""
-    L = X.shape[1]
-    x, y, g, z, A, B = _statics(X, h, iu, ju)
-    seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
-    kval, k = _forward(A, B, keep_grid=True)
-    lam = _adjoint(A, B, seed)
-
-    # dz per coarse cell: Σ over its 8×8 fine cells of λ[i+1, j+1]·∂k/∂z,
-    # ∂k[i+1, j+1]/∂z = (k[i+1, j] + k[i, j+1])·(½ + z/6) + k[i, j]·z/6
-    Lm1, P = L - 1, iu.shape[0]
-    blk = (Lm1, _M, Lm1, _M, P)
-    lt = lam[1:, 1:].reshape(blk)
-    s1 = (lt * (k[1:, :-1] + k[:-1, 1:]).reshape(blk)).sum((1, 3))
-    s2 = (lt * k[:-1, :-1].reshape(blk)).sum((1, 3))
-    del k, lam, lt
-    dinc = ((0.5 + z * _I6) * s1 + (z * _I6) * s2) * _ZS
-
-    # pull back through the increments and the statics:
-    # dg[p, q] = dinc[p-1, q-1] - dinc[p-1, q] - dinc[p, q-1] + dinc[p, q]
-    dp = torch.zeros(L + 1, L + 1, P, dtype=X.dtype, device=X.device)
-    dp[1:L, 1:L] = dinc
-    dg = ((dp[:-1, :-1] - dp[:-1, 1:]) - dp[1:, :-1]) + dp[1:, 1:]
-    dd2 = -g * dg                                     # ∂/∂d², [L, L, P]
-    sw_x = dd2.sum(1)                                 # [L(p), P]
-    sw_y = dd2.sum(0)                                 # [L(q), P]
-    gx = 2.0 * (x * sw_x[:, None] - torch.einsum("pqP,qcP->pcP", dd2, y))
-    gy = 2.0 * (y * sw_y[:, None] - torch.einsum("pqP,pcP->qcP", dd2, x))
-    return kval, gx, gy
+    return Xs[iu].permute(1, 2, 0).contiguous(), Xs[ju].permute(1, 2, 0).contiguous()
 
 
 def block3_gram_and_grad_plain(X: torch.Tensor, h, pairs_per_chunk: int | None = None):
@@ -204,7 +100,8 @@ def block3_gram_and_grad_plain(X: torch.Tensor, h, pairs_per_chunk: int | None =
     dX = torch.zeros_like(X)
     for p0 in range(0, iu.shape[0], step):
         i, j = iu[p0:p0 + step], ju[p0:p0 + step]
-        kval, gx, gy = _pairs_gram_grad(X, h, i, j)
+        seed = torch.where(i == j, 1.0, 2.0).to(X.dtype)
+        kval, gx, gy = fused_pairs_plain(*_pair_tiles(X, h, i, j), seed)
         K[i, j] = kval
         K[j, i] = kval
         dX.index_add_(0, i, gx.permute(2, 0, 1))
@@ -217,8 +114,8 @@ def block3_gram_plain(X: torch.Tensor, h) -> torch.Tensor:
     diagonals per pair)."""
     n = X.shape[0]
     iu, ju = torch.triu_indices(n, n, device=X.device)
-    A, B = _statics(X, h, iu, ju)[4:]
-    kval, _ = _forward(A, B, keep_grid=False)
+    A, B = pair_statics(*_pair_tiles(X, h, iu, ju))[2:]
+    kval, _ = grid_forward(A, B, keep_grid=False)
     K = torch.empty(n, n, dtype=X.dtype, device=X.device)
     K[iu, ju] = kval
     K[ju, iu] = kval
@@ -288,8 +185,10 @@ def block3_gram_and_grad(X: torch.Tensor, h):
     n, L, C = X.shape
     if not block3_supported(n, L, C, h):
         raise NotImplementedError(
-            f"shape {(n, L, C)} is outside K2's envelope; the pair-list λ=3 "
-            "kernel that takes it is K4 in ROADMAP.md queue 2"
+            f"shape {(n, L, C)} is outside K2's envelope (C ≤ 3, L ≤ 64); "
+            "SignatureKernel.gram_and_grad sends such shapes to the λ=3 pair "
+            "list (K4), or beyond ly1 = 48 to the wavefront (ROADMAP.md queue "
+            "1, M6)"
         )
     tiles, blocks = block3_grid(n, L, C, X.device)
     n_tiles = tiles.shape[0]

@@ -9,7 +9,13 @@
 * K8 (the order ≥ 6 hop chain, forward and backward): K and dz scaled by
   their max, atol 1e-3 and 2e-3 (twin and kernel round to bf16 in the same
   places, but a hop input that differs in its last fp32 bit can round to
-  another bf16).
+  another bf16);
+* K4 (the λ=3 pair-list forward and fp32 backward): K atol 1e-4, both
+  tiles' gradients scaled atol 4e-4 against the twin in fp64, K2's;
+* K6 (the bf16 delta-form backward, C ≤ 4): against its bf16 twin rel ≤
+  2e-2 and cos ≥ 0.999 (the bf16 chains see inputs that differ from the
+  twin's in their last fp32 bit); against K4's fp32 backward rel < 0.25,
+  cos > 0.98.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -22,6 +28,7 @@ import torch
 from sigsvgd_tpu_torch.kernels import mxu_chain as mc
 from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 from sigsvgd_tpu_torch.kernels.sigkernel import (
     SignatureKernel, _pair_sq_dists, gram_increments,
@@ -68,7 +75,7 @@ def test_k1_raises_outside_its_envelope(cuda_device):
     with pytest.raises(NotImplementedError, match="M6"):
         SignatureKernel(dyadic_order=2, bandwidth=4.0).gram_and_grad(
             torch.zeros(8, 40, 2, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(NotImplementedError, match="M6"):
         SignatureKernel(dyadic_order=3, bandwidth=4.0).gram_and_grad(
             torch.zeros(8, 65, 2, device=cuda_device))
 
@@ -185,3 +192,174 @@ def test_k8_launches_once_each_per_gram_and_grad(cuda_device):
         before[0] + 1, before[1] + 1)
     assert K.shape == (1024, 1024) and dX.shape == (1024, 3, 7)
     assert torch.isfinite(K).all() and torch.isfinite(dX).all()
+
+
+def _pair_tiles(device, P, Lx, Ly, C, seed=0):
+    """Scaled tiles of ``P`` random pairs of joint-angle-like paths at
+    h = 4: ``xt [Lx, C, P]``, ``yt [Ly, C, P]``."""
+    X = _paths(device, 64, Lx, C, seed) * 0.5
+    Y = _paths(device, 64, Ly, C, seed + 1) * 0.5
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    ix = torch.randint(0, 64, (P,), generator=g, device=device)
+    iy = torch.randint(0, 64, (P,), generator=g, device=device)
+    return (X[ix].permute(1, 2, 0).contiguous(), Y[iy].permute(1, 2, 0).contiguous(),
+            torch.randn(P, generator=g, device=device))
+
+
+def _rel_cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a - b).norm() / b.norm()).item(), (a @ b / (a.norm() * b.norm())).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("Lx,Ly", [(40, 40), (23, 9)])
+def test_k4_matches_plain_twin_on_the_card(cuda_device, C, Lx, Ly):
+    xt, yt, gout = _pair_tiles(cuda_device, 300, Lx, Ly, C)
+    before = (kf.fused_forward.launches, kf.fused_backward.launches)
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    dx, dy = kf.fused_backward(xt, yt, ck, rc, gout)
+    assert (kf.fused_forward.launches, kf.fused_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    (k_values_only,) = kf.fused_forward(xt, yt, residuals=False)
+    kp, ckp, rcp = kf.fused_forward_plain(xt, yt, residuals=True)
+    _, dx64, dy64 = kf.fused_pairs_plain(xt.double(), yt.double(), gout.double())
+    torch.testing.assert_close(k, kp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(k_values_only, k, atol=0, rtol=0)
+    torch.testing.assert_close(ck, ckp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(rc, rcp, atol=1e-4, rtol=0)
+    for got, want in ((dx, dx64), (dy, dy64)):
+        scale = want.abs().max()
+        torch.testing.assert_close(got.double() / scale, want / scale, atol=4e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,Lx,Ly,P", [(C, 12, 9, 200) for C in range(1, 5)]
+                         + [(2, 40, 40, 200), (4, 41, 41, 201), (3, 41, 33, 77)])
+def test_k6_matches_plain_twin_on_the_card(cuda_device, C, Lx, Ly, P):
+    """Every instantiation (C ≤ 4) at short paths (the twin's delta chains
+    take 8·lx1·8·ly1 sequential steps), and the flagship and bf16-envelope
+    lengths; an odd pair count leaves the last thread one pair."""
+    xt, yt, gout = _pair_tiles(cuda_device, P, Lx, Ly, C, seed=3)
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    before = kf.fused_backward_bf16.launches
+    dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, gout)
+    assert kf.fused_backward_bf16.launches == before + 1
+    dxp, dyp = kf.fused_backward_bf16_plain(xt, yt, ck, rc, gout)
+    dx32, dy32 = kf.fused_backward(xt, yt, ck, rc, gout)
+    got, twin = torch.cat([dx.flatten(), dy.flatten()]), torch.cat([dxp.flatten(), dyp.flatten()])
+    fp32 = torch.cat([dx32.flatten(), dy32.flatten()])
+    rel, cos = _rel_cos(got, twin)
+    assert rel <= 2e-2 and cos >= 0.999, (rel, cos)
+    rel, cos = _rel_cos(got, fp32)
+    assert rel < 0.25 and cos > 0.98, (rel, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_backwards_solve_every_pass_of_their_persistent_loop(cuda_device, bf16):
+    """More pairs than the backward's resident threads take at once (K6:
+    pair couples), so every thread's loop runs three passes, the last a
+    partial one, and K6's last couple is a lone pair; every pair is held
+    against the twin."""
+    L, C = 6, 2
+    threads = kf.bwd_grid(L - 1, C, bf16, 1 << 24) * kf.NT_BWD
+    P = (2 if bf16 else 1) * 2 * threads + 37
+    xt, yt, gout = _pair_tiles(cuda_device, P, L, L, C, seed=5)
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    assert kf.bwd_grid(L - 1, C, bf16, P) * kf.NT_BWD == threads
+    if bf16:
+        dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, gout)
+        dxp, dyp = kf.fused_backward_bf16_plain(xt, yt, ck, rc, gout)
+        rel, cos = _rel_cos(torch.cat([dx.flatten(), dy.flatten()]),
+                            torch.cat([dxp.flatten(), dyp.flatten()]))
+        assert rel <= 2e-2 and cos >= 0.999, (rel, cos)
+        return
+    dx, dy = kf.fused_backward(xt, yt, ck, rc, gout)
+    for c0 in range(0, P, 32768):
+        sl = slice(c0, c0 + 32768)
+        _, dx64, dy64 = kf.fused_pairs_plain(xt[..., sl].double(), yt[..., sl].double(),
+                                             gout[sl].double())
+        for got, want in ((dx[..., sl], dx64), (dy[..., sl], dy64)):
+            scale = want.abs().max()
+            torch.testing.assert_close(got.double() / scale, want / scale, atol=4e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_dense_lambda3_gram_runs_k4_with_the_median_bandwidth(cuda_device, monkeypatch):
+    """``gram(X, Y)`` at λ=3 below the dense limit on the card: K4 over all
+    n·m pairs, the bandwidth the median of the whole dense distance tensor,
+    a tensor that flows through the checkpointed chunk (K4's forward twice,
+    its backward once). K against the CPU's plain solve (atol 5e-4: the
+    dense route's expanded-norm distances and K4's squared differences are
+    two fp32 formulations that round apart along the 312 × 256 fine grid;
+    K ranges over [0, 4.7] here); dX against the same route on the card with
+    the fp64 twin in the backward's place (scaled 1e-3, the JAX package's
+    tolerance for this route's gradient: the median's gradient sums all 408
+    pairs' bandwidth gradients onto one path point, and their fp32 rounding
+    with them, so the error there is a sum over pairs, not one pair's) and,
+    at a fixed bandwidth, against the CPU's plain route
+    (scaled 1e-3): the median's path point is one that the two devices'
+    last-bit distances may pick apart."""
+    X, Y = _paths(cuda_device, 24, 40, 2), _paths(cuda_device, 17, 33, 2, seed=1)
+    assert 24 * 17 * 40 * 33 <= SignatureKernel._DENSE_LIMIT
+    median, fixed = SignatureKernel(3, bandwidth=None), SignatureKernel(3, bandwidth=0.2)
+
+    def run(dev, kern):
+        x = X.to(dev, copy=True).requires_grad_(True)
+        K = kern.gram(x, Y.to(dev))
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach().cpu(), dX.cpu()
+
+    counters = (kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
+    before = [c.launches for c in counters]
+    K, dX = run(cuda_device, median)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 0]
+    assert K.shape == (24, 17) and torch.isfinite(dX).all()
+    torch.testing.assert_close(K, run("cpu", median)[0], atol=5e-4, rtol=0)
+    _assert_k_dx(*run(cuda_device, fixed), *run("cpu", fixed), k_atol=5e-4, dx_atol=1e-3)
+    monkeypatch.setattr(kf, "fused_backward", lambda xt, yt, ck, rc, g: [
+        t.float() for t in kf.fused_backward_plain(xt.double(), yt.double(), g.double())])
+    _assert_k_dx(K, dX, *run(cuda_device, median), k_atol=0, dx_atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_gram_and_grad_launches_k4_forward_and_k6_once_each(cuda_device, monkeypatch):
+    """One bf16 ``gram_and_grad`` launches K4's forward and K6 once each and
+    neither K2 nor K4's backward; its K is K2's (atol 1e-4) and its dX is
+    the same route's with K6's twin in K6's place (rel ≤ 2e-2, cos ≥
+    0.999). Against K2's fp32 dX the summed gradient of these smooth paths
+    is ~20% off, the delta-form method's error (the twin's distance from the
+    fp32 gradient is JAX's own, ``tests/test_torch_fused_bf16.py``), so that
+    is not held here."""
+    X = _paths(cuda_device, 300, 40, 2)
+    counters = (kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16,
+                kb3.block3_gram_and_grad)
+    before = [c.launches for c in counters]
+    kern = SignatureKernel(3, 4.0, grad_precision="bf16")
+    K, dX = kern.gram_and_grad(X)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 1, 0]
+    K32, _ = SignatureKernel(3, 4.0).gram_and_grad(X)   # K2
+    torch.testing.assert_close(K, K32, atol=1e-4, rtol=0)
+    monkeypatch.setattr(kf, "fused_backward_bf16", kf.fused_backward_bf16_plain)
+    _, dX_twin = kern.gram_and_grad(X)
+    rel, cos = _rel_cos(dX, dX_twin)
+    assert rel <= 2e-2 and cos >= 0.999, (rel, cos)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_raise_outside_their_envelope(cuda_device):
+    with pytest.raises(NotImplementedError, match="M6"):        # ly1 = 49
+        kf.fused_forward(torch.zeros(5, 2, 4, device=cuda_device),
+                         torch.zeros(50, 2, 4, device=cuda_device), residuals=False)
+    with pytest.raises(NotImplementedError, match="K5"):        # C = 9
+        kf.fused_forward(torch.zeros(5, 9, 4, device=cuda_device),
+                         torch.zeros(5, 9, 4, device=cuda_device), residuals=False)
+    xt = torch.zeros(5, 5, 4, device=cuda_device)               # C = 5 in bf16
+    with pytest.raises(ValueError, match="K6 takes"):
+        kf.fused_backward_bf16(xt, xt, *kf.fused_forward(xt, xt, residuals=True)[1:],
+                               torch.zeros(4, device=cuda_device))
+    with pytest.raises(NotImplementedError, match="K5"):
+        SignatureKernel(3, 4.0).gram_and_grad(torch.zeros(4, 5, 9, device=cuda_device))

@@ -22,12 +22,28 @@ also asserts that this excludes under 1% of them. The chained costs (rtol
 1e-5), Adam's first moment and the next joint state (atol 1e-5) are
 compared whole.
 
-In every mode φ is held at 1e-4, the chained policies at 2e-5 and the
+In the fp32 modes φ is held at 1e-4, the chained policies at 2e-5 and the
 first moment at 1e-5. K and grad_k by mode (``MODES``): at λ=0 atol 3e-5 and
 5e-5, those of ``test_pallas_block.py``; at λ=3 1e-4 and 4e-4, those of
 ``test_pallas_block3.py``; in policy mode the sampler's ``GaussianKernel``
 K at rtol 1e-5 and dK at rtol 1e-4, atol 1e-5, those of
 ``tests/test_kernels.py``.
+
+``lambda3_bf16`` is the pinned λ=3 solve with ``grad_precision="bf16"``:
+the JAX kernel's gathered pair list with its bf16 delta-form adjoint (K6)
+against the port's (K6's bf16 twin). Its values come from the fp32 forward,
+so costs (rtol 1e-5) and K (atol 1e-4) hold as at λ=3. Its kernel gradient
+does not: both sides round the three delta chains to bf16 (quantum 3.9e-3)
+once per operation, but not always at the same operations (XLA's CPU code
+may keep a bf16 intermediate wider), so grad_k is held scaled at 1e-2 (it
+measures 2e-3 to 3.3e-3). φ is dominated by K@s and holds at 1e-4 as in the
+fp32 modes (it measures 5e-6 to 1.2e-5 scaled). The chained policies are
+compared on the elements whose |φ| stayed above 1e-3·max|φ| in every step
+(the test asserts that this excludes under 5% of them; a 1e-2 cut would
+exclude 10% to 13%) at atol 2e-3: Adam's second step moves an element by
+about lr·(its second φ relative to its first), and on the kept elements
+those ratios carry up to ~1e-2 of relative error. Adam's first moment is
+held scaled at 1e-2.
 """
 import dataclasses
 
@@ -103,7 +119,9 @@ def _jax_ctrl(mode):
         ctrl = JDuSt(kernel_mode="signature",
                      sig_kernel=JSignatureKernel(dyadic_order=mode["order"],
                                                  bandwidth=4.0,
-                                                 solver=mode["solver"]),
+                                                 solver=mode["solver"],
+                                                 grad_precision=mode.get(
+                                                     "grad_precision", "fp32")),
                      **common)
     return ctrl, model
 
@@ -114,7 +132,8 @@ def _port_problem(mode):
                              kernel_mode="policy",
                              fused_velocity=mode["fused_velocity"])
     return build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ,
-                         dyadic_order=mode["order"], calibrate=False)
+                         dyadic_order=mode["order"], calibrate=False,
+                         grad_precision=mode.get("grad_precision", "fp32"))
 
 
 MODES = {
@@ -122,6 +141,11 @@ MODES = {
                     k_atol=3e-5, gk_atol=5e-5),
     "lambda3": dict(kernel_mode="signature", order=3, solver="pallas",
                     k_atol=1e-4, gk_atol=4e-4),
+    # the bf16 adjoint: see the module docstring
+    "lambda3_bf16": dict(kernel_mode="signature", order=3, solver="pallas",
+                         grad_precision="bf16", k_atol=1e-4, gk_atol=1e-2,
+                         keep_rel=1e-3, keep_frac=0.95, pol_atol=2e-3,
+                         mu_scaled=1e-2),
     # the sampler's own GaussianKernel: K at rtol 1e-5 and dK at rtol 1e-4,
     # atol 1e-5, as tests/test_kernels.py holds it
     "policy": dict(kernel_mode="policy", fused_velocity=False),
@@ -149,7 +173,9 @@ def run_two_chained_solves(mode_name, seed=0):
     assert tctrl.kernel_mode == mode["kernel_mode"]
     if mode["kernel_mode"] == "signature":
         assert tctrl.sig_kernel.dyadic_order == mode["order"]
+        assert tctrl.sig_kernel.grad_precision == mode.get("grad_precision", "fp32")
     jsampler, tsampler = jctrl._sampler(), tctrl._sampler()
+    phi_atol, keep_rel = mode.get("phi_atol", 1e-4), mode.get("keep_rel", 1e-4)
 
     pol0 = rng.uniform(-2.0, 2.0, size=(N_POL, HZ, DOF)).astype(np.float32)
     js = jctrl.init(jax.random.PRNGKey(0), pol_mean=jnp.asarray(pol0))
@@ -198,24 +224,28 @@ def run_two_chained_solves(mode_name, seed=0):
                 np.testing.assert_allclose(k_t.numpy(), _n(k_j), rtol=1e-5)
                 np.testing.assert_allclose(dk_t.numpy(), _n(dk_j), rtol=1e-4,
                                            atol=1e-5)
-            _scaled_close(phi_t.numpy(), _n(phi_j), 1e-4)
+            _scaled_close(phi_t.numpy(), _n(phi_j), phi_atol)
             phi = np.abs(_n(phi_j))
-            keep &= phi > 1e-4 * phi.max()
+            keep &= phi > keep_rel * phi.max()
             np.testing.assert_allclose(data_t.costs[t].numpy(), _n(data_j.costs[t]),
                                        rtol=1e-5)
 
-        assert keep.mean() > 0.99
+        assert keep.mean() > mode.get("keep_frac", 0.99)
+        pol_atol = mode.get("pol_atol", 2e-5)
         i_star = int(np.argmax(_n(data_j.pol_weights)))
         assert int(torch.argmax(data_t.pol_weights)) == i_star
         np.testing.assert_allclose(a_t.numpy()[keep[i_star]],
-                                   _n(a_j)[keep[i_star]], atol=2e-5)
+                                   _n(a_j)[keep[i_star]], atol=pol_atol)
         # the roll shifts the horizon; the repeated last step inherits the mask
         keep = np.concatenate([keep[:, 1:], keep[:, -1:]], axis=1)
         np.testing.assert_allclose(ts_new.pol_mean.numpy()[keep],
-                                   _n(js_new.pol_mean)[keep], atol=2e-5)
-        np.testing.assert_allclose(ts_new.svgd_state.opt_state.mu.numpy(),
-                                   _n(js_new.svgd_state.opt_state[0].mu),
-                                   atol=1e-5)
+                                   _n(js_new.pol_mean)[keep], atol=pol_atol)
+        mu_t = ts_new.svgd_state.opt_state.mu.numpy()
+        mu_j = _n(js_new.svgd_state.opt_state[0].mu)
+        if "mu_scaled" in mode:
+            _scaled_close(mu_t, mu_j, mode["mu_scaled"])
+        else:
+            np.testing.assert_allclose(mu_t, mu_j, atol=1e-5)
         assert int(ts_new.svgd_state.step) == int(js_new.svgd_state.step)
 
         jq = jmodel.step(jq[None], a_j[0:1])[0]
@@ -224,7 +254,8 @@ def run_two_chained_solves(mode_name, seed=0):
     np.testing.assert_allclose(tq.numpy(), _n(jq), atol=1e-5)
 
 
-@pytest.mark.parametrize("mode_name", ["lambda0", "lambda3"], ids=["0", "lambda3"])
+@pytest.mark.parametrize("mode_name", ["lambda0", "lambda3", "lambda3_bf16"],
+                         ids=["0", "lambda3", "lambda3_bf16"])
 def test_two_chained_mpc_solves_match_jax(mode_name):
     run_two_chained_solves(mode_name)
 

@@ -190,11 +190,12 @@ def test_evaluate_trajectory_matches_jax(rng, problems):
 
 def test_gram_above_the_dense_limit_raises():
     """The JAX package streams such a Gram by pair chunks with a bandwidth
-    from a 256×256 block; the port raises before computing anything."""
+    from a 256×256 block; at λ=0 those chunks take the λ=0 pair-list kernel
+    K7, which the port has not yet, so it raises before solving anything."""
     kern = SignatureKernel(dyadic_order=0, bandwidth=None)
     X = torch.zeros(1, 3, 2).expand(5000, 3, 2)  # 5000² · 3 · 4 > 2e8 floats
     Y = torch.zeros(1, 4, 2).expand(5000, 4, 2)
-    with pytest.raises(NotImplementedError, match="M6"):
+    with pytest.raises(NotImplementedError, match="K7"):
         kern.gram(X, Y)
     assert 5000 * 5000 * 12 > SignatureKernel._DENSE_LIMIT
 

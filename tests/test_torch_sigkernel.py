@@ -114,8 +114,8 @@ def test_unported_routes_raise():
         with pytest.raises(NotImplementedError, match="M6"):
             SignatureKernel(dyadic_order=order, bandwidth=1.0).gram_and_grad(
                 torch.zeros(4, L, 2))
-    # outside K2's envelope on the card: the pair-list route K4 takes it
-    # (checked where a card is: test_torch_cuda.py)
+    # outside K2's envelope and beyond the pair list's ly1 ≤ 48: the
+    # wavefront (M6; checked where a card is: test_torch_cuda.py)
     assert not kb3.block3_supported(4, 65, 2, 1.0)
 
 
