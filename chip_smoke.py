@@ -18,8 +18,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    H=40, 2 Adam SVGD steps, calibrated order 0) for a few chained MPC
    solves, with K1's launch count read around them, then the two stages of
    the solve timed apart (rollout + cost gradient; Gram + adjoint) and one
-   more solve traced with ``torch.profiler``;
-4. K2 (the λ=3 Gram + adjoint) against its twin at [128, 40, 2], a ragged
+   more solve traced with ``torch.profiler``; then τ of two rollouts of
+   fresh policy draws for phases 6 and 7;
+4. K3 (the λ=0 values-only block Gram) against its twin (atol 3e-5) and
+   against K1's K (bit for bit) at K1's three shapes, with its time beside
+   K1's at [1024, 40, 2];
+5. K7 (the λ=0 pair-list forward, values only and with its residual, and
+   its backward) against its twin at the flagship upper-triangle list of
+   [1024, 40, 2] (524,800 pairs: the first and the last 16,384 held, the
+   last in the later passes of both launches' persistent loops, asserted),
+   [77, 40, 2] × [64, 33, 2] random pairs, [40, 64, 3] (ly1 = 63),
+   [64, 41, 4] (L·C > 128) and [256, 20, 8]: k and fac to atol 3e-5, dX and
+   dY (summed per path) scaled to atol 5e-5 against the fp32 twin, each
+   also against the twin in fp64 (reported); times, bounds, the twin's
+   times and the residual's memory;
+6. ``lambda0_streamed_gram``: the calibrated flagship kernel's
+   ``gram(X, Y)`` on the two τ batches ([1024, 40, 2] × [1024, 40, 2],
+   1,048,576 pairs) with its gradient: wall time, peak memory, exactly 2 K7
+   forward and 1 K7 backward launches and no other kernel, rows 0..63 and
+   960..1023 held against the twin; K7's launches timed at that list;
+7. ``gram_sym`` of that kernel on τ [1024, 40, 2]: exactly 1 K3 launch and
+   no other kernel, K equal to K1's bit for bit;
+8. λ=0 ``gram_and_grad`` outside K1's envelope, at bench's planning knots
+   [1024, 3, 7] and at [64, 41, 4]: one K7 forward and one backward each,
+   no K1, K and dX against the same route with the twins;
+9. K2 (the λ=3 Gram + adjoint) against its twin at [128, 40, 2], a ragged
    [77, 40, 2], [40, 49, 3] and the flagship [1024, 40, 2], where each of
    K2's persistent blocks takes several tiles: K against the twin to atol
    1e-4 (the values-only twin at the flagship shape), dX scaled against the
@@ -27,29 +50,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the first launch's device memory outside the caching allocator, and the
    times of K2 and of its twin at [1024, 40, 2] (the twin by chunks of
    pairs) and at [128, 40, 2];
-5. the pinned order-3 solve (bench.py's ``ctrl_sig_pinned``: calibration
+10. the pinned order-3 solve (bench.py's ``ctrl_sig_pinned``: calibration
    off), as phase 3, with K2's launch count;
-6. K9 (the fused RBF Stein velocity) against its twin at [1024, 280] and a
+11. K9 (the fused RBF Stein velocity) against its twin at [1024, 280] and a
    ragged [333, 280] (rtol 2e-4, atol 5e-5), with its time;
-7. the policy-mode solve (bench.py's ``ctrl_rbf`` with
+12. the policy-mode solve (bench.py's ``ctrl_rbf`` with
    ``fused_velocity=True``), as phase 3, with K9's launch count;
-8. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
+13. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
    against its bf16 twin and against the fp32 block propagator at the
    planning shape [1048576, 2, 2] λ=6 (the increments of 1024 knot paths
    at h = 1.5), a ragged [389, 4, 4] λ=6 (16 hops) and [1000, 2, 2] λ=7:
    K and dz scaled by their max, atol 1e-3 / 2e-3 against the twin and
    5e-3 / 1e-2 against the fp32 route; the times of both kernels, of the
    twin and of the fp32 route, and the first launch's memory;
-9. ``planning_iter``: bench's planning shape (1024 knot particles, depth 6,
+14. ``planning_iter``: bench's planning shape (1024 knot particles, depth 6,
    ``mxu_precision="default"``, T=200, ``bookshelf_small``), 3 warm-up and
    5 timed chained SVGD iterations with K8's counters read around them
    (one forward and one backward launch per iteration), the stage split and
    one traced iteration;
-10. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()`` (20
+15. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()`` (20
    particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
    mean cost at the first and last iteration (it must fall), the success
    rate and K8's launches (500 each);
-11. K4 (the λ=3 pair-list forward and fp32 backward) against its twin at
+16. K4 (the λ=3 pair-list forward and fp32 backward) against its twin at
    the flagship upper-triangle pair list of [1024, 40, 2] (524,800 pairs:
    the first and the last 16,384 held, the last solved by the later passes
    of the backward's persistent threads, all of them timed), [77, 40, 2] ×
@@ -57,21 +80,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    dX and dY (the pairs' gradients summed per path) scaled against the
    twin in fp64 to atol 4e-4; times, bound, the twin's times and the
    residuals' memory;
-12. K6 (the bf16 delta-form backward) against its bf16 twin at [128, 40, 2],
+17. K6 (the bf16 delta-form backward) against its bf16 twin at [128, 40, 2],
    [77, 41, 4] and the flagship pair list, where each persistent thread
    takes several pair couples (rel ≤ 2e-2, cos ≥ 0.999), and against K4's
    backward on the same residuals (rel < 0.25, cos > 0.98); its time
    against K4's backward at the flagship pair list;
-13. the pinned solve with ``grad_precision="bf16"``, as phase 5, right after
+18. the pinned solve with ``grad_precision="bf16"``, as phase 10, right after
    it: K4's forward and K6 launch twice a solve, K2 and K4's backward never;
-14. ``streamed_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at [1024, 40,
+19. ``streamed_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at [1024, 40,
    2] × [1024, 40, 2] (1,048,576 pairs) and its gradient with respect to X:
    time, launches, peak memory, rows 0..63 and 960..1023 held against the
    twin;
-15. small solves on the card held against the same solves on the CPU, where
+20. small solves on the card held against the same solves on the CPU, where
    the twins replace the kernels: λ=0, λ=3, λ=3 with the bf16 adjoint,
-   policy mode, and 3 planning iterations at batch 8, T=50 in fp32
-   ("highest") and through K8 ("default", the bf16 twin on the CPU).
+   policy mode; λ=0 Grams with their gradient (the dense ``gram``,
+   ``gram_sym`` through K3 and through K7); and 3 planning iterations at
+   batch 8, T=50 in fp32 ("highest") and through K8 ("default", the bf16
+   twin on the CPU).
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -97,6 +122,8 @@ K8_FP32_TOL = (5e-3, 1e-2)  # against the fp32 route (tests/test_pallas_mxu_chai
 K4_TOL = K2_TOL         # K atol, tiles' gradients scaled atol against the fp64 twin
 K6_TOL = (2e-2, 0.999)  # rel, cos against the bf16 twin
 K6_FP32_TOL = (0.25, 0.98)  # rel, cos against K4's backward (test_bf16_delta_adjoint_matches_fp32)
+K7_TOL = (3e-5, 5e-5)   # k and fac atol, per-path gradients scaled atol (tests/test_pallas_small.py)
+K7_VALUE_TOL = (3e-5, 2e-5)  # rtol, atol of K7's values against JAX's (tests/test_pallas_small.py)
 BF16_SOLVE_TOL = (1e-4, 1e-2)  # K atol, grad_k scaled (tests/test_torch_dust.py, lambda3_bf16)
 PLAN_TOL = (1e-4, 1e-5)  # rtol, atol of chained planning runs (tests/test_planning.py)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores (NVIDIA data sheet)
@@ -148,6 +175,16 @@ def smooth_paths(n: int, L: int, C: int, gen: torch.Generator) -> torch.Tensor:
     flagship's |a|·dt), the shape of the τ paths the solve feeds K1."""
     steps = (torch.rand((n, L, C), generator=gen, device="cuda") - 0.5) * 0.2
     return torch.cumsum(steps, dim=1).contiguous()
+
+
+def warm_cpu_kernels() -> None:
+    """PyTorch picks a CPU kernel's implementation at its first call; a
+    process's first ``exp`` of a large tensor, split across threads, was seen
+    to round some elements apart from later calls (up to 7e-5 in a static
+    row), so one small call comes first: the CPU runs that hold the card's
+    results then round alike."""
+    x = torch.rand(64, 1024)
+    torch.exp(-torch.clamp_min((x + x) - 2.0 * x * x, 0.0))
 
 
 def phase_build():
@@ -301,7 +338,14 @@ def phase_flagship():
         raise AssertionError("calibration did not choose order 0")
     row = drive_solves("flagship_solve", prob, {kb.block_gram_and_grad: OPT_STEPS},
                        N_SOLVES, sig_gram_stage)
-    return row["launches"]["block_gram_and_grad"]
+    # τ of two rollouts of fresh policy draws, for the λ=0 pair-list phases
+    ctrl, taus = prob.ctrl, []
+    for seed in (11, 12):
+        cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(seed))
+        with torch.no_grad():
+            trs = ctrl._rollout_costs(prob.q_start, cs.pol_mean)[1]
+        taus.append(ctrl._tau(trs).contiguous())
+    return row["launches"]["block_gram_and_grad"], ctrl.sig_kernel, taus
 
 
 def phase_k2():
@@ -554,6 +598,42 @@ def phase_small_vs_cpu():
         if not (errs["costs_rel"] <= 1e-5 and errs["grad_scaled"] <= g_tol
                 and (k_tol is None or errs["k_abs"] <= k_tol)):
             raise AssertionError(f"card and CPU solves disagree ({name}): {errs}")
+
+
+def small_grams_vs_cpu():
+    """λ=0 Grams on the card against the CPU, where the twins replace the
+    kernels: the dense ``gram`` with its gradient (the plain solve on both
+    devices), ``gram_sym`` on the block route (K3 on the card; values only)
+    and on the pair list (K7 on the card; L·C > 128) with its gradient; K to
+    rtol 3e-5 / atol 2e-5 (K reaches 23 on the 8-channel paths, where the
+    fp32 twin itself is 5.6e-5 from fp64), the gradient scaled 5e-5."""
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    kern = SignatureKernel(0, bandwidth=None)
+    gen = torch.Generator().manual_seed(5)
+    X, Y = (torch.cumsum((torch.rand(s, generator=gen) - 0.5) * 0.4, dim=1)
+            for s in ((16, 9, 2), (7, 9, 2)))
+    Z = torch.cumsum((torch.rand((12, 17, 8), generator=gen) - 0.5) * 0.4, dim=1)
+    for name, fn, A, grad in (("lambda0_gram", lambda a: kern.gram(a, Y.to(a.device)), X, True),
+                              ("lambda0_gram_sym_block", kern.gram_sym, X, False),
+                              ("lambda0_gram_sym_pairs", kern.gram_sym, Z, True)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            a = A.to(dev, copy=True).requires_grad_(grad)
+            K = fn(a)
+            dA = torch.autograd.grad(K.sum(), a)[0] if grad else torch.zeros(1)
+            out[dev] = (K.detach().cpu(), dA.cpu())
+        (k0, g0), (k1, g1) = out["cuda"], out["cpu"]
+        errs = {"k_abs": (k0 - k1).abs().max().item(),
+                "k_rel": ((k0 - k1).abs() / k1.abs()).max().item(),
+                "k_range": [k1.min().item(), k1.max().item()]}
+        k_ok = bool(((k0 - k1).abs() <= K7_VALUE_TOL[1] + K7_VALUE_TOL[0] * k1.abs()).all())
+        if grad:
+            errs["grad_scaled"] = ((g0 - g1).abs().max() / g1.abs().max()).item()
+        emit({"phase": "small_solve_cuda_vs_cpu", "case": name, "shape": list(A.shape),
+              "compared": "K, dK/dX" if grad else "K", **errs})
+        if not (k_ok and errs.get("grad_scaled", 0.0) <= K7_TOL[1]):
+            raise AssertionError(f"card and CPU Grams disagree ({name}): {errs}")
 
 
 def knot_increments(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -1052,7 +1132,7 @@ def phase_streamed_gram():
     wall_ms = (time.perf_counter() - t0) * 1e3
     peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     launches = {c.__name__: c.launches for c in counters}
-    _, chunk, nb = kern._chunk_plan(39, 39, 1024 * 1024, 2, X.device)
+    _, chunk, nb = kern._chunk_plan(39, 39, 1024 * 1024, 2, X.device, h)
 
     threads = kf.bwd_grid(39, 2, False, chunk) * kf.NT_BWD
     if chunk <= threads:
@@ -1086,6 +1166,326 @@ def phase_streamed_gram():
             and dx_err <= K4_TOL[1]):
         raise AssertionError(f"streamed_gram disagrees with the twin: {row}")
     return row
+
+def small_twin(xt, yt, g, dtype=torch.float64):
+    """K7's twin on the pairs of ``xt``, ``yt`` in ``dtype``: ``(k, fac, dx,
+    dy)`` for cotangent ``g``."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    xt, yt, g = xt.to(dtype), yt.to(dtype), g.to(dtype)
+    k, fac = ks.small_forward_plain(xt, yt, residuals=True)
+    return (k, fac, *ks.small_backward_plain(xt, yt, fac, g))
+
+
+def time_k7(xt, yt, g, fac) -> dict:
+    """K7's three launches on the pair list ``xt``, ``yt`` (CUDA events, 3
+    runs after a warm one) and its twin's (one run by chunks of 65,536
+    pairs), with the bounds and the residual's memory."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
+
+    def twin(residuals):
+        for c0 in range(0, P, 65536):
+            c1 = min(P, c0 + 65536)
+            if residuals is None:
+                ks.small_backward_plain(xt[..., c0:c1], yt[..., c0:c1], fac[..., c0:c1],
+                                        g[c0:c1])
+            else:
+                ks.small_forward_plain(xt[..., c0:c1], yt[..., c0:c1], residuals)
+
+    out = {"fwd_ms": event_ms(lambda: ks.small_forward(xt, yt, residuals=False), 3),
+           "fwd_res_ms": event_ms(lambda: ks.small_forward(xt, yt, residuals=True), 3),
+           "bwd_ms": event_ms(lambda: ks.small_backward(xt, yt, fac, g), 3),
+           "plain_fwd_ms": event_ms(lambda: twin(False), 1),
+           "plain_fwd_res_ms": event_ms(lambda: twin(True), 1),
+           "plain_bwd_ms": event_ms(lambda: twin(None), 1),
+           "residual_mib": ks.residual_bytes(P, Lx - 1, Ly - 1) / 2**20,
+           "blocks": {"forward": ks.small_grid(Ly - 1, C, False, P),
+                      "backward": ks.small_grid(Ly - 1, C, True, P)}}
+    for part, key in (("forward", "fwd"), ("residuals", "fwd_res"), ("backward", "bwd")):
+        out[f"{key}_bound"] = bound(ks.small_flops(P, Lx, Ly, C, part),
+                                    ks.small_bytes(P, Lx, Ly, C, part))
+    return out
+
+
+def phase_k7():
+    """K7's forward (values only and with the residual) and backward against
+    the fp32 twin at five pair lists: k and fac to atol 3e-5; dX and dY (the
+    pairs' tile gradients summed per path) scaled by their max to atol
+    5e-5; each also against the twin in fp64, reported, not gated. Held
+    pairs: the first 16,384 and, where the launches' persistent threads each
+    take several pairs, the last 16,384. At the flagship list (asserted to
+    hold more pairs than either launch's threads) the times of the three
+    launches and of the twin, the bounds and the residual's memory."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h = 4.0
+    k_tol, d_tol = K7_TOL
+    rows = {}
+    cases = []
+
+    def triu_case(name, n, L, C):
+        xt, yt, seed, iu, ju = triu_tiles(smooth_paths(n, L, C, gen), h)
+        cases.append((name, [n, L, C], iu, ju, n, n, xt, yt, seed))
+
+    triu_case("flagship_triu", 1024, 40, 2)
+    Xa, Ya = smooth_paths(77, 40, 2, gen), smooth_paths(64, 33, 2, gen)
+    ia = torch.randint(0, 77, (5000,), generator=gen, device="cuda")
+    ja = torch.randint(0, 64, (5000,), generator=gen, device="cuda")
+    cases.append(("random_77x40_64x33", [[77, 40, 2], [64, 33, 2]], ia, ja, 77, 64,
+                  *pair_tiles(Xa, Ya, ia, ja, h),
+                  torch.randn(5000, generator=gen, device="cuda")))
+    triu_case("triu_40x64x3", 40, 64, 3)
+    triu_case("triu_64x41x4", 64, 41, 4)
+    triu_case("triu_256x20x8", 256, 20, 8)
+    for name, shape, ix, iy, nx, ny, xt, yt, g in cases:
+        P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
+        threads = {b: ks.small_grid(Ly - 1, C, b, P) * ks.NT for b in (False, True)}
+        hold = min(P, 16384)
+        held = torch.arange(hold, device="cuda")
+        tail = P > min(threads.values())
+        if tail:
+            held = torch.cat([held, torch.arange(max(hold, P - hold), P, device="cuda")])
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (kv,) = ks.small_forward(xt, yt, residuals=False)
+        k, fac = ks.small_forward(xt, yt, residuals=True)
+        torch.cuda.synchronize()
+        fwd_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        dx, dy = ks.small_backward(xt, yt, fac, g)
+        torch.cuda.synchronize()
+        sl = (xt[..., held], yt[..., held], g[held])
+        kp, facp, dxp, dyp = small_twin(*sl, torch.float32)
+        k64, fac64, dx64, dy64 = small_twin(*sl)
+        ixh, iyh = ix[held], iy[held]
+        dX, dY = scatter(dx[..., held], ixh, nx), scatter(dy[..., held], iyh, ny)
+        dXp, dYp = scatter(dxp, ixh, nx), scatter(dyp, iyh, ny)
+        dX64, dY64 = scatter(dx64, ixh, nx), scatter(dy64, iyh, ny)
+        fac_h = fac[..., held]
+        k_err = (k[held] - kp).abs().max().item()
+        fac_err = (fac_h - facp).abs().max().item()
+        dx_err, dy_err = scaled_err(dX, dXp), scaled_err(dY, dYp)
+        finite = bool(torch.isfinite(k).all() and torch.isfinite(fac).all()
+                      and torch.isfinite(dx).all() and torch.isfinite(dy).all())
+        row = {"phase": "k7_vs_plain", "case": name, "shape": shape, "pairs": P,
+               "threads": {"forward": threads[False], "backward": threads[True]},
+               "pairs_held": held.numel(), "tail_held": tail, "h": h,
+               "k_max_abs_err": k_err, "fac_max_abs_err": fac_err,
+               "values_only_equal": bool(torch.equal(kv, k)),
+               "dX_scaled_err": dx_err, "dY_scaled_err": dy_err,
+               "vs_fp64": {"k": (k[held].double() - k64).abs().max().item(),
+                           "plain_k": (kp.double() - k64).abs().max().item(),
+                           "fac": (fac_h.double() - fac64).abs().max().item(),
+                           "dX_scaled": scaled_err(dX, dX64),
+                           "plain_dX_scaled": scaled_err(dXp, dX64),
+                           "dY_scaled": scaled_err(dY, dY64),
+                           "plain_dY_scaled": scaled_err(dYp, dY64)},
+               "k_range": [k.min().item(), k.max().item()],
+               "residual_mib": ks.residual_bytes(P, Lx - 1, Ly - 1) / 2**20,
+               "forward_peak_mib": fwd_peak_mib, "finite": finite}
+        del k64, fac64, dx64, dy64, fac_h
+        if name == "flagship_triu":
+            if not tail:
+                raise AssertionError(f"K7 took {P} pairs on {threads} threads: its loops' "
+                                     "later passes went unchecked")
+            row.update(time_k7(xt, yt, g, fac))
+            rows["flagship"] = row
+        emit(row)
+        ok = (finite and row["values_only_equal"] and k_err <= k_tol and fac_err <= k_tol
+              and dx_err <= d_tol and dy_err <= d_tol)
+        if not ok:
+            raise AssertionError(f"K7 disagrees with its twin: {row}")
+        del xt, yt, k, fac, dx, dy
+    return rows["flagship"]
+
+
+def phase_k3():
+    """K3 against its twin (atol 3e-5) and against K1's K (bit for bit: the
+    same staging and forward sweep) at K1's three shapes; its time beside
+    K1's and the twin's at [1024, 40, 2]."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = 4.0
+    out = None
+    for n, L, C in ((1024, 40, 2), (333, 40, 2), (40, 64, 3)):
+        X = smooth_paths(n, L, C, gen)
+        K = kb.block_gram(X, h)
+        K1, _ = kb.block_gram_and_grad(X, h)
+        Kp = kb.block_gram_plain(X, h)
+        K64 = kb.block_gram_plain(X.double(), h)
+        torch.cuda.synchronize()
+        k_err = (K - Kp).abs().max().item()
+        row = {"phase": "k3_vs_plain", "shape": [n, L, C], "h": h,
+               "k_max_abs_err": k_err, "bit_equal_k1": bool(torch.equal(K, K1)),
+               "k_err_vs_fp64": {"kernel": (K.double() - K64).abs().max().item(),
+                                 "plain": (Kp.double() - K64).abs().max().item()},
+               "finite": bool(torch.isfinite(K).all())}
+        if n == 1024:
+            row.update(kernel_ms=event_ms(lambda: kb.block_gram(X, h), 5),
+                       k1_ms=event_ms(lambda: kb.block_gram_and_grad(X, h), 3),
+                       plain_ms=event_ms(lambda: kb.block_gram_plain(X, h), 1),
+                       library_ms=None,
+                       **bound(kb.block_values_flops(n, L, C),
+                               kb.block_values_bytes(n, L, C)))
+            out = row
+        emit(row)
+        if not (row["finite"] and row["bit_equal_k1"] and k_err <= 3e-5):
+            raise AssertionError(f"K3 disagrees with K1 or its twin: {row}")
+    return out
+
+
+def lambda0_counters():
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    return (ks.small_forward, ks.small_backward, kb.block_gram, kb.block_gram_and_grad,
+            kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
+
+
+def run_counted(fn):
+    """``fn()`` once after a warm-up, with every λ=0 and pair-list counter
+    set to 0 just before and read just after: ``(out, launches, wall ms,
+    peak allocated MiB)``."""
+    fn()
+    counters = lambda0_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return out, {c.__name__: c.launches for c in counters}, wall_ms, peak_mib
+
+
+def expect_launches(phase, launches, **want):
+    want = {c.__name__: want.get(c.__name__, 0) for c in lambda0_counters()}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+
+
+def phase_lambda0_streamed_gram(kern, X, Y):
+    """The calibrated flagship kernel's ``gram(X, Y)`` on τ of two flagship
+    rollouts, [1024, 40, 2] × [1024, 40, 2] (1,048,576 pairs, above the
+    dense limit), and its gradient with respect to X: wall time, peak
+    memory, exactly 2 K7 forward and 1 K7 backward launches (one chunk) and
+    no other kernel; rows 0..63 and 960..1023 held against the twin. Then
+    K7's three launches timed at this pair list."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    h = kern.bandwidth
+    n, m = X.shape[0], Y.shape[0]
+
+    def run():
+        x = X.clone().requires_grad_(True)
+        K = kern.gram(x, Y)
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach(), dX
+
+    (K, dX), launches, wall_ms, peak_mib = run_counted(run)
+    _, chunk, nb = kern._chunk_plan(X.shape[1] - 1, Y.shape[1] - 1, n * m, X.shape[2],
+                                    X.device, h)
+    rows = torch.cat([torch.arange(64), torch.arange(n - 64, n)]).cuda()
+    nr = rows.numel()
+    iu, ju = rows.repeat_interleave(m), torch.arange(m, device="cuda").repeat(nr)
+    xt, yt = pair_tiles(X, Y, iu, ju, h)
+    ones = torch.ones(iu.shape[0], device="cuda")
+    kp, _, dxp, _ = small_twin(xt, yt, ones, torch.float32)
+    k64, _, dx64, _ = small_twin(xt, yt, ones)
+    owner = torch.arange(nr, device="cuda").repeat_interleave(m)
+    dXp = scatter(dxp, owner, nr) * h ** -0.5
+    dX64 = scatter(dx64, owner, nr) * h ** -0.5
+    k_err = (K[rows].reshape(-1) - kp).abs().max().item()
+    dx_err = scaled_err(dX[rows], dXp)
+    finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
+    row = {"phase": "lambda0_streamed_gram", "kernel": repr(kern),
+           "dx_max_abs_err": (dX[rows] - dXp).abs().max().item(),
+           "shape": [list(X.shape), list(Y.shape)], "pairs": n * m, "h": h,
+           "chunk": chunk, "chunks": nb, "wall_ms": wall_ms, "launches": launches,
+           "peak_allocated_mib": peak_mib, "rows_held": [[0, 63], [n - 64, n - 1]],
+           "k_max_abs_err": k_err, "dx_scaled_err": dx_err,
+           "vs_fp64": {"k": (K[rows].reshape(-1).double() - k64).abs().max().item(),
+                       "dX_scaled": scaled_err(dX[rows], dX64),
+                       "plain_dX_scaled": scaled_err(dXp, dX64)},
+           "k_range": [K.min().item(), K.max().item()], "finite": finite}
+    del xt, yt, kp, dxp, k64, dx64
+    expect_launches("lambda0_streamed_gram", launches, small_forward=2, small_backward=1)
+    if not (finite and K.shape == (n, m) and k_err <= K7_TOL[0] and dx_err <= K7_TOL[1]):
+        raise AssertionError(f"lambda0_streamed_gram disagrees with the twin: {row}")
+
+    # K7's launches at this pair list, timed (not counted: the path's run is above)
+    idx = torch.arange(n * m, device="cuda")
+    xt, yt = pair_tiles(X, Y, idx // m, idx % m, h)
+    del idx
+    launches_before = (ks.small_forward.launches, ks.small_backward.launches)
+    k, fac = ks.small_forward(xt, yt, residuals=True)
+    row["k7_at_this_list"] = time_k7(xt, yt, torch.ones(n * m, device="cuda"), fac)
+    ks.small_forward.launches, ks.small_backward.launches = launches_before
+    del xt, yt, k, fac
+    emit(row)
+    return row
+
+
+def phase_gram_sym(kern, X):
+    """``gram_sym`` of the calibrated flagship kernel on τ [1024, 40, 2]:
+    exactly 1 K3 launch and no other kernel, K equal to K1's K bit for bit."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+
+    K, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_sym(X))
+    K1, _ = kb.block_gram_and_grad(X, kern.bandwidth)
+    row = {"phase": "gram_sym", "kernel": repr(kern), "shape": list(X.shape),
+           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "bit_equal_k1": bool(torch.equal(K, K1)), "requires_grad": K.requires_grad,
+           "finite": bool(torch.isfinite(K).all())}
+    emit(row)
+    expect_launches("gram_sym", launches, block_gram=1)
+    if not (row["finite"] and row["bit_equal_k1"]):
+        raise AssertionError(f"gram_sym disagrees with K1: {row}")
+    return row
+
+
+def phase_lambda0_gram_and_grad():
+    """λ=0 ``gram_and_grad`` outside K1's envelope: bench's planning knots
+    ([1024, 3, 7], uniform in the Panda's joint limits, the planner's
+    bandwidth 1.5; inside the JAX package's block envelope, outside K1's) and
+    [64, 41, 4] (L·C > 128). Each launches K7's forward and backward once
+    and nothing else, and K and dX match the same route on the CPU, where
+    the twins take the kernels' place (K atol 3e-5, dX scaled 5e-5)."""
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    lower, upper = PandaRobot.create(device="cuda").joint_limits()
+    knots = lower + (upper - lower) * torch.rand((1024, 3, 7), generator=gen, device="cuda")
+    cases = (("planning_knots_c7", knots, PlannerConfig().pathsig_bw),
+             ("lc164", smooth_paths(64, 41, 4, gen), 4.0))
+    rows = {}
+    for name, X, h in cases:
+        kern = SignatureKernel(0, bandwidth=h)
+        (K, dX), launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(X))
+        Kp, dXp = (t.cuda() for t in kern.gram_and_grad(X.cpu()))
+        k_err = (K - Kp).abs().max().item()
+        dx_err = scaled_err(dX, dXp)
+        row = {"phase": "lambda0_gram_and_grad", "case": name, "shape": list(X.shape),
+               "h": h, "wall_ms": wall_ms, "launches": launches,
+               "peak_allocated_mib": peak_mib, "k_max_abs_err": k_err,
+               "dx_scaled_err": dx_err, "k_range": [K.min().item(), K.max().item()],
+               "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
+        emit(row)
+        expect_launches(f"lambda0_gram_and_grad {name}", launches,
+                        small_forward=1, small_backward=1)
+        if not (row["finite"] and k_err <= K7_TOL[0] and dx_err <= K7_TOL[1]):
+            raise AssertionError(f"λ=0 gram_and_grad disagrees with its twins: {row}")
+        rows[name] = row
+    return rows
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
@@ -1126,15 +1526,49 @@ def fused_entry(name, replaces, launches, row, which, by_path) -> dict:
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
+def small_entry(name, replaces, streamed, k7, gg0, counter) -> dict:
+    """A K7 entry at the streamed λ=0 Gram's pair list (1,048,576 pairs of
+    [40, 2] τ paths), the main path that launches it: its launches there, and
+    by path; its times, the twin's and the bound at that list (the forward
+    with its residual, as the gradient's run takes it; the values-only time
+    beside it); the error against the twin on the held rows. The flagship
+    triangle list's times are in ``k7_vs_plain``. No PyTorch call computes
+    the sweep, so ``library_ms`` is null."""
+    t = streamed["k7_at_this_list"]
+    which = "fwd_res" if counter == "small_forward" else "bwd"
+    entry = {"name": name, "route": "cuda", "source": "sigsvgd_tpu_torch/csrc/sigkernel_small.cu",
+             "replaces": replaces, "shape": streamed["shape"], "pairs": streamed["pairs"],
+             "launches": streamed["launches"][counter],
+             "launches_by_path": {"lambda0_streamed_gram": streamed["launches"][counter],
+                                  **{f"lambda0_gram_and_grad {c}": r["launches"][counter]
+                                     for c, r in gg0.items()}},
+             "max_abs_err": streamed["k_max_abs_err" if which == "fwd_res"
+                                     else "dx_max_abs_err"],
+             "ms": t[f"{which}_ms"], "plain_ms": t[f"plain_{which}_ms"],
+             "bound_ms": t[f"{which}_bound"]["bound_ms"],
+             "bound_by": t[f"{which}_bound"]["bound_by"], "library_ms": None,
+             "flagship_triu_ms": k7[f"{which}_ms"]}
+    if which == "fwd_res":
+        entry["values_only_ms"] = t["fwd_ms"]
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import sigsvgd_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
 
+    warm_cpu_kernels()
     phase_build()
     k1 = phase_k1()
-    k1_launches = phase_flagship()
+    k1_launches, kern0, taus = phase_flagship()
+    k3 = phase_k3()
+    k7 = phase_k7()
+    streamed0 = phase_lambda0_streamed_gram(kern0, *taus)
+    sym = phase_gram_sym(kern0, taus[0])
+    gg0 = phase_lambda0_gram_and_grad()
+    del taus
     k2 = phase_k2()
     pinned = phase_pinned()
     k9 = phase_k9()
@@ -1147,6 +1581,7 @@ def main() -> int:
     k4.pop("tiles")
     streamed = phase_streamed_gram()
     phase_small_vs_cpu()
+    small_grams_vs_cpu()
     planning_small_vs_cpu()
     emit({"kernels": [
         kernel_entry("sigkernel_block_gram_grad (K1)",
@@ -1173,6 +1608,16 @@ def main() -> int:
                     streamed["launches"]["fused_backward"], k4, "bwd",
                     {"streamed_gram": streamed["launches"]["fused_backward"],
                      "bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_backward")]}),
+        kernel_entry("sigkernel_block_gram (K3)",
+                     "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
+                     "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:291",
+                     sym["launches"]["block_gram"], k3),
+        small_entry("small_forward (K7 forward)",
+                    "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:88", streamed0, k7, gg0,
+                    "small_forward"),
+        small_entry("small_backward (K7 backward)",
+                    "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:174", streamed0, k7, gg0,
+                    "small_backward"),
         {"name": "fused_backward_bf16 (K6)", "route": "cuda",
          "source": "sigsvgd_tpu_torch/csrc/sigkernel_fused.cu",
          "replaces": "sigsvgd_tpu/kernels/pallas_sigkernel.py:823", "shape": k6["shape"],

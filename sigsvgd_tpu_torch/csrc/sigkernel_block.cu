@@ -1,8 +1,11 @@
-// λ=0 symmetric signature-kernel Gram + full-sum pull-back gradient (K1).
+// λ=0 symmetric signature-kernel Gram + full-sum pull-back gradient (K1),
+// and the values-only Gram (K3).
 //
-// Replaces the TPU kernel sigsvgd_tpu/kernels/pallas_sigkernel_block.py::
-// _block_kernel (launched by _block_call). Contract, as block_gram_and_grad
-// there: for paths X [n, L, C] fp32 and static bandwidth h,
+// K1 replaces the TPU kernel sigsvgd_tpu/kernels/pallas_sigkernel_block.py::
+// _block_kernel (launched by _block_call); K3 replaces ::_block_values_kernel
+// (launched by block_gram), K1's forward without checkpoints or adjoint.
+// Contract, as block_gram_and_grad there: for paths X [n, L, C] fp32 and
+// static bandwidth h,
 //   K  [n, n]    the λ=0 Goursat-PDE signature kernel with the RBF static
 //                kernel exp(-|x_p - y_q|^2 / h), written to [a,b] and [b,a];
 //   dX [n, L, C] = ½ ∂(Σ_ab K_ab)/∂X, the detached-second-argument repulsion.
@@ -34,6 +37,9 @@
 //   * gradients reduce deterministically: per-thread slots in shared memory,
 //     a fixed-order sum per block into per-tile partials, and a second small
 //     kernel that sums the partials of each particle in tile order.
+// K3 is the same staging and the same forward sweep (one device function,
+// so its K equals K1's bit for bit) with nothing stored for an adjoint: its
+// operations bound it (~1.5e10 at [1024, 40, 2], 0.2 ms at 67 TFLOP/s).
 // Speed work (warp-level row pipelining, register blocking) comes later.
 
 #include <cuda_runtime.h>
@@ -100,6 +106,99 @@ __device__ __forceinline__ void pull_back(float D, float gh, float gl,
   }
 }
 
+// Stage the tile's pre-scaled row paths xs [L][C][TR], column paths
+// ys [L][C][TC] and -½|y'_q|² ynh [L][TC] in shared memory.
+template <int C>
+__device__ __forceinline__ void stage_paths(const float* __restrict__ X, float scale,
+                                            float* xs, float* ys, float* ynh, int I,
+                                            int J, int n, int L, int tid) {
+  const int LC = L * C;
+  for (int e = tid; e < LC * TR; e += NT) {
+    const int rr = e / LC, k = e % LC;
+    const int a = I * TR + rr;
+    xs[k * TR + rr] = a < n ? X[(size_t)a * LC + k] * scale : 0.f;
+  }
+  for (int e = tid; e < LC * TC; e += NT) {
+    const int cc = e / LC, k = e % LC;
+    const int b = J * TC + cc;
+    ys[k * TC + cc] = b < n ? X[(size_t)b * LC + k] * scale : 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < L * TC; e += NT) {
+    const int q = e / TC, cc = e % TC;
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float v = ys[(q * C + c) * TC + cc];
+      s = __fadd_rn(s, __fmul_rn(v, v));
+    }
+    ynh[e] = -0.5f * s;
+  }
+  __syncthreads();
+}
+
+// The forward sweep of one pair: K node rows bottom-up. Returns
+// k[L-1][L-1]; leaves static row L-1 in gdn; with FAC stores the per-cell
+// adjoint factors in fac [(LMAX-1)²].
+template <int LMAX, int C, bool FAC>
+__device__ __forceinline__ float forward_sweep(const float* xs, const float* ys,
+                                               const float* ynh, int r, int cl, int L,
+                                               float (&gdn)[LMAX], float* fac) {
+  float gup[LMAX], krow[LMAX];
+  float kl = 1.f;
+#pragma unroll
+  for (int q = 0; q < LMAX; ++q) krow[q] = 1.f;
+  g_row<LMAX, C>(xs, ys, ynh, 0, r, cl, L, gdn);
+  for (int i = 0; i < L - 1; ++i) {
+    g_row<LMAX, C>(xs, ys, ynh, i + 1, r, cl, L, gup);
+    float* fr = fac + i * (LMAX - 1);
+    float prev = krow[0];
+    kl = 1.f;
+#pragma unroll
+    for (int j = 0; j < LMAX - 1; ++j) {
+      if (j < L - 1) {
+        const float z = ((gup[j + 1] - gup[j]) - gdn[j + 1]) + gdn[j];
+        const float A = __fadd_rn(1.f, __fmul_rn(z, __fadd_rn(0.5f, __fmul_rn(z, I12))));
+        const float B = __fsub_rn(1.f, __fmul_rn(__fmul_rn(z, z), I12));
+        const float old = krow[j + 1];
+        const float s = kl + old;
+        const float kn = __fsub_rn(__fmul_rn(s, A), __fmul_rn(prev, B));
+        if constexpr (FAC) fr[j] = s * (0.5f + z * I6) + prev * (z * I6);
+        krow[j + 1] = kn;
+        prev = old;
+        kl = kn;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < LMAX; ++q) gdn[q] = gup[q];
+  }
+  return kl;
+}
+
+// ---- K3: values only --------------------------------------------------------
+template <int LMAX, int C>
+__global__ void __launch_bounds__(NT)
+block_values_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
+                    float* __restrict__ K, int n, int L) {
+  const int J = blockIdx.x, I = blockIdx.y;
+  if (I * TR > J * TC + TC - 1) return;
+  extern __shared__ float smem[];
+  const int LC = L * C;
+  float* xs = smem;
+  float* ys = xs + LC * TR;
+  float* ynh = ys + LC * TC;
+  const int tid = threadIdx.x;
+  const int r = tid / TC, cl = tid % TC;
+  stage_paths<C>(X, sqrtf(2.0f / hptr[0]), xs, ys, ynh, I, J, n, L, tid);
+  const int a = I * TR + r, b = J * TC + cl;
+  if (a < n && b < n && a <= b) {
+    float gdn[LMAX];
+    const float kl = forward_sweep<LMAX, C, false>(xs, ys, ynh, r, cl, L, gdn, nullptr);
+    K[(size_t)a * n + b] = kl;
+    K[(size_t)b * n + a] = kl;
+  }
+}
+
+// ---- K1: values and adjoint -------------------------------------------------
 template <int LMAX, int C>
 __global__ void __launch_bounds__(NT)
 block_gram_grad_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
@@ -119,70 +218,17 @@ block_gram_grad_kernel(const float* __restrict__ X, const float* __restrict__ hp
 
   const int tid = threadIdx.x;
   const int r = tid / TC, cl = tid % TC;
-  const float scale = sqrtf(2.0f / hptr[0]);
-
-  for (int e = tid; e < LC * TR; e += NT) {
-    const int rr = e / LC, k = e % LC;
-    const int a = I * TR + rr;
-    xs[k * TR + rr] = a < n ? X[(size_t)a * LC + k] * scale : 0.f;
-  }
-  for (int e = tid; e < LC * TC; e += NT) {
-    const int cc = e / LC, k = e % LC;
-    const int b = J * TC + cc;
-    ys[k * TC + cc] = b < n ? X[(size_t)b * LC + k] * scale : 0.f;
-  }
   for (int k = 0; k < LC; ++k) {
     dxr[k * NT + tid] = 0.f;
     dyc[k * NT + tid] = 0.f;
   }
-  __syncthreads();
-  for (int e = tid; e < L * TC; e += NT) {
-    const int q = e / TC, cc = e % TC;
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float v = ys[(q * C + c) * TC + cc];
-      s = __fadd_rn(s, __fmul_rn(v, v));
-    }
-    ynh[e] = -0.5f * s;
-  }
-  __syncthreads();
+  stage_paths<C>(X, sqrtf(2.0f / hptr[0]), xs, ys, ynh, I, J, n, L, tid);
 
   const int a = I * TR + r, b = J * TC + cl;
   if (a < n && b < n && a <= b) {
     float fac[(LMAX - 1) * (LMAX - 1)];  // thread-local adjoint factors
     float gup[LMAX], gdn[LMAX];
-    float kl = 1.f;
-    {
-      float krow[LMAX];
-
-      // ---- forward: K node rows bottom-up --------------------------------
-#pragma unroll
-      for (int q = 0; q < LMAX; ++q) krow[q] = 1.f;
-      g_row<LMAX, C>(xs, ys, ynh, 0, r, cl, L, gdn);
-      for (int i = 0; i < L - 1; ++i) {
-        g_row<LMAX, C>(xs, ys, ynh, i + 1, r, cl, L, gup);
-        float* fr = fac + i * (LMAX - 1);
-        float prev = krow[0];
-        kl = 1.f;
-#pragma unroll
-        for (int j = 0; j < LMAX - 1; ++j) {
-          if (j < L - 1) {
-            const float z = ((gup[j + 1] - gup[j]) - gdn[j + 1]) + gdn[j];
-            const float A = __fadd_rn(1.f, __fmul_rn(z, __fadd_rn(0.5f, __fmul_rn(z, I12))));
-            const float B = __fsub_rn(1.f, __fmul_rn(__fmul_rn(z, z), I12));
-            const float old = krow[j + 1];
-            const float s = kl + old;
-            const float kn = __fsub_rn(__fmul_rn(s, A), __fmul_rn(prev, B));
-            fr[j] = s * (0.5f + z * I6) + prev * (z * I6);
-            krow[j + 1] = kn;
-            prev = old;
-            kl = kn;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < LMAX; ++q) gdn[q] = gup[q];
-      }
-    }
+    const float kl = forward_sweep<LMAX, C, true>(xs, ys, ynh, r, cl, L, gdn, fac);
     K[(size_t)a * n + b] = kl;
     K[(size_t)b * n + a] = kl;
 
@@ -318,6 +364,25 @@ cudaError_t dispatch_l(const float* X, const float* h, float* K, float* rowpart,
   return cudaErrorInvalidValue;
 }
 
+template <int LMAX, int C>
+cudaError_t launch_values(const float* X, const float* h, float* K, int n, int L,
+                          cudaStream_t stream) {
+  const int LC = L * C;
+  const size_t smem = sizeof(float) * (size_t)(LC * (TR + TC) + L * TC);
+  const dim3 grid((n + TC - 1) / TC, (n + TR - 1) / TR);
+  block_values_kernel<LMAX, C><<<grid, NT, smem, stream>>>(X, h, K, n, L);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t dispatch_values(const float* X, const float* h, float* K, int n, int L,
+                            cudaStream_t stream) {
+  if (L <= 16) return launch_values<16, C>(X, h, K, n, L, stream);
+  if (L <= 40) return launch_values<40, C>(X, h, K, n, L, stream);
+  if (L <= 64) return launch_values<64, C>(X, h, K, n, L, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -348,6 +413,19 @@ int sigkernel_block_gram_grad(const float* X, const float* h, float* K, float* d
   reduce_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(
       rowpart, colpart, h, dX, n, LC, (n + TR - 1) / TR, (n + TC - 1) / TC);
   return (int)cudaGetLastError();
+}
+
+// K3: X [n, L, C], h [1], K [n, n]; fp32, contiguous, on the stream's
+// device. Returns cudaGetLastError() after the launch (0 on success).
+int sigkernel_block_gram(const float* X, const float* h, float* K, int n, int L, int C,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return (int)dispatch_values<1>(X, h, K, n, L, s);
+    case 2: return (int)dispatch_values<2>(X, h, K, n, L, s);
+    case 3: return (int)dispatch_values<3>(X, h, K, n, L, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

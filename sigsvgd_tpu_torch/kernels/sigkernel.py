@@ -8,7 +8,13 @@ Discretisation, as the JAX package: with ``z = inc / 4^λ``,
 where ``inc`` is the double difference of the static Gram on the coarse grid.
 
 Routing (``SignatureKernel._solver_kind``), as the JAX package routes on the
-TPU: λ=0 → ``sigkernel_block.block_gram_and_grad`` (K1); λ=3 with ly1 ≤ 48
+TPU: λ=0 with ly1 ≤ 63 → the ``"small"`` kind: ``gram_and_grad`` takes
+``sigkernel_block.block_gram_and_grad`` (K1) inside both K1's block
+envelope and the JAX package's, else the gathered upper-triangle pair list
+through ``sigkernel_small`` (K7's forward and backward), and ``gram`` above
+``_DENSE_LIMIT`` streams pair chunks through K7; ``gram_sym`` takes
+``sigkernel_block.block_gram`` (K3) inside both block envelopes, else the
+upper-triangle pair list (K7 at λ=0, K4 at λ=3). λ=3 with ly1 ≤ 48
 → the ``"pallas"`` kind: ``gram_and_grad`` takes
 ``sigkernel_block3.block3_gram_and_grad`` (K2) at ``grad_precision="fp32"``
 inside K2's envelope, else the gathered upper-triangle pair list through
@@ -20,8 +26,7 @@ block hops) → the hop chain K8 (``mxu_chain.solve_goursat_pde_mxu_chain``)
 when ``mxu_precision="default"`` and K8 takes the shape, else the fp32 block
 propagator :func:`solve_goursat_pde_mxu`. Each kernel runs its plain twin on
 the CPU. What the slice does not port raises naming its ROADMAP item: the
-wavefront (M6), the λ=0 pair list (K7), the pair solve on given increments
-(K5).
+wavefront (M6) and the pair solve on given increments (K5).
 """
 from __future__ import annotations
 
@@ -35,11 +40,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils.math import bw_median, relu
 from .mxu_chain import chain_supported, solve_goursat_pde_mxu_chain
-from .sigkernel_block import block_gram_and_grad
-from .sigkernel_block3 import block3_gram_and_grad, block3_supported
-from .sigkernel_fused import (
-    chunk_pair_bytes, fused_supported, pair_gram_fused, pallas_supported,
+from . import sigkernel_fused, sigkernel_small
+from .sigkernel_block import (
+    block_gram, block_gram_and_grad, block_supported, jax_block_supported,
 )
+from .sigkernel_block3 import block3_gram_and_grad, block3_supported
+from .sigkernel_fused import fused_supported, pair_gram_fused, pallas_supported
+from .sigkernel_small import pair_gram_small, small_supported
 
 _MXU_PRECISIONS = ("highest", "high", "default")
 _GRAD_PRECISIONS = ("fp32", "bf16")
@@ -236,13 +243,14 @@ class SignatureKernel:
                              f"got {self.grad_precision!r}")
 
     def _solver_kind(self, lx1: int, ly1: int) -> str:
-        """``"block"`` (K1, λ=0), ``"pallas"`` (λ=3, ly1 ≤ 48: K2 or the
-        K4/K6 pair list), ``"mxu_chain"`` (K8) or ``"mxu"`` (the fp32 block
-        propagator); raises for shapes that only the JAX package's wavefront
-        routes take."""
+        """``"small"`` (λ=0, ly1 ≤ 63: K1 or K3 on a block, else the K7 pair
+        list), ``"pallas"`` (λ=3, ly1 ≤ 48: K2 or the K4/K6 pair list),
+        ``"mxu_chain"`` (K8) or ``"mxu"`` (the fp32 block propagator);
+        raises for shapes that only the JAX package's wavefront routes
+        take."""
         lam = self.dyadic_order
-        if lam == 0:
-            return "block"
+        if lam == 0 and ly1 <= 63:
+            return "small"
         if _mxu_eligible(lx1, ly1, lam):
             if self.mxu_precision == "default" and chain_supported(lx1, ly1, lam):
                 return "mxu_chain"
@@ -279,17 +287,28 @@ class SignatureKernel:
             "(ROADMAP.md queue 2)"
         )
 
-    def _chunk_plan(self, lx1: int, ly1: int, total: int, n_channels: int, device):
+    def _chunk_plan(self, lx1: int, ly1: int, total: int, n_channels: int, device, h):
         """(solver kind, pair-chunk size, chunk count) for ``total`` pairs,
         sized by the device: a quarter of the card's memory over each pair's
         residuals, path tiles and gradients, or 2e9 bytes over the twin's
-        stored grids on the CPU. Never pads a short list up to the budget."""
+        stored grids on the CPU. Never pads a short list up to the budget.
+        Raises, as the JAX package validates here, where a λ=0 shape leaves
+        the pair list (K7) for the generic statics + wavefront route."""
         kind = self._solver_kind(lx1, ly1)
+        if kind == "small" and not small_supported(lx1, ly1, 0, n_channels, "rbf", h):
+            raise NotImplementedError(
+                f"{n_channels}-channel paths of {lx1 + 1}x{ly1 + 1} nodes are "
+                "outside the λ=0 pair list's envelope; the JAX package takes them "
+                "by its XLA wavefront route, not ported yet (ROADMAP.md queue 1, M6)"
+            )
         if device.type == "cuda":
             budget = torch.cuda.get_device_properties(device).total_memory // 4
         else:
             budget = 2 * 10**9
-        per_pair = chunk_pair_bytes(lx1, ly1, n_channels, device.type)
+        if kind == "small":
+            per_pair = sigkernel_small.chunk_pair_bytes(lx1, ly1, n_channels)
+        else:
+            per_pair = sigkernel_fused.chunk_pair_bytes(lx1, ly1, n_channels, device.type)
         chunk = max(1, min(total, budget // per_pair))
         return kind, chunk, -(-total // chunk)
 
@@ -302,25 +321,24 @@ class SignatureKernel:
             arrays = [torch.cat([a, a.new_zeros(pad)]) for a in arrays]
         return [a.reshape(nb, chunk) for a in arrays]
 
-    def _block_values(self, X, Y, ixc, iyc, h) -> torch.Tensor:
-        """K values of one pair chunk by the fused route (K4)."""
+    def _block_values(self, X, Y, ixc, iyc, h, remat: bool = False) -> torch.Tensor:
+        """K values of one pair chunk: K7 at λ=0 (``remat``: its forward
+        again in the backward instead of keeping ``fac``), K4 at λ=3."""
+        if self.dyadic_order == 0:
+            return pair_gram_small(X, Y, ixc, iyc, h, remat=remat)
         prec = self._fused_precision(X.shape[1] - 1, Y.shape[1] - 1, X.shape[2], h)
         return pair_gram_fused(X, Y, ixc, iyc, h, grad_precision=prec)
 
     def _pair_values(self, X, Y, ix, iy, h) -> torch.Tensor:
         """K values of the pair list ``(ix, iy)``, chunk by chunk; under
-        autograd each chunk is checkpointed (its backward reruns K4's
-        forward instead of keeping every chunk's residuals), as the JAX
-        package's ``jax.checkpoint`` does."""
+        autograd each chunk is checkpointed (its backward reruns the forward
+        instead of keeping every chunk's residuals), as the JAX package's
+        ``jax.checkpoint`` does: K7's Function reruns its own forward, K4's
+        chunk runs under ``torch.utils.checkpoint``."""
         lx1, ly1 = X.shape[1] - 1, Y.shape[1] - 1
         total = ix.shape[0]
-        kind, chunk, nb = self._chunk_plan(lx1, ly1, total, X.shape[2], X.device)
-        if kind == "block":
-            raise NotImplementedError(
-                "a λ=0 Gram by pair list takes the λ=0 pair-list kernel K7, "
-                "not ported yet (ROADMAP.md queue 2)"
-            )
-        if kind != "pallas":
+        kind, chunk, nb = self._chunk_plan(lx1, ly1, total, X.shape[2], X.device, h)
+        if kind not in ("small", "pallas"):
             raise NotImplementedError(
                 f"a dyadic_order={self.dyadic_order} Gram by pair list takes the "
                 "JAX package's streamed block-propagator route, not ported yet "
@@ -331,11 +349,11 @@ class SignatureKernel:
             torch.is_tensor(t) and t.requires_grad for t in (X, Y, h))
         outs = []
         for c in range(nb):
-            if grad:
+            if grad and kind == "pallas":
                 outs.append(checkpoint(self._block_values, X, Y, ix[c], iy[c], h,
                                        use_reentrant=False))
             else:
-                outs.append(self._block_values(X, Y, ix[c], iy[c], h))
+                outs.append(self._block_values(X, Y, ix[c], iy[c], h, remat=grad))
         return torch.cat(outs)[:total]
 
     def _gram_chunked_pairs(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -348,14 +366,14 @@ class SignatureKernel:
 
     def _pair_gram_and_grad(self, X: torch.Tensor, h):
         """``(K, dX)`` from the gathered upper-triangle pair list, chunk by
-        chunk: the chunk's values by :meth:`_block_values` (K4's forward)
-        and their gradient under autograd (K4's or K6's backward) with seed
-        1 on the diagonal and 2 off it; both tiles' gradients reach dX
-        through the gathers, then ×0.5."""
+        chunk: the chunk's values by :meth:`_block_values` (K7's or K4's
+        forward) and their gradient under autograd (K7's, K4's or K6's
+        backward) with seed 1 on the diagonal and 2 off it; both tiles'
+        gradients reach dX through the gathers, then ×0.5."""
         n, L, C = X.shape
         iu, ju = torch.triu_indices(n, n, device=X.device)
         total = iu.shape[0]
-        _, chunk, nb = self._chunk_plan(L - 1, L - 1, total, C, X.device)
+        _, chunk, nb = self._chunk_plan(L - 1, L - 1, total, C, X.device, h)
         seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
         ix, iy, sc = self._pad_pair_list([iu, ju, seed], nb, chunk, total)
         x = X.detach().requires_grad_(True)
@@ -372,6 +390,28 @@ class SignatureKernel:
         K[iu, ju] = vals
         K[ju, iu] = vals
         return K, 0.5 * dX
+
+    def gram_sym(self, X: torch.Tensor) -> torch.Tensor:
+        """Symmetric Gram ``K(X, X)`` from the ``n(n+1)/2`` upper-triangle
+        pairs, with the bandwidth from the first 256×256 block.
+
+        At λ=0 inside both K1's block envelope and the JAX package's, K3
+        (:func:`block_gram`) computes it: values only, with no autograd
+        graph, as the JAX package's fast path returns (its docstring
+        promises gradients there too). Otherwise the pair list (K7 at λ=0,
+        K4 at λ=3) gives the values, scattered into both halves, so
+        gradients flow through both arguments: ``grad(sum(gram_sym(x)))``
+        is twice the repulsion ``grad(sum(gram(x, x.detach())))``."""
+        n, L, C = X.shape
+        h = self._subsampled_bandwidth(X, X)
+        if (self.dyadic_order == 0 and block_supported(n, L, C, h)
+                and jax_block_supported(n, L, C, h)):
+            with torch.no_grad():
+                return block_gram(X.contiguous(), h)
+        iu, ju = torch.triu_indices(n, n, device=X.device)
+        vals = self._pair_values(X, X, iu, ju, h)
+        K = X.new_zeros(n, n).index_put((iu, ju), vals)
+        return K + torch.triu(K, 1).T
 
     def _subsampled_bandwidth(self, X: torch.Tensor, Y: torch.Tensor):
         """Bandwidth from the first ``256×256`` path block (the JAX
@@ -391,8 +431,8 @@ class SignatureKernel:
 
     def gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """Full Gram ``K [n, m]``, differentiable. Above ``_DENSE_LIMIT``
-        floats of static Gram it streams pair chunks through K4, with a
-        bandwidth from the first 256×256 path block. Below it the bandwidth
+        floats of static Gram it streams pair chunks (K7 at λ=0, K4 at
+        λ=3), with a bandwidth from the first 256×256 path block. Below it the bandwidth
         is the median over the whole dense distance tensor; block-propagator
         shapes go to K8 or the fp32 propagator, λ=3 to K4 over all n·m pairs
         on the card (the plain solve on the CPU), any other order to the
@@ -429,14 +469,18 @@ class SignatureKernel:
 
     def gram_and_grad(self, X: torch.Tensor):
         """``(K, Σ_j ∂₁k(x_i, x_j))``: the Gram and its gradient with the
-        second argument detached. λ=0 takes K1; λ=3 takes K2 at fp32 inside
-        its envelope, else the pair list (K4, and K6 at bf16); the kernels'
-        plain twins on the CPU. Block-propagator shapes take the dense
-        route, ``gram(X, X.detach())`` under autograd (K8's two kernels on
-        the card at ``mxu_precision="default"``)."""
+        second argument detached. λ=0 takes K1 inside both K1's block
+        envelope and the JAX package's, else the pair list (K7); λ=3 takes
+        K2 at fp32 inside its envelope, else the pair list (K4, and K6 at
+        bf16); the kernels' plain twins on the CPU. Block-propagator shapes
+        take the dense route, ``gram(X, X.detach())`` under autograd (K8's
+        two kernels on the card at ``mxu_precision="default"``)."""
         n, L, C = X.shape
         if self.dyadic_order == 0:
-            return block_gram_and_grad(X, self._subsampled_bandwidth(X, X))
+            h = self._subsampled_bandwidth(X, X)
+            if block_supported(n, L, C, h) and jax_block_supported(n, L, C, h):
+                return block_gram_and_grad(X, h)
+            return self._pair_gram_and_grad(X, h)
         if self.dyadic_order == 3:
             h = self._subsampled_bandwidth(X, X)
             pallas = pallas_supported(L - 1, L - 1, 3)

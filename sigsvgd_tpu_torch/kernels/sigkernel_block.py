@@ -1,14 +1,16 @@
-"""λ=0 symmetric signature-kernel Gram + gradient: K1 and its plain twin.
+"""λ=0 symmetric signature-kernel Gram + gradient (K1), the values-only Gram
+(K3), and their plain twins.
 
-Port of ``sigsvgd_tpu/kernels/pallas_sigkernel_block.py::block_gram_and_grad``.
-``block_gram_and_grad(X, h)`` returns ``(K [n, n], dX [n, L, C])`` with
-``dX = ½·∂Σ_{ab}K_ab/∂X``, the detached-second-argument repulsion that
-``SignatureKernel.gram_and_grad`` hands to the Stein velocity. The output is
-data, not differentiable further.
+Port of ``sigsvgd_tpu/kernels/pallas_sigkernel_block.py::block_gram_and_grad``
+and ``::block_gram``. ``block_gram_and_grad(X, h)`` returns ``(K [n, n],
+dX [n, L, C])`` with ``dX = ½·∂Σ_{ab}K_ab/∂X``, the detached-second-argument
+repulsion that ``SignatureKernel.gram_and_grad`` hands to the Stein
+velocity; ``block_gram(X, h)`` returns ``K`` alone (``gram_sym``'s block
+route). The outputs are data, not differentiable further.
 
-On a CPU tensor the wrapper runs :func:`block_gram_and_grad_plain`; on a CUDA
-tensor it launches the hand-written kernel in ``csrc/sigkernel_block.cu`` or
-raises. The two share one arithmetic, written out in the twin below: the
+On a CPU tensor the wrappers run the twins; on a CUDA tensor they launch the
+hand-written kernels in ``csrc/sigkernel_block.cu`` or raise. Kernels and
+twins share one arithmetic, written out in the twins below: the
 static Gram in expand form on paths pre-scaled by √(2/h), the order-0 row
 sweep, the per-cell adjoint factor ``fac``, the λ rows top-down and the
 pull-back of the row differences ``D[i][q] = dz[i][q-1] - dz[i][q]``.
@@ -55,6 +57,50 @@ def block_supported(n: int, L: int, C: int, h) -> bool:
     )
 
 
+# the JAX package's block envelope (pallas_sigkernel_block.py), copied: the
+# routing asks for it beside K1's own
+_SB = 16
+_LB = 128
+
+
+def _pick_r(lx1: int) -> int:
+    return min(8, lx1)
+
+
+def _vmem_bytes(L: int, C: int, R: int) -> int:
+    row = L * _SB * _LB * 4
+    ly1row = (L - 1) * _SB * _LB * 4
+    nck = max(1, _cdiv(L - 1, R) - 1)
+    return (2 * row + 2 * ly1row + nck * row + 2 * (R + 1) * row + 4 * row
+            + C * row)
+
+
+def jax_block_supported(n: int, L: int, C: int, h) -> bool:
+    """Shapes the JAX package's λ=0 block route takes: C ≤ 8, L·C ≤ 128 and
+    its VMEM bound. Outside it the JAX package takes the pair list (K7)."""
+    return (
+        h is not None
+        and 2 <= L
+        and 1 <= C <= 8
+        and L * C <= 128
+        and n >= 2
+        and _vmem_bytes(L, C, _pick_r(L - 1)) <= 12 * 2**20
+    )
+
+
+def block_values_flops(n: int, L: int, C: int) -> float:
+    """fp32 operations of K3, counted as :func:`block_flops` counts: per
+    pair ``L²`` static nodes at ``2C+3`` and ``(L-1)²`` cells at 14 (z, A, B
+    10, the update 4)."""
+    pairs = n * (n + 1) // 2
+    return float(pairs * (L * L * (2 * C + 3) + (L - 1) ** 2 * 14))
+
+
+def block_values_bytes(n: int, L: int, C: int) -> float:
+    """Bytes K3 must move: X read once, K written once."""
+    return 4.0 * (n * L * C + n * n)
+
+
 def block_flops(n: int, L: int, C: int) -> float:
     """fp32 operations the function needs, counting an ``exp`` as one and
     each value once (K1 recomputes static rows and z, A, B; that work is not
@@ -76,14 +122,20 @@ def block_bytes(n: int, L: int, C: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def block_gram_and_grad_plain(X: torch.Tensor, h):
-    """The K1 contract in plain PyTorch, vectorised over the upper-triangle
-    pairs (a ≤ b) and sequential over the grid, with an explicit adjoint."""
+def _coefs(gup: torch.Tensor, gdn: torch.Tensor):
+    z = ((gup[1:] - gup[:-1]) - gdn[1:]) + gdn[:-1]   # [L-1, P]
+    return z, 1.0 + z * (0.5 + z * _I12), 1.0 - z * z * _I12
+
+
+def _forward_plain(X: torch.Tensor, h, keep_fac: bool):
+    """The forward half both twins share, vectorised over the upper-triangle
+    pairs (a ≤ b) and sequential over the grid: the pre-scaled tiles, the
+    static-row function, the values and, with ``keep_fac``, the per-cell
+    adjoint factors; ``gdn`` is static row L-1."""
     n, L, C = X.shape
     scale = torch.sqrt(2.0 / torch.as_tensor(h, dtype=X.dtype, device=X.device))
     Xs = X * scale
     iu, ju = torch.triu_indices(n, n, device=X.device)
-    seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
     x = Xs[iu].permute(1, 2, 0).contiguous()  # [L, C, P]
     y = Xs[ju].permute(1, 2, 0).contiguous()
     ynh = -0.5 * (y * y).sum(1)                # [L, P]
@@ -93,35 +145,58 @@ def block_gram_and_grad_plain(X: torch.Tensor, h):
         cross = (x[p][None] * y).sum(1)        # [L, P]
         return torch.exp(cross + (ynh + xnh[p]))
 
-    def coefs(gup, gdn):
-        z = ((gup[1:] - gup[:-1]) - gdn[1:]) + gdn[:-1]   # [L-1, P]
-        return z, 1.0 + z * (0.5 + z * _I12), 1.0 - z * z * _I12
-
-    # forward: node rows bottom-up; fac[i, j] feeds the adjoint of cell (i, j)
+    # node rows bottom-up; fac[i, j] feeds the adjoint of cell (i, j)
     P = iu.shape[0]
     krow = torch.ones(L, P, dtype=X.dtype, device=X.device)
-    fac = torch.empty(L - 1, L - 1, P, dtype=X.dtype, device=X.device)
+    fac = (torch.empty(L - 1, L - 1, P, dtype=X.dtype, device=X.device)
+           if keep_fac else None)
     gdn = g_row(0)
     for i in range(L - 1):
         gup = g_row(i + 1)
-        z, A, B = coefs(gup, gdn)
+        z, A, B = _coefs(gup, gdn)
         new = torch.ones_like(krow)
         for j in range(L - 1):
             new[j + 1] = (new[j] + krow[j + 1]) * A[j] - krow[j] * B[j]
-        fac[i] = (new[:-1] + krow[1:]) * (0.5 + z * _I6) + krow[:-1] * (z * _I6)
+        if keep_fac:
+            fac[i] = (new[:-1] + krow[1:]) * (0.5 + z * _I6) + krow[:-1] * (z * _I6)
         krow, gdn = new, gup
-    kval = krow[L - 1]
+    return dict(scale=scale, iu=iu, ju=ju, x=x, y=y, g_row=g_row,
+                kval=krow[L - 1], fac=fac, gdn=gdn)
+
+
+def _assemble_k(kval, iu, ju, n: int) -> torch.Tensor:
+    K = torch.empty(n, n, dtype=kval.dtype, device=kval.device)
+    K[iu, ju] = kval
+    K[ju, iu] = kval
+    return K
+
+
+def block_gram_plain(X: torch.Tensor, h) -> torch.Tensor:
+    """The K3 contract in plain PyTorch: the forward half of
+    :func:`block_gram_and_grad_plain`."""
+    f = _forward_plain(X, h, keep_fac=False)
+    return _assemble_k(f["kval"], f["iu"], f["ju"], X.shape[0])
+
+
+def block_gram_and_grad_plain(X: torch.Tensor, h):
+    """The K1 contract in plain PyTorch, vectorised over the upper-triangle
+    pairs (a ≤ b) and sequential over the grid, with an explicit adjoint."""
+    n, L, C = X.shape
+    f = _forward_plain(X, h, keep_fac=True)
+    iu, ju, x, y, g_row, fac = f["iu"], f["ju"], f["x"], f["y"], f["g_row"], f["fac"]
+    P = iu.shape[0]
+    seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
 
     # adjoint: λ rows top-down
-    lam = torch.zeros_like(krow)
+    lam = torch.zeros(L, P, dtype=X.dtype, device=X.device)
     lam[L - 1] = 1.0
-    gup = gdn
+    gup = f["gdn"]
     carry = torch.zeros(C, P, dtype=X.dtype, device=X.device)
     dxr = torch.empty(L, C, P, dtype=X.dtype, device=X.device)
     dyc = torch.zeros(L, C, P, dtype=X.dtype, device=X.device)
     for i in range(L - 2, -1, -1):
         gdn = g_row(i)
-        z, A, B = coefs(gup, gdn)
+        z, A, B = _coefs(gup, gdn)
         for j in range(L - 2, -1, -1):
             lam[j] = lam[j] + lam[j + 1] * A[j]
         t = lam[1:]                            # complete λ[i+1][j+1]
@@ -141,25 +216,41 @@ def block_gram_and_grad_plain(X: torch.Tensor, h):
         lam, gup = new, gdn
     dxr[0] = carry
 
-    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
-    K[iu, ju] = kval
-    K[ju, iu] = kval
     dX = torch.zeros_like(X)
     dX.index_add_(0, iu, dxr.permute(2, 0, 1))
     dX.index_add_(0, ju, dyc.permute(2, 0, 1))
-    return K, 0.5 * scale * dX
+    return _assemble_k(f["kval"], iu, ju, n), 0.5 * f["scale"] * dX
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper.
+# Kernel wrappers.
 # ---------------------------------------------------------------------------
 
 
-def _kernel_fn():
-    fn = load("sigkernel_block").sigkernel_block_gram_grad
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = load("sigkernel_block")
+    lib.sigkernel_block_gram_grad.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.sigkernel_block_gram.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for fn in (lib.sigkernel_block_gram_grad, lib.sigkernel_block_gram):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(X: torch.Tensor, h, what: str):
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if X.dtype != torch.float32 or X.dim() != 3 or not X.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous fp32 [n, L, C] tensor")
+    n, L, C = X.shape
+    if not block_supported(n, L, C, h):
+        raise NotImplementedError(
+            f"shape {(n, L, C)} is outside {what}'s envelope (L ≤ {MAX_L}, "
+            f"C ≤ {MAX_C}); SignatureKernel sends such λ=0 shapes to the "
+            "pair-list kernel K7"
+        )
+    return n, L, C, torch.as_tensor(h, dtype=torch.float32, device=X.device).reshape(1)
 
 
 def block_gram_and_grad(X: torch.Tensor, h):
@@ -168,17 +259,7 @@ def block_gram_and_grad(X: torch.Tensor, h):
     add one to ``block_gram_and_grad.launches``."""
     if X.device.type == "cpu":
         return block_gram_and_grad_plain(X, h)
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    if X.dtype != torch.float32 or X.dim() != 3 or not X.is_contiguous():
-        raise ValueError("K1 takes a contiguous fp32 [n, L, C] tensor")
-    n, L, C = X.shape
-    if not block_supported(n, L, C, h):
-        raise NotImplementedError(
-            f"shape {(n, L, C)} is outside K1's envelope; the pair-list λ=0 "
-            "kernel that takes it is K7 in ROADMAP.md queue 2"
-        )
-    h_t = torch.as_tensor(h, dtype=torch.float32, device=X.device).reshape(1)
+    n, L, C, h_t = _check(X, h, "K1")
     K = torch.empty(n, n, dtype=X.dtype, device=X.device)
     dX = torch.empty_like(X)
     rowpart = torch.empty(_cdiv(n, TILE_COLS), n, L * C, dtype=X.dtype,
@@ -186,12 +267,30 @@ def block_gram_and_grad(X: torch.Tensor, h):
     colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype,
                           device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = _kernel_fn()(X.data_ptr(), h_t.data_ptr(), K.data_ptr(), dX.data_ptr(),
-                      rowpart.data_ptr(), colpart.data_ptr(), n, L, C, stream)
+    rc = _lib().sigkernel_block_gram_grad(
+        X.data_ptr(), h_t.data_ptr(), K.data_ptr(), dX.data_ptr(), rowpart.data_ptr(),
+        colpart.data_ptr(), n, L, C, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     block_gram_and_grad.launches += 1
     return K, dX
 
 
+def block_gram(X: torch.Tensor, h) -> torch.Tensor:
+    """``K [n, n]`` alone, by K1's forward: CPU tensors take the plain twin;
+    CUDA tensors launch K3 and add one to ``block_gram.launches``."""
+    if X.device.type == "cpu":
+        return block_gram_plain(X, h)
+    n, L, C, h_t = _check(X, h, "K3")
+    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    rc = _lib().sigkernel_block_gram(X.data_ptr(), h_t.data_ptr(), K.data_ptr(), n, L, C,
+                                     stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+    block_gram.launches += 1
+    return K
+
+
 block_gram_and_grad.launches = 0
+block_gram.launches = 0

@@ -15,7 +15,12 @@
 * K6 (the bf16 delta-form backward, C ≤ 4): against its bf16 twin rel ≤
   2e-2 and cos ≥ 0.999 (the bf16 chains see inputs that differ from the
   twin's in their last fp32 bit); against K4's fp32 backward rel < 0.25,
-  cos > 0.98.
+  cos > 0.98;
+* K7 (the λ=0 pair-list forward and backward): k and fac atol 3e-5, both
+  tiles' gradients scaled by their max atol 5e-5, those of
+  ``tests/test_pallas_small.py``;
+* K3 (the λ=0 values-only block Gram): K equal to K1's bit for bit (the same
+  staging and forward sweep) and to its twin atol 3e-5.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -29,6 +34,7 @@ from sigsvgd_tpu_torch.kernels import mxu_chain as mc
 from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
 from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
 from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 from sigsvgd_tpu_torch.kernels.sigkernel import (
     SignatureKernel, _pair_sq_dists, gram_increments,
@@ -363,3 +369,138 @@ def test_fused_kernels_raise_outside_their_envelope(cuda_device):
                                torch.zeros(4, device=cuda_device))
     with pytest.raises(NotImplementedError, match="K5"):
         SignatureKernel(3, 4.0).gram_and_grad(torch.zeros(4, 5, 9, device=cuda_device))
+
+
+def _assert_k7(xt, yt, gout):
+    """K7's forward (values only and with the residual) and backward against
+    the fp32 twin."""
+    (k_values_only,) = ks.small_forward(xt, yt, residuals=False)
+    k, fac = ks.small_forward(xt, yt, residuals=True)
+    dx, dy = ks.small_backward(xt, yt, fac, gout)
+    kp, facp = ks.small_forward_plain(xt, yt, residuals=True)
+    dxp, dyp = ks.small_backward_plain(xt, yt, facp, gout)
+    torch.testing.assert_close(k, kp, atol=3e-5, rtol=0)
+    torch.testing.assert_close(k_values_only, k, atol=0, rtol=0)
+    torch.testing.assert_close(fac, facp, atol=3e-5, rtol=0)
+    for got, want in ((dx, dxp), (dy, dyp)):
+        scale = want.abs().max()
+        torch.testing.assert_close(got / scale, want / scale, atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("Lx,Ly", [(40, 40), (23, 9), (5, 64), (41, 17)])
+def test_k7_matches_plain_twin_on_the_card(cuda_device, C, Lx, Ly):
+    xt, yt, gout = _pair_tiles(cuda_device, 300, Lx, Ly, C)
+    before = (ks.small_forward.launches, ks.small_backward.launches)
+    _assert_k7(xt, yt, gout)
+    assert (ks.small_forward.launches, ks.small_backward.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_k7_solves_every_pass_of_its_persistent_loops(cuda_device):
+    """More pairs than the resident threads of either launch take at once,
+    so every thread's loop runs three passes, the last a partial one; every
+    pair is held against the twin."""
+    L, C = 6, 2
+    threads = max(ks.small_grid(L - 1, C, bwd, 1 << 24) for bwd in (False, True)) * ks.NT
+    P = 2 * threads + 37
+    xt, yt, gout = _pair_tiles(cuda_device, P, L, L, C, seed=5)
+    for bwd in (False, True):
+        assert ks.small_grid(L - 1, C, bwd, P) * ks.NT < P
+    _assert_k7(xt, yt, gout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (333, 40, 2), (33, 21, 3), (7, 5, 3),
+                                   (40, 64, 3)])
+def test_k3_equals_k1_and_its_twin_on_the_card(cuda_device, n, L, C):
+    X = _paths(cuda_device, n, L, C)
+    before = kb.block_gram.launches
+    K = kb.block_gram(X, 4.0)
+    assert kb.block_gram.launches == before + 1
+    K1, _ = kb.block_gram_and_grad(X, 4.0)
+    torch.testing.assert_close(K, K1, atol=0, rtol=0)
+    torch.testing.assert_close(K, kb.block_gram_plain(X, 4.0), atol=3e-5, rtol=0)
+
+
+def _launches():
+    return {f.__name__: f.launches for f in (
+        ks.small_forward, ks.small_backward, kb.block_gram, kb.block_gram_and_grad,
+        kf.fused_forward, kf.fused_backward)}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+
+
+@pytest.mark.cuda
+def test_lambda0_streamed_gram_launches_k7_only(cuda_device, monkeypatch):
+    """``gram(X, Y)`` above the dense limit at λ=0: one chunk, K7's forward
+    twice (values, then with the residual in the backward) and its backward
+    once, nothing else; K and dX against the CPU's (the twins), atol 3e-5 and
+    scaled 5e-5."""
+    monkeypatch.setattr(SignatureKernel, "_DENSE_LIMIT", 1000)
+    X, Y = _paths(cuda_device, 24, 40, 2), _paths(cuda_device, 17, 33, 2, seed=1)
+    kern = SignatureKernel(0, bandwidth=None)
+
+    def run(dev):
+        x = X.to(dev, copy=True).requires_grad_(True)
+        K = kern.gram(x, Y.to(dev))
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach().cpu(), dX.cpu()
+
+    before = _launches()
+    K, dX = run(cuda_device)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"small_forward": 2, "small_backward": 1}
+    _assert_k_dx(K, dX, *run("cpu"))
+
+
+@pytest.mark.cuda
+def test_gram_sym_launches_k3_at_lambda0_and_k7_outside_the_block(cuda_device):
+    X = _paths(cuda_device, 300, 40, 2)
+    before = _launches()
+    K = SignatureKernel(0, 4.0).gram_sym(X)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"block_gram": 1}
+    torch.testing.assert_close(K, kb.block_gram_and_grad(X, 4.0)[0], atol=0, rtol=0)
+    X = _paths(cuda_device, 20, 41, 4)                    # L·C > 128
+    x = X.clone().requires_grad_(True)
+    before = _launches()
+    K = SignatureKernel(0, 4.0).gram_sym(x)
+    (dX,) = torch.autograd.grad(K.sum(), x)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"small_forward": 2, "small_backward": 1}
+    x = X.cpu().requires_grad_(True)
+    Kc = SignatureKernel(0, 4.0).gram_sym(x)
+    (dXc,) = torch.autograd.grad(Kc.sum(), x)
+    _assert_k_dx(K.detach().cpu(), dX.cpu(), Kc.detach(), dXc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,C,scale", [(1024, 3, 7, 10.0), (64, 41, 4, 1.0)])
+def test_lambda0_gram_and_grad_outside_k1_runs_k7(cuda_device, n, L, C, scale):
+    """Bench's planning knots at depth 0 ([1024, 3, 7]: inside the JAX
+    package's block envelope, outside K1's) and an L·C > 128 shape: K7's
+    forward and backward once each, no K1, and the result the CPU's (the
+    twins). The knots span ±1 rad, as joint-angle knots do."""
+    X = _paths(cuda_device, n, L, C) * scale
+    before = _launches()
+    K, dX = SignatureKernel(0, 4.0).gram_and_grad(X)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"small_forward": 1, "small_backward": 1}
+    _assert_k_dx(K.cpu(), dX.cpu(), *SignatureKernel(0, 4.0).gram_and_grad(X.cpu()))
+
+
+@pytest.mark.cuda
+def test_k7_raises_outside_its_envelope(cuda_device):
+    with pytest.raises(NotImplementedError, match="M6"):        # ly = 65
+        ks.small_forward(torch.zeros(5, 2, 4, device=cuda_device),
+                         torch.zeros(65, 2, 4, device=cuda_device), residuals=False)
+    with pytest.raises(NotImplementedError, match="M6"):        # C = 9
+        ks.small_forward(torch.zeros(5, 9, 4, device=cuda_device),
+                         torch.zeros(5, 9, 4, device=cuda_device), residuals=False)
+    with pytest.raises(NotImplementedError, match="K7"):
+        kb.block_gram(torch.zeros(8, 5, 4, device=cuda_device), 4.0)

@@ -124,9 +124,13 @@ def test_pair_list_routes_not_ported_raise():
         SignatureKernel(dyadic_order=3, bandwidth=1.0).gram_and_grad(torch.zeros(3, 5, 9))
     with pytest.raises(NotImplementedError, match="M6"):          # ly1 > 48, C > 3
         SignatureKernel(dyadic_order=3, bandwidth=1.0).gram_and_grad(torch.zeros(3, 51, 4))
-    with pytest.raises(NotImplementedError, match="K7"):          # λ=0 pair list
+    with pytest.raises(NotImplementedError, match="M6"):          # λ=0, C > 8
         SignatureKernel(dyadic_order=0, bandwidth=1.0)._gram_chunked_pairs(
-            torch.zeros(3, 5, 2), torch.zeros(3, 5, 2))
+            torch.zeros(3, 5, 9), torch.zeros(3, 5, 9))
+    # the λ=0 pair list itself (K7) now solves: its twin on the CPU
+    K = SignatureKernel(dyadic_order=0, bandwidth=1.0)._gram_chunked_pairs(
+        torch.zeros(3, 5, 2), torch.zeros(3, 5, 2))
+    np.testing.assert_array_equal(K.numpy(), np.ones((3, 3), np.float32))
     with pytest.raises(ValueError, match="grad_precision"):
         SignatureKernel(dyadic_order=3, grad_precision="fp16")
 

@@ -126,18 +126,20 @@ def test_explicit_chain_request_outside_its_envelope_raises():
 
 
 def test_solver_routing_matches_jax_on_the_tpu():
-    """λ=0 → K1, λ=3 with ly1 ≤ 48 → the "pallas" kind (K2 or the K4/K6
-    pair list); MXU-eligible shapes → K8 at "default" inside its envelope,
-    else the fp32 propagator ("high" runs as "highest"); the rest raises
-    naming M6."""
+    """λ=0 with ly1 ≤ 63 → the "small" kind (K1 or K3 on a block, else the
+    K7 pair list; JAX's "pallas_small"), λ=3 with ly1 ≤ 48 → the "pallas"
+    kind (K2 or the K4/K6 pair list); MXU-eligible shapes → K8 at "default"
+    inside its envelope, else the fp32 propagator ("high" runs as
+    "highest"); the rest raises naming M6."""
     def kind(lam, lx1, prec="default"):
         return SignatureKernel(lam, 1.5, mxu_precision=prec)._solver_kind(lx1, lx1)
 
-    assert kind(0, 39) == "block" and kind(3, 39) == "pallas" and kind(3, 48) == "pallas"
+    assert kind(0, 39) == "small" and kind(0, 63) == "small"
+    assert kind(3, 39) == "pallas" and kind(3, 48) == "pallas"
     assert kind(6, 2) == "mxu_chain" and kind(7, 2) == "mxu_chain"
     assert kind(6, 2, "highest") == "mxu" and kind(6, 2, "high") == "mxu"
     assert kind(4, 4) == "mxu" and kind(6, 10) == "mxu"   # below λ=6; 100 hops
-    for lam, lx1 in [(1, 4), (2, 4), (6, 17), (3, 49)]:
+    for lam, lx1 in [(1, 4), (2, 4), (6, 17), (3, 49), (0, 64)]:
         with pytest.raises(NotImplementedError, match="M6"):
             kind(lam, lx1)
     with pytest.raises(ValueError, match="mxu_precision"):

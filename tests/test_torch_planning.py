@@ -188,16 +188,31 @@ def test_evaluate_trajectory_matches_jax(rng, problems):
     np.testing.assert_array_equal(got["success"].numpy(), _n(want["success"]))
 
 
-def test_gram_above_the_dense_limit_raises():
-    """The JAX package streams such a Gram by pair chunks with a bandwidth
-    from a 256×256 block; at λ=0 those chunks take the λ=0 pair-list kernel
-    K7, which the port has not yet, so it raises before solving anything."""
-    kern = SignatureKernel(dyadic_order=0, bandwidth=None)
-    X = torch.zeros(1, 3, 2).expand(5000, 3, 2)  # 5000² · 3 · 4 > 2e8 floats
-    Y = torch.zeros(1, 4, 2).expand(5000, 4, 2)
-    with pytest.raises(NotImplementedError, match="K7"):
-        kern.gram(X, Y)
-    assert 5000 * 5000 * 12 > SignatureKernel._DENSE_LIMIT
+def test_gram_above_the_dense_limit_raises(rng, monkeypatch):
+    """Above the dense limit the JAX package streams the Gram by pair chunks
+    with a bandwidth from the first 256×256 block; at λ=0 those chunks take
+    the λ=0 pair list (K7), which the port now has. On planning knot paths
+    [n, 3, 7] under a lowered ``_DENSE_LIMIT`` the streamed Gram and its
+    gradient match JAX's ``solver="pallas_small"`` (K rtol 3e-5 / atol 2e-5,
+    dX scaled 5e-5, ``tests/test_pallas_small.py``); the port raises only
+    where the pair list takes no shape (C > 8: the wavefront route, M6)."""
+    for cls in (SignatureKernel, JSignatureKernel):
+        monkeypatch.setattr(cls, "_DENSE_LIMIT", 100)
+    X = rng.uniform(-2.0, 2.0, size=(6, 3, 7)).astype(np.float32)
+    Y = rng.uniform(-2.0, 2.0, size=(5, 3, 7)).astype(np.float32)
+    assert 6 * 5 * 3 * 3 > SignatureKernel._DENSE_LIMIT
+    jk = JSignatureKernel(dyadic_order=0, bandwidth=None, solver="pallas_small")
+    Kj, vjp = jax.vjp(lambda x: jk.gram(x, jnp.asarray(Y)), jnp.asarray(X))
+    (dXj,) = vjp(jnp.ones_like(Kj))
+    x = torch.from_numpy(X).requires_grad_(True)
+    K = SignatureKernel(dyadic_order=0, bandwidth=None).gram(x, torch.from_numpy(Y))
+    (dX,) = torch.autograd.grad(K.sum(), x)
+    np.testing.assert_allclose(K.detach().numpy(), _n(Kj), rtol=3e-5, atol=2e-5)
+    scale = float(np.abs(_n(dXj)).max())
+    np.testing.assert_allclose(dX.numpy() / scale, _n(dXj) / scale, atol=5e-5)
+    with pytest.raises(NotImplementedError, match="M6"):
+        SignatureKernel(dyadic_order=0, bandwidth=None).gram(
+            torch.zeros(6, 3, 9), torch.zeros(5, 3, 9))
 
 
 def test_unported_planner_options_raise(problems):

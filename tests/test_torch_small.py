@@ -1,0 +1,207 @@
+"""The port's λ=0 pair-list route and values-only block Gram against the JAX
+package (its Pallas kernels in interpret mode), with the kernels' plain
+twins in the port:
+
+* K7's twins against ``pallas_pair_gram_small``: a padded list of 2048
+  random pairs of [7, 6, 3] × [5, 9, 3] paths (the ly1 = 63 list is in
+  ``test_torch_small_ly63.py``); k to rtol 3e-5 / atol 2e-5 and the
+  gradients with respect to X, Y and the bandwidth, scaled by their max, to
+  atol 5e-5 (``tests/test_pallas_small.py``);
+* the copied predicates ``small_supported`` and ``jax_block_supported``
+  against JAX's over a grid of shapes;
+* K3's twin against JAX ``block_gram`` at [20, 9, 3] and [19, 12, 8], atol
+  3e-5 (``tests/test_pallas_block.py``);
+* ``gram_sym`` at λ=0 on the block route (values, no graph) and on K7's pair
+  list ([6, 17, 8]: L·C > 128, with its gradient; K to K7's rtol 3e-5 /
+  atol 2e-5), and at λ=3 on K4's pair list with its gradient (K atol 1e-4,
+  dX scaled 4e-4, K4's), against JAX ``gram_sym`` on the same routes, and
+  its gradient twice ``gram_and_grad``'s;
+* the streamed λ=0 ``gram(X, Y)`` and its gradient under a lowered
+  ``_DENSE_LIMIT``, paths of different lengths, against JAX's
+  ``solver="pallas_small"``;
+* λ=0 ``gram_and_grad`` at [6, 3, 7] (JAX's block route, the port's K7: the
+  C = 7 repair) and at [5, 41, 4] (JAX's K7 route), K atol 3e-5 and dX
+  scaled 5e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sigsvgd_tpu.kernels import pallas_sigkernel_block as jblock
+from sigsvgd_tpu.kernels import pallas_sigkernel_small as jsmall
+from sigsvgd_tpu.kernels.sigkernel import SignatureKernel as JSignatureKernel
+from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _warm_cpu_kernels():
+    """PyTorch picks a CPU kernel's implementation at its first call. When a
+    process's first ``exp`` of a large tensor runs on several threads, some of
+    its elements were seen to round apart from later calls (static rows off
+    by up to 7e-5 in one process in three); one small call first keeps every
+    call of the twins on one implementation."""
+    x = torch.rand(64, 1024)
+    torch.exp(-torch.clamp_min((x + x) - 2.0 * x * x, 0.0))
+
+
+def _paths(rng, n, L, C, step=0.3):
+    return np.cumsum(rng.normal(size=(n, L, C)) * step, axis=1).astype(np.float32)
+
+
+def _scaled_close(got, want, atol):
+    got, want = np.asarray(got), np.asarray(want)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol)
+
+
+def k7_against_jax(rng, shapes):
+    """K7's twin (values and the gradients of a random-weighted sum with
+    respect to X, Y and h) against ``pallas_pair_gram_small`` on 2048
+    random pairs."""
+    (nx, Lx, C), (ny, Ly, _) = shapes
+    X = (rng.normal(size=(nx, Lx, C)) * 0.4).astype(np.float32)
+    Y = (rng.normal(size=(ny, Ly, C)) * 0.4).astype(np.float32)
+    P = 2048
+    ix, iy = rng.integers(0, nx, P), rng.integers(0, ny, P)
+    w = rng.normal(size=P).astype(np.float32)
+    h = np.float32(1.7)
+
+    def jf(x, y, hh):
+        k = jsmall.pallas_pair_gram_small(x, y, jnp.asarray(ix), jnp.asarray(iy), hh)
+        return jnp.sum(k * w), k
+
+    (_, kj), gj = jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(h))
+    xt, yt = torch.from_numpy(X).requires_grad_(True), torch.from_numpy(Y).requires_grad_(True)
+    ht = torch.tensor(h, requires_grad=True)
+    k = ks.pair_gram_small(xt, yt, torch.from_numpy(ix), torch.from_numpy(iy), ht)
+    g = torch.autograd.grad((k * torch.from_numpy(w)).sum(), (xt, yt, ht))
+    np.testing.assert_allclose(k.detach().numpy(), np.asarray(kj), rtol=3e-5, atol=2e-5)
+    for got, want in zip(g, gj):
+        _scaled_close(got.numpy(), want, 5e-5)
+
+
+def test_k7_twin_matches_jax(rng):
+    k7_against_jax(rng, ((7, 6, 3), (5, 9, 3)))
+
+
+def test_k7_remat_gives_the_same_values_and_gradients(rng):
+    """The checkpointed chunk's Function (values-only forward, the forward
+    again with the residual in the backward) against the one that keeps
+    ``fac``: the same twin calls, so the same numbers."""
+    X = torch.from_numpy(_paths(rng, 6, 8, 2))
+    ix, iy = torch.from_numpy(rng.integers(0, 6, 50)), torch.from_numpy(rng.integers(0, 6, 50))
+    out = []
+    for remat in (False, True):
+        x = X.clone().requires_grad_(True)
+        k = ks.pair_gram_small(x, X, ix, iy, 2.0, remat=remat)
+        out.append((k.detach(), torch.autograd.grad(k.sum(), x)[0]))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_copied_predicates_match_jax():
+    for L in (2, 3, 9, 16, 17, 32, 40, 41, 46, 47, 64, 65, 70):
+        for C in range(1, 11):
+            for n in (1, 2, 30):
+                assert ks.small_supported(L - 1, L - 1, 0, C, "rbf", 1.0) == \
+                    jsmall.small_supported(L - 1, L - 1, 0, C, "rbf", 1.0), (L, C)
+                assert kb.jax_block_supported(n, L, C, 1.0) == \
+                    jblock.block_supported(n, L, C, "rbf", 1.0), (n, L, C)
+    assert not ks.small_supported(5, 5, 0, 2, "rbf", None)
+    assert not kb.jax_block_supported(8, 5, 2, None)
+
+
+@pytest.mark.parametrize("n,L,C", [(20, 9, 3), (19, 12, 8)])
+def test_k3_twin_matches_jax_block_gram(rng, n, L, C):
+    X = (rng.normal(size=(n, L, C)) * 0.3).astype(np.float32)
+    K = kb.block_gram(torch.from_numpy(X), 3.0)  # CPU: the twin
+    Kj = jblock.block_gram(jnp.asarray(X), jnp.asarray(3.0, jnp.float32))
+    np.testing.assert_allclose(K.numpy(), np.asarray(Kj), atol=3e-5)
+    K1, _ = kb.block_gram_and_grad(torch.from_numpy(X), 3.0)
+    np.testing.assert_array_equal(K.numpy(), K1.numpy())
+
+
+def test_gram_sym_lambda0_block_route_matches_jax(rng):
+    X = _paths(rng, 20, 9, 3, 0.2)
+    x = torch.from_numpy(X).requires_grad_(True)
+    K = SignatureKernel(dyadic_order=0).gram_sym(x)
+    Kj = JSignatureKernel(dyadic_order=0, solver="pallas_small").gram_sym(jnp.asarray(X))
+    assert not K.requires_grad  # the block route returns values only
+    np.testing.assert_allclose(K.numpy(), np.asarray(Kj), atol=3e-5)
+
+
+@pytest.mark.parametrize("order,shape,solver,tol", [
+    (0, (6, 17, 8), "pallas_small", (2e-5, 3e-5, 5e-5)),   # L·C > 128: K7's pair list
+    (3, (5, 6, 2), "pallas", (1e-4, 0.0, 4e-4)),           # K4's pair list
+], ids=["lambda0_pair_list", "lambda3"])
+def test_gram_sym_pair_route_and_gradient_match_jax(rng, order, shape, solver, tol):
+    X = _paths(rng, *shape, 0.15)
+    jk = JSignatureKernel(dyadic_order=order, bandwidth=2.0, solver=solver)
+
+    def jf(x):
+        K = jk.gram_sym(x)
+        return jnp.sum(K), K
+
+    (_, Kj), dXj = jax.value_and_grad(jf, has_aux=True)(jnp.asarray(X))
+    kern = SignatureKernel(dyadic_order=order, bandwidth=2.0)
+    x = torch.from_numpy(X).requires_grad_(True)
+    K = kern.gram_sym(x)
+    (dX,) = torch.autograd.grad(K.sum(), x)
+    K = K.detach().numpy()
+    np.testing.assert_allclose(K, np.asarray(Kj), atol=tol[0], rtol=tol[1])
+    np.testing.assert_array_equal(K, K.T)
+    _scaled_close(dX.numpy(), dXj, tol[2])
+    # twice the repulsion that gram_and_grad returns
+    _, dX_half = kern.gram_and_grad(torch.from_numpy(X))
+    _scaled_close(dX.numpy(), 2.0 * dX_half.numpy(), 1e-5)
+
+
+def test_streamed_lambda0_gram_matches_jax(rng, monkeypatch):
+    """Paths of different lengths, the bandwidth from the 256×256 block's
+    median (its gradient included)."""
+    X = (rng.normal(size=(5, 6, 2)) * 0.4).astype(np.float32)
+    Y = (rng.normal(size=(4, 7, 2)) * 0.4).astype(np.float32)
+    for cls in (SignatureKernel, JSignatureKernel):
+        monkeypatch.setattr(cls, "_DENSE_LIMIT", 100)
+    assert 5 * 4 * 6 * 7 > SignatureKernel._DENSE_LIMIT
+    jk = JSignatureKernel(dyadic_order=0, bandwidth=None, solver="pallas_small")
+    Kj, vjp = jax.vjp(lambda x: jk.gram(x, jnp.asarray(Y)), jnp.asarray(X))
+    (dXj,) = vjp(jnp.ones_like(Kj))
+    xt = torch.from_numpy(X).requires_grad_(True)
+    K = SignatureKernel(dyadic_order=0, bandwidth=None).gram(xt, torch.from_numpy(Y))
+    (dX,) = torch.autograd.grad(K.sum(), xt)
+    np.testing.assert_allclose(K.detach().numpy(), np.asarray(Kj), rtol=3e-5, atol=2e-5)
+    _scaled_close(dX.numpy(), dXj, 5e-5)
+
+
+@pytest.mark.parametrize("shape", [(6, 3, 7), (5, 41, 4)], ids=["c7_block", "lc164_k7"])
+def test_lambda0_gram_and_grad_matches_jax(rng, shape, monkeypatch):
+    """[6, 3, 7] is inside JAX's block envelope (C ≤ 8, L·C ≤ 128), where
+    the JAX package runs its block kernel, but outside K1's (C ≤ 3): the port
+    takes K7's pair list, the same function. [5, 41, 4] is outside both
+    block envelopes: both packages take the pair list."""
+    X = _paths(rng, *shape, 0.15)
+    calls = []
+    plain = ks.small_backward_plain
+    monkeypatch.setattr(ks, "small_backward_plain",
+                        lambda *a: calls.append(a[0].shape) or plain(*a))
+    K, dX = SignatureKernel(dyadic_order=0, bandwidth=2.0).gram_and_grad(torch.from_numpy(X))
+    Kj, dXj = JSignatureKernel(dyadic_order=0, bandwidth=2.0,
+                               solver="pallas_small").gram_and_grad(jnp.asarray(X))
+    n = shape[0]
+    assert calls == [(shape[1], shape[2], n * (n + 1) // 2)]  # one chunk through K7
+    np.testing.assert_allclose(K.numpy(), np.asarray(Kj), atol=3e-5)
+    np.testing.assert_array_equal(K.numpy(), K.numpy().T)
+    _scaled_close(dX.numpy(), dXj, 5e-5)
+
+
+def test_lambda0_outside_the_pair_list_raises():
+    with pytest.raises(NotImplementedError, match="M6"):          # C > 8
+        SignatureKernel(dyadic_order=0, bandwidth=1.0).gram_and_grad(torch.zeros(3, 5, 9))
+    with pytest.raises(NotImplementedError, match="M6"):          # ly1 > 63
+        SignatureKernel(dyadic_order=0, bandwidth=1.0).gram_sym(torch.zeros(3, 65, 2))
