@@ -1,0 +1,120 @@
+"""Time the port's earlier end-to-end paths in two checkouts on one card.
+
+    python3 chip_ab.py A_DIR B_DIR [--solves N] [--out FILE]
+
+Runs each checkout's own ``chip_smoke.py`` phases in fresh processes, in the
+order A, B, B, A, so that a slow or fast spell of the host falls on both:
+the calibrated λ=0 solve (``flagship_solve``), the pinned λ=3 solves in
+fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
+``N`` chained solves each, default 7, after a warm-up), the planning
+iteration at 1024 particles (5 chained iterations) and the reference's
+planning run (``PlannerConfig()``, 20 particles × 500 iterations). Each
+phase keeps its own checks (launch counts, finite outputs, a falling
+cost). Every phase line goes to ``FILE`` (default
+``build/ab_paths.jsonl``); the standard output ends with one JSON
+object per run and, last, the metrics of A and B side by side (each the
+median over its runs of the per-run medians). Needs a CUDA card; exits
+non-zero without one or when a phase fails. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# (phase, key) of each end-to-end metric the runs are compared on
+METRICS = {
+    "flagship_solve": "ms_per_solve_median",
+    "pinned_solve": "ms_per_solve_median",
+    "bf16_pinned_solve": "ms_per_solve_median",
+    "planning_iter": "ms_per_iter_median",
+    "planning_run": "wall_s",
+}
+
+
+def child(root: Path, n_solves: int) -> int:
+    """One run in this process: ``root``'s package and smoke phases."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    here = Path(__file__).resolve().parent
+    sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != here]
+    sys.path.insert(0, str(root))
+    os.chdir(root)
+    import chip_smoke as cs
+    import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy)
+
+    if Path(cs.__file__).resolve().parent != root:
+        raise AssertionError(f"imported {cs.__file__}, not {root}'s smoke")
+    cs.N_SOLVES = n_solves
+    cs.phase_build()
+    cs.phase_flagship()
+    cs.phase_pinned()
+    cs.phase_planning_iter()
+    cs.phase_planning_run()
+    return 0
+
+
+def run(root: Path, label: str, n_solves: int, out) -> dict:
+    proc = subprocess.run([sys.executable, __file__, "--child", str(root),
+                           "--solves", str(n_solves)],
+                          capture_output=True, text=True, timeout=1500)
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            out.write(json.dumps({"run": label, **row}) + "\n")
+            rows[row.get("phase")] = row
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise SystemExit(f"chip_ab: the run of {root} failed (exit {proc.returncode})")
+    got = {"run": label, "root": str(root)}
+    for phase, key in METRICS.items():
+        got[phase] = rows[phase][key]
+        if "ms_per_solve_samples" in rows[phase]:
+            got[phase + "_samples"] = rows[phase]["ms_per_solve_samples"]
+        if "ms_per_iter_samples" in rows[phase]:
+            got[phase + "_samples"] = rows[phase]["ms_per_iter_samples"]
+    print(json.dumps(got), flush=True)
+    return got
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*", type=Path)
+    ap.add_argument("--child", type=Path)
+    ap.add_argument("--solves", type=int, default=7)
+    ap.add_argument("--out", type=Path, default=Path("build/ab_paths.jsonl"))
+    args = ap.parse_args()
+    if args.child is not None:
+        return child(args.child.resolve(), args.solves)
+    if len(args.roots) != 2:
+        ap.error("give two checkouts, A and B")
+    a, b = (r.resolve() for r in args.roots)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    runs = {"A": [], "B": []}
+    with args.out.open("w") as out:
+        for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
+            runs[label].append(run(root, label, args.solves, out))
+    print(json.dumps({"compare": {
+        phase: {label: statistics.median(r[phase] for r in rs) for label, rs in runs.items()}
+        for phase in METRICS}, "A": str(a), "B": str(b)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -52,8 +52,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    pairs) and at [128, 40, 2];
 10. the pinned order-3 solve (bench.py's ``ctrl_sig_pinned``: calibration
    off), as phase 3, with K2's launch count;
-11. K9 (the fused RBF Stein velocity) against its twin at [1024, 280] and a
-   ragged [333, 280] (rtol 2e-4, atol 5e-5), with its time;
+11. K9 (the fused RBF Stein velocity) against its twin at [1024, 280], a
+   ragged [333, 280] and, through its D-tiled kernel, [1024, 840] and
+   [1024, 1400] (rtol 2e-4, atol 5e-5), with its time and the twin's
+   (cuBLAS) at N = 1024;
 12. the policy-mode solve (bench.py's ``ctrl_rbf`` with
    ``fused_velocity=True``), as phase 3, with K9's launch count;
 13. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
@@ -91,12 +93,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    2] × [1024, 40, 2] (1,048,576 pairs) and its gradient with respect to X:
    time, launches, peak memory, rows 0..63 and 960..1023 held against the
    twin;
-20. small solves on the card held against the same solves on the CPU, where
-   the twins replace the kernels: λ=0, λ=3, λ=3 with the bf16 adjoint,
-   policy mode; λ=0 Grams with their gradient (the dense ``gram``,
-   ``gram_sym`` through K3 and through K7); and 3 planning iterations at
-   batch 8, T=50 in fp32 ("highest") and through K8 ("default", the bf16
-   twin on the CPU).
+20. ``pinned_linear_solve``: the pinned order-3 solve on linear statics
+   (``build_arm_mpc(calibrate=False, static="linear")``), as phase 10: K5's
+   forward and backward once a ``gram_and_grad`` (the list is one chunk,
+   asserted), K2, K4 and K6 never; then one ``gram_and_grad``
+   with its peak memory;
+21. K5 (the λ=3 solve on given increments, forward values only and with its
+   checkpoints, and the stable backward) against its twin at the flagship
+   linear list (the upper triangle of that solve's τ [1024, 40, 2], 524,800
+   pairs: the first and the last 16,384 held, the last in the later passes
+   of the backward's persistent loop, asserted), [2561, 3, 3], [3, 40, 40]
+   at scale 0.05, a ly1 = 48 list and a rectangular [39, 17] one: k and the
+   checkpoints to rtol 2e-5 / atol 1e-6, dz scaled to atol 5e-4 (1e-4 and
+   1e-3 at [3, 40, 40]); each also against the twin in fp64, reported;
+   times, bounds, the twin's times and the checkpoints' memory;
+22. ``dense_lambda3_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at
+   [128, 40, 2]² with its gradient, RBF and linear statics: one K5 forward
+   and one backward, no K4; held against the same route with the twins in
+   K5's place and, at [24, 40, 2] × [17, 33, 2], against the CPU; for the
+   record the RBF Gram's pairs through the fused route (K4), timed beside it;
+23. ``c12_pair_list``: λ=3 ``gram_and_grad`` at [256, 17, 12] (32,896
+   pairs): one K5 forward and one backward, held against the twins' route;
+24. ``linear_streamed_gram``: the linear ``gram(X, Y)`` on the two τ batches
+   of phase 3 (1,048,576 pairs) with its gradient: two K5 forwards and one
+   backward per chunk, wall time, peak memory, rows 0..15 and 1008..1023
+   held against the twins;
+25. small solves on the card held against the same solves on the CPU, where
+   the twins replace the kernels: λ=0, λ=3, λ=3 with the bf16 adjoint, λ=3
+   on linear statics (K5), policy mode; λ=0 Grams with their gradient (the
+   dense ``gram``, ``gram_sym`` through K3 and through K7); and 3 planning
+   iterations at batch 8, T=50 in fp32 ("highest") and through K8
+   ("default", the bf16 twin on the CPU).
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -124,6 +151,7 @@ K6_TOL = (2e-2, 0.999)  # rel, cos against the bf16 twin
 K6_FP32_TOL = (0.25, 0.98)  # rel, cos against K4's backward (test_bf16_delta_adjoint_matches_fp32)
 K7_TOL = (3e-5, 5e-5)   # k and fac atol, per-path gradients scaled atol (tests/test_pallas_small.py)
 K7_VALUE_TOL = (3e-5, 2e-5)  # rtol, atol of K7's values against JAX's (tests/test_pallas_small.py)
+K5_TOL = (2e-5, 5e-4)   # k rtol (atol 1e-6), dz scaled atol (tests/test_pallas_sigkernel.py)
 BF16_SOLVE_TOL = (1e-4, 1e-2)  # K atol, grad_k scaled (tests/test_torch_dust.py, lambda3_bf16)
 PLAN_TOL = (1e-4, 1e-5)  # rtol, atol of chained planning runs (tests/test_planning.py)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores (NVIDIA data sheet)
@@ -175,16 +203,6 @@ def smooth_paths(n: int, L: int, C: int, gen: torch.Generator) -> torch.Tensor:
     flagship's |a|·dt), the shape of the τ paths the solve feeds K1."""
     steps = (torch.rand((n, L, C), generator=gen, device="cuda") - 0.5) * 0.2
     return torch.cumsum(steps, dim=1).contiguous()
-
-
-def warm_cpu_kernels() -> None:
-    """PyTorch picks a CPU kernel's implementation at its first call; a
-    process's first ``exp`` of a large tensor, split across threads, was seen
-    to round some elements apart from later calls (up to 7e-5 in a static
-    row), so one small call comes first: the CPU runs that hold the card's
-    results then round alike."""
-    x = torch.rand(64, 1024)
-    torch.exp(-torch.clamp_min((x + x) - 2.0 * x * x, 0.0))
 
 
 def phase_build():
@@ -479,7 +497,7 @@ def phase_k9():
     gen = torch.Generator(device="cuda").manual_seed(9)
     rtol, atol = K9_TOL
     rows = {}
-    for N, D in ((1024, 280), (333, 280)):
+    for N, D in ((1024, 280), (333, 280), (1024, 840), (1024, 1400)):
         # policies as the solve holds them (uniform in the action range)
         x = torch.rand((N, D), generator=gen, device="cuda") * 4.0 - 2.0
         s = torch.randn((N, D), generator=gen, device="cuda")
@@ -496,10 +514,10 @@ def phase_k9():
         if N == 1024:
             row["kernel_ms"] = event_ms(lambda: kv.fused_rbf_velocity(x, s, h), 20)
             plain = event_ms(lambda: kv.rbf_velocity_plain(x, s, h), 20)
-            row.update(plain_ms=plain, library_ms=plain,
+            row.update(plain_ms=plain, library_ms=plain, d_tiled=D > kv.MAX_D,
                        library_call="the twin: pw_dist_sq, exp, two cuBLAS matmuls",
                        **bound(kv.velocity_flops(N, D), kv.velocity_bytes(N, D)))
-            rows["flagship"] = row
+            rows.setdefault("flagship", row)
         emit(row)
         if not (finite and excess <= 0.0):
             raise AssertionError(f"K9 disagrees with its plain twin: {row}")
@@ -569,6 +587,7 @@ def phase_small_vs_cpu():
         "lambda3": (dict(dyadic_order=3, calibrate=False), *K2_TOL),
         "lambda3_bf16": (dict(dyadic_order=3, calibrate=False, grad_precision="bf16"),
                          *BF16_SOLVE_TOL),
+        "lambda3_linear": (dict(dyadic_order=3, calibrate=False, static="linear"), *K2_TOL),
         "policy": (dict(kernel_mode="policy", fused_velocity=True), None, 1e-4),
     }
     for name, (kw, k_tol, g_tol) in cases.items():
@@ -1346,12 +1365,12 @@ def lambda0_counters():
             kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
 
 
-def run_counted(fn):
-    """``fn()`` once after a warm-up, with every λ=0 and pair-list counter
-    set to 0 just before and read just after: ``(out, launches, wall ms,
-    peak allocated MiB)``."""
+def run_counted(fn, counters=None):
+    """``fn()`` once after a warm-up, with every counter of ``counters``
+    (the λ=0 and pair-list kernels by default) set to 0 just before and read
+    just after: ``(out, launches, wall ms, peak allocated MiB)``."""
     fn()
-    counters = lambda0_counters()
+    counters = counters or lambda0_counters()
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1365,8 +1384,8 @@ def run_counted(fn):
     return out, {c.__name__: c.launches for c in counters}, wall_ms, peak_mib
 
 
-def expect_launches(phase, launches, **want):
-    want = {c.__name__: want.get(c.__name__, 0) for c in lambda0_counters()}
+def expect_launches(phase, launches, counters=None, **want):
+    want = {c.__name__: want.get(c.__name__, 0) for c in counters or lambda0_counters()}
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
 
@@ -1488,6 +1507,358 @@ def phase_lambda0_gram_and_grad():
     return rows
 
 
+def k5_counters():
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+    return (kt.tiled_forward, kt.tiled_backward, kf.fused_forward, kf.fused_backward,
+            kf.fused_backward_bf16, kb3.block3_gram_and_grad)
+
+
+class k5_twins:
+    """Within the block, K5's wrappers run its plain twins (``dtype``: the
+    backward's; the forward stays fp32), on the card, uncounted: the same
+    route with the twins in the kernels' place."""
+
+    def __init__(self, bwd_dtype=torch.float32):
+        self.bwd_dtype = bwd_dtype
+
+    def __enter__(self):
+        from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+        self.saved = kt.tiled_forward, kt.tiled_backward
+        dt = self.bwd_dtype
+        kt.tiled_forward = kt.tiled_forward_plain
+        kt.tiled_backward = lambda z, ck, g: kt.tiled_backward_plain(
+            z.to(dt), ck.to(dt), g.to(dt)).float()
+
+    def __exit__(self, *exc):
+        from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+        kt.tiled_forward, kt.tiled_backward = self.saved
+
+
+def k5_twin(z, g, dtype, chunk):
+    """K5's twin on ``z [lx1, ly1, P]`` in ``dtype``, ``chunk`` pairs at a
+    time: ``(k, ck, dz)`` for cotangent ``g``."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+    outs = []
+    for c0 in range(0, z.shape[-1], chunk):
+        zc, gc = z[..., c0:c0 + chunk].to(dtype), g[c0:c0 + chunk].to(dtype)
+        k, ck = kt.tiled_forward_plain(zc, with_ck=True)
+        outs.append((k, ck, kt.tiled_backward_plain(zc, ck, gc)))
+    return [torch.cat(o, dim=-1) for o in zip(*outs)]
+
+
+def k_excess(got, want, rtol, atol=1e-6) -> float:
+    """The largest ``|got − want| − (atol + rtol·|want|)``: ≤ 0 holds."""
+    return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+
+def phase_k5(tau):
+    """K5's forward (values only and with its checkpoints) and backward
+    against the fp32 twin at five lists: the flagship linear list (the
+    upper triangle of τ [1024, 40, 2] of a flagship rollout with linear
+    statics, 524,800 pairs, cotangent 1 on the diagonal and 2 off it, as
+    ``gram_and_grad`` seeds it; the first and last 16,384 pairs held, the
+    last in the later passes of the backward's persistent loop, asserted),
+    2,561 pairs of [3, 3] increments, [3, 40, 40] at scale 0.05, a ly1 = 48
+    list and a rectangular [39, 17] one (normal increments, scale 0.3, as
+    ``tests/test_pallas_sigkernel.py`` draws them): k and the checkpoints to
+    rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| to atol 5e-4 (1e-4 and
+    1e-3 at [3, 40, 40]); each also against the twin in fp64, reported. At
+    the flagship list the times of the three launches and of the twin (by
+    chunks of 65,536 pairs), the bounds and the checkpoints' memory."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    n = tau.shape[0]
+    iu, ju = torch.triu_indices(n, n, device="cuda")
+    cases = [("flagship_linear_triu", [n, 40, 2],
+              kt.pair_increments(tau, tau, iu, ju, None).contiguous(),
+              torch.where(iu == ju, 1.0, 2.0))]
+    del iu, ju
+    for name, b, lx1, ly1, scale in (("normal_2561x3x3", 2561, 3, 3, 0.3),
+                                     ("mpc_3x40x40", 3, 40, 40, 0.05),
+                                     ("ly48_300x6x48", 300, 6, 48, 0.3),
+                                     ("rect_500x39x17", 500, 39, 17, 0.3)):
+        z = (torch.randn((lx1, ly1, b), generator=gen, device="cuda") * scale / 64.0)
+        cases.append((name, [b, lx1, ly1], z.contiguous(),
+                      torch.randn(b, generator=gen, device="cuda")))
+    out = None
+    for name, shape, z, g in cases:
+        lx1, ly1, P = z.shape
+        k_rtol, dz_tol = (1e-4, 1e-3) if name.startswith("mpc") else K5_TOL
+        threads = kt.bwd_grid(P) * kt.NT_BWD
+        hold = min(P, 16384)
+        held = torch.arange(hold, device="cuda")
+        tail = P > threads
+        if tail:
+            held = torch.cat([held, torch.arange(max(hold, P - hold), P, device="cuda")])
+        (kv,) = kt.tiled_forward(z, with_ck=False)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k, ck = kt.tiled_forward(z, with_ck=True)
+        dz = kt.tiled_backward(z, ck, g)
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        zh, gh = z[..., held], g[held]
+        kp, ckp, dzp = k5_twin(zh, gh, torch.float32, 16384)
+        k64, _, dz64 = k5_twin(zh, gh, torch.float64, 16384)
+        kh, ckh, dzh = k[held], ck[..., held], dz[..., held]
+        k_err = k_excess(kh, kp, k_rtol)
+        ck_err = k_excess(ckh, ckp, k_rtol)
+        dz_err = scaled_err(dzh, dzp)
+        finite = bool(torch.isfinite(k).all() and torch.isfinite(dz).all())
+        row = {"phase": "k5_vs_plain", "case": name, "shape": shape, "pairs": P,
+               "backward_threads": threads, "pairs_held": held.numel(), "tail_held": tail,
+               "k_max_abs_err": (kh - kp).abs().max().item(),
+               "k_excess_over_tolerance": k_err, "ck_excess_over_tolerance": ck_err,
+               "values_only_equal": bool(torch.equal(kv, k)),
+               "dz_scaled_err": dz_err, "dz_max_abs_err": (dzh - dzp).abs().max().item(),
+               "vs_fp64": {"k": (kh.double() - k64).abs().max().item(),
+                           "plain_k": (kp.double() - k64).abs().max().item(),
+                           "dz_scaled": scaled_err(dzh, dz64),
+                           "plain_dz_scaled": scaled_err(dzp, dz64)},
+               "k_range": [k.min().item(), k.max().item()],
+               "z_abs_max": z.abs().max().item(),
+               "residual_mib": kt.residual_bytes(P, lx1, ly1) / 2**20,
+               "forward_backward_peak_mib": peak_mib, "finite": finite}
+        del kp, ckp, dzp, k64, dz64, zh, kh, ckh, dzh
+        if name == "flagship_linear_triu":
+            if not tail:
+                raise AssertionError(f"K5 took {P} pairs on {threads} threads: its "
+                                     "backward's later passes went unchecked")
+            row["fwd_values_ms"] = event_ms(lambda: kt.tiled_forward(z, with_ck=False), 3)
+            row["fwd_ms"] = event_ms(lambda: kt.tiled_forward(z, with_ck=True), 3)
+            row["bwd_ms"] = event_ms(lambda: kt.tiled_backward(z, ck, g), 3)
+            row["backward_blocks"] = kt.bwd_grid(P)
+            plain = lambda fn: event_ms(lambda: [  # noqa: E731
+                fn(z[..., c0:c0 + 65536], c0) for c0 in range(0, P, 65536)], 1)
+            row["plain_fwd_ms"] = plain(lambda zc, c0: kt.tiled_forward_plain(zc, True))
+            row["plain_bwd_ms"] = plain(lambda zc, c0: kt.tiled_backward_plain(
+                zc, ck[..., c0:c0 + 65536], g[c0:c0 + 65536]))
+            row["fwd_bound"] = bound(kt.tiled_flops(P, lx1, ly1),
+                                     kt.tiled_bytes(P, lx1, ly1))
+            row["values_bound"] = bound(kt.tiled_flops(P, lx1, ly1),
+                                        kt.tiled_bytes(P, lx1, ly1, "values"))
+            row["bwd_bound"] = bound(kt.tiled_flops(P, lx1, ly1, "backward"),
+                                     kt.tiled_bytes(P, lx1, ly1, "backward"))
+            out = row
+        emit(row)
+        ok = (finite and row["values_only_equal"] and k_err <= 0 and ck_err <= 0
+              and dz_err <= dz_tol)
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its twin: {row}")
+        del z, g, k, ck, dz, kv
+    return out
+
+
+def phase_pinned_linear():
+    """The pinned order-3 solve on linear statics (bench.py's
+    ``ctrl_sig_pinned`` with ``SignatureKernel(3, static="linear")``), as
+    ``pinned_solve``: K5's forward and backward launch once per pair chunk
+    of each SVGD step's ``gram_and_grad`` (one chunk, asserted), K2,
+    K4 and K6 never; then the peak memory of one ``gram_and_grad``."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False,
+                         static="linear")
+    kern = prob.ctrl.sig_kernel
+    if kern.dyadic_order != 3 or kern.static != "linear":
+        raise AssertionError(f"the linear pinned controller's kernel is {kern}")
+    pairs = prob.ctrl.n_pol * (prob.ctrl.n_pol + 1) // 2
+    _, chunk, nb = kern._chunk_plan(39, 39, pairs, 2, torch.device("cuda"), None)
+    if nb != 1:
+        raise AssertionError(f"the {pairs}-pair linear list was cut in {nb} chunks; "
+                             "a quarter of the card holds it whole")
+    row = drive_solves("pinned_linear_solve", prob,
+                       {kt.tiled_forward: OPT_STEPS * nb, kt.tiled_backward: OPT_STEPS * nb,
+                        kb3.block3_gram_and_grad: 0, kf.fused_forward: 0,
+                        kf.fused_backward: 0, kf.fused_backward_bf16: 0},
+                       N_SOLVES, sig_gram_stage)
+    cs = prob.ctrl.init(generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        tau = prob.ctrl._tau(prob.ctrl._rollout_costs(prob.q_start, cs.pol_mean)[1])
+    _, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(tau), k5_counters())
+    emit({"phase": "pinned_linear_solve", "part": "gram_and_grad", "pairs": pairs,
+          "chunk": chunk, "chunks": nb, "wall_ms": wall_ms, "launches": launches,
+          "peak_allocated_mib": peak_mib})
+    expect_launches("pinned_linear gram_and_grad", launches, k5_counters(), tiled_forward=nb,
+                       tiled_backward=nb)
+    return row, tau
+
+
+def phase_dense_lambda3_gram():
+    """``SignatureKernel(3, 4.0).gram(X, Y)`` at [128, 40, 2]² (16,384 pairs,
+    below the dense limit) with ``autograd.grad`` with respect to X, on RBF
+    and on linear statics: the dense statics, their increments and exactly
+    one K5 forward and one backward, no K4; K against the same route with
+    the fp32 twin in K5's place (k's tolerance, rtol 2e-5 / atol 1e-6) and
+    dX against it with the fp64 twin in the backward's place (scaled 5e-4),
+    both on the card; then a [24, 40, 2] × [17, 33, 2] Gram against the
+    route on the CPU (K atol 5e-4, as ``test_torch_cuda.py`` holds this
+    route's card against its CPU: the two devices' dense statics round
+    apart in the last bit and the grid carries it; dX scaled 5e-4). For the
+    record, the RBF Gram's n·m pairs through the fused pair-list route,
+    K4's forward and backward (``sigkernel_fused.pair_gram_fused``), timed
+    the same way."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    X, Y = smooth_paths(128, 40, 2, gen), smooth_paths(128, 40, 2, gen)
+    Xs, Ys = smooth_paths(24, 40, 2, gen), smooth_paths(17, 33, 2, gen)
+    rows = {}
+    for static in ("rbf", "linear"):
+        kern = SignatureKernel(3, 4.0, static=static)
+
+        def run(a=X, b=Y):
+            x = a.clone().requires_grad_(True)
+            K = kern.gram(x, b)
+            (dX,) = torch.autograd.grad(K.sum(), x)
+            return K.detach(), dX
+
+        (K, dX), launches, wall_ms, peak_mib = run_counted(run, k5_counters())
+        with k5_twins():
+            Kp, _ = run()
+        with k5_twins(torch.float64):
+            _, dX64 = run()
+        Kc, dXc = run(Xs, Ys)
+        Kcpu, dXcpu = run(Xs.cpu(), Ys.cpu())
+        k_err = k_excess(K, Kp, K5_TOL[0])
+        dx_err = scaled_err(dX, dX64)
+        cpu = {"k_abs": (Kc.cpu() - Kcpu).abs().max().item(),
+               "dx_scaled": scaled_err(dXc.cpu(), dXcpu)}
+        finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
+        row = {"phase": "dense_lambda3_gram", "static": static,
+               "shape": [[128, 40, 2], [128, 40, 2]], "pairs": 128 * 128,
+               "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+               "k_max_abs_err": (K - Kp).abs().max().item(), "k_excess_over_tolerance": k_err,
+               "dx_scaled_err_vs_fp64": dx_err, "vs_cpu_24x17": cpu,
+               "k_range": [K.min().item(), K.max().item()], "finite": finite}
+        if static == "rbf":
+            idx = torch.arange(128 * 128, device="cuda")
+
+            def k4_route():
+                x = X.clone().requires_grad_(True)
+                K4 = kf.pair_gram_fused(x, Y, idx // 128, idx % 128, 4.0).reshape(128, 128)
+                (dX4,) = torch.autograd.grad(K4.sum(), x)
+                return K4.detach(), dX4
+
+            before = (kf.fused_forward.launches, kf.fused_backward.launches)
+            K4, dX4 = k4_route()
+            row["k4_route"] = {"wall_ms": host_ms(k4_route, 3), "k5_route_wall_ms": host_ms(run, 3),
+                               "k_max_abs_diff": (K4 - K).abs().max().item(),
+                               "dx_scaled_diff": scaled_err(dX4, dX)}
+            kf.fused_forward.launches, kf.fused_backward.launches = before
+        emit(row)
+        expect_launches(f"dense_lambda3_gram {static}", launches, k5_counters(), tiled_forward=1,
+                           tiled_backward=1)
+        if not (finite and k_err <= 0 and dx_err <= K5_TOL[1] and cpu["k_abs"] <= 5e-4
+                and cpu["dx_scaled"] <= K5_TOL[1]):
+            raise AssertionError(f"dense_lambda3_gram disagrees with its twins: {row}")
+        rows[static] = row
+    return rows
+
+
+def phase_c12_pair_list():
+    """λ=3 ``gram_and_grad`` at [256, 17, 12] (RBF statics, 32,896 pairs;
+    12 channels are outside the fused kernels and K2): one K5 forward and
+    one backward on increments built in torch, nothing else; wall time and
+    peak memory; K and dX against the same route with the twins in K5's
+    place (the fp32 forward, K atol 1e-4; the fp64 backward, dX scaled
+    5e-4)."""
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    X = smooth_paths(256, 17, 12, gen)
+    kern = SignatureKernel(3, 4.0)
+    (K, dX), launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(X), k5_counters())
+    with k5_twins(torch.float64):
+        Kp, dXp = kern.gram_and_grad(X)
+    k_err = (K - Kp).abs().max().item()
+    dx_err = scaled_err(dX, dXp)
+    row = {"phase": "c12_pair_list", "shape": [256, 17, 12], "pairs": 256 * 257 // 2,
+           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
+           "k_range": [K.min().item(), K.max().item()],
+           "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
+    emit(row)
+    expect_launches("c12_pair_list", launches, k5_counters(), tiled_forward=1, tiled_backward=1)
+    if not (row["finite"] and k_err <= K4_TOL[0] and dx_err <= K5_TOL[1]):
+        raise AssertionError(f"c12_pair_list disagrees with its twins: {row}")
+    return row
+
+
+def phase_linear_streamed_gram(X, Y):
+    """The linear ``gram(X, Y)`` on τ of two flagship rollouts, [1024, 40, 2]
+    × [1024, 40, 2] (1,048,576 pairs, above the dense limit), with its
+    gradient with respect to X: the Gram each device of the JAX package's
+    column-sharded solve computes, here on linear statics. Checkpointed
+    chunks: two K5 forwards and one backward per chunk (the plan is
+    reported), nothing else; wall time and peak memory; rows 0..15 and
+    1008..1023 held against the same streamed route on those rows with the
+    twins in K5's place (the fp32 forward for K, k's tolerance rtol 2e-5 /
+    atol 1e-6; the fp64 backward for dX, scaled 5e-4)."""
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    kern = SignatureKernel(3, static="linear")
+    n, m = X.shape[0], Y.shape[0]
+
+    def run():
+        x = X.clone().requires_grad_(True)
+        K = kern.gram(x, Y)
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach(), dX
+
+    (K, dX), launches, wall_ms, peak_mib = run_counted(run, k5_counters())
+    _, chunk, nb = kern._chunk_plan(39, 39, n * m, 2, X.device, None)
+    rows = torch.cat([torch.arange(16), torch.arange(n - 16, n)]).cuda()
+    x = X[rows].clone().requires_grad_(True)
+    with k5_twins(torch.float64):
+        Kp = kern._gram_chunked_pairs(x, Y)
+        (dXp,) = torch.autograd.grad(Kp.sum(), x)
+    k_err = k_excess(K[rows], Kp.detach(), K5_TOL[0])
+    dx_err = scaled_err(dX[rows], dXp)
+    row = {"phase": "linear_streamed_gram", "shape": [list(X.shape), list(Y.shape)],
+           "pairs": n * m, "chunk": chunk, "chunks": nb, "wall_ms": wall_ms,
+           "launches": launches, "peak_allocated_mib": peak_mib,
+           "rows_held": [[0, 15], [n - 16, n - 1]],
+           "k_max_abs_err": (K[rows] - Kp.detach()).abs().max().item(),
+           "k_excess_over_tolerance": k_err,
+           "dx_scaled_err_vs_fp64": dx_err, "k_range": [K.min().item(), K.max().item()],
+           "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
+    emit(row)
+    expect_launches("linear_streamed_gram", launches, k5_counters(), tiled_forward=2 * nb,
+                       tiled_backward=nb)
+    if not (row["finite"] and K.shape == (n, m) and k_err <= 0 and dx_err <= K5_TOL[1]):
+        raise AssertionError(f"linear_streamed_gram disagrees with its twins: {row}")
+    return row
+
+
+def tiled_entry(name, replaces, k5, launches, which) -> dict:
+    """A K5 entry at the flagship linear list (524,800 pairs of τ [1024, 40,
+    2]), the list the pinned linear solve's ``gram_and_grad`` runs;
+    ``launches`` from that solve's run and by path. No PyTorch call
+    computes the sweep, so ``library_ms`` is null."""
+    b = k5[f"{which}_bound"]
+    entry = {"name": name, "route": "cuda", "source": "sigsvgd_tpu_torch/csrc/sigkernel_tiled.cu",
+             "replaces": replaces, "shape": k5["shape"], "pairs": k5["pairs"],
+             "launches": launches["pinned_linear_solve"], "launches_by_path": launches,
+             "max_abs_err": k5["k_max_abs_err" if which == "fwd" else "dz_max_abs_err"],
+             "ms": k5[f"{which}_ms"], "plain_ms": k5[f"plain_{which}_ms"],
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
+    if which == "fwd":
+        entry["values_only_ms"] = k5["fwd_values_ms"]
+    return entry
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel's entry; its times, error and bound are all at ``shape``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1557,9 +1928,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    import sigsvgd_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
+    import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy; one multi-threaded CPU exp)
 
-    warm_cpu_kernels()
     phase_build()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
@@ -1568,7 +1938,6 @@ def main() -> int:
     streamed0 = phase_lambda0_streamed_gram(kern0, *taus)
     sym = phase_gram_sym(kern0, taus[0])
     gg0 = phase_lambda0_gram_and_grad()
-    del taus
     k2 = phase_k2()
     pinned = phase_pinned()
     k9 = phase_k9()
@@ -1580,6 +1949,19 @@ def main() -> int:
     k6 = phase_k6(k4)
     k4.pop("tiles")
     streamed = phase_streamed_gram()
+    linear_solve, linear_tau = phase_pinned_linear()
+    k5 = phase_k5(linear_tau)
+    del linear_tau
+    dense3 = phase_dense_lambda3_gram()
+    c12 = phase_c12_pair_list()
+    linear_streamed = phase_linear_streamed_gram(*taus)
+    del taus
+    k5_launches = {
+        which: {"pinned_linear_solve": linear_solve["launches"][which],
+                **{f"dense_lambda3_gram {st}": r["launches"][which] for st, r in dense3.items()},
+                "c12_pair_list": c12["launches"][which],
+                "linear_streamed_gram": linear_streamed["launches"][which]}
+        for which in ("tiled_forward", "tiled_backward")}
     phase_small_vs_cpu()
     small_grams_vs_cpu()
     planning_small_vs_cpu()
@@ -1627,6 +2009,10 @@ def main() -> int:
          "max_abs_err": k6["max_abs_err"],
          "ms": k6["k6_ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
          "bound_by": k6["bound_by"], "library_ms": None},
+        tiled_entry("tiled_forward (K5 forward)", "sigsvgd_tpu/kernels/pallas_sigkernel.py:185",
+                    k5, k5_launches["tiled_forward"], "fwd"),
+        tiled_entry("tiled_backward (K5 backward)", "sigsvgd_tpu/kernels/pallas_sigkernel.py:293",
+                    k5, k5_launches["tiled_backward"], "bwd"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

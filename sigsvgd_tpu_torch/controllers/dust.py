@@ -35,7 +35,6 @@ from ..utils.distributions import ParticleGMM
 from ..utils.math import grad_gmm_log_p, smoothed_box_log_prob
 
 CostFn = Callable[..., torch.Tensor]
-_INIT_RANGE = 10.0  # init draws stay within ±10 even for unbounded actions
 
 
 class DuStState(NamedTuple):
@@ -60,8 +59,11 @@ class DuSt:
     device: Optional[torch.device] = None  # None means "cuda"
     n_action_samples: int = 0
     n_params_samples: int = 0
+    pol_cov: Tuple[Tuple[float, ...], ...] = ()  # [a, a]; empty = identity
     temperature: float = 1.0
+    params_log_space: bool = False
     pol_hyper_prior: bool = True
+    weighted_prior: bool = False
     roll_strategy: str = "repeat"
     kernel_mode: str = "policy"  # policy | signature (trajectory: M8)
     kernel: Any = dataclasses.field(default_factory=GaussianKernel)
@@ -71,7 +73,10 @@ class DuSt:
     stein_sampler: str = "SVGD"
     optimizer: Optional[Adam] = None
     lr: float = 0.1
+    roll_opt_state: bool = False
     fused_velocity: bool = False  # K9 for the policy-mode RBF velocity
+    n_prim: int = 0
+    init_uniform_range: float = 10.0  # init draws stay within ± this
     inst_cost_fn: Optional[CostFn] = None
     term_cost_fn: Optional[CostFn] = None
 
@@ -88,6 +93,16 @@ class DuSt:
                               "ScaledSVGD/MatrixSVGD: queue 1, M7"),
             "roll_strategy": (self.roll_strategy != "repeat",
                               "resample and mean rolls: queue 1, M1 and M8"),
+            "pol_cov": (self.pol_cov != (),
+                        "the policy covariance, with the score-function likelihood: "
+                        "queue 1, M8"),
+            "params_log_space": (self.params_log_space,
+                                 "parameter sampling: queue 1, M8"),
+            "weighted_prior": (self.weighted_prior, "weighted_prior: queue 1, M8"),
+            "roll_opt_state": (self.roll_opt_state,
+                               "roll_opt_state: queue 1, M8 and M7's roll_leaf"),
+            "n_prim": (self.n_prim != 0,
+                       "frozen primitives: queue 1, M8 and M7's gradient_mask"),
         }
         for name, (bad, item) in unported.items():
             if bad:
@@ -124,8 +139,8 @@ class DuSt:
         ``generator``, unless ``pol_mean`` is given."""
         if pol_mean is None:
             space = self.model.action_space
-            low = max(max(space.low_t), -_INIT_RANGE)
-            high = min(min(space.high_t), _INIT_RANGE)
+            low = max(max(space.low_t), -self.init_uniform_range)
+            high = min(min(space.high_t), self.init_uniform_range)
             u = torch.rand((self.n_pol, self.hz_len, self.dim_a),
                            generator=generator, device=self.device)
             pol_mean = low + (high - low) * u

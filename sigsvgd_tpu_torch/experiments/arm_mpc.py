@@ -8,7 +8,9 @@ controllers: the Stein repulsion of ``SignatureKernel(dyadic_order=3,
 bandwidth=4.0)`` after ``calibrate_dyadic_order`` on a warm-up rollout
 (``ctrl_sig``), the same kernel pinned at order 3 (``ctrl_sig_pinned``,
 ``calibrate=False``), and the RBF kernel on the policies (``ctrl_rbf``,
-``kernel_mode="policy"``). ``chip_smoke.py`` and the tests build them here.
+``kernel_mode="policy"``). ``chip_smoke.py`` and the tests build them here,
+and the pinned controller with the linear static kernel
+(``static="linear"``: the λ=3 pair list through K5).
 
 :func:`build_planning_problem` gives bench's second workload on the same
 arm and scene (``bench_planning_iter``): open-loop trajectory optimisation
@@ -97,15 +99,26 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
                   seed: int = 0, calibrate: bool = True,
                   kernel_mode: str = "signature",
                   fused_velocity: bool = False,
-                  grad_precision: str = "fp32") -> ArmProblem:
+                  grad_precision: str = "fp32",
+                  static: str = "rbf") -> ArmProblem:
     """Build the flagship problem. In signature mode the kernel's order is
     calibrated on a warm-up rollout of policies drawn from ``seed`` (the
     bound is reported either way); ``calibrate=False`` keeps
     ``dyadic_order``, as bench's pinned controller does, and
     ``grad_precision`` is the signature kernel's adjoint precision ("bf16":
-    the λ=3 pair list with K6). ``kernel_mode="policy"`` gives bench's RBF
-    controller, with ``fused_velocity`` selecting K9; it has no signature
-    kernel to calibrate."""
+    the λ=3 pair list with K6). ``static="linear"`` takes the linear static
+    kernel (the bandwidth is then unused, as in the JAX package); it needs
+    ``calibrate=False``, because the calibration can choose order 0, where
+    the JAX package takes the linear kernel by its XLA wavefront route, not
+    ported yet (ROADMAP.md queue 1, M6). ``kernel_mode="policy"`` gives
+    bench's RBF controller, with ``fused_velocity`` selecting K9; it has no
+    signature kernel to calibrate."""
+    if kernel_mode == "signature" and static == "linear" and calibrate:
+        raise NotImplementedError(
+            "calibrating the linear-static kernel can drop it to dyadic order 0, "
+            "which the JAX package solves by its XLA wavefront route, not ported yet "
+            "(ROADMAP.md queue 1, M6); pass calibrate=False"
+        )
     device = resolve_device(device)
     robot = PandaRobot.create(device=device)
     low, high = robot.joint_limits()
@@ -126,7 +139,7 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
     ctrl = DuSt(
         kernel_mode="signature",
         sig_kernel=SignatureKernel(dyadic_order=dyadic_order, bandwidth=bandwidth,
-                                   grad_precision=grad_precision),
+                                   static=static, grad_precision=grad_precision),
         **common,
     )
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -26,17 +26,12 @@ def _as2d(x: torch.Tensor) -> torch.Tensor:
 class BaseKernel:
     """Bandwidth plumbing: ``bandwidth_fn`` maps the pairwise squared
     distances to a scalar ``h``; the default is the median heuristic.
-    Only the analytic gradient is ported: ``analytic_grad=False`` raises."""
+    ``analytic_grad`` is accepted and not read, as in the JAX package: the
+    kernels return their analytic gradient either way."""
 
     bandwidth_fn: Optional[BandwidthFn] = None
     bw_scale: float = 1.0
     analytic_grad: bool = True
-
-    def __post_init__(self):
-        if not self.analytic_grad:
-            raise NotImplementedError(
-                "analytic_grad=False (an autodiff kernel gradient) is not ported; "
-                "the kernels here return their analytic gradient")
 
     def bandwidth(self, sq_dists: torch.Tensor, h=None) -> torch.Tensor:
         if h is not None:

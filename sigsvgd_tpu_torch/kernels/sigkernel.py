@@ -5,28 +5,35 @@ Discretisation, as the JAX package: with ``z = inc / 4^λ``,
 
     k[i+1,j+1] = (k[i+1,j] + k[i,j+1])·(1 + z/2 + z²/12) − k[i,j]·(1 − z²/12)
 
-where ``inc`` is the double difference of the static Gram on the coarse grid.
+where ``inc`` is the double difference of the static Gram (RBF, or linear
+with ``static="linear"``) on the coarse grid.
 
 Routing (``SignatureKernel._solver_kind``), as the JAX package routes on the
-TPU: λ=0 with ly1 ≤ 63 → the ``"small"`` kind: ``gram_and_grad`` takes
-``sigkernel_block.block_gram_and_grad`` (K1) inside both K1's block
-envelope and the JAX package's, else the gathered upper-triangle pair list
-through ``sigkernel_small`` (K7's forward and backward), and ``gram`` above
-``_DENSE_LIMIT`` streams pair chunks through K7; ``gram_sym`` takes
-``sigkernel_block.block_gram`` (K3) inside both block envelopes, else the
-upper-triangle pair list (K7 at λ=0, K4 at λ=3). λ=3 with ly1 ≤ 48
-→ the ``"pallas"`` kind: ``gram_and_grad`` takes
+TPU (``solver="auto"``; the explicit solvers as the JAX package maps them):
+λ=0 with ly1 ≤ 63 and RBF statics → the ``"small"`` kind:
+``gram_and_grad`` takes ``sigkernel_block.block_gram_and_grad`` (K1) inside
+both K1's block envelope and the JAX package's, else the gathered
+upper-triangle pair list through ``sigkernel_small`` (K7's forward and
+backward), and ``gram`` above ``_DENSE_LIMIT`` streams pair chunks through
+K7; ``gram_sym`` takes ``sigkernel_block.block_gram`` (K3) inside both block
+envelopes, else the upper-triangle pair list. λ=3 with ly1 ≤ 48 → the
+``"pallas"`` kind: ``gram_and_grad`` takes
 ``sigkernel_block3.block3_gram_and_grad`` (K2) at ``grad_precision="fp32"``
-inside K2's envelope, else the gathered upper-triangle pair list through
-``sigkernel_fused`` (K4's forward, then K4's fp32 backward or, at
-``grad_precision="bf16"`` inside JAX's bf16 envelope, K6); ``gram`` above
-``_DENSE_LIMIT`` streams pair chunks through K4, and so does the dense λ=3
-``gram`` on the card. Shapes the block propagator takes (λ ≥ 4, at most 256
-block hops) → the hop chain K8 (``mxu_chain.solve_goursat_pde_mxu_chain``)
-when ``mxu_precision="default"`` and K8 takes the shape, else the fp32 block
-propagator :func:`solve_goursat_pde_mxu`. Each kernel runs its plain twin on
-the CPU. What the slice does not port raises naming its ROADMAP item: the
-wavefront (M6) and the pair solve on given increments (K5).
+inside K2's envelope (RBF statics), else the gathered upper-triangle pair
+list; a pair list takes ``sigkernel_fused`` inside the fused envelope (RBF
+statics, C ≤ 8: K4's forward, then K4's fp32 backward or, at
+``grad_precision="bf16"`` inside JAX's bf16 envelope, K6), else
+``sigkernel_tiled.pair_values`` (linear statics or C > 8: the increments in
+torch, K5's forward and backward); ``gram`` above ``_DENSE_LIMIT`` streams
+pair chunks through those pair lists, and the dense λ=3 ``gram`` solves its
+increments by K5 (``solve_goursat_pde_tiled``). Shapes the block propagator
+takes (λ ≥ 4, at most 256 block hops) → the hop chain K8
+(``mxu_chain.solve_goursat_pde_mxu_chain``) when ``mxu_precision="default"``
+and K8 takes the shape, else the fp32 block propagator
+:func:`solve_goursat_pde_mxu`. Each kernel runs its plain twin on the CPU.
+The JAX package's XLA wavefront (λ = 1, 2; λ=0 with linear statics or
+beyond the pair lists' envelopes; ``solver="wavefront"``) raises naming
+ROADMAP M6, except that the dense ``gram`` runs the plain solve there.
 """
 from __future__ import annotations
 
@@ -40,16 +47,19 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils.math import bw_median, relu
 from .mxu_chain import chain_supported, solve_goursat_pde_mxu_chain
-from . import sigkernel_fused, sigkernel_small
+from . import sigkernel_fused, sigkernel_small, sigkernel_tiled
 from .sigkernel_block import (
     block_gram, block_gram_and_grad, block_supported, jax_block_supported,
 )
 from .sigkernel_block3 import block3_gram_and_grad, block3_supported
 from .sigkernel_fused import fused_supported, pair_gram_fused, pallas_supported
 from .sigkernel_small import pair_gram_small, small_supported
+from .sigkernel_tiled import pair_values, solve_goursat_pde_tiled
 
 _MXU_PRECISIONS = ("highest", "high", "default")
 _GRAD_PRECISIONS = ("fp32", "bf16")
+_STATICS = ("rbf", "linear")
+_SOLVERS = ("auto", "wavefront", "mxu", "mxu_pallas", "pallas", "pallas_small")
 
 
 def _pair_sq_dists(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -64,6 +74,11 @@ def _pair_sq_dists(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 def static_gram_rbf(X: torch.Tensor, Y: torch.Tensor, h) -> torch.Tensor:
     """``κ(x, y) = exp(-||x-y||² / h)`` (``h`` not squared)."""
     return torch.exp(-_pair_sq_dists(X, Y) / h)
+
+
+def static_gram_linear(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """``κ(x, y) = ⟨x, y⟩``: ``[n, L, C] × [m, L', C] → [n, m, L, L']``."""
+    return torch.einsum("npc,mqc->nmpq", X, Y)
 
 
 def gram_increments(gram: torch.Tensor) -> torch.Tensor:
@@ -205,27 +220,37 @@ def _mxu_eligible(lx1: int, ly1: int, dyadic_order: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SignatureKernel:
-    """Untruncated signature kernel with an RBF static kernel.
+    """Untruncated signature kernel with an RBF (or linear) static kernel.
 
     Attributes:
       dyadic_order: grid refinement exponent λ.
       bandwidth: fixed static-kernel bandwidth ``h`` (κ = exp(-d²/h)); if
-        None, the median heuristic.
+        None, the median heuristic, scaled by ``bw_scale``.
+      static: "rbf" or "linear" (κ = ⟨x, y⟩; no bandwidth).
+      solver: the JAX package's solver choice: "auto" routes as the JAX
+        package does on the TPU; "pallas" pins the λ=3 kernels, and
+        "pallas_small" the λ=0 ones; "mxu" the fp32 block propagator;
+        "mxu_pallas" the hop chain K8 where it takes the shape, else the
+        fp32 block propagator. "wavefront" raises: the XLA wavefront is
+        not ported (ROADMAP M6).
       mxu_degree: degree of the block propagator's series in z.
       mxu_precision: "default" sends block-propagator shapes K8 takes to the
         hop chain (bf16 products, fp32 accumulation), as the JAX package
         does on the TPU; "highest" and "high" take the fp32 block
         propagator. The port has no 3-pass bf16 product, so "high" runs as
         "highest" (full fp32).
-      grad_precision: adjoint of the λ=3 pair-list route: "fp32" (K4's exact
-        adjoint) or "bf16" (K6's first-order delta form, gradient-grade
-        only; values are unchanged). As in the JAX package, "bf16" skips
-        the block route and falls back to the fp32 adjoint outside its
-        envelope (ly1 ≤ 40, C ≤ 4).
+      grad_precision: adjoint of the λ=3 fused pair-list route: "fp32"
+        (K4's exact adjoint) or "bf16" (K6's first-order delta form,
+        gradient-grade only; values are unchanged). As in the JAX package,
+        "bf16" skips the block route and falls back to the fp32 adjoint
+        outside its envelope (ly1 ≤ 40, C ≤ 4).
     """
 
     dyadic_order: int = 3
     bandwidth: Optional[float] = None
+    bw_scale: float = 1.0
+    static: str = "rbf"
+    solver: str = "auto"
     mxu_degree: int = 10
     mxu_precision: str = "highest"
     grad_precision: str = "fp32"
@@ -235,71 +260,80 @@ class SignatureKernel:
     _DENSE_LIMIT = 2 * 10**8
 
     def __post_init__(self):
-        if self.mxu_precision not in _MXU_PRECISIONS:
-            raise ValueError(f"mxu_precision must be one of {_MXU_PRECISIONS}, "
-                             f"got {self.mxu_precision!r}")
-        if self.grad_precision not in _GRAD_PRECISIONS:
-            raise ValueError(f"grad_precision must be one of {_GRAD_PRECISIONS}, "
-                             f"got {self.grad_precision!r}")
+        for name, allowed in (("static", _STATICS), ("solver", _SOLVERS),
+                              ("mxu_precision", _MXU_PRECISIONS),
+                              ("grad_precision", _GRAD_PRECISIONS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, "
+                                 f"got {getattr(self, name)!r}")
 
-    def _solver_kind(self, lx1: int, ly1: int) -> str:
-        """``"small"`` (λ=0, ly1 ≤ 63: K1 or K3 on a block, else the K7 pair
-        list), ``"pallas"`` (λ=3, ly1 ≤ 48: K2 or the K4/K6 pair list),
-        ``"mxu_chain"`` (K8) or ``"mxu"`` (the fp32 block propagator);
-        raises for shapes that only the JAX package's wavefront routes
-        take."""
-        lam = self.dyadic_order
-        if lam == 0 and ly1 <= 63:
+    def _solver_kind(self, lx1: int, ly1: int, dense: bool = False) -> str:
+        """``"small"`` (λ=0, ly1 ≤ 63, RBF statics: K1 or K3 on a block, else
+        the K7 pair list), ``"pallas"`` (λ=3, ly1 ≤ 48: K2, the K4/K6 pair
+        list or K5), ``"mxu_chain"`` (K8) or ``"mxu"`` (the fp32 block
+        propagator), as the JAX package maps ``solver``. Shapes that only
+        its XLA wavefront takes raise, except on the dense ``gram``
+        (``dense``), where the plain solve (``"plain"``) takes them unless
+        ``solver="wavefront"`` was asked for."""
+        lam, solver = self.dyadic_order, self.solver
+        if solver == "mxu_pallas":
+            return "mxu_chain" if chain_supported(lx1, ly1, lam) else "mxu"
+        if solver == "mxu":
+            return "mxu"
+        if (solver in ("auto", "pallas_small") and lam == 0 and ly1 <= 63
+                and self.static == "rbf"):
             return "small"
-        if _mxu_eligible(lx1, ly1, lam):
+        if solver == "auto" and _mxu_eligible(lx1, ly1, lam):
             if self.mxu_precision == "default" and chain_supported(lx1, ly1, lam):
                 return "mxu_chain"
             return "mxu"
-        if pallas_supported(lx1, ly1, lam):
+        if solver in ("auto", "pallas") and pallas_supported(lx1, ly1, lam):
             return "pallas"
+        if dense and solver != "wavefront":
+            return "plain"
         raise NotImplementedError(
-            f"dyadic_order={lam} at {lx1 + 1}x{ly1 + 1}-node paths takes the "
-            "JAX package's XLA wavefront route with its memory-bounded adjoint, "
-            "not ported yet (ROADMAP.md queue 1, M6)"
+            f"dyadic_order={lam} ({self.static} statics, solver={solver!r}) at "
+            f"{lx1 + 1}x{ly1 + 1}-node paths takes the JAX package's XLA wavefront "
+            "route with its memory-bounded adjoint, not ported yet (ROADMAP.md "
+            "queue 1, M6)"
         )
 
     def _bandwidth_from(self, d2_flat: torch.Tensor):
         if self.bandwidth is not None:
             return float(self.bandwidth)
-        return bw_median(d2_flat)
+        return bw_median(d2_flat, self.bw_scale)
 
     def _static_gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        if self.static == "linear":
+            return static_gram_linear(X, Y)
         d2 = _pair_sq_dists(X, Y)
         return torch.exp(-d2 / self._bandwidth_from(d2.reshape(X.shape[0], -1)))
 
-    def _fused_precision(self, lx1: int, ly1: int, n_channels: int, h) -> str:
-        """The adjoint a fused pair-list call gets: ``grad_precision`` inside
-        its envelope, else fp32 (JAX's silent upgrade); raises where only
-        the pair solve on given increments (K5) takes the shape."""
-        lam = self.dyadic_order
-        if fused_supported(lx1, ly1, lam, n_channels, "rbf", h, self.grad_precision):
-            return self.grad_precision
-        if fused_supported(lx1, ly1, lam, n_channels, "rbf", h):
-            return "fp32"
-        raise NotImplementedError(
-            f"{n_channels}-channel paths are outside the fused λ=3 pair-list "
-            "route; the pair solve on given increments that takes them is K5 "
-            "(ROADMAP.md queue 2)"
-        )
+    def _fused(self, lx1: int, ly1: int, n_channels: int, h, grad_precision="fp32") -> bool:
+        return fused_supported(lx1, ly1, self.dyadic_order, n_channels, self.static, h,
+                               grad_precision)
 
     def _chunk_plan(self, lx1: int, ly1: int, total: int, n_channels: int, device, h):
         """(solver kind, pair-chunk size, chunk count) for ``total`` pairs,
         sized by the device: a quarter of the card's memory over each pair's
-        residuals, path tiles and gradients, or 2e9 bytes over the twin's
-        stored grids on the CPU. Never pads a short list up to the budget.
-        Raises, as the JAX package validates here, where a λ=0 shape leaves
-        the pair list (K7) for the generic statics + wavefront route."""
+        residuals, increments or path tiles and gradients, or 2e9 bytes over
+        the twins' stored grids on the CPU, in equal chunks. Never pads a
+        short list up to the budget. Raises, as the JAX package validates
+        here, where a λ=0 shape leaves the pair list (K7) for the generic
+        statics + wavefront route, and where the pair list would need the
+        block propagator."""
         kind = self._solver_kind(lx1, ly1)
         if kind == "small" and not small_supported(lx1, ly1, 0, n_channels, "rbf", h):
             raise NotImplementedError(
                 f"{n_channels}-channel paths of {lx1 + 1}x{ly1 + 1} nodes are "
-                "outside the λ=0 pair list's envelope; the JAX package takes them "
-                "by its XLA wavefront route, not ported yet (ROADMAP.md queue 1, M6)"
+                "outside the λ=0 pair list's envelope; the JAX package takes them by "
+                "its XLA wavefront route, not ported yet (ROADMAP.md queue 1, M6)"
+            )
+        if kind not in ("small", "pallas"):
+            raise NotImplementedError(
+                f"a dyadic_order={self.dyadic_order} Gram by pair list takes the "
+                "JAX package's streamed block-propagator route, not ported yet "
+                "(ROADMAP.md queue 1, M6)"
             )
         if device.type == "cuda":
             budget = torch.cuda.get_device_properties(device).total_memory // 4
@@ -307,10 +341,16 @@ class SignatureKernel:
             budget = 2 * 10**9
         if kind == "small":
             per_pair = sigkernel_small.chunk_pair_bytes(lx1, ly1, n_channels)
-        else:
+        elif self._fused(lx1, ly1, n_channels, h):
             per_pair = sigkernel_fused.chunk_pair_bytes(lx1, ly1, n_channels, device.type)
-        chunk = max(1, min(total, budget // per_pair))
-        return kind, chunk, -(-total // chunk)
+        else:
+            per_pair = sigkernel_tiled.chunk_pair_bytes(lx1, ly1, n_channels, device.type,
+                                                        h is not None)
+        nb = -(-total // max(1, min(total, budget // per_pair)))
+        # equal chunks: the last one is padded by fewer than nb pairs, not by
+        # up to a whole chunk of index-0 pairs (which the kernels would solve
+        # and the gathers' backward would sum into one path, serially)
+        return kind, -(-total // nb), nb
 
     @staticmethod
     def _pad_pair_list(arrays, nb, chunk, total):
@@ -323,27 +363,27 @@ class SignatureKernel:
 
     def _block_values(self, X, Y, ixc, iyc, h, remat: bool = False) -> torch.Tensor:
         """K values of one pair chunk: K7 at λ=0 (``remat``: its forward
-        again in the backward instead of keeping ``fac``), K4 at λ=3."""
+        again in the backward instead of keeping ``fac``); at λ=3 K4 (with
+        K4's or K6's adjoint) inside the fused envelope, else K5 on the
+        increments built in torch (linear statics, C > 8)."""
         if self.dyadic_order == 0:
             return pair_gram_small(X, Y, ixc, iyc, h, remat=remat)
-        prec = self._fused_precision(X.shape[1] - 1, Y.shape[1] - 1, X.shape[2], h)
-        return pair_gram_fused(X, Y, ixc, iyc, h, grad_precision=prec)
+        lx1, ly1, C = X.shape[1] - 1, Y.shape[1] - 1, X.shape[2]
+        for prec in (self.grad_precision, "fp32"):
+            if self._fused(lx1, ly1, C, h, prec):
+                return pair_gram_fused(X, Y, ixc, iyc, h, grad_precision=prec)
+        return pair_values(X, Y, ixc, iyc, h)
 
     def _pair_values(self, X, Y, ix, iy, h) -> torch.Tensor:
         """K values of the pair list ``(ix, iy)``, chunk by chunk; under
         autograd each chunk is checkpointed (its backward reruns the forward
         instead of keeping every chunk's residuals), as the JAX package's
-        ``jax.checkpoint`` does: K7's Function reruns its own forward, K4's
-        chunk runs under ``torch.utils.checkpoint``."""
+        ``jax.checkpoint`` does: K7's Function reruns its own forward; a
+        λ=3 chunk (K4, or K5 with its increments) runs under
+        ``torch.utils.checkpoint``."""
         lx1, ly1 = X.shape[1] - 1, Y.shape[1] - 1
         total = ix.shape[0]
         kind, chunk, nb = self._chunk_plan(lx1, ly1, total, X.shape[2], X.device, h)
-        if kind not in ("small", "pallas"):
-            raise NotImplementedError(
-                f"a dyadic_order={self.dyadic_order} Gram by pair list takes the "
-                "JAX package's streamed block-propagator route, not ported yet "
-                "(ROADMAP.md queue 1, M6)"
-            )
         ix, iy = self._pad_pair_list([ix, iy], nb, chunk, total)
         grad = torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in (X, Y, h))
@@ -366,10 +406,10 @@ class SignatureKernel:
 
     def _pair_gram_and_grad(self, X: torch.Tensor, h):
         """``(K, dX)`` from the gathered upper-triangle pair list, chunk by
-        chunk: the chunk's values by :meth:`_block_values` (K7's or K4's
-        forward) and their gradient under autograd (K7's, K4's or K6's
-        backward) with seed 1 on the diagonal and 2 off it; both tiles'
-        gradients reach dX through the gathers, then ×0.5."""
+        chunk: the chunk's values by :meth:`_block_values` (K7's, K4's or
+        K5's forward) and their gradient under autograd (K7's, K4's, K6's or
+        K5's backward) with seed 1 on the diagonal and 2 off it; both
+        tiles' gradients reach dX through the gathers, then ×0.5."""
         n, L, C = X.shape
         iu, ju = torch.triu_indices(n, n, device=X.device)
         total = iu.shape[0]
@@ -398,14 +438,15 @@ class SignatureKernel:
         At λ=0 inside both K1's block envelope and the JAX package's, K3
         (:func:`block_gram`) computes it: values only, with no autograd
         graph, as the JAX package's fast path returns (its docstring
-        promises gradients there too). Otherwise the pair list (K7 at λ=0,
-        K4 at λ=3) gives the values, scattered into both halves, so
+        promises gradients there too). Otherwise the pair list (K7 at λ=0;
+        K4 or K5 at λ=3) gives the values, scattered into both halves, so
         gradients flow through both arguments: ``grad(sum(gram_sym(x)))``
         is twice the repulsion ``grad(sum(gram(x, x.detach())))``."""
         n, L, C = X.shape
         h = self._subsampled_bandwidth(X, X)
         if (self.dyadic_order == 0 and block_supported(n, L, C, h)
-                and jax_block_supported(n, L, C, h)):
+                and jax_block_supported(n, L, C, h)
+                and self._solver_kind(L - 1, L - 1) == "small"):
             with torch.no_grad():
                 return block_gram(X.contiguous(), h)
         iu, ju = torch.triu_indices(n, n, device=X.device)
@@ -415,40 +456,44 @@ class SignatureKernel:
 
     def _subsampled_bandwidth(self, X: torch.Tensor, Y: torch.Tensor):
         """Bandwidth from the first ``256×256`` path block (the JAX
-        package's documented estimate at scale)."""
+        package's documented estimate at scale); None for linear statics."""
+        if self.static == "linear":
+            return None
         ns, ms = min(X.shape[0], 256), min(Y.shape[0], 256)
         d2s = _pair_sq_dists(X[:ns], Y[:ms])
         return self._bandwidth_from(d2s.reshape(ns, -1))
 
     def _solve(self, inc: torch.Tensor) -> torch.Tensor:
+        """The dense route's solve of ``inc [B, lx1, ly1]``: K8, the fp32
+        block propagator, K5 (``"pallas"``), else the plain solve."""
         lx1, ly1 = inc.shape[-2:]
         lam = self.dyadic_order
-        if _mxu_eligible(lx1, ly1, lam):
-            if self._solver_kind(lx1, ly1) == "mxu_chain":
-                return solve_goursat_pde_mxu_chain(inc, lam, self.mxu_degree)
+        kind = self._solver_kind(lx1, ly1, dense=True)
+        if kind == "mxu_chain":
+            return solve_goursat_pde_mxu_chain(inc, lam, self.mxu_degree)
+        if kind == "mxu":
             return solve_goursat_pde_mxu(inc, lam, self.mxu_degree)
+        if kind == "pallas":
+            return solve_goursat_pde_tiled(inc, lam)
         return solve_goursat_pde(inc, lam)
 
     def gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """Full Gram ``K [n, m]``, differentiable. Above ``_DENSE_LIMIT``
-        floats of static Gram it streams pair chunks (K7 at λ=0, K4 at
-        λ=3), with a bandwidth from the first 256×256 path block. Below it the bandwidth
-        is the median over the whole dense distance tensor; block-propagator
-        shapes go to K8 or the fp32 propagator, λ=3 to K4 over all n·m pairs
-        on the card (the plain solve on the CPU), any other order to the
-        plain forward solver."""
+        floats of static Gram it streams pair chunks (K7 at λ=0; K4 or K5 at
+        λ=3), with a bandwidth from the first 256×256 path block. Below it,
+        as the JAX package: the static Gram (the bandwidth the median over
+        the whole dense distance tensor), its increments and :meth:`_solve`
+        (K5 at λ=3; K8 or the fp32 propagator on block-propagator shapes;
+        the plain solve at other orders)."""
         n, m = X.shape[0], Y.shape[0]
         lx1, ly1 = X.shape[1] - 1, Y.shape[1] - 1
         if n * m * X.shape[1] * Y.shape[1] > self._DENSE_LIMIT:
             return self._gram_chunked_pairs(X, Y)
-        d2 = _pair_sq_dists(X, Y)
-        h = self._bandwidth_from(d2.reshape(n, -1))
-        if X.device.type == "cuda" and pallas_supported(lx1, ly1, self.dyadic_order):
-            del d2
-            idx = torch.arange(n * m, device=X.device)
-            return self._pair_values(X, Y, idx // m, idx % m, h).reshape(n, m)
-        inc = gram_increments(torch.exp(-d2 / h)).reshape(n * m, lx1, ly1)
+        inc = gram_increments(self._static_gram(X, Y)).reshape(n * m, lx1, ly1)
         return self._solve(inc).reshape(n, m)
+
+    def __call__(self, X: torch.Tensor, Y: torch.Tensor, **_) -> torch.Tensor:
+        return self.gram(X, Y)
 
     def _dense_grad_ok(self, n: int, lx1: int) -> bool:
         """Whether :meth:`gram_and_grad` takes the dense full-Gram route: the
@@ -471,31 +516,33 @@ class SignatureKernel:
         """``(K, Σ_j ∂₁k(x_i, x_j))``: the Gram and its gradient with the
         second argument detached. λ=0 takes K1 inside both K1's block
         envelope and the JAX package's, else the pair list (K7); λ=3 takes
-        K2 at fp32 inside its envelope, else the pair list (K4, and K6 at
-        bf16); the kernels' plain twins on the CPU. Block-propagator shapes
-        take the dense route, ``gram(X, X.detach())`` under autograd (K8's
-        two kernels on the card at ``mxu_precision="default"``)."""
+        K2 at fp32 inside its envelope (RBF statics), else the pair list
+        (K4, K6 at bf16, K5 for linear statics or C > 8); the kernels' plain
+        twins on the CPU. Block-propagator shapes take the dense route,
+        ``gram(X, X.detach())`` under autograd (K8's two kernels on the card
+        at ``mxu_precision="default"``)."""
         n, L, C = X.shape
-        if self.dyadic_order == 0:
+        lam = self.dyadic_order
+        if lam == 3 and self.solver in ("auto", "pallas") and not pallas_supported(
+                L - 1, L - 1, 3):
+            # beyond JAX's λ=3 envelope (ly1 > 48) K2 still takes what fits it
+            h = self._subsampled_bandwidth(X, X)
+            if block3_supported(n, L, C, h):
+                return block3_gram_and_grad(X, h)
+        kind = self._solver_kind(L - 1, L - 1)
+        if kind == "small":
             h = self._subsampled_bandwidth(X, X)
             if block_supported(n, L, C, h) and jax_block_supported(n, L, C, h):
                 return block_gram_and_grad(X, h)
             return self._pair_gram_and_grad(X, h)
-        if self.dyadic_order == 3:
+        if kind == "pallas":
             h = self._subsampled_bandwidth(X, X)
-            pallas = pallas_supported(L - 1, L - 1, 3)
-            if (self.grad_precision == "fp32" or not pallas) and block3_supported(n, L, C, h):
+            if self.grad_precision == "fp32" and block3_supported(n, L, C, h):
                 return block3_gram_and_grad(X, h)
-            if not pallas:
-                raise NotImplementedError(
-                    f"{L}-node paths with {C} channels are outside K2's envelope and "
-                    "the λ=3 pair list's (ly1 ≤ 48); the JAX package takes them by "
-                    "its XLA wavefront route, not ported yet (ROADMAP.md queue 1, M6)"
-                )
             return self._pair_gram_and_grad(X, h)
         if not self._dense_grad_ok(n, L - 1):
             raise NotImplementedError(
-                f"gram_and_grad of {n} paths at dyadic_order={self.dyadic_order} "
+                f"gram_and_grad of {n} paths at dyadic_order={lam} "
                 "is above the dense route's memory guard; the gathered pair-list "
                 "route of the block propagator is not ported yet (ROADMAP.md "
                 "queue 1, M6)"
@@ -517,7 +564,8 @@ class SignatureKernel:
         return self
 
     def calibration_bound(self, X: torch.Tensor, n_sample: int = 32) -> torch.Tensor:
-        """``4·max_pairs Σ_cells |z|³`` over the first ``n_sample`` paths."""
+        """``4·max_pairs Σ_cells |z|³`` over the first ``n_sample`` paths, on
+        the RBF or linear static Gram."""
         Xs = X[: min(n_sample, X.shape[0])]
         z = gram_increments(self._static_gram(Xs, Xs))
         return 4.0 * torch.amax(torch.sum(torch.abs(z) ** 3, dim=(-2, -1)))

@@ -8,7 +8,8 @@ Port of ``sigsvgd_tpu/kernels/pallas_svgd.py``. For flattened particles
 
 On a CPU tensor :func:`fused_rbf_velocity` runs :func:`rbf_velocity_plain`
 (the matmul form of ``xla_rbf_velocity``); on a CUDA tensor it launches the
-hand-written kernel in ``csrc/svgd_velocity.cu`` or raises.
+hand-written kernel in ``csrc/svgd_velocity.cu`` (its D-tiled variant above
+``MAX_D``) or raises.
 """
 from __future__ import annotations
 
@@ -19,11 +20,14 @@ import torch
 from ..utils.math import pw_dist_sq
 from ._build import load
 
-MAX_D = 800  # shared memory of one block (csrc/svgd_velocity.cu)
+MAX_D = 800  # the untiled kernel's rows fit one block's shared memory up to here
+D_TILE = 512  # φ columns per block of the D-tiled kernel (csrc/svgd_velocity.cu)
 
 
 def velocity_supported(N: int, D: int) -> bool:
-    return N >= 1 and 1 <= D <= MAX_D
+    """Shapes K9 takes: any N and D whose arrays index in 32 bits, the
+    D-tiled kernel above ``MAX_D`` (at most 65535 column tiles)."""
+    return N >= 1 and D >= 1 and N * D < 2**31 and -(-D // D_TILE) <= 65535
 
 
 def velocity_flops(N: int, D: int) -> float:
@@ -68,8 +72,8 @@ def fused_rbf_velocity(x: torch.Tensor, s: torch.Tensor, h) -> torch.Tensor:
     N, D = x.shape
     if not velocity_supported(N, D):
         raise NotImplementedError(
-            f"D={D} is outside K9's envelope (D ≤ {MAX_D}, one block's shared "
-            "memory); a D-tiled variant is not written yet"
+            f"[N, D] = [{N}, {D}] is outside K9's envelope (N·D < 2^31); "
+            "ROADMAP.md queue 2, item 1 (K9)"
         )
     xc = (x - torch.mean(x, dim=0, keepdim=True)).contiguous()
     sc = s.contiguous()

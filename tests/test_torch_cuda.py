@@ -20,7 +20,12 @@
   tiles' gradients scaled by their max atol 5e-5, those of
   ``tests/test_pallas_small.py``;
 * K3 (the λ=0 values-only block Gram): K equal to K1's bit for bit (the same
-  staging and forward sweep) and to its twin atol 3e-5.
+  staging and forward sweep) and to its twin atol 3e-5;
+* K5 (the λ=3 solve on given increments, forward and stable backward): k
+  rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| atol 5e-4 against the fp32
+  twin, those of ``tests/test_pallas_sigkernel.py`` (at its MPC shape 1e-4
+  and 1e-3), the checkpoints at the forward's tolerance, and the routes
+  that launch it (the dense λ=3 ``gram``, linear statics, C > 8).
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -35,6 +40,7 @@ from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
 from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
 from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 from sigsvgd_tpu_torch.kernels.sigkernel import (
     SignatureKernel, _pair_sq_dists, gram_increments,
@@ -120,7 +126,7 @@ def test_k2_blocks_taking_many_tiles_match_plain_twin(cuda_device, n, L, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D", [(1024, 280), (333, 280), (50, 17), (40, 400),
-                                 (64, 700)])
+                                 (64, 700), (1024, 840), (1024, 1400), (77, 1025)])
 def test_k9_matches_plain_twin_on_the_card(cuda_device, N, D):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.rand((N, D), generator=g, device=cuda_device) * 4.0 - 2.0
@@ -293,20 +299,17 @@ def test_fused_backwards_solve_every_pass_of_their_persistent_loop(cuda_device, 
 
 @pytest.mark.cuda
 def test_dense_lambda3_gram_runs_k4_with_the_median_bandwidth(cuda_device, monkeypatch):
-    """``gram(X, Y)`` at λ=3 below the dense limit on the card: K4 over all
-    n·m pairs, the bandwidth the median of the whole dense distance tensor,
-    a tensor that flows through the checkpointed chunk (K4's forward twice,
-    its backward once). K against the CPU's plain solve (atol 5e-4: the
-    dense route's expanded-norm distances and K4's squared differences are
-    two fp32 formulations that round apart along the 312 × 256 fine grid;
-    K ranges over [0, 4.7] here); dX against the same route on the card with
-    the fp64 twin in the backward's place (scaled 1e-3, the JAX package's
+    """``gram(X, Y)`` at λ=3 below the dense limit on the card, as the JAX
+    package routes it: the dense static Gram (the bandwidth the median of the
+    whole dense distance tensor), its increments and K5 over all n·m pairs,
+    one forward and one backward, and no K4 (which this route took before
+    K5 existed). K against the CPU's same route, K5's twin (atol 5e-4, the
+    tolerance this route had); dX against the same route on the card with
+    the fp64 twin in K5's backward's place (scaled 1e-3, the JAX package's
     tolerance for this route's gradient: the median's gradient sums all 408
     pairs' bandwidth gradients onto one path point, and their fp32 rounding
-    with them, so the error there is a sum over pairs, not one pair's) and,
-    at a fixed bandwidth, against the CPU's plain route
-    (scaled 1e-3): the median's path point is one that the two devices'
-    last-bit distances may pick apart."""
+    with them) and, at a fixed bandwidth, against the CPU's route (scaled
+    1e-3)."""
     X, Y = _paths(cuda_device, 24, 40, 2), _paths(cuda_device, 17, 33, 2, seed=1)
     assert 24 * 17 * 40 * 33 <= SignatureKernel._DENSE_LIMIT
     median, fixed = SignatureKernel(3, bandwidth=None), SignatureKernel(3, bandwidth=0.2)
@@ -317,16 +320,16 @@ def test_dense_lambda3_gram_runs_k4_with_the_median_bandwidth(cuda_device, monke
         (dX,) = torch.autograd.grad(K.sum(), x)
         return K.detach().cpu(), dX.cpu()
 
-    counters = (kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
+    counters = (kt.tiled_forward, kt.tiled_backward, kf.fused_forward, kf.fused_backward)
     before = [c.launches for c in counters]
     K, dX = run(cuda_device, median)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
     assert K.shape == (24, 17) and torch.isfinite(dX).all()
     torch.testing.assert_close(K, run("cpu", median)[0], atol=5e-4, rtol=0)
     _assert_k_dx(*run(cuda_device, fixed), *run("cpu", fixed), k_atol=5e-4, dx_atol=1e-3)
-    monkeypatch.setattr(kf, "fused_backward", lambda xt, yt, ck, rc, g: [
-        t.float() for t in kf.fused_backward_plain(xt.double(), yt.double(), g.double())])
+    monkeypatch.setattr(kt, "tiled_backward", lambda z, ck, g: kt.tiled_backward_plain(
+        z.double(), ck.double(), g.double()).float())
     _assert_k_dx(K, dX, *run(cuda_device, median), k_atol=0, dx_atol=1e-3)
 
 
@@ -360,15 +363,21 @@ def test_fused_kernels_raise_outside_their_envelope(cuda_device):
     with pytest.raises(NotImplementedError, match="M6"):        # ly1 = 49
         kf.fused_forward(torch.zeros(5, 2, 4, device=cuda_device),
                          torch.zeros(50, 2, 4, device=cuda_device), residuals=False)
-    with pytest.raises(NotImplementedError, match="K5"):        # C = 9
+    with pytest.raises(NotImplementedError, match="pair_values"):  # C = 9: K5's route
         kf.fused_forward(torch.zeros(5, 9, 4, device=cuda_device),
                          torch.zeros(5, 9, 4, device=cuda_device), residuals=False)
     xt = torch.zeros(5, 5, 4, device=cuda_device)               # C = 5 in bf16
     with pytest.raises(ValueError, match="K6 takes"):
         kf.fused_backward_bf16(xt, xt, *kf.fused_forward(xt, xt, residuals=True)[1:],
                                torch.zeros(4, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="K5"):
-        SignatureKernel(3, 4.0).gram_and_grad(torch.zeros(4, 5, 9, device=cuda_device))
+    # C = 9 solves through K5 on the card, as its twin on the CPU
+    X = _paths(cuda_device, 4, 5, 9)
+    before = (kt.tiled_forward.launches, kt.tiled_backward.launches)
+    K, dX = SignatureKernel(3, 4.0).gram_and_grad(X)
+    assert (kt.tiled_forward.launches, kt.tiled_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_k_dx(K.cpu(), dX.cpu(), *SignatureKernel(3, 4.0).gram_and_grad(X.cpu()),
+                 k_atol=1e-4, dx_atol=5e-4)
 
 
 def _assert_k7(xt, yt, gout):
@@ -504,3 +513,117 @@ def test_k7_raises_outside_its_envelope(cuda_device):
                          torch.zeros(5, 9, 4, device=cuda_device), residuals=False)
     with pytest.raises(NotImplementedError, match="K7"):
         kb.block_gram(torch.zeros(8, 5, 4, device=cuda_device), 4.0)
+
+
+def _increments(device, b, lx1, ly1, scale=0.3, seed=0):
+    """``[lx1, ly1, b]`` pair-minor increments ``inc/64`` of normal draws
+    (the JAX tests' inputs) and a cotangent."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    inc = torch.randn((lx1, ly1, b), generator=g, device=device) * scale
+    return (inc / 64.0).contiguous(), torch.randn(b, generator=g, device=device)
+
+
+def _assert_k5(z, gout, k_rtol=2e-5, dz_atol=5e-4, chunk=4096):
+    """K5's forward (values only and with checkpoints) and backward against
+    the fp32 twin, ``chunk`` pairs of the twin at a time."""
+    k, ck = kt.tiled_forward(z, with_ck=True)
+    (k_values_only,) = kt.tiled_forward(z, with_ck=False)
+    dz = kt.tiled_backward(z, ck, gout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k_values_only, k, atol=0, rtol=0)
+    assert torch.isfinite(k).all() and torch.isfinite(dz).all()
+    for c0 in range(0, z.shape[-1], chunk):
+        sl = slice(c0, c0 + chunk)
+        kp, ckp = kt.tiled_forward_plain(z[..., sl], with_ck=True)
+        dzp = kt.tiled_backward_plain(z[..., sl], ckp, gout[sl])
+        torch.testing.assert_close(k[sl], kp, rtol=k_rtol, atol=1e-6)
+        torch.testing.assert_close(ck[..., sl], ckp, rtol=k_rtol, atol=1e-6)
+        scale = dzp.abs().max()
+        torch.testing.assert_close(dz[..., sl] / scale, dzp / scale, atol=dz_atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lx1,ly1,scale", [
+    (5, 3, 3, 0.3), (4, 3, 5, 0.3), (3, 5, 5, 0.3), (2, 2, 5, 0.3), (2561, 3, 3, 0.3),
+    (3, 40, 40, 0.05), (300, 6, 48, 0.3), (200, 39, 17, 0.3), (64, 1, 1, 0.3)])
+def test_k5_matches_plain_twin_on_the_card(cuda_device, b, lx1, ly1, scale):
+    z, gout = _increments(cuda_device, b, lx1, ly1, scale)
+    before = (kt.tiled_forward.launches, kt.tiled_backward.launches)
+    tol = dict(k_rtol=1e-4, dz_atol=1e-3) if lx1 == 40 else {}
+    _assert_k5(z, gout, **tol)
+    assert (kt.tiled_forward.launches, kt.tiled_backward.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_k5_solves_every_pass_of_its_persistent_loop(cuda_device):
+    """More pairs than the backward's resident threads take at once, so
+    every thread's loop runs three passes, the last a partial one; every
+    pair is held against the twin."""
+    threads = kt.bwd_grid(1 << 24) * kt.NT_BWD
+    P = 2 * threads + 37
+    assert kt.bwd_grid(P) * kt.NT_BWD < P
+    z, gout = _increments(cuda_device, P, 5, 4, seed=5)
+    _assert_k5(z, gout, chunk=65536)
+
+
+@pytest.mark.cuda
+def test_k5_raises_outside_its_envelope(cuda_device):
+    with pytest.raises(NotImplementedError, match="M6"):        # ly1 = 49
+        kt.tiled_forward(torch.zeros(5, 49, 4, device=cuda_device), with_ck=False)
+    with pytest.raises(NotImplementedError, match="M6"):
+        SignatureKernel(3, static="linear").gram_and_grad(
+            torch.zeros(4, 50, 2, device=cuda_device))
+    with pytest.raises(ValueError, match="checkpoints"):
+        kt.tiled_backward(torch.zeros(5, 4, 8, device=cuda_device),
+                          torch.zeros(2, 33, 8, device=cuda_device),
+                          torch.zeros(8, device=cuda_device))
+
+
+def _k5_launches():
+    return {f.__name__: f.launches for f in (
+        kt.tiled_forward, kt.tiled_backward, kf.fused_forward, kf.fused_backward,
+        kf.fused_backward_bf16, kb3.block3_gram_and_grad)}
+
+
+@pytest.mark.cuda
+def test_k5_routes_launch_it_and_match_the_cpu(cuda_device, monkeypatch):
+    """The routes that take K5, each against the same route on the CPU (K5's
+    twin): linear ``gram_and_grad`` (one forward, one backward, no K2 or
+    K4), the dense linear ``gram`` with its gradient (one and one), the
+    linear ``gram_sym`` and the streamed linear ``gram`` with their
+    gradients (a checkpointed chunk: two forwards, one backward), and
+    C = 12 ``gram_and_grad``; K atol 1e-4, dX scaled 5e-4."""
+    X, Y = _paths(cuda_device, 24, 40, 2) * 4.0, _paths(cuda_device, 17, 33, 2, 1) * 4.0
+    Z = _paths(cuda_device, 16, 17, 12)
+    lin = SignatureKernel(3, static="linear")
+
+    def grad_run(fn, dev, *args):
+        x = X.to(dev, copy=True).requires_grad_(True)
+        K = fn(x, *[a.to(dev) for a in args])
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        return K.detach().cpu(), dX.cpu()
+
+    cases = (("gram_and_grad", lambda: lin.gram_and_grad(X),
+              lambda: lin.gram_and_grad(X.cpu()), {"tiled_forward": 1, "tiled_backward": 1}),
+             ("dense_gram", lambda: grad_run(lin.gram, cuda_device, Y),
+              lambda: grad_run(lin.gram, "cpu", Y), {"tiled_forward": 1, "tiled_backward": 1}),
+             ("gram_sym", lambda: grad_run(lin.gram_sym, cuda_device),
+              lambda: grad_run(lin.gram_sym, "cpu"), {"tiled_forward": 2, "tiled_backward": 1}),
+             ("c12", lambda: SignatureKernel(3, 4.0).gram_and_grad(Z),
+              lambda: SignatureKernel(3, 4.0).gram_and_grad(Z.cpu()),
+              {"tiled_forward": 1, "tiled_backward": 1}))
+    for name, card, cpu, want in cases:
+        before = _k5_launches()
+        K, dX = card()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _k5_launches().items() if v != before[k]}
+        assert got == want, (name, got)
+        _assert_k_dx(K.cpu(), dX.cpu(), *cpu(), k_atol=1e-4, dx_atol=5e-4)
+    monkeypatch.setattr(SignatureKernel, "_DENSE_LIMIT", 1000)
+    before = _k5_launches()
+    K, dX = grad_run(lin.gram, cuda_device, Y)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _k5_launches().items() if v != before[k]}
+    assert got == {"tiled_forward": 2, "tiled_backward": 1}, got
+    _assert_k_dx(K, dX, *grad_run(lin.gram, "cpu", Y), k_atol=1e-4, dx_atol=5e-4)

@@ -5,7 +5,10 @@ Setup: the flagship problem of ``bench.py`` (full Panda, ``bookshelf_small``,
 exact-SDF occupancy, EE tracking, Adam(0.1), smoothed-box hyper-prior) cut to
 16 policies and horizon 8, in signature mode at bandwidth 4.0 with λ=0 (the
 JAX block route in Pallas interpret mode, ``solver="pallas_small"``) and
-with λ=3 pinned (``solver="pallas"``, the block3 route in interpret mode).
+with λ=3 pinned (``solver="pallas"``, the block3 route in interpret mode),
+and with λ=3 pinned on linear statics (``lambda3_linear``: JAX's
+``pallas_pair_values`` with K5 in interpret mode against K5's twin, held at
+the λ=3 mode's fp32 tolerances).
 ``tests/test_torch_policy.py`` runs the same check in policy mode. The port
 takes its state from ``dust_state_from_numpy``. Two chained ``forward``
 calls with ``opt_steps=2`` run on each side.
@@ -120,6 +123,7 @@ def _jax_ctrl(mode):
                      sig_kernel=JSignatureKernel(dyadic_order=mode["order"],
                                                  bandwidth=4.0,
                                                  solver=mode["solver"],
+                                                 static=mode.get("static", "rbf"),
                                                  grad_precision=mode.get(
                                                      "grad_precision", "fp32")),
                      **common)
@@ -133,7 +137,8 @@ def _port_problem(mode):
                              fused_velocity=mode["fused_velocity"])
     return build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ,
                          dyadic_order=mode["order"], calibrate=False,
-                         grad_precision=mode.get("grad_precision", "fp32"))
+                         grad_precision=mode.get("grad_precision", "fp32"),
+                         static=mode.get("static", "rbf"))
 
 
 MODES = {
@@ -141,6 +146,9 @@ MODES = {
                     k_atol=3e-5, gk_atol=5e-5),
     "lambda3": dict(kernel_mode="signature", order=3, solver="pallas",
                     k_atol=1e-4, gk_atol=4e-4),
+    # linear statics: the pair list on increments (K5) on both sides
+    "lambda3_linear": dict(kernel_mode="signature", order=3, solver="pallas",
+                           static="linear", k_atol=1e-4, gk_atol=4e-4),
     # the bf16 adjoint: see the module docstring
     "lambda3_bf16": dict(kernel_mode="signature", order=3, solver="pallas",
                          grad_precision="bf16", k_atol=1e-4, gk_atol=1e-2,
@@ -174,6 +182,7 @@ def run_two_chained_solves(mode_name, seed=0):
     if mode["kernel_mode"] == "signature":
         assert tctrl.sig_kernel.dyadic_order == mode["order"]
         assert tctrl.sig_kernel.grad_precision == mode.get("grad_precision", "fp32")
+        assert tctrl.sig_kernel.static == mode.get("static", "rbf")
     jsampler, tsampler = jctrl._sampler(), tctrl._sampler()
     phi_atol, keep_rel = mode.get("phi_atol", 1e-4), mode.get("keep_rel", 1e-4)
 
@@ -254,8 +263,9 @@ def run_two_chained_solves(mode_name, seed=0):
     np.testing.assert_allclose(tq.numpy(), _n(jq), atol=1e-5)
 
 
-@pytest.mark.parametrize("mode_name", ["lambda0", "lambda3", "lambda3_bf16"],
-                         ids=["0", "lambda3", "lambda3_bf16"])
+@pytest.mark.parametrize("mode_name", ["lambda0", "lambda3", "lambda3_bf16",
+                                       "lambda3_linear"],
+                         ids=["0", "lambda3", "lambda3_bf16", "lambda3_linear"])
 def test_two_chained_mpc_solves_match_jax(mode_name):
     run_two_chained_solves(mode_name)
 

@@ -18,7 +18,10 @@ with the kernels' plain twins in the port:
   here, and a last-bit difference in a static node, where the port's
   squared-difference statics and XLA's exp round apart from JAX's, moves K
   by 2e-5 to 5e-5), and the gradient with respect to X through K4 and the
-  median, scaled atol 1e-3 (K4's twin tolerance).
+  median, scaled atol 1e-3 (K4's twin tolerance);
+* 9 channels, beyond the fused kernels: ``gram_and_grad``'s pair list and
+  the dense ``gram``, both through K5's twin, agree (K rtol 2e-5, dX scaled
+  1e-5); what stays unported raises naming M6.
 """
 import jax
 import jax.numpy as jnp
@@ -119,9 +122,17 @@ def test_bf16_pinned_solve_reaches_the_pair_list_route(monkeypatch):
     assert k_xx.shape == (6, 6) and grad_k.shape == (6, 8, 7)
 
 
-def test_pair_list_routes_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="K5"):          # C > 8
-        SignatureKernel(dyadic_order=3, bandwidth=1.0).gram_and_grad(torch.zeros(3, 5, 9))
+def test_pair_list_routes_not_ported_raise(rng):
+    # C > 8 leaves the fused kernels for K5 (its twin here), on the pair
+    # list as on the dense route: K and the detached-argument gradient agree
+    X = torch.from_numpy(_paths(rng, 3, 5, 9, 0.15))
+    kern = SignatureKernel(dyadic_order=3, bandwidth=1.0)
+    K, dX = kern.gram_and_grad(X)
+    x = X.clone().requires_grad_(True)
+    Kd = kern.gram(x, X)
+    (dXd,) = torch.autograd.grad(Kd.sum(), x)
+    np.testing.assert_allclose(K.numpy(), Kd.detach().numpy(), rtol=2e-5, atol=1e-6)
+    _scaled_close(dX.numpy(), dXd.numpy(), 1e-5)
     with pytest.raises(NotImplementedError, match="M6"):          # ly1 > 48, C > 3
         SignatureKernel(dyadic_order=3, bandwidth=1.0).gram_and_grad(torch.zeros(3, 51, 4))
     with pytest.raises(NotImplementedError, match="M6"):          # λ=0, C > 8

@@ -1,6 +1,7 @@
 """The port's policy-mode pieces against the JAX package: the Gaussian
-kernel, the fused RBF Stein velocity's plain twin (K9's CPU path), the DuSt
-and SVGD defaults, and two chained policy-mode MPC solves.
+kernel (with ``analytic_grad`` either way), the fused RBF Stein velocity's
+plain twin (K9's CPU path) and K9's envelope, the DuSt and SVGD defaults
+and fields, and two chained policy-mode MPC solves.
 
 Tolerances: ``GaussianKernel`` K rtol 1e-5 and dK rtol 1e-4, atol 1e-5
 (``tests/test_kernels.py``); the velocity rtol 2e-4, atol 5e-5
@@ -19,6 +20,7 @@ from sigsvgd_tpu.inference import SVGD as JSVGD
 from sigsvgd_tpu.kernels import GaussianKernel as JGaussianKernel
 from sigsvgd_tpu.kernels.pallas_svgd import fused_rbf_velocity_pallas, xla_rbf_velocity
 from sigsvgd_tpu_torch.controllers.dust import DuSt
+from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
 from sigsvgd_tpu_torch.inference.svgd import SVGD
 from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 from sigsvgd_tpu_torch.kernels.rbf import GaussianKernel
@@ -59,16 +61,30 @@ def test_velocity_twin_matches_jax_xla_and_pallas(rng, n, d):
 
 
 def test_velocity_bound_counts_and_envelope():
+    """K9 takes every D the JAX kernel takes: the D-tiled kernel above
+    ``MAX_D`` (a 7-DoF policy at H ≥ 115 has D > 800); only arrays that do
+    not index in 32 bits stay outside."""
     assert kv.velocity_flops(1024, 280) == 3 * 2 * 1024 ** 2 * 280
     assert kv.velocity_bytes(1024, 280) == 4.0 * 3 * 1024 * 280
     assert kv.velocity_supported(1024, 280) and kv.velocity_supported(1, 800)
-    assert not kv.velocity_supported(1024, 801)
+    assert kv.velocity_supported(1024, 801) and kv.velocity_supported(1024, 7 * 200)
+    assert not kv.velocity_supported(1 << 20, 4096)
+    assert not kv.velocity_supported(0, 280)
 
 
-def test_unported_kernel_gradient_option_raises():
-    assert GaussianKernel().analytic_grad
-    with pytest.raises(NotImplementedError, match="analytic_grad"):
-        GaussianKernel(analytic_grad=False)
+def test_unported_kernel_gradient_option_raises(rng):
+    """``analytic_grad`` is accepted and not read, as in the JAX package:
+    both values give the same (K, dK), held against JAX's at the
+    ``GaussianKernel`` tolerances."""
+    X = rng.standard_normal((9, 5)).astype(np.float32)
+    Y = rng.standard_normal((7, 5)).astype(np.float32)
+    Kj, dKj = JGaussianKernel(analytic_grad=False)(jnp.asarray(X), jnp.asarray(Y))
+    K, dK = GaussianKernel()(torch.from_numpy(X), torch.from_numpy(Y))
+    K2, dK2 = GaussianKernel(analytic_grad=False)(torch.from_numpy(X), torch.from_numpy(Y))
+    torch.testing.assert_close(K2, K, rtol=0, atol=0)
+    torch.testing.assert_close(dK2, dK, rtol=0, atol=0)
+    np.testing.assert_allclose(K2.numpy(), np.asarray(Kj), rtol=1e-5)
+    np.testing.assert_allclose(dK2.numpy(), np.asarray(dKj), rtol=1e-4, atol=1e-5)
 
 
 def _defaults(cls):
@@ -102,6 +118,24 @@ def test_dust_and_svgd_defaults_match_jax():
     _assert_same_defaults(DuSt, JDuSt)
     _assert_same_defaults(SVGD, JSVGD)
     assert _defaults(DuSt)["kernel_mode"] == "policy"
+
+
+def test_dust_fields_take_the_jax_defaults_and_name_their_item_otherwise():
+    """Every field of the JAX ``DuSt`` exists in the port's. Those the port
+    has not ported take their JAX default and raise naming their ROADMAP
+    item at any other value; ``init_uniform_range`` bounds the initial
+    draws, as in the JAX package."""
+    port = {f.name for f in dataclasses.fields(DuSt)}
+    assert {f.name for f in dataclasses.fields(JDuSt)} <= port
+    ctrl = build_arm_mpc(device="cpu", n_pol=4, hz_len=4, kernel_mode="policy").ctrl
+    for name, value in (("pol_cov", ((2.0,) * 7,) * 7), ("params_log_space", True),
+                        ("weighted_prior", True), ("roll_opt_state", True),
+                        ("n_prim", 2)):
+        with pytest.raises(NotImplementedError, match=f"{name}.*M8"):
+            dataclasses.replace(ctrl, **{name: value})
+    narrow = dataclasses.replace(ctrl, init_uniform_range=0.25)
+    pol = narrow.init(generator=torch.Generator().manual_seed(0)).pol_mean
+    assert pol.abs().max() <= 0.25 and pol.abs().max() > 0.2
 
 
 @pytest.mark.parametrize("mode_name", ["policy", "policy_fused"])

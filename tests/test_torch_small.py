@@ -21,8 +21,13 @@ twins in the port:
   ``solver="pallas_small"``;
 * λ=0 ``gram_and_grad`` at [6, 3, 7] (JAX's block route, the port's K7: the
   C = 7 repair) and at [5, 41, 4] (JAX's K7 route), K atol 3e-5 and dX
-  scaled 5e-5.
+  scaled 5e-5;
+* K7's twin run first thing in fresh processes gives one result in each.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,15 +42,34 @@ from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
 from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _warm_cpu_kernels():
-    """PyTorch picks a CPU kernel's implementation at its first call. When a
-    process's first ``exp`` of a large tensor runs on several threads, some of
-    its elements were seen to round apart from later calls (static rows off
-    by up to 7e-5 in one process in three); one small call first keeps every
-    call of the twins on one implementation."""
-    x = torch.rand(64, 1024)
-    torch.exp(-torch.clamp_min((x + x) - 2.0 * x * x, 0.0))
+_FRESH_TWIN = """
+import hashlib
+import numpy as np
+import torch
+from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+rng = np.random.default_rng(0)
+xt, yt = (torch.from_numpy(np.cumsum(rng.normal(size=(40, 2, 4096)) * 0.3, axis=0)
+                           .astype(np.float32)) for _ in range(2))
+k, fac = ks.small_forward_plain(xt, yt, residuals=True)
+print(hashlib.sha1(k.numpy().tobytes() + fac.numpy().tobytes()).hexdigest())
+"""
+
+
+def test_twin_gives_one_result_in_fresh_processes():
+    """K7's twin on random-walk paths [40, 2, 4096] in fresh processes, as
+    the first work of each: a process's first multi-threaded MKL vector-math
+    call (torch's CPU ``exp``) gave one worker thread's slice about 1.5e-4
+    relative error in roughly one process in six; the port makes one such
+    call at import (``sigsvgd_tpu_torch/__init__.py``), so every process
+    agrees, here eight of them, one after another (run side by side, their
+    threads would share the cores, which hides the race)."""
+    root = Path(__file__).resolve().parents[1]
+    digests = set()
+    for _ in range(8):
+        out = subprocess.run([sys.executable, "-c", _FRESH_TWIN], cwd=root, check=True,
+                             capture_output=True, text=True, timeout=120).stdout
+        digests.add(out.strip())
+    assert len(digests) == 1, digests
 
 
 def _paths(rng, n, L, C, step=0.3):

@@ -6,7 +6,7 @@ max, to atol 5e-5 (``tests/test_pallas_small.py``). A file of its own: the
 JAX kernel's interpret mode takes minutes to compile at this width, and the
 test workers take files in parallel.
 """
-from test_torch_small import _warm_cpu_kernels, k7_against_jax  # noqa: F401
+from test_torch_small import k7_against_jax
 
 
 def test_k7_twin_matches_jax_at_ly1_63(rng):
