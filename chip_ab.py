@@ -8,12 +8,16 @@ the calibrated λ=0 solve (``flagship_solve``), the pinned λ=3 solves in
 fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
 ``N`` chained solves each, default 7, after a warm-up), the planning
 iteration at 1024 particles (5 chained iterations) and the reference's
-planning run (``PlannerConfig()``, 20 particles × 500 iterations). Each
-phase keeps its own checks (launch counts, finite outputs, a falling
-cost). Every phase line goes to ``FILE`` (default
+planning run (``PlannerConfig()``, 20 particles × 500 iterations), the
+policy-mode solve (``policy_solve``) and last K9's ``k9_vs_plain`` (its
+rows at [1024, 280], [1024, 840] and [1024, 1400] carry the kernel's and
+the library call's times; where the tree has ``phase_k9_timing``, those
+times are taken right after the build, in a fresh process). Each phase keeps its own checks (launch counts,
+finite outputs, a falling cost). Every phase line goes to ``FILE`` (default
 ``build/ab_paths.jsonl``); the standard output ends with one JSON
 object per run and, last, the metrics of A and B side by side (each the
-median over its runs of the per-run medians). Needs a CUDA card; exits
+median over its runs of the per-run medians), K9's times by shape among
+them. Needs a CUDA card; exits
 non-zero without one or when a phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -33,7 +37,9 @@ METRICS = {
     "bf16_pinned_solve": "ms_per_solve_median",
     "planning_iter": "ms_per_iter_median",
     "planning_run": "wall_s",
+    "policy_solve": "ms_per_solve_median",
 }
+K9_SHAPES = ((1024, 280), (1024, 840), (1024, 1400))
 
 
 def child(root: Path, n_solves: int) -> int:
@@ -54,10 +60,18 @@ def child(root: Path, n_solves: int) -> int:
         raise AssertionError(f"imported {cs.__file__}, not {root}'s smoke")
     cs.N_SOLVES = n_solves
     cs.phase_build()
+    # K9 timed in a fresh process before the paths, where the tree has it
+    timing = cs.phase_k9_timing() if hasattr(cs, "phase_k9_timing") else None
     cs.phase_flagship()
     cs.phase_pinned()
     cs.phase_planning_iter()
     cs.phase_planning_run()
+    cs.phase_policy()
+    # last: the parent's profiler sessions slow later host dispatch
+    if timing is None:
+        cs.phase_k9()
+    else:
+        cs.phase_k9(timing)
     return 0
 
 
@@ -65,12 +79,15 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
     proc = subprocess.run([sys.executable, __file__, "--child", str(root),
                            "--solves", str(n_solves)],
                           capture_output=True, text=True, timeout=1500)
-    rows = {}
+    rows, k9 = {}, {}
     for line in proc.stdout.splitlines():
         if line.startswith("{"):
             row = json.loads(line)
             out.write(json.dumps({"run": label, **row}) + "\n")
             rows[row.get("phase")] = row
+            # k9_timing and k9_vs_plain have a row a shape: pick the timed ones by shape
+            if row.get("phase") in ("k9_timing", "k9_vs_plain") and "kernel_ms" in row:
+                k9[tuple(row["shape"])] = row
     if proc.returncode != 0:
         sys.stderr.write(proc.stderr[-4000:])
         raise SystemExit(f"chip_ab: the run of {root} failed (exit {proc.returncode})")
@@ -81,6 +98,8 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
             got[phase + "_samples"] = rows[phase]["ms_per_solve_samples"]
         if "ms_per_iter_samples" in rows[phase]:
             got[phase + "_samples"] = rows[phase]["ms_per_iter_samples"]
+    for n, d in K9_SHAPES:
+        got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}
     print(json.dumps(got), flush=True)
     return got
 
@@ -110,9 +129,13 @@ def main() -> int:
     with args.out.open("w") as out:
         for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
             runs[label].append(run(root, label, args.solves, out))
-    print(json.dumps({"compare": {
-        phase: {label: statistics.median(r[phase] for r in rs) for label, rs in runs.items()}
-        for phase in METRICS}, "A": str(a), "B": str(b)}), flush=True)
+    compare = {phase: {label: statistics.median(r[phase] for r in rs)
+                       for label, rs in runs.items()} for phase in METRICS}
+    for n, d in K9_SHAPES:
+        key = f"k9_{n}x{d}"
+        compare[key] = {f"{label}_{k}": statistics.median(r[key][k] for r in rs)
+                        for label, rs in runs.items() for k in ("kernel_ms", "library_ms")}
+    print(json.dumps({"compare": compare, "A": str(a), "B": str(b)}), flush=True)
     return 0
 
 

@@ -52,29 +52,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    pairs) and at [128, 40, 2];
 10. the pinned order-3 solve (bench.py's ``ctrl_sig_pinned``: calibration
    off), as phase 3, with K2's launch count;
-11. K9 (the fused RBF Stein velocity) against its twin at [1024, 280], a
-   ragged [333, 280] and, through its D-tiled kernel, [1024, 840] and
-   [1024, 1400] (rtol 2e-4, atol 5e-5), with its time and the twin's
-   (cuBLAS) at N = 1024;
-12. the policy-mode solve (bench.py's ``ctrl_rbf`` with
+11. the policy-mode solve (bench.py's ``ctrl_rbf`` with
    ``fused_velocity=True``), as phase 3, with K9's launch count;
-13. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
+12. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
    against its bf16 twin and against the fp32 block propagator at the
    planning shape [1048576, 2, 2] λ=6 (the increments of 1024 knot paths
    at h = 1.5), a ragged [389, 4, 4] λ=6 (16 hops) and [1000, 2, 2] λ=7:
    K and dz scaled by their max, atol 1e-3 / 2e-3 against the twin and
    5e-3 / 1e-2 against the fp32 route; the times of both kernels, of the
    twin and of the fp32 route, and the first launch's memory;
-14. ``planning_iter``: bench's planning shape (1024 knot particles, depth 6,
+13. ``planning_iter``: bench's planning shape (1024 knot particles, depth 6,
    ``mxu_precision="default"``, T=200, ``bookshelf_small``), 3 warm-up and
    5 timed chained SVGD iterations with K8's counters read around them
    (one forward and one backward launch per iteration), the stage split and
    one traced iteration;
-15. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()`` (20
+14. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()`` (20
    particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
    mean cost at the first and last iteration (it must fall), the success
    rate and K8's launches (500 each);
-16. K4 (the λ=3 pair-list forward and fp32 backward) against its twin at
+15. K4 (the λ=3 pair-list forward and fp32 backward) against its twin at
    the flagship upper-triangle pair list of [1024, 40, 2] (524,800 pairs:
    the first and the last 16,384 held, the last solved by the later passes
    of the backward's persistent threads, all of them timed), [77, 40, 2] ×
@@ -82,23 +78,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    dX and dY (the pairs' gradients summed per path) scaled against the
    twin in fp64 to atol 4e-4; times, bound, the twin's times and the
    residuals' memory;
-17. K6 (the bf16 delta-form backward) against its bf16 twin at [128, 40, 2],
+16. K6 (the bf16 delta-form backward) against its bf16 twin at [128, 40, 2],
    [77, 41, 4] and the flagship pair list, where each persistent thread
    takes several pair couples (rel ≤ 2e-2, cos ≥ 0.999), and against K4's
    backward on the same residuals (rel < 0.25, cos > 0.98); its time
    against K4's backward at the flagship pair list;
-18. the pinned solve with ``grad_precision="bf16"``, as phase 10, right after
+17. the pinned solve with ``grad_precision="bf16"``, as phase 10, right after
    it: K4's forward and K6 launch twice a solve, K2 and K4's backward never;
-19. ``streamed_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at [1024, 40,
+18. ``streamed_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at [1024, 40,
    2] × [1024, 40, 2] (1,048,576 pairs) and its gradient with respect to X:
    time, launches, peak memory, rows 0..63 and 960..1023 held against the
    twin;
-20. ``pinned_linear_solve``: the pinned order-3 solve on linear statics
+19. ``pinned_linear_solve``: the pinned order-3 solve on linear statics
    (``build_arm_mpc(calibrate=False, static="linear")``), as phase 10: K5's
    forward and backward once a ``gram_and_grad`` (the list is one chunk,
    asserted), K2, K4 and K6 never; then one ``gram_and_grad``
    with its peak memory;
-21. K5 (the λ=3 solve on given increments, forward values only and with its
+20. K5 (the λ=3 solve on given increments, forward values only and with its
    checkpoints, and the stable backward) against its twin at the flagship
    linear list (the upper triangle of that solve's τ [1024, 40, 2], 524,800
    pairs: the first and the last 16,384 held, the last in the later passes
@@ -107,23 +103,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    checkpoints to rtol 2e-5 / atol 1e-6, dz scaled to atol 5e-4 (1e-4 and
    1e-3 at [3, 40, 40]); each also against the twin in fp64, reported;
    times, bounds, the twin's times and the checkpoints' memory;
-22. ``dense_lambda3_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at
+21. ``dense_lambda3_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at
    [128, 40, 2]² with its gradient, RBF and linear statics: one K5 forward
    and one backward, no K4; held against the same route with the twins in
    K5's place and, at [24, 40, 2] × [17, 33, 2], against the CPU; for the
    record the RBF Gram's pairs through the fused route (K4), timed beside it;
-23. ``c12_pair_list``: λ=3 ``gram_and_grad`` at [256, 17, 12] (32,896
+22. ``c12_pair_list``: λ=3 ``gram_and_grad`` at [256, 17, 12] (32,896
    pairs): one K5 forward and one backward, held against the twins' route;
-24. ``linear_streamed_gram``: the linear ``gram(X, Y)`` on the two τ batches
+23. ``linear_streamed_gram``: the linear ``gram(X, Y)`` on the two τ batches
    of phase 3 (1,048,576 pairs) with its gradient: two K5 forwards and one
    backward per chunk, wall time, peak memory, rows 0..15 and 1008..1023
    held against the twins;
-25. small solves on the card held against the same solves on the CPU, where
+24. small solves on the card held against the same solves on the CPU, where
    the twins replace the kernels: λ=0, λ=3, λ=3 with the bf16 adjoint, λ=3
    on linear statics (K5), policy mode; λ=0 Grams with their gradient (the
    dense ``gram``, ``gram_sym`` through K3 and through K7); and 3 planning
    iterations at batch 8, T=50 in fp32 ("highest") and through K8
-   ("default", the bf16 twin on the CPU).
+   ("default", the bf16 twin on the CPU);
+25. K9 (the fused RBF Stein velocity, 3xTF32 on the tensor cores) against
+   its twin (rtol 2e-4, atol 5e-5) at [1024, 280], a ragged [333, 280],
+   [1024, 840] and [1024, 1400], the three [1024, D] again with scores 100
+   times larger, [1, 1], [1, 280], [77, 1025], [12000, 7] (19 row chunks of
+   K, asserted) and [300, 37] under a 64 KiB chunk cap (column chunks); φ
+   bit for bit across two calls at each; at each [1024, D] two bounds
+   (3xTF32 tensor cores, the contract's; fp32 CUDA cores) and the times
+   that ``k9_timing`` took right after the build, in a fresh process
+   (``chip_smoke.py --k9-timing``; a profiler session slows the host
+   dispatch of the rest of its process): K9 and the library call (the
+   twin: cuBLAS fp32) in turns, library, kernel, kernel, library, twice,
+   each turn 200 calls; then each replayed from a CUDA graph, without the
+   host's dispatch.
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -157,6 +166,7 @@ PLAN_TOL = (1e-4, 1e-5)  # rtol, atol of chained planning runs (tests/test_plann
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, CUDA cores (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_BF16_SIMT_FLOPS = 134e12  # H100 SXM, bf16 on the CUDA cores (Hopper white paper)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
@@ -488,40 +498,174 @@ def phase_pinned():
     return launches
 
 
-def phase_k9():
-    """K9 against its plain twin (the matmul form on cuBLAS, which is also
-    the library yardstick) at the policy solve's shape and a ragged N."""
-    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+def graph_ms(fn, iters: int = 200) -> float:
+    """Mean time of ``fn`` replayed from a CUDA graph, by CUDA events: the
+    device's time for a call without the host's dispatch (the few µs
+    between the graph's kernels stay in it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the warm-up a capture wants, on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return event_ms(graph.replay, iters)
+
+
+def in_turns(kernel, library, iters: int = 200) -> dict:
+    """The kernel and the library call timed in turns, library, kernel,
+    kernel, library, twice over: each turn CUDA events over ``iters`` calls
+    after a warm-up. Medians and every turn."""
+    kernel()
+    library()
+    torch.cuda.synchronize()
+    k, lib = [], []
+    for _ in range(2):
+        lib.append(event_ms(library, iters))
+        k.extend((event_ms(kernel, iters), event_ms(kernel, iters)))
+        lib.append(event_ms(library, iters))
+    return {"kernel_ms": statistics.median(k), "library_ms": statistics.median(lib),
+            "kernel_turns_ms": k, "library_turns_ms": lib}
+
+
+K9_TIMED = ((1024, 280), (1024, 840), (1024, 1400))  # the policy solve's D, H = 120, H = 200
+
+
+def k9_inputs(gen: torch.Generator, N: int, D: int, scale: float) -> tuple:
+    """Policies as the solve holds them (uniform in the action range),
+    scores ``randn × scale`` and the sampler's median bandwidth."""
     from sigsvgd_tpu_torch.utils.math import bw_median, pw_dist_sq
+
+    x = torch.rand((N, D), generator=gen, device="cuda") * 4.0 - 2.0
+    s = torch.randn((N, D), generator=gen, device="cuda") * scale
+    return x, s, bw_median(pw_dist_sq(x, x))
+
+
+def k9_bound(N: int, D: int) -> dict:
+    """K9's bound, the least time the card could take: its three products
+    on the TF32 tensor cores in 3xTF32 (three passes each; X·Xᵀ counted
+    once for its symmetry, its upper triangle with the diagonal) over 495
+    TFLOP/s, or x and s read and φ written once over the memory rate,
+    whichever is longer. The fp32 CUDA-core bound of the three products
+    beside it."""
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+
+    tf32_flops = 3.0 * (D * N * (N + 1) + 2 * 2.0 * N * N * D)
+    t_ops = tf32_flops / PEAK_TF32_FLOPS
+    t_bytes = kv.velocity_bytes(N, D) / PEAK_BYTES
+    return {"tf32_flops": tf32_flops, "bytes": kv.velocity_bytes(N, D),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "issued_tf32_flops": kv.velocity_tc_flops(N, D), "fp32_flops": kv.velocity_flops(N, D),
+            "fp32_bound_ms": kv.velocity_flops(N, D) / PEAK_FP32_FLOPS * 1e3}
+
+
+def phase_k9_timing() -> dict:
+    """K9 and the library call (its twin) at each [1024, D], measured in a
+    fresh process (``chip_smoke.py --k9-timing``, :func:`k9_timing`), one
+    row a shape: fresh, because a profiler session earlier in a process
+    slows its host dispatch, and this one's phases trace."""
+    proc = subprocess.run([sys.executable, __file__, "--k9-timing"], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"the K9 timing process failed (exit {proc.returncode})")
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            rows[tuple(row["shape"])] = row
+            emit(row)
+    if sorted(rows) != sorted(K9_TIMED):
+        raise AssertionError(f"the K9 timing process timed {sorted(rows)}")
+    return rows
+
+
+def k9_timing() -> None:
+    """The K9 timing process: at each [1024, D] kernel and library call
+    timed in turns (library, kernel, kernel, library, twice, each turn 200
+    calls), then each replayed from a CUDA graph (:func:`graph_ms`), which
+    leaves out the host's dispatch. Not by ``torch.profiler``: a session
+    of 20 calls here recorded 18 of K9's 40 kernels."""
+    import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy)
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for N, D in K9_TIMED:
+        x, s, h = k9_inputs(gen, N, D, 1.0)
+
+        def kernel():
+            return kv.fused_rbf_velocity(x, s, h)
+
+        def library():
+            return kv.rbf_velocity_plain(x, s, h)
+
+        emit({"phase": "k9_timing", "shape": [N, D], **in_turns(kernel, library),
+              "kernel_graph_ms": graph_ms(kernel), "library_graph_ms": graph_ms(library)})
+
+
+def phase_k9(timing: dict):
+    """K9 against its plain twin (the matmul form on cuBLAS, which is also
+    the library yardstick): at the policy solve's shape and wider D, with
+    scores of unit size and 100 times larger, a ragged N, the envelope's
+    small edges, row chunks ([12000, 7]) and column chunks (a 64 KiB cap);
+    φ bit for bit across two calls; at each [1024, D] the times from
+    ``timing`` (:func:`phase_k9_timing`) and both bounds."""
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     rtol, atol = K9_TOL
+    cap0 = kv.CHUNK_BYTES
     rows = {}
-    for N, D in ((1024, 280), (333, 280), (1024, 840), (1024, 1400)):
-        # policies as the solve holds them (uniform in the action range)
-        x = torch.rand((N, D), generator=gen, device="cuda") * 4.0 - 2.0
-        s = torch.randn((N, D), generator=gen, device="cuda")
-        h = bw_median(pw_dist_sq(x, x))
-        phi = kv.fused_rbf_velocity(x, s, h)
+    for N, D, scale, cap in ((1024, 280, 1.0, cap0), (333, 280, 1.0, cap0),
+                             (1024, 840, 1.0, cap0), (1024, 1400, 1.0, cap0),
+                             (1024, 280, 100.0, cap0), (1024, 840, 100.0, cap0),
+                             (1024, 1400, 100.0, cap0), (1, 1, 1.0, cap0), (1, 280, 1.0, cap0),
+                             (77, 1025, 1.0, cap0), (12000, 7, 1.0, cap0),
+                             (300, 37, 1.0, 64 << 10)):
+        x, s, h = k9_inputs(gen, N, D, scale)
+        kv.CHUNK_BYTES = cap
+        try:
+            plan = kv.velocity_plan(N, D)
+            phi = kv.fused_rbf_velocity(x, s, h)
+            again = kv.fused_rbf_velocity(x, s, h)
+        finally:
+            kv.CHUNK_BYTES = cap0
         want = kv.rbf_velocity_plain(x, s, h)
         torch.cuda.synchronize()
         err = (phi - want).abs()
         excess = (err - (atol + rtol * want.abs())).max().item()
         finite = bool(torch.isfinite(phi).all())
-        row = {"phase": "k9_vs_plain", "shape": [N, D], "h": h.item(),
+        row = {"phase": "k9_vs_plain", "shape": [N, D], "score_scale": scale, "h": h.item(),
+               "chunk_cap_bytes": cap, "plan": plan._asdict(),
+               "planned_kernels_a_call": 2 * plan.row_chunks * plan.col_chunks,
                "max_abs_err": err.max().item(),
-               "max_excess_over_tolerance": excess, "finite": finite}
-        if N == 1024:
-            row["kernel_ms"] = event_ms(lambda: kv.fused_rbf_velocity(x, s, h), 20)
-            plain = event_ms(lambda: kv.rbf_velocity_plain(x, s, h), 20)
-            row.update(plain_ms=plain, library_ms=plain, d_tiled=D > kv.MAX_D,
-                       library_call="the twin: pw_dist_sq, exp, two cuBLAS matmuls",
-                       **bound(kv.velocity_flops(N, D), kv.velocity_bytes(N, D)))
-            rows.setdefault("flagship", row)
+               "max_excess_over_tolerance": excess, "finite": finite,
+               "bitwise_repeat": bool(torch.equal(phi, again))}
+        if (N, D) == (12000, 7) and plan.row_chunks != 19:
+            raise AssertionError(f"[12000, 7] planned as {plan}, not 19 row chunks")
+        if cap != cap0 and plan.col_chunks < 2:
+            raise AssertionError(f"the small cap planned no column chunks: {plan}")
+        if scale == 1.0 and (N, D) in K9_TIMED:
+            row.update({k: v for k, v in timing[(N, D)].items() if k not in ("phase", "shape")})
+            row.update(plain_ms=row["library_ms"],
+                       library_call="the twin: pw_dist_sq, exp, two cuBLAS fp32 matmuls",
+                       **k9_bound(N, D))
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            row["fp32_bound_share"] = row["fp32_bound_ms"] / row["kernel_ms"]
+            rows[(N, D)] = row
         emit(row)
-        if not (finite and excess <= 0.0):
-            raise AssertionError(f"K9 disagrees with its plain twin: {row}")
-    return rows["flagship"]
+        if not (finite and excess <= 0.0 and row["bitwise_repeat"]):
+            raise AssertionError(f"K9 disagrees with its plain twin or itself: {row}")
+    flagship = dict(rows[K9_TIMED[0]])
+    flagship["by_shape"] = {
+        f"{n}x{d}": {k: r[k] for k in ("kernel_ms", "library_ms", "kernel_graph_ms",
+                                        "library_graph_ms", "bound_ms", "fp32_bound_ms")}
+        for (n, d), r in rows.items()}
+    return flagship
 
 
 def velocity_stage(ctrl, state, pol0) -> dict:
@@ -1930,7 +2074,11 @@ def main() -> int:
         return 1
     import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy; one multi-threaded CPU exp)
 
+    if sys.argv[1:] == ["--k9-timing"]:
+        k9_timing()
+        return 0
     phase_build()
+    k9_times = phase_k9_timing()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
     k3 = phase_k3()
@@ -1940,7 +2088,6 @@ def main() -> int:
     gg0 = phase_lambda0_gram_and_grad()
     k2 = phase_k2()
     pinned = phase_pinned()
-    k9 = phase_k9()
     k9_launches = phase_policy()
     k8 = phase_k8()
     k8_launches = phase_planning_iter()
@@ -1965,6 +2112,7 @@ def main() -> int:
     phase_small_vs_cpu()
     small_grams_vs_cpu()
     planning_small_vs_cpu()
+    k9 = phase_k9(k9_times)
     emit({"kernels": [
         kernel_entry("sigkernel_block_gram_grad (K1)",
                      "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
@@ -1974,10 +2122,12 @@ def main() -> int:
                      "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
                      "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
                      pinned[("pinned_solve", "block3_gram_and_grad")], k2),
-        kernel_entry("svgd_velocity (K9)",
-                     "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
-                     "sigsvgd_tpu/kernels/pallas_svgd.py:37",
-                     k9_launches, k9),
+        {**kernel_entry("svgd_velocity (K9)",
+                        "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
+                        "sigsvgd_tpu/kernels/pallas_svgd.py:37",
+                        k9_launches, k9),
+         **{k: k9[k] for k in ("kernel_graph_ms", "library_graph_ms", "fp32_bound_ms",
+                               "by_shape")}},
         k8_entry("mxu_chain_fwd (K8 forward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:107",
                  k8_launches[0], k8, "fwd"),
         k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",

@@ -5,7 +5,8 @@
 * K2 (λ=3 Gram + adjoint): K atol 1e-4, dX scaled atol 4e-4 (against the
   twin in fp64), those of ``tests/test_pallas_block3.py``;
 * K9 (fused RBF Stein velocity): rtol 2e-4, atol 5e-5, those of
-  ``tests/test_pallas_svgd.py``;
+  ``tests/test_pallas_svgd.py``, with scores of unit size and 100 times
+  larger, over row and column chunks of K; φ bit for bit across calls;
 * K8 (the order ≥ 6 hop chain, forward and backward): K and dz scaled by
   their max, atol 1e-3 and 2e-3 (twin and kernel round to bf16 in the same
   places, but a hop input that differs in its last fp32 bit can round to
@@ -124,19 +125,56 @@ def test_k2_blocks_taking_many_tiles_match_plain_twin(cuda_device, n, L, C):
     _assert_k_dx(K.cpu(), dX.double().cpu(), Kp.cpu(), dX64.cpu(), 1e-4, 4e-4)
 
 
+def _k9_inputs(device, N, D, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.rand((N, D), generator=g, device=device) * 4.0 - 2.0
+    s = torch.randn((N, D), generator=g, device=device) * scale
+    return x, s, bw_median(pw_dist_sq(x, x))  # the sampler's bandwidth
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,D", [(1024, 280), (333, 280), (50, 17), (40, 400),
-                                 (64, 700), (1024, 840), (1024, 1400), (77, 1025)])
-def test_k9_matches_plain_twin_on_the_card(cuda_device, N, D):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = torch.rand((N, D), generator=g, device=cuda_device) * 4.0 - 2.0
-    s = torch.randn((N, D), generator=g, device=cuda_device)
-    h = bw_median(pw_dist_sq(x, x))  # the sampler's bandwidth
+@pytest.mark.parametrize("N,D,scale", [
+    (1024, 280, 1.0), (333, 280, 1.0), (50, 17, 1.0), (40, 400, 1.0), (64, 700, 1.0),
+    (1024, 840, 1.0), (1024, 1400, 1.0), (77, 1025, 1.0), (1024, 280, 100.0), (1, 1, 1.0),
+    (12000, 7, 1.0)])
+def test_k9_matches_plain_twin_on_the_card(cuda_device, N, D, scale):
+    """[12000, 7] takes 19 row chunks of K; scores 100 times larger are
+    where single-pass TF32 on K·[s | x] would miss the tolerance."""
+    x, s, h = _k9_inputs(cuda_device, N, D, scale)
     before = kv.fused_rbf_velocity.launches
     phi = kv.fused_rbf_velocity(x, s, h)
     assert kv.fused_rbf_velocity.launches == before + 1
     want = kv.rbf_velocity_plain(x, s, h)
     torch.testing.assert_close(phi.cpu(), want.cpu(), rtol=2e-4, atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_k9_column_chunks_match_plain_twin(cuda_device, monkeypatch):
+    """A 64 KiB cap cuts N = 300 into 3 × 3 chunks of 128: the column
+    chunks' terms add into φ in order."""
+    monkeypatch.setattr(kv, "CHUNK_BYTES", 64 << 10)
+    assert kv.velocity_plan(300, 37)[:4] == (128, 128, 3, 3)
+    x, s, h = _k9_inputs(cuda_device, 300, 37)
+    torch.testing.assert_close(kv.fused_rbf_velocity(x, s, h).cpu(),
+                               kv.rbf_velocity_plain(x, s, h).cpu(), rtol=2e-4, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(1024, 280), (12000, 7)])
+def test_k9_is_bitwise_repeatable(cuda_device, N, D):
+    x, s, h = _k9_inputs(cuda_device, N, D)
+    assert torch.equal(kv.fused_rbf_velocity(x, s, h), kv.fused_rbf_velocity(x, s, h))
+
+
+@pytest.mark.cuda
+def test_k9_counts_one_launch_a_call(cuda_device):
+    """The counter counts calls, whatever the number of chunks."""
+    for N, D in ((1024, 280), (12000, 7), (1, 1)):
+        x, s, h = _k9_inputs(cuda_device, N, D)
+        before = kv.fused_rbf_velocity.launches
+        kv.fused_rbf_velocity(x, s, h)
+        kv.fused_rbf_velocity(x, s, h)
+        assert kv.fused_rbf_velocity.launches == before + 2
 
 
 def _knot_increments(device, n, lam_paths=3, seed=0):

@@ -61,8 +61,8 @@ def test_velocity_twin_matches_jax_xla_and_pallas(rng, n, d):
 
 
 def test_velocity_bound_counts_and_envelope():
-    """K9 takes every D the JAX kernel takes: the D-tiled kernel above
-    ``MAX_D`` (a 7-DoF policy at H ≥ 115 has D > 800); only arrays that do
+    """K9 takes every D the JAX kernel takes: it streams D in k-slices at
+    any width (a 7-DoF policy at H ≥ 115 has D > 800); only arrays that do
     not index in 32 bits stay outside."""
     assert kv.velocity_flops(1024, 280) == 3 * 2 * 1024 ** 2 * 280
     assert kv.velocity_bytes(1024, 280) == 4.0 * 3 * 1024 * 280
