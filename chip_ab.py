@@ -6,7 +6,10 @@ Runs each checkout's own ``chip_smoke.py`` phases in fresh processes, in the
 order A, B, B, A, so that a slow or fast spell of the host falls on both:
 the calibrated λ=0 solve (``flagship_solve``), the pinned λ=3 solves in
 fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
-``N`` chained solves each, default 7, after a warm-up), the planning
+``N`` chained solves each, default 7, after a warm-up), K2 alone at
+[1024, 40, 2] through the tree's ``block3_gram_and_grad`` on the smoke's
+seeded paths (``k2_timing``: a warm-up call, then three times 5 calls by
+CUDA events), the planning
 iteration at 1024 particles (5 chained iterations) and the reference's
 planning run (``PlannerConfig()``, 20 particles × 500 iterations), the
 policy-mode solve (``policy_solve``) and last K9's ``k9_vs_plain`` (its
@@ -38,7 +41,24 @@ METRICS = {
     "planning_iter": "ms_per_iter_median",
     "planning_run": "wall_s",
     "policy_solve": "ms_per_solve_median",
+    "k2_timing": "kernel_ms",
 }
+
+
+def k2_timing(cs) -> None:
+    """K2 at [1024, 40, 2] through the tree's public ``block3_gram_and_grad``
+    on the smoke's seeded smooth paths: one warm-up call, then the median of
+    three runs of 5 calls timed by CUDA events; one JSON line."""
+    import torch
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    X = cs.smooth_paths(1024, 40, 2, torch.Generator(device="cuda").manual_seed(3))
+    kb3.block3_gram_and_grad(X, 4.0)
+    torch.cuda.synchronize()
+    samples = [cs.event_ms(lambda: kb3.block3_gram_and_grad(X, 4.0), 5) for _ in range(3)]
+    print(json.dumps({"phase": "k2_timing", "shape": [1024, 40, 2],
+                      "kernel_ms": statistics.median(samples),
+                      "kernel_ms_samples": samples}), flush=True)
 K9_SHAPES = ((1024, 280), (1024, 840), (1024, 1400))
 
 
@@ -64,6 +84,7 @@ def child(root: Path, n_solves: int) -> int:
     timing = cs.phase_k9_timing() if hasattr(cs, "phase_k9_timing") else None
     cs.phase_flagship()
     cs.phase_pinned()
+    k2_timing(cs)
     cs.phase_planning_iter()
     cs.phase_planning_run()
     cs.phase_policy()
@@ -98,6 +119,8 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
             got[phase + "_samples"] = rows[phase]["ms_per_solve_samples"]
         if "ms_per_iter_samples" in rows[phase]:
             got[phase + "_samples"] = rows[phase]["ms_per_iter_samples"]
+        if "kernel_ms_samples" in rows[phase]:
+            got[phase + "_samples"] = rows[phase]["kernel_ms_samples"]
     for n, d in K9_SHAPES:
         got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}
     print(json.dumps(got), flush=True)

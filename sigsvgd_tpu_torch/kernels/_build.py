@@ -41,30 +41,35 @@ def _lib_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
 
 
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all() -> Dict[str, str]:
     """Compile every stale source, all in parallel. Returns the compiler's
-    report (``-Xptxas -v``: registers, shared memory, spills) per source
-    that was built now."""
+    report (``-Xptxas -v``: registers, shared memory, spills) of every
+    source, kept beside its library when it was built, so a library built
+    by an earlier process reports as one built now."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for src in sorted(CSRC.glob("*.cu")):
+    sources = sorted(CSRC.glob("*.cu"))
+    for src in sources:
         out = _lib_path(src)
-        if out.exists():
+        if out.exists() and _report_path(out).exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[src.stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
-    reports = {}
     for stem, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {stem}.cu:\n{text}")
+        _report_path(out).write_text(text)
         os.replace(tmp, out)
-        reports[stem] = text
-    return reports
+    return {src.stem: _report_path(_lib_path(src)).read_text() for src in sources}
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,6 +28,7 @@ CUDA tensor it launches the hand-written kernel in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -35,20 +36,20 @@ from ._build import load
 from .sigkernel_block import _cdiv
 from .sigkernel_fused import _M, fused_pairs_plain, grid_forward, pair_statics
 
-# kernel envelope and tile (csrc/sigkernel_block3.cu)
+# kernel envelope and tile rows (csrc/sigkernel_block3.cu)
 MAX_L = 64
 MAX_C = 3
 TILE_ROWS = 8
-TILE_COLS = 16
 
 
 def block3_supported(n: int, L: int, C: int, h) -> bool:
     """Shapes K2 takes on the card: a bandwidth, n ≥ 2, L ≤ 64, C ≤ 3 (one
-    kernel instantiation per channel count). Within these bounds a block's
-    shared memory (staged paths and per-thread column-gradient slots,
-    640·L·C bytes) fits Hopper's 227 KB, and the fine grid lives in
-    per-thread device scratch, so L is not bound by on-chip memory as it is
-    on the TPU (ly1 ≤ 48)."""
+    kernel instantiation per channel count and span template). Within these
+    bounds a pair's fine row spreads over at most 16 lanes of at most 5
+    coarse columns each (:func:`block3_lanes`), a block's shared memory
+    (:func:`block3_plan`, at most 46 KB) fits Hopper's 227 KB, and
+    only the band-top checkpoints go to device memory, so L is not bound by
+    on-chip memory as it is on the TPU (ly1 ≤ 48)."""
     return h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
 
 
@@ -123,31 +124,133 @@ def block3_gram_plain(X: torch.Tensor, h) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper.
+# Kernel plan and wrapper.
 # ---------------------------------------------------------------------------
+
+THREADS = 128       # a block: 4 warps
+SPAN_CAP = 5        # coarse columns a lane holds at most
+SPAN_TEMPLATES = (3, 5)
+
+
+@dataclasses.dataclass(frozen=True)
+class Block3Plan:
+    """How K2 lays out one call: ``g`` lanes a pair, each holding a span of
+    whole coarse columns (``spans`` [g] widths, at most ``span``, the
+    template); tiles of ``tile_rows`` × ``tile_cols`` pairs, one a block at a
+    time; ``blocks`` persistent blocks walk the ``tiles`` of the work list.
+    ``scratch_floats`` is the band-top checkpoints' buffer (all blocks),
+    ``smem_bytes`` a block's shared memory, ``traffic_bytes`` the device-
+    memory traffic of the call (:func:`block3_plan`)."""
+    g: int
+    span: int
+    spans: tuple
+    tile_rows: int
+    tile_cols: int
+    pairs_per_block: int
+    steps: int
+    tiles: int
+    blocks: int
+    scratch_floats: int
+    smem_bytes: int
+    traffic_bytes: float
+
+    @property
+    def scratch_mib(self) -> float:
+        return self.scratch_floats * 4 / 2**20
+
+
+def block3_lanes(L: int) -> tuple[int, int]:
+    """``(g, span)``: the fewest lanes a pair (a power of two) that leave no
+    lane more than :data:`SPAN_CAP` coarse columns, and the span template
+    (3 or 5) that holds the widest span."""
+    l1 = L - 1
+    g = 1
+    while _cdiv(l1, g) > SPAN_CAP:
+        g *= 2
+    widest = _cdiv(l1, g)
+    return g, next(t for t in SPAN_TEMPLATES if widest <= t)
+
+
+def block3_spans(L: int, g: int) -> list[int]:
+    """Coarse columns of each lane: lane t holds ``[t(L-1)/g, (t+1)(L-1)/g)``."""
+    l1 = L - 1
+    return [(t + 1) * l1 // g - t * l1 // g for t in range(g)]
+
+
+def _pipeline_steps(L: int, g: int) -> int:
+    """Steps of a group's pipeline over a tile column's 8 pairs: 8(L-1)
+    bands, the last lane starting g - 1 steps after the first."""
+    return TILE_ROWS * (L - 1) + g - 1
+
+
+def block3_scratch_floats(L: int) -> int:
+    """Device scratch per persistent block, in floats: for each of its 4
+    warps and each pipeline step, the 32 lanes' span of a band top row
+    (8·span floats each) and each group's right-edge column (8 floats)."""
+    g, span = block3_lanes(L)
+    return THREADS // 32 * _pipeline_steps(L, g) * (32 * _M * span + 32 // g * _M)
+
+
+def block3_plan(n: int, L: int, C: int, blocks: int) -> Block3Plan:
+    """K2's plan for ``X [n, L, C]`` over ``blocks`` persistent blocks, the
+    count the card reports (:func:`block3_grid`).
+
+    ``smem_bytes`` (csrc ``smem_floats``): the tile's scaled paths (the
+    column paths at a padded node stride), each warp's row-path sums
+    [8][4][L·C] and each lane's column-path sums [(span+1)·C].
+    ``traffic_bytes``: each pair a ≤ b writes its band tops (8(L-1) floats a
+    band) and its right-edge column (8 a band) once and reads them once; X
+    is read once (it stays in L2), K and dX written once, the per-tile
+    partials written and read once. No fine row or adjoint row goes to
+    device memory."""
+    g, span = block3_lanes(L)
+    tc = THREADS // g
+    l1 = L - 1
+    tiles = _tile_list_len(n, tc)
+    smem = 4 * (L * C * TILE_ROWS + L * (C * tc + 1) + TILE_ROWS * 4 * L * C
+                + (span + 1) * C * THREADS)
+    pairs = n * (n + 1) // 2
+    checkpoints = 2 * pairs * l1 * (_M * l1 + _M)
+    partials = 2 * tiles * (TILE_ROWS + tc) * L * C
+    return Block3Plan(
+        g=g, span=span, spans=tuple(block3_spans(L, g)), tile_rows=TILE_ROWS,
+        tile_cols=tc, pairs_per_block=TILE_ROWS * tc, steps=_pipeline_steps(L, g),
+        tiles=tiles, blocks=blocks, scratch_floats=blocks * block3_scratch_floats(L),
+        smem_bytes=smem,
+        traffic_bytes=4.0 * (checkpoints + partials + n * L * C + n * n + n * L * C))
+
 
 _tiles_cache: dict = {}
 
 
-def _tile_list(n: int, device) -> torch.Tensor:
-    """``[T, 2]`` int32 (row tile, column tile) pairs holding a pair a ≤ b."""
-    key = (n, str(device))
+def _tile_keep(n: int, tc: int):
+    nI, nJ = _cdiv(n, TILE_ROWS), _cdiv(n, tc)
+    I = torch.arange(nI).repeat_interleave(nJ)
+    J = torch.arange(nJ).repeat(nI)
+    keep = I * TILE_ROWS <= J * tc + tc - 1
+    return I[keep], J[keep]
+
+
+def _tile_list_len(n: int, tc: int) -> int:
+    return int(_tile_keep(n, tc)[0].numel())
+
+
+def _tile_list(n: int, tc: int, device) -> torch.Tensor:
+    """``[T, 2]`` int32 (row tile, column tile) pairs holding a pair a ≤ b,
+    for tiles of 8 rows × ``tc`` columns."""
+    key = (n, tc, str(device))
     if key not in _tiles_cache:
-        nI, nJ = _cdiv(n, TILE_ROWS), _cdiv(n, TILE_COLS)
-        I = torch.arange(nI).repeat_interleave(nJ)
-        J = torch.arange(nJ).repeat(nI)
-        keep = I * TILE_ROWS <= J * TILE_COLS + TILE_COLS - 1
-        _tiles_cache[key] = torch.stack([I[keep], J[keep]], 1).to(
+        _tiles_cache[key] = torch.stack(_tile_keep(n, tc), 1).to(
             device=device, dtype=torch.int32).contiguous()
     return _tiles_cache[key]
 
 
 def _lib():
     lib = load("sigkernel_block3")
-    lib.sigkernel_block3_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.sigkernel_block3_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.sigkernel_block3_grid.restype = ctypes.c_int
     lib.sigkernel_block3_gram_grad.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sigkernel_block3_gram_grad.restype = ctypes.c_int
     return lib
 
@@ -156,20 +259,13 @@ def block3_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
     """The tile list of a K2 launch on ``device`` and its number of
     persistent blocks (those resident on the card, at most one per tile):
     each block walks the list, taking about ``tiles / blocks`` tiles."""
-    tiles = _tile_list(n, device)
+    g, span = block3_lanes(L)
+    tiles = _tile_list(n, THREADS // g, device)
     blocks = ctypes.c_int(0)
-    rc = _lib().sigkernel_block3_grid(L, C, tiles.shape[0], ctypes.byref(blocks))
+    rc = _lib().sigkernel_block3_grid(L, C, g, span, tiles.shape[0], ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"K2 occupancy query failed: cudaError {rc}")
     return tiles, blocks.value
-
-
-def block3_scratch_floats(L: int) -> int:
-    """Device scratch per resident pair-thread, in floats: the fine node row
-    at the top of every band (L-1 rows of G = 8(L-1)), the right-edge column
-    and the adjoint row carried between bands."""
-    g = _M * (L - 1)
-    return (L + 1) * g
 
 
 def block3_gram_and_grad(X: torch.Tensor, h):
@@ -190,23 +286,22 @@ def block3_gram_and_grad(X: torch.Tensor, h):
             "list (K4), or beyond ly1 = 48 to the wavefront (ROADMAP.md queue "
             "1, M6)"
         )
+    g, span = block3_lanes(L)
+    tc = THREADS // g
     tiles, blocks = block3_grid(n, L, C, X.device)
     n_tiles = tiles.shape[0]
     # the path scale rsqrt(h), formed as the twin forms it
     s_t = torch.rsqrt(torch.as_tensor(h, dtype=torch.float32, device=X.device)).reshape(1)
     K = torch.empty(n, n, dtype=X.dtype, device=X.device)
     dX = torch.empty_like(X)
-    rowpart = torch.empty(_cdiv(n, TILE_COLS), n, L * C, dtype=X.dtype,
-                          device=X.device)
-    colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype,
-                          device=X.device)
-    scratch = torch.empty(blocks * TILE_ROWS * TILE_COLS
-                          * block3_scratch_floats(L), dtype=X.dtype, device=X.device)
+    rowpart = torch.empty(_cdiv(n, tc), n, L * C, dtype=X.dtype, device=X.device)
+    colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype, device=X.device)
+    scratch = torch.empty(blocks * block3_scratch_floats(L), dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = _lib().sigkernel_block3_gram_grad(
         X.data_ptr(), s_t.data_ptr(), tiles.data_ptr(), K.data_ptr(),
         dX.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
-        scratch.data_ptr(), n_tiles, blocks, n, L, C, stream)
+        scratch.data_ptr(), n_tiles, blocks, n, L, C, g, span, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     block3_gram_and_grad.launches += 1

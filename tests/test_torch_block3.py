@@ -90,4 +90,6 @@ def test_kernel_bound_counts():
     assert kb3.block3_flops(1024, 40, 2) == 524_800 * per_pair
     assert 7.5e11 < kb3.block3_flops(1024, 40, 2) < 7.7e11
     assert kb3.block3_bytes(1024, 40, 2) == 4.0 * (1024 * 80 * 2 + 1024 ** 2)
-    assert kb3.block3_scratch_floats(40) == 41 * 312
+    # per persistent block: 4 warps × 319 pipeline steps × (32 lanes' band
+    # tops of 5 coarse columns + 4 groups' right-edge columns)
+    assert kb3.block3_scratch_floats(40) == 4 * 319 * (32 * 40 + 4 * 8)

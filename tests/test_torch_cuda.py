@@ -95,7 +95,10 @@ def test_k1_raises_outside_its_envelope(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,L,C", [(40, 9, 2), (37, 13, 2), (7, 5, 3), (20, 40, 2),
-                                   (2, 49, 3), (19, 30, 1), (6, 64, 3)])
+                                   (2, 49, 3), (19, 30, 1), (6, 64, 3),
+                                   # one coarse column; 37 columns (a prime) over 8
+                                   # lanes; L = 64 at C = 3 over 16 lanes; n = 2
+                                   (9, 2, 2), (50, 38, 2), (33, 64, 3), (2, 40, 2)])
 def test_k2_matches_plain_twin_on_the_card(cuda_device, n, L, C):
     X = _paths(cuda_device, n, L, C)
     before = kb3.block3_gram_and_grad.launches
@@ -111,18 +114,32 @@ def test_k2_matches_plain_twin_on_the_card(cuda_device, n, L, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L,C", [(1024, 9, 2), (777, 13, 3)])
+@pytest.mark.parametrize("n,L,C", [(1024, 9, 2), (777, 13, 3), (1023, 40, 2)])
 def test_k2_blocks_taking_many_tiles_match_plain_twin(cuda_device, n, L, C):
     """More tiles than resident blocks: each persistent block reuses its
-    scratch and shared slots from one tile to the next. The twin takes the
-    pairs a chunk at a time to bound its memory."""
+    scratch and shared slots from one tile to the next (at n = 1023 the
+    flagship width with a ragged last tile). The twin takes the pairs a chunk
+    at a time to bound its memory."""
     X = _paths(cuda_device, n, L, C)
     tiles, blocks = kb3.block3_grid(n, L, C, cuda_device)
     assert tiles.shape[0] > 2 * blocks
+    assert tiles.shape[0] == kb3.block3_plan(n, L, C, blocks).tiles
     K, dX = kb3.block3_gram_and_grad(X, 4.0)
     Kp = kb3.block3_gram_plain(X, 4.0)
-    _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), 4.0, pairs_per_chunk=16384)
+    _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), 4.0,
+                                             pairs_per_chunk=4096 if L > 20 else 16384)
     _assert_k_dx(K.cpu(), dX.double().cpu(), Kp.cpu(), dX64.cpu(), 1e-4, 4e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (77, 41, 3)])
+def test_k2_is_bitwise_repeatable(cuda_device, n, L, C):
+    """No atomics and fixed-order sums: two calls give the same K and dX bit
+    for bit."""
+    X = _paths(cuda_device, n, L, C)
+    K1, dX1 = kb3.block3_gram_and_grad(X, 4.0)
+    K2, dX2 = kb3.block3_gram_and_grad(X, 4.0)
+    assert torch.equal(K1, K2) and torch.equal(dX1, dX2)
 
 
 def _k9_inputs(device, N, D, scale=1.0):
