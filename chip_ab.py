@@ -9,7 +9,12 @@ fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
 ``N`` chained solves each, default 7, after a warm-up), K2 alone at
 [1024, 40, 2] through the tree's ``block3_gram_and_grad`` on the smoke's
 seeded paths (``k2_timing``: a warm-up call, then three times 5 calls by
-CUDA events), the planning
+CUDA events), the pinned λ=3 solve on linear statics
+(``pinned_linear_solve``, ``N`` chained solves) and K5 alone at its
+flagship linear list, the upper triangle of that solve's τ (``k5_timing``:
+the tree's ``tiled_forward`` with checkpoints and ``tiled_backward``, a
+warm-up call each, then the median of three runs of 5 calls by CUDA
+events), the planning
 iteration at 1024 particles (5 chained iterations) and the reference's
 planning run (``PlannerConfig()``, 20 particles × 500 iterations), the
 policy-mode solve (``policy_solve``) and last K9's ``k9_vs_plain`` (its
@@ -33,15 +38,18 @@ import subprocess
 import sys
 from pathlib import Path
 
-# (phase, key) of each end-to-end metric the runs are compared on
+# metric: (phase, key) of each metric the runs are compared on
 METRICS = {
-    "flagship_solve": "ms_per_solve_median",
-    "pinned_solve": "ms_per_solve_median",
-    "bf16_pinned_solve": "ms_per_solve_median",
-    "planning_iter": "ms_per_iter_median",
-    "planning_run": "wall_s",
-    "policy_solve": "ms_per_solve_median",
-    "k2_timing": "kernel_ms",
+    "flagship_solve": ("flagship_solve", "ms_per_solve_median"),
+    "pinned_solve": ("pinned_solve", "ms_per_solve_median"),
+    "bf16_pinned_solve": ("bf16_pinned_solve", "ms_per_solve_median"),
+    "pinned_linear_solve": ("pinned_linear_solve", "ms_per_solve_median"),
+    "planning_iter": ("planning_iter", "ms_per_iter_median"),
+    "planning_run": ("planning_run", "wall_s"),
+    "policy_solve": ("policy_solve", "ms_per_solve_median"),
+    "k2_timing": ("k2_timing", "kernel_ms"),
+    "k5_timing_forward": ("k5_timing", "forward_ms"),
+    "k5_timing_backward": ("k5_timing", "backward_ms"),
 }
 
 
@@ -59,6 +67,34 @@ def k2_timing(cs) -> None:
     print(json.dumps({"phase": "k2_timing", "shape": [1024, 40, 2],
                       "kernel_ms": statistics.median(samples),
                       "kernel_ms_samples": samples}), flush=True)
+
+
+def k5_timing(cs, tau) -> None:
+    """K5 at the flagship linear list (the upper triangle of ``tau``, the
+    linear pinned solve's τ [1024, 40, 2], cotangent 1 on the diagonal and 2
+    off it) through the tree's ``tiled_forward`` (with checkpoints) and
+    ``tiled_backward``: a warm-up call each, then the median of three runs
+    of 5 calls timed by CUDA events; one JSON line."""
+    import torch
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+
+    n = tau.shape[0]
+    iu, ju = torch.triu_indices(n, n, device="cuda")
+    z = kt.pair_increments(tau, tau, iu, ju, None).contiguous()
+    g = torch.where(iu == ju, 1.0, 2.0)
+    del iu, ju
+    _, ck = kt.tiled_forward(z, with_ck=True)
+    kt.tiled_backward(z, ck, g)
+    torch.cuda.synchronize()
+    times = {}
+    for which, fn in (("forward", lambda: kt.tiled_forward(z, with_ck=True)),
+                      ("backward", lambda: kt.tiled_backward(z, ck, g))):
+        times[which] = [cs.event_ms(fn, 5) for _ in range(3)]
+    print(json.dumps({"phase": "k5_timing", "shape": [n, 40, 2], "pairs": z.shape[-1],
+                      **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
+                      **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
+
+
 K9_SHAPES = ((1024, 280), (1024, 840), (1024, 1400))
 
 
@@ -85,6 +121,9 @@ def child(root: Path, n_solves: int) -> int:
     cs.phase_flagship()
     cs.phase_pinned()
     k2_timing(cs)
+    _, tau = cs.phase_pinned_linear()
+    k5_timing(cs, tau)
+    del tau
     cs.phase_planning_iter()
     cs.phase_planning_run()
     cs.phase_policy()
@@ -105,7 +144,7 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
         if line.startswith("{"):
             row = json.loads(line)
             out.write(json.dumps({"run": label, **row}) + "\n")
-            rows[row.get("phase")] = row
+            rows.setdefault(row.get("phase"), row)  # a phase's first row holds its metric
             # k9_timing and k9_vs_plain have a row a shape: pick the timed ones by shape
             if row.get("phase") in ("k9_timing", "k9_vs_plain") and "kernel_ms" in row:
                 k9[tuple(row["shape"])] = row
@@ -113,14 +152,11 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
         sys.stderr.write(proc.stderr[-4000:])
         raise SystemExit(f"chip_ab: the run of {root} failed (exit {proc.returncode})")
     got = {"run": label, "root": str(root)}
-    for phase, key in METRICS.items():
-        got[phase] = rows[phase][key]
-        if "ms_per_solve_samples" in rows[phase]:
-            got[phase + "_samples"] = rows[phase]["ms_per_solve_samples"]
-        if "ms_per_iter_samples" in rows[phase]:
-            got[phase + "_samples"] = rows[phase]["ms_per_iter_samples"]
-        if "kernel_ms_samples" in rows[phase]:
-            got[phase + "_samples"] = rows[phase]["kernel_ms_samples"]
+    for metric, (phase, key) in METRICS.items():
+        got[metric] = rows[phase][key]
+        for samples in ("ms_per_solve_samples", "ms_per_iter_samples", f"{key}_samples"):
+            if samples in rows[phase]:
+                got[metric + "_samples"] = rows[phase][samples]
     for n, d in K9_SHAPES:
         got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}
     print(json.dumps(got), flush=True)
@@ -152,8 +188,8 @@ def main() -> int:
     with args.out.open("w") as out:
         for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
             runs[label].append(run(root, label, args.solves, out))
-    compare = {phase: {label: statistics.median(r[phase] for r in rs)
-                       for label, rs in runs.items()} for phase in METRICS}
+    compare = {metric: {label: statistics.median(r[metric] for r in rs)
+                        for label, rs in runs.items()} for metric in METRICS}
     for n, d in K9_SHAPES:
         key = f"k9_{n}x{d}"
         compare[key] = {f"{label}_{k}": statistics.median(r[key][k] for r in rs)

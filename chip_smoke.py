@@ -10,8 +10,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a, one
    process per source, with the registers and spills of each function of
    each source from ptxas (its report kept beside the library, so a cached
-   library reports too); a K2 instantiation that spills or is missing from
-   the report fails the smoke;
+   library reports too); a K2 or K5 function that spills or is missing
+   from the report fails the smoke;
 2. K1 (the λ=0 signature-kernel Gram + adjoint) against its plain PyTorch
    twin on the card, at the flagship shape [1024, 40, 2], a ragged
    [333, 40, 2] and [40, 64, 3] (the L ≤ 64 instantiation): K to atol
@@ -100,14 +100,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    asserted), K2, K4 and K6 never; then one ``gram_and_grad``
    with its peak memory;
 20. K5 (the λ=3 solve on given increments, forward values only and with its
-   checkpoints, and the stable backward) against its twin at the flagship
-   linear list (the upper triangle of that solve's τ [1024, 40, 2], 524,800
-   pairs: the first and the last 16,384 held, the last in the later passes
-   of the backward's persistent loop, asserted), [2561, 3, 3], [3, 40, 40]
-   at scale 0.05, a ly1 = 48 list and a rectangular [39, 17] one: k and the
-   checkpoints to rtol 2e-5 / atol 1e-6, dz scaled to atol 5e-4 (1e-4 and
-   1e-3 at [3, 40, 40]); each also against the twin in fp64, reported;
-   times, bounds, the twin's times and the checkpoints' memory;
+   checkpoints, and the stable backward; a lane group per pair) against its
+   twin at the flagship linear list (the upper triangle of that solve's τ
+   [1024, 40, 2], 524,800 pairs, 8 lanes a pair: the first and the last
+   16,384 held, the last in the backward's later waves of blocks,
+   asserted), [2561, 3, 3] (1 lane), [3, 40, 40] at scale 0.05, a ly1 = 48
+   list (16 lanes), a rectangular [39, 17] one (4 lanes), [7, 9] (2
+   lanes) and two lists of one band (lx1 = 1 at 1 and 16 lanes): k and
+   the checkpoints (in the twin's layout) to rtol 2e-5 / atol 1e-6, dz
+   scaled to atol 5e-4 (1e-4 and 1e-3 at [3, 40, 40]); each also against
+   the twin in fp64, reported; at the flagship list the plan (lanes,
+   spans, tiles, resident blocks, shared memory, checkpoint memory,
+   traffic), every K5 function's registers and spills, times, bounds and
+   the twin's times;
 21. ``dense_lambda3_gram``: ``SignatureKernel(3, 4.0).gram(X, Y)`` at
    [128, 40, 2]² with its gradient, RBF and linear statics: one K5 forward
    and one backward, no K4; held against the same route with the twins in
@@ -229,17 +234,23 @@ def phase_build():
     print(smi, flush=True)
     from sigsvgd_tpu_torch.kernels import _build
     from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
 
     t0 = time.perf_counter()
     reports = _build.build_all()
     ptxas = {stem: ptxas_functions(text) for stem, text in reports.items()}
     emit({"phase": "build", "build_s": time.perf_counter() - t0, "ptxas": ptxas})
-    # every K2 instantiation (span template × C = 1..3) is in the report and
-    # spills nothing; the other sources' spills are reported, not gated
+    # every K2 instantiation (span template × C = 1..3) and every K5 kernel
+    # (forward and backward × span template) is in the report and spills
+    # nothing; the other sources' spills are reported, not gated
+    spills = lambda fns: any(  # noqa: E731
+        r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in fns.values())
     k2 = {f: r for f, r in ptxas["sigkernel_block3"].items() if "block3_kernel" in f}
-    if len(k2) != 3 * len(kb3.SPAN_TEMPLATES) or any(
-            r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in k2.values()):
+    if len(k2) != 3 * len(kb3.SPAN_TEMPLATES) or spills(k2):
         raise AssertionError(f"K2's instantiations not all reported spill-free: {k2}")
+    k5 = {f: r for f, r in ptxas["sigkernel_tiled"].items() if "tiled_" in f}
+    if len(k5) != 2 * len(kt.SPAN_TEMPLATES) or spills(k5):
+        raise AssertionError(f"K5's kernels not all reported spill-free: {k5}")
     return smi
 
 
@@ -1742,21 +1753,26 @@ def k_excess(got, want, rtol, atol=1e-6) -> float:
 
 def phase_k5(tau):
     """K5's forward (values only and with its checkpoints) and backward
-    against the fp32 twin at five lists: the flagship linear list (the
+    against the fp32 twin at eight lists: the flagship linear list (the
     upper triangle of τ [1024, 40, 2] of a flagship rollout with linear
     statics, 524,800 pairs, cotangent 1 on the diagonal and 2 off it, as
     ``gram_and_grad`` seeds it; the first and last 16,384 pairs held, the
-    last in the later passes of the backward's persistent loop, asserted),
-    2,561 pairs of [3, 3] increments, [3, 40, 40] at scale 0.05, a ly1 = 48
-    list and a rectangular [39, 17] one (normal increments, scale 0.3, as
-    ``tests/test_pallas_sigkernel.py`` draws them): k and the checkpoints to
-    rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| to atol 5e-4 (1e-4 and
-    1e-3 at [3, 40, 40]); each also against the twin in fp64, reported. At
-    the flagship list the times of the three launches and of the twin (by
-    chunks of 65,536 pairs), the bounds and the checkpoints' memory."""
+    last in a later wave of the backward's blocks, asserted), 2,561 pairs of
+    [3, 3] increments, [3, 40, 40] at scale 0.05, a ly1 = 48 list, a
+    rectangular [39, 17] one, a [7, 9] one and two of one band, [1, 5] and
+    [1, 48] (normal increments, scale 0.3, as
+    ``tests/test_pallas_sigkernel.py`` draws them; 1, 2, 4, 8 and 16 lanes
+    a pair): k and the checkpoints (in the twin's layout) to rtol 2e-5 /
+    atol 1e-6 and dz scaled by max|dz| to atol 5e-4 (1e-4 and 1e-3 at
+    [3, 40, 40]); each also against the twin in fp64, reported. At the
+    flagship list the plan, the registers and spills of every K5 function,
+    the times of the three launches and of the twin (by chunks of 65,536
+    pairs), the bounds and the checkpoints' memory."""
+    from sigsvgd_tpu_torch.kernels import _build
     from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
 
     gen = torch.Generator(device="cuda").manual_seed(15)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = tau.shape[0]
     iu, ju = torch.triu_indices(n, n, device="cuda")
     cases = [("flagship_linear_triu", [n, 40, 2],
@@ -1766,7 +1782,10 @@ def phase_k5(tau):
     for name, b, lx1, ly1, scale in (("normal_2561x3x3", 2561, 3, 3, 0.3),
                                      ("mpc_3x40x40", 3, 40, 40, 0.05),
                                      ("ly48_300x6x48", 300, 6, 48, 0.3),
-                                     ("rect_500x39x17", 500, 39, 17, 0.3)):
+                                     ("rect_500x39x17", 500, 39, 17, 0.3),
+                                     ("g2_1500x7x9", 1500, 7, 9, 0.3),
+                                     ("lx1_1_3000x1x5", 3000, 1, 5, 0.3),
+                                     ("lx1_1_700x1x48", 700, 1, 48, 0.3)):
         z = (torch.randn((lx1, ly1, b), generator=gen, device="cuda") * scale / 64.0)
         cases.append((name, [b, lx1, ly1], z.contiguous(),
                       torch.randn(b, generator=gen, device="cuda")))
@@ -1774,10 +1793,12 @@ def phase_k5(tau):
     for name, shape, z, g in cases:
         lx1, ly1, P = z.shape
         k_rtol, dz_tol = (1e-4, 1e-3) if name.startswith("mpc") else K5_TOL
-        threads = kt.bwd_grid(P) * kt.NT_BWD
+        fwd_res, bwd_res = kt.resident_blocks(ly1)
+        plan = kt.tiled_plan(P, lx1, ly1, bwd_res * sms)
         hold = min(P, 16384)
         held = torch.arange(hold, device="cuda")
-        tail = P > threads
+        # the last tile runs in a later wave of blocks than the first
+        tail = plan.tiles > plan.resident
         if tail:
             held = torch.cat([held, torch.arange(max(hold, P - hold), P, device="cuda")])
         (kv,) = kt.tiled_forward(z, with_ck=False)
@@ -1790,14 +1811,17 @@ def phase_k5(tau):
         zh, gh = z[..., held], g[held]
         kp, ckp, dzp = k5_twin(zh, gh, torch.float32, 16384)
         k64, _, dz64 = k5_twin(zh, gh, torch.float64, 16384)
-        kh, ckh, dzh = k[held], ck[..., held], dz[..., held]
+        kh, ckh, dzh = k[held], kt.twin_checkpoints(ck, lx1, ly1, P, held), dz[..., held]
         k_err = k_excess(kh, kp, k_rtol)
         ck_err = k_excess(ckh, ckp, k_rtol)
         dz_err = scaled_err(dzh, dzp)
         finite = bool(torch.isfinite(k).all() and torch.isfinite(dz).all())
         row = {"phase": "k5_vs_plain", "case": name, "shape": shape, "pairs": P,
-               "backward_threads": threads, "pairs_held": held.numel(), "tail_held": tail,
+               "lanes_a_pair": plan.g, "tiles": plan.tiles,
+               "resident_blocks": {"forward": fwd_res * sms, "backward": bwd_res * sms},
+               "pairs_held": held.numel(), "tail_held": tail,
                "k_max_abs_err": (kh - kp).abs().max().item(),
+               "k_bit_equal": bool(torch.equal(kh, kp)),
                "k_excess_over_tolerance": k_err, "ck_excess_over_tolerance": ck_err,
                "values_only_equal": bool(torch.equal(kv, k)),
                "dz_scaled_err": dz_err, "dz_max_abs_err": (dzh - dzp).abs().max().item(),
@@ -1807,22 +1831,39 @@ def phase_k5(tau):
                            "plain_dz_scaled": scaled_err(dzp, dz64)},
                "k_range": [k.min().item(), k.max().item()],
                "z_abs_max": z.abs().max().item(),
-               "residual_mib": kt.residual_bytes(P, lx1, ly1) / 2**20,
+               "residual_mib": 4 * plan.ck_floats / 2**20,
                "forward_backward_peak_mib": peak_mib, "finite": finite}
         del kp, ckp, dzp, k64, dz64, zh, kh, ckh, dzh
         if name == "flagship_linear_triu":
             if not tail:
-                raise AssertionError(f"K5 took {P} pairs on {threads} threads: its "
-                                     "backward's later passes went unchecked")
+                raise AssertionError(f"K5 took {P} pairs in one wave of {plan.resident} "
+                                     "blocks: its later waves went unchecked")
+            row["plan"] = {"lanes_a_pair": plan.g, "span_template": plan.span,
+                           "spans": list(plan.spans),
+                           "tile": [plan.tile_rows, plan.tile_cols],
+                           "pipeline_steps": {"forward": plan.fwd_steps,
+                                              "backward": plan.bwd_steps},
+                           "blocks": plan.tiles, "resident_blocks": plan.resident,
+                           "waves": plan.waves, "smem_bytes": plan.smem_bytes,
+                           "ring_floats_a_group": plan.ring_floats,
+                           "scratch_bytes": plan.scratch_bytes,
+                           "checkpoint_mib": 4 * plan.ck_floats / 2**20,
+                           "traffic_bytes": plan.traffic_bytes,
+                           "traffic_bytes_a_pair": {
+                               k_: v / P for k_, v in plan.traffic_bytes.items()}}
+            row["ptxas"] = {f: r for f, r in ptxas_functions(
+                _build.build_all()["sigkernel_tiled"]).items() if "tiled_" in f}
             row["fwd_values_ms"] = event_ms(lambda: kt.tiled_forward(z, with_ck=False), 3)
             row["fwd_ms"] = event_ms(lambda: kt.tiled_forward(z, with_ck=True), 3)
             row["bwd_ms"] = event_ms(lambda: kt.tiled_backward(z, ck, g), 3)
-            row["backward_blocks"] = kt.bwd_grid(P)
+            ckt = kt.twin_checkpoints(ck, lx1, ly1, P)
+            del ck
             plain = lambda fn: event_ms(lambda: [  # noqa: E731
                 fn(z[..., c0:c0 + 65536], c0) for c0 in range(0, P, 65536)], 1)
             row["plain_fwd_ms"] = plain(lambda zc, c0: kt.tiled_forward_plain(zc, True))
             row["plain_bwd_ms"] = plain(lambda zc, c0: kt.tiled_backward_plain(
-                zc, ck[..., c0:c0 + 65536], g[c0:c0 + 65536]))
+                zc, ckt[..., c0:c0 + 65536], g[c0:c0 + 65536]))
+            del ckt
             row["fwd_bound"] = bound(kt.tiled_flops(P, lx1, ly1),
                                      kt.tiled_bytes(P, lx1, ly1))
             row["values_bound"] = bound(kt.tiled_flops(P, lx1, ly1),
@@ -1835,7 +1876,7 @@ def phase_k5(tau):
               and dz_err <= dz_tol)
         if not ok:
             raise AssertionError(f"K5 disagrees with its twin: {row}")
-        del z, g, k, ck, dz, kv
+        del z, g, k, dz, kv
     return out
 
 

@@ -23,26 +23,32 @@ shared by the twins and the kernels:
   coarse cell ``dz = (½ + z/6)·Σ ĝ·(k[i, j−1] + k[i−1, j]) + (z/6)·Σ ĝ·k[i−1,
   j−1]`` over its 64 fine nodes.
 
-Layouts are pair-minor (``z [lx1, ly1, P]``, ``ck [nslots, G1, P]``) so one
-thread per pair reads and writes coalesced. On CPU tensors the wrappers run
-the twins; on CUDA tensors they launch ``csrc/sigkernel_tiled.cu`` or raise.
+``z`` and ``dz`` are pair-minor ``[lx1, ly1, P]``; the twins keep the
+checkpoints as ``[nslots, 8·ly1+1, P]``, the kernel in the lanes' layout of
+:func:`tiled_plan` (:func:`twin_checkpoints` converts). On CPU tensors the
+wrappers run the twins; on CUDA tensors they launch
+``csrc/sigkernel_tiled.cu`` or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from ._build import load
+from .sigkernel_block3 import SPAN_CAP, SPAN_TEMPLATES, block3_lanes, block3_spans  # noqa: F401
 from .sigkernel_fused import _bands_per_ck, _fma, _n_ck_slots, grid_forward
 
 _M = 8  # fine rows per band / fine cols per coarse cell (λ = 3)
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# csrc/sigkernel_tiled.cu: threads per backward block and the envelope
-NT_BWD = 64
+# csrc/sigkernel_tiled.cu: the envelope, a block's threads and the pairs a
+# lane group walks
 MAX_LY1 = 48
+THREADS = 128
+TILE_ROWS = 8
 
 
 def kernel_supported(lx1: int, ly1: int) -> bool:
@@ -89,7 +95,9 @@ def tiled_bytes(P: int, lx1: int, ly1: int, part: str = "forward") -> float:
 
 def chunk_pair_bytes(lx1: int, ly1: int, C: int, device_type: str, rbf: bool) -> int:
     """Memory a pair of a pair-list chunk holds at its peak, the backward:
-    on the card its checkpoints, z, dz and one more ``lx1·ly1`` temporary,
+    on the card its checkpoints (counted at the twins' 8·ly1+1 floats a
+    slot; the kernel's layout takes 8·ly1, and fewer than 1024/g padding
+    pairs a call), z, dz and one more ``lx1·ly1`` temporary,
     for RBF statics two ``Lx·Ly`` grids (the exp's output and the clamp's
     mask that autograd keeps; linear statics keep none), and the gathered
     path tiles with their gradients (a [1024, 40, 2] triangle list on
@@ -100,6 +108,133 @@ def chunk_pair_bytes(lx1: int, ly1: int, C: int, device_type: str, rbf: bool) ->
         grids = 3 * lx1 * ly1 + (2 * (lx1 + 1) * (ly1 + 1) if rbf else 0)
         return residual_bytes(1, lx1, ly1) + 4 * grids + 16 * (lx1 + ly1 + 2) * C
     return 32 * (_M * lx1 + 2) * (_M * ly1 + 2)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' plan: lanes, spans, tiles and the checkpoints' layout.
+# ---------------------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tiled_lanes(ly1: int) -> tuple[int, int]:
+    """``(g, span)``: K2's rule (:func:`block3_lanes`) with ly1 coarse
+    columns: the fewest lanes a pair (a power of two) that leave no lane
+    more than :data:`SPAN_CAP` of them, and the span template (3 or 5) that
+    holds the widest span."""
+    return block3_lanes(ly1 + 1)
+
+
+def tiled_spans(ly1: int, g: int) -> list[int]:
+    """Coarse columns of each lane: lane t holds ``[t·ly1/g, (t+1)·ly1/g)``."""
+    return block3_spans(ly1 + 1, g)
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """How K5 lays out one call on ``P`` pairs: ``g`` lanes a pair, each
+    holding a span of whole coarse columns (``spans``, at most ``span``, the
+    template); tiles of ``tile_rows`` × ``tile_cols`` pairs (a group walks
+    ``tile_rows`` pairs), one block each; ``fwd_steps`` / ``bwd_steps``
+    pipeline steps a block; ``ring_floats`` the left edges a group keeps
+    between its backward's two pipelines; ``smem_bytes`` a backward block's
+    shared memory (a forward block takes none); ``scratch_bytes`` device
+    scratch (none); ``ck_floats`` the checkpoints' device buffer;
+    ``traffic_bytes`` the device-memory traffic of each launch (the forward
+    with and without checkpoints, the backward). ``resident`` is the
+    backward's blocks on the card at once, where known."""
+    g: int
+    span: int
+    spans: tuple
+    tile_rows: int
+    tile_cols: int
+    pairs_per_tile: int
+    tiles: int
+    nslots: int
+    fwd_steps: int
+    bwd_steps: int
+    ring_floats: int
+    smem_bytes: int
+    scratch_bytes: int
+    ck_floats: int
+    traffic_bytes: dict
+    resident: int | None
+
+    @property
+    def waves(self) -> float | None:
+        return None if not self.resident else self.tiles / self.resident
+
+
+def tiled_plan(P: int, lx1: int, ly1: int, blocks: int | None = None) -> TiledPlan:
+    """K5's plan for ``P`` pairs of ``lx1 × ly1`` coarse cells; ``blocks``
+    the backward blocks resident on the card at once (:func:`resident_blocks`),
+    reported beside the launch's ``tiles`` blocks.
+
+    ``smem_bytes`` (csrc ``bwd_smem_floats``): per thread the rebuild's top
+    row, the adjoint row above the band and the next adjoint unit's
+    checkpoint row (8·span each) and the left columns of the span's coarse
+    cells after the first (8·(span−1)); per group the rings of lanes
+    1..g−1, 2g−2t left edges of 9 floats.
+    ``traffic_bytes``: the forward reads z once and writes k and, with
+    checkpoints, each pair's slots once (8·ly1 floats a slot); the backward
+    reads z and the slots once in each of its two pipelines, the cotangent
+    once, and writes dz once. No fine row or adjoint row goes to device
+    memory."""
+    g, span = tiled_lanes(ly1)
+    tc = THREADS // g
+    npt = TILE_ROWS * tc
+    tiles = _cdiv(P, npt)
+    nslots = _n_ck_slots(lx1, _bands_per_ck(lx1))
+    G = _M * ly1
+    units = TILE_ROWS * lx1
+    z = P * lx1 * ly1
+    slots = P * nslots * G
+    return TiledPlan(
+        g=g, span=span, spans=tuple(tiled_spans(ly1, g)), tile_rows=TILE_ROWS, tile_cols=tc,
+        pairs_per_tile=npt, tiles=tiles, nslots=nslots, fwd_steps=units + g - 1,
+        bwd_steps=units + 2 * g - 1, ring_floats=g * (g - 1) * 9,
+        smem_bytes=4 * THREADS * (_M * span * 3 + _M * (span - 1) + 9 * (g - 1)),
+        scratch_bytes=0, ck_floats=tiles * npt * nslots * G,
+        traffic_bytes={"forward": 4.0 * (z + P + slots), "values": 4.0 * (z + P),
+                       "backward": 4.0 * (3 * z + 2 * slots + P)},
+        resident=blocks)
+
+
+def _ck_index(P: int, lx1: int, ly1: int, pairs: torch.Tensor, slot: int) -> torch.Tensor:
+    """Float offsets ``[G, n]`` in the kernel's checkpoints of node columns
+    1..8·ly1 of slot ``slot`` of the pairs ``pairs`` (csrc ``CkLayout``):
+    per (tile, slot, warp, pipeline position) a block of the warp's 32/g
+    pairs' rows, float4 ``i`` of the lane whose span starts at coarse column
+    ``c0`` at ``(2·c0 + i)·32/g + q`` for the pair's group ``q`` in the
+    warp."""
+    plan = tiled_plan(P, lx1, ly1)
+    g, tc = plan.g, plan.tile_cols
+    ngw = 32 // g
+    dev = pairs.device
+    tile, rem = pairs // plan.pairs_per_tile, pairs % plan.pairs_per_tile
+    r, gi = rem // tc, rem % tc
+    warp, q = gi // ngw, gi % ngw
+    col = torch.arange(_M * ly1, device=dev)
+    f4 = (col // 4)[:, None] * ngw + q[None]     # 2·c0 + i is the column's float4
+    base = (((tile * plan.nslots + slot) * (THREADS // 32) + warp) * TILE_ROWS + r) * (
+        ngw * 2 * ly1)
+    return (base[None] + f4) * 4 + (col % 4)[:, None]
+
+
+def twin_checkpoints(ck: torch.Tensor, lx1: int, ly1: int, P: int,
+                     pairs: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's checkpoints ``ck`` of ``P`` pairs in the twins' layout
+    ``[nslots, 8·ly1+1, n]`` for the pairs ``pairs`` (all by default);
+    node column 0 is 1."""
+    if pairs is None:
+        pairs = torch.arange(P, device=ck.device)
+    nslots = _n_ck_slots(lx1, _bands_per_ck(lx1))
+    out = torch.ones(nslots, _M * ly1 + 1, pairs.numel(), dtype=ck.dtype, device=ck.device)
+    for s in range(nslots):
+        out[s, 1:] = ck[_ck_index(P, lx1, ly1, pairs, s)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -213,13 +348,12 @@ def tiled_backward_plain(z: torch.Tensor, ck: torch.Tensor, gout: torch.Tensor):
 
 def _lib():
     lib = load("sigkernel_tiled")
-    lib.sigkernel_tiled_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    lib.sigkernel_tiled_resident.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.sigkernel_tiled_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    lib.sigkernel_tiled_bwd_grid.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.sigkernel_tiled_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    lib.sigkernel_tiled_bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    for fn in (lib.sigkernel_tiled_fwd, lib.sigkernel_tiled_bwd_grid,
-               lib.sigkernel_tiled_bwd):
+    for fn in (lib.sigkernel_tiled_resident, lib.sigkernel_tiled_fwd, lib.sigkernel_tiled_bwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -243,41 +377,36 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def resident_blocks(ly1: int) -> tuple[int, int]:
+    """Blocks of K5's forward and backward resident on one SM at once (the
+    backward with its shared memory), by the card's occupancy query."""
+    g, span = tiled_lanes(ly1)
+    fwd, bwd = ctypes.c_int(0), ctypes.c_int(0)
+    err = _lib().sigkernel_tiled_resident(ly1, g, span, ctypes.byref(fwd), ctypes.byref(bwd))
+    if err != 0:
+        raise RuntimeError(f"K5 occupancy query failed: cudaError {err}")
+    return fwd.value, bwd.value
+
+
 def tiled_forward(z: torch.Tensor, with_ck: bool):
     """K5's forward on ``z [lx1, ly1, P]``: ``(k,)``, or ``(k, ck)`` with the
-    checkpoints. CPU tensors take the twin; CUDA tensors launch the kernel
-    and add one to ``tiled_forward.launches``."""
+    checkpoints. CPU tensors take the twin (``ck [nslots, 8·ly1+1, P]``);
+    CUDA tensors launch the kernel (``ck`` flat, in the lanes' layout of
+    :func:`tiled_plan`) and add one to ``tiled_forward.launches``."""
     if z.device.type == "cpu":
         return tiled_forward_plain(z, with_ck)
     lx1, ly1, P = _check(z, "K5")
-    # without checkpoints one slot serves as the working fine row
-    bpc = _bands_per_ck(lx1) if with_ck else lx1
+    plan = tiled_plan(P, lx1, ly1)
     k = torch.empty(P, dtype=z.dtype, device=z.device)
-    ck = torch.empty(_n_ck_slots(lx1, bpc), _M * ly1 + 1, P, dtype=z.dtype,
-                     device=z.device)
-    err = _lib().sigkernel_tiled_fwd(z.data_ptr(), k.data_ptr(), ck.data_ptr(), P, lx1,
-                                     ly1, bpc, _stream(z))
+    ck = torch.empty(plan.ck_floats, dtype=z.dtype, device=z.device) if with_ck else None
+    err = _lib().sigkernel_tiled_fwd(z.data_ptr(), k.data_ptr(),
+                                     ck.data_ptr() if with_ck else None, P, lx1, ly1,
+                                     plan.g, plan.span, _bands_per_ck(lx1), plan.nslots,
+                                     _stream(z))
     if err != 0:
         raise RuntimeError(f"K5 forward launch failed: cudaError {err}")
     tiled_forward.launches += 1
     return (k, ck) if with_ck else (k,)
-
-
-def bwd_grid(P: int) -> int:
-    """Persistent blocks of a backward launch: those resident on the card at
-    once, at most one per ``NT_BWD`` pairs."""
-    blocks = ctypes.c_int(0)
-    err = _lib().sigkernel_tiled_bwd_grid(NT_BWD, P, ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"K5 occupancy query failed: cudaError {err}")
-    return blocks.value
-
-
-def bwd_scratch_bytes(ly1: int) -> int:
-    """Device scratch per resident thread of a backward launch: the band's
-    top primal row, the adjoint row handed down and the primal at each
-    coarse cell's left edge (``3·8·ly1`` floats)."""
-    return 4 * 3 * _M * ly1
 
 
 def tiled_backward(z: torch.Tensor, ck: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
@@ -289,17 +418,14 @@ def tiled_backward(z: torch.Tensor, ck: torch.Tensor, gout: torch.Tensor) -> tor
     lx1, ly1, P = _check(z, "K5 backward")
     if gout.shape != (P,) or gout.dtype != torch.float32 or not gout.is_contiguous():
         raise ValueError("the cotangent must be a contiguous fp32 [P] tensor")
-    shape = (_n_ck_slots(lx1, _bands_per_ck(lx1)), _M * ly1 + 1, P)
-    if (ck.shape != shape or ck.dtype != torch.float32 or not ck.is_contiguous()
+    plan = tiled_plan(P, lx1, ly1)
+    if (ck.shape != (plan.ck_floats,) or ck.dtype != torch.float32 or not ck.is_contiguous()
             or ck.device != z.device):
-        raise ValueError(f"ck must be K5's forward checkpoints, fp32 {shape}")
-    blocks = bwd_grid(P)
-    scratch = torch.empty(blocks * NT_BWD * bwd_scratch_bytes(ly1), dtype=torch.uint8,
-                          device=z.device)
+        raise ValueError(f"ck must be K5's forward checkpoints, fp32 [{plan.ck_floats}]")
     dz = torch.empty_like(z)
     err = _lib().sigkernel_tiled_bwd(z.data_ptr(), ck.data_ptr(), gout.data_ptr(),
-                                     dz.data_ptr(), scratch.data_ptr(), blocks, P, lx1, ly1,
-                                     _bands_per_ck(lx1), _stream(z))
+                                     dz.data_ptr(), P, lx1, ly1, plan.g, plan.span,
+                                     _bands_per_ck(lx1), plan.nslots, _stream(z))
     if err != 0:
         raise RuntimeError(f"K5 backward launch failed: cudaError {err}")
     tiled_backward.launches += 1

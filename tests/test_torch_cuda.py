@@ -25,8 +25,9 @@
 * K5 (the λ=3 solve on given increments, forward and stable backward): k
   rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| atol 5e-4 against the fp32
   twin, those of ``tests/test_pallas_sigkernel.py`` (at its MPC shape 1e-4
-  and 1e-3), the checkpoints at the forward's tolerance, and the routes
-  that launch it (the dense λ=3 ``gram``, linear statics, C > 8).
+  and 1e-3), the checkpoints (in the twin's layout, ``twin_checkpoints``)
+  at the forward's tolerance, at 1, 2, 4, 8 and 16 lanes a pair, and the
+  routes that launch it (the dense λ=3 ``gram``, linear statics, C > 8).
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -384,7 +385,7 @@ def test_dense_lambda3_gram_runs_k4_with_the_median_bandwidth(cuda_device, monke
     torch.testing.assert_close(K, run("cpu", median)[0], atol=5e-4, rtol=0)
     _assert_k_dx(*run(cuda_device, fixed), *run("cpu", fixed), k_atol=5e-4, dx_atol=1e-3)
     monkeypatch.setattr(kt, "tiled_backward", lambda z, ck, g: kt.tiled_backward_plain(
-        z.double(), ck.double(), g.double()).float())
+        z.double(), kt.twin_checkpoints(ck, *z.shape).double(), g.double()).float())
     _assert_k_dx(K, dX, *run(cuda_device, median), k_atol=0, dx_atol=1e-3)
 
 
@@ -581,18 +582,21 @@ def _increments(device, b, lx1, ly1, scale=0.3, seed=0):
 def _assert_k5(z, gout, k_rtol=2e-5, dz_atol=5e-4, chunk=4096):
     """K5's forward (values only and with checkpoints) and backward against
     the fp32 twin, ``chunk`` pairs of the twin at a time."""
+    lx1, ly1, P = z.shape
     k, ck = kt.tiled_forward(z, with_ck=True)
     (k_values_only,) = kt.tiled_forward(z, with_ck=False)
     dz = kt.tiled_backward(z, ck, gout)
     torch.cuda.synchronize()
     torch.testing.assert_close(k_values_only, k, atol=0, rtol=0)
     assert torch.isfinite(k).all() and torch.isfinite(dz).all()
-    for c0 in range(0, z.shape[-1], chunk):
+    for c0 in range(0, P, chunk):
         sl = slice(c0, c0 + chunk)
         kp, ckp = kt.tiled_forward_plain(z[..., sl], with_ck=True)
         dzp = kt.tiled_backward_plain(z[..., sl], ckp, gout[sl])
         torch.testing.assert_close(k[sl], kp, rtol=k_rtol, atol=1e-6)
-        torch.testing.assert_close(ck[..., sl], ckp, rtol=k_rtol, atol=1e-6)
+        held = torch.arange(c0, min(c0 + chunk, P), device=z.device)
+        torch.testing.assert_close(kt.twin_checkpoints(ck, lx1, ly1, P, held), ckp,
+                                   rtol=k_rtol, atol=1e-6)
         scale = dzp.abs().max()
         torch.testing.assert_close(dz[..., sl] / scale, dzp / scale, atol=dz_atol, rtol=0)
 
@@ -600,7 +604,8 @@ def _assert_k5(z, gout, k_rtol=2e-5, dz_atol=5e-4, chunk=4096):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,lx1,ly1,scale", [
     (5, 3, 3, 0.3), (4, 3, 5, 0.3), (3, 5, 5, 0.3), (2, 2, 5, 0.3), (2561, 3, 3, 0.3),
-    (3, 40, 40, 0.05), (300, 6, 48, 0.3), (200, 39, 17, 0.3), (64, 1, 1, 0.3)])
+    (3, 40, 40, 0.05), (300, 6, 48, 0.3), (200, 39, 17, 0.3), (64, 1, 1, 0.3),
+    (1500, 7, 9, 0.3), (700, 1, 48, 0.3), (1100, 13, 39, 0.3)])
 def test_k5_matches_plain_twin_on_the_card(cuda_device, b, lx1, ly1, scale):
     z, gout = _increments(cuda_device, b, lx1, ly1, scale)
     before = (kt.tiled_forward.launches, kt.tiled_backward.launches)
@@ -612,12 +617,13 @@ def test_k5_matches_plain_twin_on_the_card(cuda_device, b, lx1, ly1, scale):
 
 @pytest.mark.cuda
 def test_k5_solves_every_pass_of_its_persistent_loop(cuda_device):
-    """More pairs than the backward's resident threads take at once, so
-    every thread's loop runs three passes, the last a partial one; every
-    pair is held against the twin."""
-    threads = kt.bwd_grid(1 << 24) * kt.NT_BWD
-    P = 2 * threads + 37
-    assert kt.bwd_grid(P) * kt.NT_BWD < P
+    """More tiles than the card holds blocks of the backward at once, so its
+    blocks run in three waves, the last a partial tile; every pair is held
+    against the twin."""
+    resident = kt.resident_blocks(4)[1] * torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    P = 2 * resident * kt.tiled_plan(1, 5, 4).pairs_per_tile + 37
+    assert kt.tiled_plan(P, 5, 4).tiles > 2 * resident
     z, gout = _increments(cuda_device, P, 5, 4, seed=5)
     _assert_k5(z, gout, chunk=65536)
 
@@ -631,7 +637,7 @@ def test_k5_raises_outside_its_envelope(cuda_device):
             torch.zeros(4, 50, 2, device=cuda_device))
     with pytest.raises(ValueError, match="checkpoints"):
         kt.tiled_backward(torch.zeros(5, 4, 8, device=cuda_device),
-                          torch.zeros(2, 33, 8, device=cuda_device),
+                          torch.zeros(2, 33, 8, device=cuda_device),  # the twin's layout
                           torch.zeros(8, device=cuda_device))
 
 
