@@ -4,7 +4,10 @@
 
 Runs each checkout's own ``chip_smoke.py`` phases in fresh processes, in the
 order A, B, B, A, so that a slow or fast spell of the host falls on both:
-the calibrated λ=0 solve (``flagship_solve``), the pinned λ=3 solves in
+the calibrated λ=0 solve (``flagship_solve``, with its Gram + adjoint stage
+``sig_gram_adjoint``), K1 alone at [1024, 40, 2] through the tree's
+``block_gram_and_grad`` on the smoke's seeded paths (``k1_timing``: a
+warm-up call, then three times 5 calls by CUDA events), the pinned λ=3 solves in
 fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
 ``N`` chained solves each, default 7, after a warm-up), K2 alone at
 [1024, 40, 2] through the tree's ``block3_gram_and_grad`` on the smoke's
@@ -41,6 +44,8 @@ from pathlib import Path
 # metric: (phase, key) of each metric the runs are compared on
 METRICS = {
     "flagship_solve": ("flagship_solve", "ms_per_solve_median"),
+    "flagship_sig_gram_adjoint": ("flagship_solve", "stages_ms.sig_gram_adjoint"),
+    "k1_timing": ("k1_timing", "kernel_ms"),
     "pinned_solve": ("pinned_solve", "ms_per_solve_median"),
     "bf16_pinned_solve": ("bf16_pinned_solve", "ms_per_solve_median"),
     "pinned_linear_solve": ("pinned_linear_solve", "ms_per_solve_median"),
@@ -51,6 +56,23 @@ METRICS = {
     "k5_timing_forward": ("k5_timing", "forward_ms"),
     "k5_timing_backward": ("k5_timing", "backward_ms"),
 }
+
+
+def k1_timing(cs) -> None:
+    """K1 at [1024, 40, 2] through the tree's public ``block_gram_and_grad``
+    on the smoke's seeded smooth paths (``phase_k1``'s): one warm-up call,
+    then the median of three runs of 5 calls timed by CUDA events; one JSON
+    line."""
+    import torch
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+
+    X = cs.smooth_paths(1024, 40, 2, torch.Generator(device="cuda").manual_seed(0))
+    kb.block_gram_and_grad(X, 4.0)
+    torch.cuda.synchronize()
+    samples = [cs.event_ms(lambda: kb.block_gram_and_grad(X, 4.0), 5) for _ in range(3)]
+    print(json.dumps({"phase": "k1_timing", "shape": [1024, 40, 2],
+                      "kernel_ms": statistics.median(samples),
+                      "kernel_ms_samples": samples}), flush=True)
 
 
 def k2_timing(cs) -> None:
@@ -119,6 +141,7 @@ def child(root: Path, n_solves: int) -> int:
     # K9 timed in a fresh process before the paths, where the tree has it
     timing = cs.phase_k9_timing() if hasattr(cs, "phase_k9_timing") else None
     cs.phase_flagship()
+    k1_timing(cs)
     cs.phase_pinned()
     k2_timing(cs)
     _, tau = cs.phase_pinned_linear()
@@ -153,9 +176,12 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
         raise SystemExit(f"chip_ab: the run of {root} failed (exit {proc.returncode})")
     got = {"run": label, "root": str(root)}
     for metric, (phase, key) in METRICS.items():
-        got[metric] = rows[phase][key]
-        for samples in ("ms_per_solve_samples", "ms_per_iter_samples", f"{key}_samples"):
-            if samples in rows[phase]:
+        value = rows[phase]
+        for part in key.split("."):
+            value = value[part]
+        got[metric] = value
+        for samples in (key.replace("_median", "_samples"), f"{key}_samples"):
+            if samples != key and samples in rows[phase]:
                 got[metric + "_samples"] = rows[phase][samples]
     for n, d in K9_SHAPES:
         got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}

@@ -8,24 +8,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
    CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a, one
-   process per source, with the registers and spills of each function of
-   each source from ptxas (its report kept beside the library, so a cached
-   library reports too); a K2 or K5 function that spills or is missing
-   from the report fails the smoke;
-2. K1 (the λ=0 signature-kernel Gram + adjoint) against its plain PyTorch
-   twin on the card, at the flagship shape [1024, 40, 2], a ragged
-   [333, 40, 2] and [40, 64, 3] (the L ≤ 64 instantiation): K to atol
-   3e-5, dX scaled by max|dX| to atol 5e-5; also K of both against the twin
-   in fp64, and the device memory each instantiation's first launch takes;
+   process per source, with the registers, spills and stack frame of each
+   function of each source from ptxas (its report kept beside the library,
+   so a cached library reports too); a K1, K2 or K5 function that spills
+   or is missing from the report, or a K1 function with a stack frame,
+   fails the smoke;
+2. K1 (the λ=0 signature-kernel Gram + adjoint; a lane group per pair)
+   against its plain PyTorch twin on the card, at the flagship shape
+   [1024, 40, 2], a ragged [333, 40, 2] and [40, 64, 3] (16 lanes a pair):
+   K bit for bit, dX scaled by max|dX| to atol 5e-5; also K and dX of both
+   against the twin in fp64, the device memory each instantiation's first
+   launch takes, the plan (lanes, spans, bands, tiles, resident blocks,
+   shared memory, scratch, traffic), and at the flagship shape K and dX bit
+   for bit across two calls;
 3. the flagship DuSt solve (7-DoF Panda, bookshelf_small, 1024 policies,
    H=40, 2 Adam SVGD steps, calibrated order 0) for a few chained MPC
    solves, with K1's launch count read around them, then the two stages of
    the solve timed apart (rollout + cost gradient; Gram + adjoint) and one
    more solve traced with ``torch.profiler``; then τ of two rollouts of
    fresh policy draws for phases 6 and 7;
-4. K3 (the λ=0 values-only block Gram) against its twin (atol 3e-5) and
-   against K1's K (bit for bit) at K1's three shapes, with its time beside
-   K1's at [1024, 40, 2];
+4. K3 (the λ=0 values-only block Gram, one thread a pair) against its twin
+   (atol 3e-5) and against K1's K (bit for bit) at K1's three shapes, with
+   its time beside K1's at [1024, 40, 2];
 5. K7 (the λ=0 pair-list forward, values only and with its residual, and
    its backward) against its twin at the flagship upper-triangle list of
    [1024, 40, 2] (524,800 pairs: the first and the last 16,384 held, the
@@ -233,6 +237,7 @@ def phase_build():
     ).stdout.strip()
     print(smi, flush=True)
     from sigsvgd_tpu_torch.kernels import _build
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
     from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
     from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
 
@@ -240,11 +245,17 @@ def phase_build():
     reports = _build.build_all()
     ptxas = {stem: ptxas_functions(text) for stem, text in reports.items()}
     emit({"phase": "build", "build_s": time.perf_counter() - t0, "ptxas": ptxas})
-    # every K2 instantiation (span template × C = 1..3) and every K5 kernel
-    # (forward and backward × span template) is in the report and spills
-    # nothing; the other sources' spills are reported, not gated
+    # every K1 and K2 instantiation (span template × C = 1..3) and every K5
+    # kernel (forward and backward × span template) is in the report and
+    # spills nothing, and K1 keeps no stack frame (no per-cell value in local
+    # memory); the other sources' spills are reported, not gated
     spills = lambda fns: any(  # noqa: E731
         r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in fns.values())
+    k1 = {f: r for f, r in ptxas["sigkernel_block"].items() if "block_lanes_kernel" in f}
+    if (len(k1) != 3 * len(kb.SPAN_TEMPLATES) or spills(k1)
+            or any(r.get("stack_frame", 1) for r in k1.values())):
+        raise AssertionError(f"K1's instantiations not all reported spill-free with "
+                             f"no stack frame: {k1}")
     k2 = {f: r for f, r in ptxas["sigkernel_block3"].items() if "block3_kernel" in f}
     if len(k2) != 3 * len(kb3.SPAN_TEMPLATES) or spills(k2):
         raise AssertionError(f"K2's instantiations not all reported spill-free: {k2}")
@@ -255,8 +266,8 @@ def phase_build():
 
 
 def ptxas_functions(report: str) -> dict:
-    """Registers and spill bytes of each function in an ``nvcc -Xptxas -v``
-    report, by its mangled name."""
+    """Registers, stack frame and spill bytes of each function in an ``nvcc
+    -Xptxas -v`` report, by its mangled name."""
     out, name = {}, None
     for ln in report.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", ln)
@@ -265,6 +276,8 @@ def ptxas_functions(report: str) -> dict:
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
             out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
                                             spill_loads=int(m.group(2)))
+            if (f := re.search(r"(\d+) bytes stack frame", ln)):
+                out[name]["stack_frame"] = int(f.group(1))
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
@@ -283,7 +296,11 @@ def device_mib_outside_allocator(fn) -> float:
 
 def phase_k1():
     """K1 against its plain twin at the flagship shape, a ragged n, and the
-    L ≤ 64 instantiation; both also against the twin in fp64."""
+    L ≤ 64 instantiation (16 lanes a pair); both also against the twin in
+    fp64. K must be the twin's bit for bit (the statics and the forward
+    round as the twin does, and a schedule does not change a cell's
+    arithmetic); at the flagship shape K and dX bit for bit across two
+    calls, the plan and the time."""
     from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -302,23 +319,43 @@ def phase_k1():
         k_err = (K - Kp).abs().max().item()
         dscale = dXp.abs().max().item()
         dx_err = ((dX - dXp).abs().max() / dscale).item()
+        s64 = dX64.abs().max().item()
         finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
+        tiles, blocks = kb.block_grid(n, L, C, X.device)
+        plan = kb.block_plan(n, L, C, blocks)
+        pairs = n * (n + 1) // 2
         row = {"phase": "k1_vs_plain", "shape": [n, L, C], "h": h,
-               "k_max_abs_err": k_err, "dx_scaled_max_abs_err": dx_err,
+               "k_max_abs_err": k_err, "k_bit_equal": bool(torch.equal(K, Kp)),
+               "dx_scaled_max_abs_err": dx_err,
                "k_err_vs_fp64": {"kernel": (K.double() - K64).abs().max().item(),
                                  "plain": (Kp.double() - K64).abs().max().item()},
+               "dx_scaled_err_vs_fp64": {
+                   "kernel": ((dX.double() - dX64).abs().max() / s64).item(),
+                   "plain": ((dXp.double() - dX64).abs().max() / s64).item()},
                "first_launch_mib_outside_allocator": mib,
+               "plan": {"lanes_a_pair": plan.g, "span_template": plan.span,
+                        "spans": list(plan.spans), "band_rows": plan.band_rows,
+                        "bands": plan.bands, "tile": [plan.tile_rows, plan.tile_cols],
+                        "pipeline_steps": plan.steps, "tiles": plan.tiles,
+                        "blocks": plan.blocks, "scratch_mib": plan.scratch_mib,
+                        "smem_bytes": plan.smem_bytes, "traffic_bytes": plan.traffic_bytes,
+                        "traffic_bytes_a_pair": plan.traffic_bytes / pairs},
                "finite": finite}
+        ok = finite and row["k_bit_equal"] and dx_err <= 5e-5 and plan.tiles == tiles.shape[0]
         del K64, dX64
         if n == 1024:
+            K2, dX2 = kb.block_gram_and_grad(X, h)
+            row["bitwise_repeatable"] = bool(torch.equal(K, K2) and torch.equal(dX, dX2))
+            ok = ok and row["bitwise_repeatable"] and plan.tiles > blocks
+            del K2, dX2
             kernel_ms = event_ms(lambda: kb.block_gram_and_grad(X, h), 5)
             plain_ms = event_ms(lambda: kb.block_gram_and_grad_plain(X, h), 1)
             row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
                        **bound(kb.block_flops(n, L, C), kb.block_bytes(n, L, C)))
             rows["flagship"] = row
         emit(row)
-        if not (finite and k_err <= 3e-5 and dx_err <= 5e-5):
-            raise AssertionError(f"K1 disagrees with its plain twin: {row}")
+        if not ok:
+            raise AssertionError(f"K1 disagrees with its plain twin or itself: {row}")
     return rows["flagship"]
 
 
@@ -1515,9 +1552,9 @@ def phase_k7():
 
 
 def phase_k3():
-    """K3 against its twin (atol 3e-5) and against K1's K (bit for bit: the
-    same staging and forward sweep) at K1's three shapes; its time beside
-    K1's and the twin's at [1024, 40, 2]."""
+    """K3 against its twin (atol 3e-5) and against K1's K (bit for bit: both
+    round the statics and the forward sweep as the twin does) at K1's three
+    shapes; its time beside K1's and the twin's at [1024, 40, 2]."""
     from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     gen = torch.Generator(device="cuda").manual_seed(3)

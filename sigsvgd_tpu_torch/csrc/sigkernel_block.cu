@@ -15,43 +15,80 @@
 // What bounds it on an H100: arithmetic. Inputs are n·L·C floats and
 // outputs n² + n·L·C floats, while every pair runs a (L-1)² cell forward
 // sweep and its adjoint (~99k operations with L² exp at L=40, C=2, each
-// value counted once; this kernel recomputes static rows and z, A, B, so it
-// executes more), so the operation count over the fp32 CUDA-core rate is
-// ~500x the byte count over the memory rate. The design keeps every
-// per-pair quantity on chip or in
-// thread-private memory and moves only paths, K and gradient partials:
-//   * one thread per pair; a block holds an 8-row × 16-column particle tile
-//     and stages its 24 paths (pre-scaled by √(2/h)) in shared memory;
-//   * the static Gram is formed on the fly, one node row at a time, in the
-//     TPU kernel's expand form exp(x'·y' - ½|x'|² - ½|y'|²); no [pairs, L, L]
-//     tensor reaches device memory;
-//   * the K node row and the two static-Gram rows live in registers (loops
-//     over j unrolled to the template bound LMAX, guarded by the run-time L);
-//   * the forward stores the per-cell adjoint factor
-//     fac = (k[i+1][j] + k[i][j+1])·(½ + z/6) + k[i][j]·z/6 in
-//     thread-local memory, so the adjoint needs neither band
-//     rematerialisation nor primal reconstruction;
-//   * the adjoint sweeps λ rows top-down (right-to-left chain, then
-//     dz = λ·fac·seed) and pulls dz back through the static Gram with the
-//     row difference D[i][q] = dz[i][q-1] - dz[i][q], so no dg row is carried;
-//   * gradients reduce deterministically: per-thread slots in shared memory,
-//     a fixed-order sum per block into per-tile partials, and a second small
-//     kernel that sums the partials of each particle in tile order.
-// K3 is the same staging and the same forward sweep (one device function,
-// so its K equals K1's bit for bit) with nothing stored for an adjoint: its
-// operations bound it (~1.5e10 at [1024, 40, 2], 0.2 ms at 67 TFLOP/s).
-// Speed work (warp-level row pipelining, register blocking) comes later.
+// value counted once), so the operation count over the fp32 CUDA-core rate
+// is ~500x the byte count over the memory rate. One thread a pair, as K3
+// solves it, would keep the adjoint's per-cell factors in local memory
+// (6 KB a pair at L = 40, as K1's first port did); K1 keeps no per-cell
+// value off chip:
+//   * a lane group per pair: g lanes (a power of two, the fewest that leave
+//     a lane at most 5 of the L-1 cell columns: 8 at L = 40, 16 at 64) split
+//     the cell columns into spans [t(L-1)/g, (t+1)(L-1)/g); a block (4 warps)
+//     takes a tile of 8 row particles × 128/g column particles from a list of
+//     the tiles holding a pair a <= b, and each group walks its column's 8
+//     pairs in bands of RB = 4 cell rows as one pipeline, so lanes idle only
+//     in the g-1 steps at its ends (bands of 4-8 rows measured within 7%:
+//     4 the fastest, 143 registers; 7 and 8 spill);
+//   * forward: at step k lane t sweeps band k - t over its span, the K row
+//     and two static rows of its span in registers, the statics of its node
+//     columns formed in the expand form exp(x'·y' - ½|x'|² - ½|y'|²) on paths
+//     pre-scaled by √(2/h), one exp a node, from its own copy of its column
+//     path in shared memory; it hands its right column (4 values) to lane
+//     t+1 by __shfl_up_sync, and writes the band's bottom row over its span
+//     and its left column, 10 nodes, to the slot of step k in device scratch
+//     (lane-minor float4s, so a warp's store fills whole lines);
+//   * adjoint: the same pipeline right to left, bands top down: lane t takes
+//     unit k - (g-1-t), copies the slot its forward step wrote (cp.async, a
+//     step ahead), rebuilds the band's K rows over its span from it in the
+//     forward's rounding and keeps each cell's factor fac = (k[i+1][j] +
+//     k[i][j+1])(½ + z/6) + k[i][j]·z/6 of the band in registers, then runs
+//     the λ rows top down through the band, each right to left, taking the
+//     terms of the cell right of its span (λ·A, λ·B and dz, per row) from
+//     lane t+1's hand-off slot in shared memory. A band is rebuilt from its
+//     own bottom row and left column, so nothing is rebuilt toward -j (no
+//     division) and fac is the twin's bit for bit. The rebuild cannot run in
+//     the adjoint's pipeline (it needs lane t-1's column of the same band,
+//     which the adjoint reaches later), and a lane's checkpoints and left
+//     columns of a run (~100 floats a pair) outlive many steps, so they go
+//     to the scratch slots; no per-cell value goes to device or local memory;
+//   * pull-back: dz through the statics by the row difference D[i][q] =
+//     dz[i][q-1] - dz[i][q], +D on node row i+1 and -D on node row i; a lane
+//     owns the node columns inside and at the right edge of its span (lane 0
+//     also column 0), so every node is pulled back once, when its row is
+//     finished (weights W = dg·g). The column-path gradient of those nodes
+//     sums over the band's rows in registers and over the group's 8 pairs in
+//     per-lane shared slots; the row-path gradient of each node row sums
+//     over the warp's groups by shuffles and over the lanes and the block's
+//     warps in per-warp shared sums taken in the schedule's fixed order;
+//     per-tile partials and a second kernel summing each particle's partials
+//     in tile order give dX: no atomics, deterministic.
+//   * no branch divides a warp inside a band: cells past a lane's span and
+//     rows past a pair's top are computed on valid statics and not kept
+//     (with per-cell branches the same schedule ran 1.5x slower, with a
+//     branch a row in the adjoint 1.1x).
+// The forward's and the rebuild's statics and sweep round each product and
+// sum on its own in the twin's order (so K is the twin's bit for bit); the
+// adjoint contracts freely (dX is compared at a scaled 5e-5). 12 warps an
+// SM (at most 151 registers, no stack frame).
+// K3 solves a pair in one thread, the staging and forward sweep of K1's
+// first port, with nothing stored for an adjoint: its operations bound it
+// (~1.5e10 at [1024, 40, 2], 0.2 ms at 67 TFLOP/s). Its statics and sweep
+// round as K1's do, so both give the twin's K bit for bit.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int TR = 8;   // row particles per block
-constexpr int TC = 16;  // column particles per block
-constexpr int NT = TR * TC;
+constexpr int NT = 128;  // threads per block
+constexpr int NW = NT / 32;
+constexpr int TR = 8;    // row particles per tile (the pairs a K1 group walks)
+constexpr int TC = 16;   // K3: column particles per block
+constexpr int RB = 4;    // K1: cell rows a band (a pipeline step)
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float I6 = 1.0f / 6.0f;
 constexpr float I12 = 1.0f / 12.0f;
+
+// ---- K3: one thread a pair, values only -------------------------------------
 
 // Static-Gram row g[q] = exp(x'_p·y'_q - ½|x'_p|² - ½|y'_q|²), q < L.
 // Here and in the forward sweep every product and sum is rounded on its own
@@ -59,7 +96,6 @@ constexpr float I12 = 1.0f / 12.0f;
 // K by about the 3e-5 tolerance at the flagship shape (chip_smoke.py reports
 // both against the twin in fp64), so K agrees with the twin to atol 3e-5
 // only if both round the same operations the same way.
-// The adjoint keeps FMA: dX is compared at a scaled 5e-5.
 template <int LMAX, int C>
 __device__ __forceinline__ void g_row(const float* xs, const float* ys,
                                       const float* ynh, int p, int r, int cl,
@@ -81,28 +117,6 @@ __device__ __forceinline__ void g_row(const float* xs, const float* ys,
         cross = __fadd_rn(cross, __fmul_rn(xv[c], ys[(q * C + c) * TC + cl]));
       g[q] = expf(__fadd_rn(cross, __fadd_rn(ynh[q * TC + cl], xnh)));
     }
-  }
-}
-
-// Pull-back of one adjoint row difference D at node column q: row i+1 gets
-// w_hi = D·g[i+1][q], row i gets w_lo = -D·g[i][q].
-template <int C>
-__device__ __forceinline__ void pull_back(float D, float gh, float gl,
-                                          const float* ys, float* dyc, int q,
-                                          int cl, int tid, const float (&xh)[C],
-                                          const float (&xl)[C], float (&sxh)[C],
-                                          float (&sxl)[C], float& swh, float& swl) {
-  const float wh = D * gh;
-  const float wl = -D * gl;
-  swh += wh;
-  swl += wl;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float yv = ys[(q * C + c) * TC + cl];
-    sxh[c] = fmaf(wh, yv, sxh[c]);
-    sxl[c] = fmaf(wl, yv, sxl[c]);
-    float* d = dyc + (q * C + c) * NT + tid;
-    *d += (wh * xh[c] + wl * xl[c]) - (wh + wl) * yv;
   }
 }
 
@@ -137,12 +151,11 @@ __device__ __forceinline__ void stage_paths(const float* __restrict__ X, float s
 }
 
 // The forward sweep of one pair: K node rows bottom-up. Returns
-// k[L-1][L-1]; leaves static row L-1 in gdn; with FAC stores the per-cell
-// adjoint factors in fac [(LMAX-1)²].
-template <int LMAX, int C, bool FAC>
+// k[L-1][L-1].
+template <int LMAX, int C>
 __device__ __forceinline__ float forward_sweep(const float* xs, const float* ys,
-                                               const float* ynh, int r, int cl, int L,
-                                               float (&gdn)[LMAX], float* fac) {
+                                               const float* ynh, int r, int cl, int L) {
+  float gdn[LMAX];
   float gup[LMAX], krow[LMAX];
   float kl = 1.f;
 #pragma unroll
@@ -150,7 +163,6 @@ __device__ __forceinline__ float forward_sweep(const float* xs, const float* ys,
   g_row<LMAX, C>(xs, ys, ynh, 0, r, cl, L, gdn);
   for (int i = 0; i < L - 1; ++i) {
     g_row<LMAX, C>(xs, ys, ynh, i + 1, r, cl, L, gup);
-    float* fr = fac + i * (LMAX - 1);
     float prev = krow[0];
     kl = 1.f;
 #pragma unroll
@@ -162,7 +174,6 @@ __device__ __forceinline__ float forward_sweep(const float* xs, const float* ys,
         const float old = krow[j + 1];
         const float s = kl + old;
         const float kn = __fsub_rn(__fmul_rn(s, A), __fmul_rn(prev, B));
-        if constexpr (FAC) fr[j] = s * (0.5f + z * I6) + prev * (z * I6);
         krow[j + 1] = kn;
         prev = old;
         kl = kn;
@@ -174,7 +185,6 @@ __device__ __forceinline__ float forward_sweep(const float* xs, const float* ys,
   return kl;
 }
 
-// ---- K3: values only --------------------------------------------------------
 template <int LMAX, int C>
 __global__ void __launch_bounds__(NT)
 block_values_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
@@ -191,131 +201,463 @@ block_values_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
   stage_paths<C>(X, sqrtf(2.0f / hptr[0]), xs, ys, ynh, I, J, n, L, tid);
   const int a = I * TR + r, b = J * TC + cl;
   if (a < n && b < n && a <= b) {
-    float gdn[LMAX];
-    const float kl = forward_sweep<LMAX, C, false>(xs, ys, ynh, r, cl, L, gdn, nullptr);
+    const float kl = forward_sweep<LMAX, C>(xs, ys, ynh, r, cl, L);
     K[(size_t)a * n + b] = kl;
     K[(size_t)b * n + a] = kl;
   }
 }
 
-// ---- K1: values and adjoint -------------------------------------------------
-template <int LMAX, int C>
-__global__ void __launch_bounds__(NT)
-block_gram_grad_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
-                       float* __restrict__ K, float* __restrict__ rowpart,
-                       float* __restrict__ colpart, int n, int L) {
-  const int J = blockIdx.x, I = blockIdx.y;
-  // a tile holding no pair a <= b has nothing to do
-  if (I * TR > J * TC + TC - 1) return;
+// ---- K1: a lane group per pair --------------------------------------------
 
-  extern __shared__ float smem[];
-  const int LC = L * C;
-  float* xs = smem;              // [L][C][TR] pre-scaled row paths
-  float* ys = xs + LC * TR;      // [L][C][TC] pre-scaled column paths
-  float* ynh = ys + LC * TC;     // [L][TC]    -½|y'_q|²
-  float* dxr = ynh + L * TC;     // [L·C][NT]  per-thread row-path gradient
-  float* dyc = dxr + LC * NT;    // [L·C][NT]  per-thread column-path gradient
+// A lane's slot a pipeline step, in float4s: the band's bottom row over the
+// span's SPAN+1 nodes, then its left column (the RB nodes above the corner).
+template <int SPAN>
+__host__ __device__ constexpr int slot_f4() { return (SPAN + 1 + RB + 3) / 4; }
 
-  const int tid = threadIdx.x;
-  const int r = tid / TC, cl = tid % TC;
-  for (int k = 0; k < LC; ++k) {
-    dxr[k * NT + tid] = 0.f;
-    dyc[k * NT + tid] = 0.f;
+// Shared memory of a K1 block, in floats (kernels/sigkernel_block.py::
+// block_plan): sb [slot_f4·4][NT] (each lane's copy of its next slot), yl
+// [(SPAN+1)·(C+1)][NT] (each lane's span of its column path: y' and
+// -½|y'|²), xs [L][C+1][TR] (the row paths: x' and -½|x'|²), dxw
+// [TR][NW][L·C] (each warp's row-path sums), dyc [(SPAN+1)·(C+1)][NT] (each
+// lane's column-path sums), hs [2][RB][3][NT] (each lane's hand-off of a
+// step, by step parity). Lane-private arrays are lane-minor, so a warp's
+// access of one of them hits 32 banks.
+size_t lanes_smem_floats(int L, int C, int span) {
+  const int sf = span == 3 ? slot_f4<3>() : slot_f4<5>();
+  return (size_t)4 * sf * NT + (size_t)2 * (span + 1) * (C + 1) * NT + (size_t)L * (C + 1) * TR +
+         (size_t)TR * NW * L * C + (size_t)2 * RB * 3 * NT;
+}
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Statics of row node p over the lane's node columns c0 .. c0+SPAN, rounded
+// as the twin rounds them: xp is x'_p of the lane's row particle (channel
+// stride TR, -½|x'_p|² at channel C), yq the lane's column path from node
+// c0 (node stride (C+1)·NT, channel stride NT, -½|y'|² at channel C; nodes
+// past the span repeat its last, so every value is finite).
+template <int SPAN, int C>
+__device__ __forceinline__ void stat_row(const float* xp, const float* yq,
+                                         float (&g)[SPAN + 1]) {
+  float xv[C + 1];
+#pragma unroll
+  for (int c = 0; c <= C; ++c) xv[c] = xp[c * TR];
+#pragma unroll
+  for (int q = 0; q <= SPAN; ++q) {
+    const float* y = yq + q * (C + 1) * NT;
+    float cross = __fmul_rn(xv[0], y[0]);
+#pragma unroll
+    for (int c = 1; c < C; ++c) cross = __fadd_rn(cross, __fmul_rn(xv[c], y[c * NT]));
+    g[q] = expf(__fadd_rn(cross, __fadd_rn(y[C * NT], xv[C])));
   }
-  stage_paths<C>(X, sqrtf(2.0f / hptr[0]), xs, ys, ynh, I, J, n, L, tid);
+}
 
-  const int a = I * TR + r, b = J * TC + cl;
-  if (a < n && b < n && a <= b) {
-    float fac[(LMAX - 1) * (LMAX - 1)];  // thread-local adjoint factors
-    float gup[LMAX], gdn[LMAX];
-    const float kl = forward_sweep<LMAX, C, true>(xs, ys, ynh, r, cl, L, gdn, fac);
-    K[(size_t)a * n + b] = kl;
-    K[(size_t)b * n + a] = kl;
+struct Coef {
+  float z, A, B;
+};
 
-    // ---- adjoint: λ rows top-down, pull-back through the static Gram ----
-    // gdn holds static-Gram row L-1; it becomes the upper row.
-    float lam[LMAX];
+// z, A and B of the cell between static rows u (upper) and d, node columns
+// q and q+1, rounded as the twin rounds them.
+__device__ __forceinline__ Coef coef(float u1, float u0, float d1, float d0) {
+  Coef k;
+  k.z = ((u1 - u0) - d1) + d0;
+  k.A = __fadd_rn(1.f, __fmul_rn(k.z, __fadd_rn(0.5f, __fmul_rn(k.z, I12))));
+  k.B = __fsub_rn(1.f, __fmul_rn(__fmul_rn(k.z, k.z), I12));
+  return k;
+}
+
+// The cell update k[i+1][j+1] = (k[i+1][j] + k[i][j+1])·A - k[i][j]·B with
+// sm = k[i+1][j] + k[i][j+1], each operation rounded on its own.
+__device__ __forceinline__ float cell(float sm, float prev, const Coef& q) {
+  return __fsub_rn(__fmul_rn(sm, q.A), __fmul_rn(prev, q.B));
+}
+
+// Pull back node row p's finished weights W = dg·g of the lane's owned node
+// columns (W is 0 at the others): its row-path part (returned, this lane's
+// share) and its column-path sums cx, cw.
+template <int SPAN, int C>
+__device__ __forceinline__ void pull_row(const float (&W)[SPAN + 1], const float* xp,
+                                         const float* yq, float (&cx)[SPAN + 1][C],
+                                         float (&cw)[SPAN + 1], float (&hi)[C]) {
+  float xv[C], sy[C], sw = 0.f;
 #pragma unroll
-    for (int q = 0; q < LMAX; ++q) {
-      gup[q] = gdn[q];
-      lam[q] = (q == L - 1) ? 1.f : 0.f;
+  for (int c = 0; c < C; ++c) {
+    xv[c] = xp[c * TR];
+    sy[c] = 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q <= SPAN; ++q) {
+    sw += W[q];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      sy[c] = fmaf(W[q], yq[(q * (C + 1) + c) * NT], sy[c]);
+      cx[q][c] = fmaf(W[q], xv[c], cx[q][c]);
     }
-    const float sd = (a == b) ? 1.f : 2.f;
-    float carry[C];
+    cw[q] += W[q];
+  }
 #pragma unroll
-    for (int c = 0; c < C; ++c) carry[c] = 0.f;
+  for (int c = 0; c < C; ++c) hi[c] = sy[c] - xv[c] * sw;
+}
 
-    for (int i = L - 2; i >= 0; --i) {
-      g_row<LMAX, C>(xs, ys, ynh, i, r, cl, L, gdn);
-      const float* fr = fac + i * (LMAX - 1);
-      // complete λ row i+1 right-to-left: λ[j] += A[i][j]·λ[j+1]
+// Sum a lane's row-path part over the warp's groups (all at the same unit)
+// and add it to the warp's sums of node row p, by group 0's lane.
+template <int C>
+__device__ __forceinline__ void row_sum(float (&hi)[C], int g, bool write, float* w) {
 #pragma unroll
-      for (int j = LMAX - 2; j >= 0; --j) {
-        if (j < L - 1) {
-          const float z = ((gup[j + 1] - gup[j]) - gdn[j + 1]) + gdn[j];
-          const float A = 1.f + z * (0.5f + z * I12);
-          lam[j] = lam[j] + lam[j + 1] * A;
-        }
-      }
-      float xh[C], xl[C], sxh[C], sxl[C];
+  for (int c = 0; c < C; ++c)
+    for (int o = g; o < 32; o <<= 1) hi[c] += __shfl_xor_sync(FULL, hi[c], o);
+  if (write) {
 #pragma unroll
+    for (int c = 0; c < C; ++c) w[c] += hi[c];
+  }
+}
+
+template <int SPAN, int C>
+__global__ void __launch_bounds__(NT, 3)
+block_lanes_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
+                   const int* __restrict__ tiles, int n_tiles, float* __restrict__ K,
+                   float* __restrict__ rowpart, float* __restrict__ colpart,
+                   float4* __restrict__ scratch, int n, int L, int g) {
+  extern __shared__ float4 smem4[];
+  constexpr int SF = slot_f4<SPAN>();
+  constexpr int YN = (SPAN + 1) * (C + 1);  // a lane's column-path values
+  const int LC = L * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* sb = smem4 + tid;                                  // float4 e: + e·NT
+  float* yl = reinterpret_cast<float*>(smem4 + SF * NT) + tid;  // node q, channel c: + (q(C+1)+c)·NT
+  float* dmy = yl + YN * NT;                                 // the same layout
+  float* xs = dmy - tid + YN * NT;                           // [L][C+1][TR]
+  float* dxw = xs + L * (C + 1) * TR;                        // [TR][NW][L·C]
+  float* hs = dxw + TR * NW * LC;                            // [2][RB][3][NT]
+
+  const int t = lane & (g - 1);  // position in the group
+  const int grp = tid / g;       // the group's tile column
+  const int tc = NT / g;         // column particles per tile
+  const float scale = sqrtf(2.0f / hptr[0]);
+  const int L1 = L - 1;
+  const int c0 = (t * L1) / g, nspan = ((t + 1) * L1) / g - c0;
+  const int nb = (L1 + RB - 1) / RB;
+  const int U = TR * nb, steps = U + g - 1;
+  const int xrow = (C + 1) * TR;  // xs stride of a node
+  // the lane's slot of step k: + k·SF·32 float4s, its e-th float4 + e·32
+  float4* wscr = scratch + ((size_t)blockIdx.x * NW + warp) * steps * SF * 32 + lane;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int I = tiles[2 * tile], J = tiles[2 * tile + 1];
+    const int b = J * tc + grp;
+    __syncthreads();  // the previous tile's partials are written
+    for (int e = tid; e < LC * TR; e += NT) {
+      const int rr = e / LC, k = e % LC;
+      const int a = I * TR + rr;
+      xs[((k / C) * (C + 1) + k % C) * TR + rr] =
+          a < n ? __fmul_rn(X[(size_t)a * LC + k], scale) : 0.f;
+    }
+    for (int e = tid; e < TR * NW * LC; e += NT) dxw[e] = 0.f;
+    // the lane's span of its column path, and -½|y'|² summed in the twin's order
+    for (int q = 0; q <= SPAN; ++q) {
+      float sq = 0.f;
       for (int c = 0; c < C; ++c) {
-        xh[c] = xs[((i + 1) * C + c) * TR + r];
-        xl[c] = xs[(i * C + c) * TR + r];
-        sxh[c] = 0.f;
-        sxl[c] = 0.f;
+        const float v = b < n ? __fmul_rn(X[((size_t)b * L + min(c0 + q, L1)) * C + c], scale)
+                              : 0.f;
+        yl[(q * (C + 1) + c) * NT] = v;
+        sq = __fadd_rn(sq, __fmul_rn(v, v));
+        dmy[(q * (C + 1) + c) * NT] = 0.f;
       }
-      float swh = 0.f, swl = 0.f, pending = 0.f, dzprev = 0.f;
+      yl[(q * (C + 1) + C) * NT] = -0.5f * sq;
+      dmy[(q * (C + 1) + C) * NT] = 0.f;
+    }
+    __syncthreads();
+    for (int e = tid; e < L * TR; e += NT) {
+      const int p = e / TR, rr = e % TR;
+      float sq = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float v = xs[(p * (C + 1) + c) * TR + rr];
+        sq = __fadd_rn(sq, __fmul_rn(v, v));
+      }
+      xs[(p * (C + 1) + C) * TR + rr] = -0.5f * sq;
+    }
+    __syncthreads();
+
+    // ---- forward: lane t sweeps band k - t of the group's 8-pair run ------
+    {
+      float krow[SPAN], gdn[SPAN + 1], gup[SPAN + 1], inL[RB];
+      float corner = 1.f;
 #pragma unroll
-      for (int j = 0; j < LMAX - 1; ++j) {
-        if (j < L - 1) {
-          const float z = ((gup[j + 1] - gup[j]) - gdn[j + 1]) + gdn[j];
-          const float A = 1.f + z * (0.5f + z * I12);
-          const float B = 1.f - z * z * I12;
-          const float t = lam[j + 1];  // complete λ[i+1][j+1]
-          const float dz = t * fr[j] * sd;
-          lam[j] = pending - t * B;    // partial λ[i][j]
-          pending = t * A;
-          pull_back<C>(dzprev - dz, gup[j], gdn[j], ys, dyc, j, cl, tid, xh, xl,
-                       sxh, sxl, swh, swl);
-          dzprev = dz;
-          if (j == L - 2) {
-            lam[j + 1] = pending;
-            pull_back<C>(dz, gup[j + 1], gdn[j + 1], ys, dyc, j + 1, cl, tid, xh,
-                         xl, sxh, sxl, swh, swl);
+      for (int q = 0; q <= SPAN; ++q) gdn[q] = gup[q] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < SPAN; ++kk) krow[kk] = 1.f;
+#pragma unroll
+      for (int s = 0; s < RB; ++s) inL[s] = 1.f;
+      for (int k = 0; k < steps; ++k) {
+        const int u = k - t;
+        float rc[RB];  // the right column, for lane t+1
+#pragma unroll
+        for (int s = 0; s < RB; ++s) rc[s] = 0.f;
+        if (u >= 0 && u < U) {
+          const int r = u / nb, v = u - r * nb;
+          const int a = I * TR + r;
+          if (a < n && b < n && a <= b) {
+            const int i0 = v * RB;
+            const float* xr = xs + r;
+            if (v == 0) {
+#pragma unroll
+              for (int kk = 0; kk < SPAN; ++kk) krow[kk] = 1.f;
+              corner = 1.f;
+              stat_row<SPAN, C>(xr, yl, gdn);
+            }
+            // the band's left column: the corner and lane t-1's right column
+            float lc[RB + 1];
+            lc[0] = t == 0 ? 1.f : corner;
+#pragma unroll
+            for (int s = 0; s < RB; ++s) lc[s + 1] = t == 0 ? 1.f : inL[s];
+            float sv[4 * SF];  // the slot: bottom row (the corner first), left column
+            sv[0] = lc[0];
+#pragma unroll
+            for (int kk = 0; kk < SPAN; ++kk) sv[kk + 1] = krow[kk];
+#pragma unroll
+            for (int e = 0; e < RB; ++e) sv[SPAN + 1 + e] = lc[e + 1];
+#pragma unroll
+            for (int e = SPAN + 1 + RB; e < 4 * SF; ++e) sv[e] = 0.f;
+            float4* dst = wscr + (size_t)k * SF * 32;
+#pragma unroll
+            for (int e = 0; e < SF; ++e)
+              dst[e * 32] = make_float4(sv[4 * e], sv[4 * e + 1], sv[4 * e + 2], sv[4 * e + 3]);
+            float klast = 1.f;
+#pragma unroll
+            for (int s = 0; s < RB; ++s) {
+              // rows past L-2 (a pair's top band) and cells past the span are
+              // computed on valid statics and not kept: no branch divides the
+              // warp
+              const bool on_r = i0 + s < L1;
+              stat_row<SPAN, C>(xr + min(i0 + s + 1, L1) * xrow, yl, gup);
+              float prev = lc[s], kl = lc[s + 1];
+#pragma unroll
+              for (int kk = 0; kk < SPAN; ++kk) {
+                const bool on = on_r && kk < nspan;
+                const Coef q = coef(gup[kk + 1], gup[kk], gdn[kk + 1], gdn[kk]);
+                const float old = krow[kk];
+                const float kn = cell(kl + old, prev, q);
+                krow[kk] = on ? kn : old;
+                prev = on ? old : prev;
+                kl = on ? kn : kl;
+              }
+              rc[s] = kl;
+              klast = on_r ? kl : klast;
+#pragma unroll
+              for (int q = 0; q <= SPAN; ++q) gdn[q] = gup[q];
+            }
+            corner = lc[RB];
+            if (t == g - 1 && v == nb - 1) {
+              K[(size_t)a * n + b] = klast;
+              K[(size_t)b * n + a] = klast;
+            }
           }
         }
-      }
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dxr[((i + 1) * C + c) * NT + tid] = carry[c] + sxh[c] - xh[c] * swh;
-        carry[c] = sxl[c] - xl[c] * swl;
+        for (int s = 0; s < RB; ++s) inL[s] = __shfl_up_sync(FULL, rc[s], 1, g);
       }
-#pragma unroll
-      for (int q = 0; q < LMAX; ++q) gup[q] = gdn[q];
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c) dxr[c * NT + tid] = carry[c];
-  }
-  __syncthreads();
 
-  // ---- per-tile partials, summed over the tile in a fixed order ----------
-  for (int e = tid; e < TR * LC; e += NT) {
-    const int rr = e / LC, k = e % LC;
-    const int aa = I * TR + rr;
-    if (aa < n) {
-      float s = 0.f;
-      for (int cc = 0; cc < TC; ++cc) s += dxr[k * NT + rr * TC + cc];
-      rowpart[((size_t)J * n + aa) * LC + k] = s;
+    // ---- adjoint: lane t takes unit k - (g-1-t) of the reversed run, bands
+    // top down, each cell row right to left ----------------------------------
+    {
+      // lam: the partial λ of the node row below the last cell row done;
+      // wlp: that node row's weights from the cell row above it
+      float lam[SPAN], wlp[SPAN + 1];
+#pragma unroll
+      for (int kk = 0; kk < SPAN; ++kk) lam[kk] = 0.f;
+#pragma unroll
+      for (int q = 0; q <= SPAN; ++q) wlp[q] = 0.f;
+      // the slot the adjoint's step kq reads, copied into the lane's buffer
+      auto prefetch = [&](int kq) {
+        const int vq = kq - (g - 1 - t);
+        if (vq < 0 || vq >= U) return;
+        const int aq = I * TR + (U - 1 - vq) / nb;
+        if (!(aq < n && b < n && aq <= b)) return;
+        const float4* src = wscr + (size_t)(steps - 1 - kq) * SF * 32;
+#pragma unroll
+        for (int e = 0; e < SF; ++e) cp_async16(sb + e * NT, src + e * 32);
+      };
+      prefetch(0);
+      cp_async_commit();
+      for (int k = 0; k < steps; ++k) {
+        const int vq = k - (g - 1 - t);
+        const bool mine = vq >= 0 && vq < U;
+        const int u = U - 1 - vq;
+        const int r = mine ? u / nb : 0, v = mine ? u - r * nb : 0;
+        const int a = I * TR + r;
+        const bool act = mine && a < n && b < n && a <= b;
+        const int i0 = v * RB;
+        const float* xr = xs + r;
+        const float sd = a == b ? 1.f : 2.f;
+        const float* hin = hs + ((k + 1) & 1) * RB * 3 * NT + tid + 1;  // lane t+1, step k-1
+        float* hout = hs + (k & 1) * RB * 3 * NT + tid;
+        float fac[RB][SPAN];
+        float gu[SPAN + 1], gd[SPAN + 1];
+#pragma unroll
+        for (int q = 0; q <= SPAN; ++q) gu[q] = gd[q] = 0.f;
+        cp_async_wait_all();
+        if (act) {
+          if (v == nb - 1) {  // a pair's top band: λ is 1 at node (L-1, L-1)
+#pragma unroll
+            for (int kk = 0; kk < SPAN; ++kk) lam[kk] = (t == g - 1 && kk == nspan - 1) ? 1.f : 0.f;
+#pragma unroll
+            for (int q = 0; q <= SPAN; ++q) wlp[q] = 0.f;
+          }
+          // rebuild the band from its slot, in the forward's rounding
+          float sv[4 * SF], lc[RB + 1], krow[SPAN];
+#pragma unroll
+          for (int e = 0; e < SF; ++e) {
+            const float4 f = sb[e * NT];
+            sv[4 * e] = f.x;
+            sv[4 * e + 1] = f.y;
+            sv[4 * e + 2] = f.z;
+            sv[4 * e + 3] = f.w;
+          }
+          lc[0] = sv[0];
+#pragma unroll
+          for (int kk = 0; kk < SPAN; ++kk) krow[kk] = sv[kk + 1];
+#pragma unroll
+          for (int e = 0; e < RB; ++e) lc[e + 1] = sv[SPAN + 1 + e];
+          stat_row<SPAN, C>(xr + i0 * xrow, yl, gd);
+#pragma unroll
+          for (int s = 0; s < RB; ++s) {
+            const bool on_r = i0 + s < L1;
+            stat_row<SPAN, C>(xr + min(i0 + s + 1, L1) * xrow, yl, gu);
+            float prev = lc[s], kl = lc[s + 1];
+#pragma unroll
+            for (int kk = 0; kk < SPAN; ++kk) {
+              const bool on = on_r && kk < nspan;
+              const Coef q = coef(gu[kk + 1], gu[kk], gd[kk + 1], gd[kk]);
+              const float old = krow[kk];
+              const float sm = kl + old;
+              const float kn = cell(sm, prev, q);
+              fac[s][kk] = __fadd_rn(__fmul_rn(sm, __fadd_rn(0.5f, __fmul_rn(q.z, I6))),
+                                     __fmul_rn(prev, __fmul_rn(q.z, I6)));
+              krow[kk] = on ? kn : old;
+              prev = on ? old : prev;
+              kl = on ? kn : kl;
+            }
+#pragma unroll
+            for (int q = 0; q <= SPAN; ++q) gd[q] = gu[q];
+          }
+          // gu holds the static row at the band's top (row L-1 in a top band)
+        }
+        // the slot of the next step, in flight while this one's adjoint runs
+        asm volatile("" ::: "memory");
+        prefetch(k + 1);
+        cp_async_commit();
+        float cx[SPAN + 1][C], cw[SPAN + 1];  // the band's column-path sums
+#pragma unroll
+        for (int q = 0; q <= SPAN; ++q) {
+          cw[q] = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) cx[q][c] = 0.f;
+        }
+#pragma unroll
+        for (int s = RB - 1; s >= 0; --s) {
+          const bool on_r = i0 + s < L1;
+          float hi[C];  // this lane's part of node row i+1's row-path gradient
+#pragma unroll
+          for (int c = 0; c < C; ++c) hi[c] = 0.f;
+          if (act) {
+            // a row past L-2 (first in a top band) is computed on valid
+            // statics (gd = gu, row L-1) and changes nothing
+            stat_row<SPAN, C>(xr + min(i0 + s, L1) * xrow, yl, gd);
+            // A and B for the λ chains only: fused, as the adjoint may round
+            float A[SPAN], B[SPAN];
+#pragma unroll
+            for (int kk = 0; kk < SPAN; ++kk) {
+              const float z = ((gu[kk + 1] - gu[kk]) - gd[kk + 1]) + gd[kk];
+              A[kk] = fmaf(z, fmaf(z, I12, 0.5f), 1.f);
+              B[kk] = fmaf(z * z, -I12, 1.f);
+            }
+            const bool last = t == g - 1;
+            const float hA = last ? 0.f : hin[(s * 3) * NT];
+            const float hB = last ? 0.f : hin[(s * 3 + 1) * NT];
+            const float hD = last ? 0.f : hin[(s * 3 + 2) * NT];
+            // complete λ row i+1, right to left (past the span λ is 0)
+            float lm[SPAN];
+#pragma unroll
+            for (int kk = SPAN - 1; kk >= 0; --kk) {
+              const int k1 = kk + 1 < SPAN ? kk + 1 : kk;
+              const float right = kk + 1 < SPAN ? lm[k1] * A[k1] : 0.f;
+              lm[kk] = kk < nspan ? lam[kk] + (kk == nspan - 1 ? hA : right) : 0.f;
+            }
+            float dz[SPAN];
+#pragma unroll
+            for (int kk = 0; kk < SPAN; ++kk) dz[kk] = kk < nspan ? lm[kk] * fac[s][kk] * sd : 0.f;
+            if (t > 0 && on_r) {  // the terms of this lane's first cell, for lane t-1
+              hout[(s * 3) * NT] = lm[0] * A[0];
+              hout[(s * 3 + 1) * NT] = lm[0] * B[0];
+              hout[(s * 3 + 2) * NT] = dz[0];
+            }
+            // partial λ row i
+#pragma unroll
+            for (int kk = 0; kk < SPAN; ++kk) {
+              const int k1 = kk + 1 < SPAN ? kk + 1 : kk;
+              const float nl = lm[kk] * A[kk] - (kk == nspan - 1 ? hB : lm[k1] * B[k1]);
+              lam[kk] = on_r && kk < nspan ? nl : lam[kk];
+            }
+            // dg of the owned node columns c0+1 .. c0+nspan (lane 0: and 0):
+            // D = dz[q-1] - dz[q], +D on node row i+1, -D on node row i; node
+            // row i+1 is then finished
+            float W[SPAN + 1];
+#pragma unroll
+            for (int q = 0; q <= SPAN; ++q) {
+              const int qm = q > 0 ? q - 1 : 0, qn = q < SPAN ? q : SPAN - 1;
+              const bool own = on_r && (q == 0 ? t == 0 : q <= nspan);
+              const float D = q == 0 ? -dz[0] : dz[qm] - (q == nspan ? hD : dz[qn]);
+              W[q] = own ? fmaf(D, gu[q], wlp[q]) : 0.f;
+              wlp[q] = own ? -D * gd[q] : wlp[q];
+            }
+            pull_row<SPAN, C>(W, xr + min(i0 + s + 1, L1) * xrow, yl, cx, cw, hi);
+#pragma unroll
+            for (int q = 0; q <= SPAN; ++q) gu[q] = gd[q];
+          }
+          row_sum<C>(hi, g, mine && a < n && on_r && lane < g,
+                     dxw + (r * NW + warp) * LC + (i0 + s + 1) * C);
+        }
+        float h0[C];  // node row 0, after a pair's bottom band
+#pragma unroll
+        for (int c = 0; c < C; ++c) h0[c] = 0.f;
+        if (act && v == 0) pull_row<SPAN, C>(wlp, xr, yl, cx, cw, h0);
+        row_sum<C>(h0, g, mine && a < n && v == 0 && lane < g, dxw + (r * NW + warp) * LC);
+        if (act) {
+#pragma unroll
+          for (int q = 0; q <= SPAN; ++q) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) dmy[(q * (C + 1) + c) * NT] += cx[q][c];
+            dmy[(q * (C + 1) + C) * NT] += cw[q];
+          }
+        }
+        __syncwarp();  // the hand-off slots and the warp's sums, for the next step
+      }
     }
-  }
-  for (int e = tid; e < TC * LC; e += NT) {
-    const int cc = e / LC, k = e % LC;
-    const int bb = J * TC + cc;
-    if (bb < n) {
-      float s = 0.f;
-      for (int rr = 0; rr < TR; ++rr) s += dyc[k * NT + rr * TC + cc];
-      colpart[((size_t)I * n + bb) * LC + k] = s;
+    __syncthreads();
+
+    // ---- per-tile partials ------------------------------------------------
+    for (int e = tid; e < TR * LC; e += NT) {
+      const int rr = e / LC, k = e % LC;
+      const int aa = I * TR + rr;
+      if (aa < n) {
+        float s = 0.f;
+        for (int w = 0; w < NW; ++w) s += dxw[(rr * NW + w) * LC + k];
+        rowpart[((size_t)J * n + aa) * LC + k] = s;
+      }
+    }
+    if (b < n) {
+      float* dst = colpart + ((size_t)I * n + b) * LC;
+      for (int q = t == 0 ? 0 : 1; q <= nspan; ++q)
+        for (int c = 0; c < C; ++c)
+          dst[(c0 + q) * C + c] = dmy[(q * (C + 1) + c) * NT] -
+                                  yl[(q * (C + 1) + c) * NT] * dmy[(q * (C + 1) + C) * NT];
     }
   }
 }
@@ -326,42 +668,58 @@ __global__ void reduce_partials_kernel(const float* __restrict__ rowpart,
                                        const float* __restrict__ colpart,
                                        const float* __restrict__ hptr,
                                        float* __restrict__ dX, int n, int LC,
-                                       int nI, int nJ) {
+                                       int nI, int nJ, int tc) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * LC) return;
   const int a = idx / LC, k = idx % LC;
   float s = 0.f;
-  // row tiles (a/TR, J) are active for J >= (a/TR)·TR / TC
-  for (int J = ((a / TR) * TR) / TC; J < nJ; ++J)
+  // row tiles (a/TR, J) are active for J >= (a/TR)·TR / tc
+  for (int J = ((a / TR) * TR) / tc; J < nJ; ++J)
     s += rowpart[((size_t)J * n + a) * LC + k];
-  // column tiles (I, a/TC) are active for I·TR <= (a/TC)·TC + TC - 1
-  const int imax = min(nI - 1, ((a / TC) * TC + TC - 1) / TR);
+  // column tiles (I, a/tc) are active for I·TR <= (a/tc)·tc + tc - 1
+  const int imax = min(nI - 1, ((a / tc) * tc + tc - 1) / TR);
   for (int I = 0; I <= imax; ++I) s += colpart[((size_t)I * n + a) * LC + k];
   dX[idx] = 0.5f * sqrtf(2.0f / hptr[0]) * s;
 }
 
-template <int LMAX, int C>
-cudaError_t launch(const float* X, const float* h, float* K, float* rowpart,
-                   float* colpart, int n, int L, cudaStream_t stream) {
-  const int LC = L * C;
-  const size_t smem = sizeof(float) * (size_t)(LC * (TR + TC) + L * TC + 2 * LC * NT);
-  cudaError_t err = cudaFuncSetAttribute(block_gram_grad_kernel<LMAX, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int SPAN, int C>
+cudaError_t lanes_grid(int L, int g, int n_tiles, int* blocks) {
+  const size_t smem = lanes_smem_floats(L, C, SPAN) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_lanes_kernel<SPAN, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + TC - 1) / TC, (n + TR - 1) / TR);
-  block_gram_grad_kernel<LMAX, C><<<grid, NT, smem, stream>>>(X, h, K, rowpart,
-                                                              colpart, n, L);
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_lanes_kernel<SPAN, C>,
+                                                      NT, smem);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = min(per_sm * sms, n_tiles);
+  return cudaSuccess;
+}
+
+template <int SPAN, int C>
+cudaError_t lanes_launch(const float* X, const float* h, const int* tiles, int n_tiles,
+                         float* K, float* rowpart, float* colpart, float* scratch, int blocks,
+                         int n, int L, int g, cudaStream_t stream) {
+  const size_t smem = lanes_smem_floats(L, C, SPAN) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_lanes_kernel<SPAN, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  block_lanes_kernel<SPAN, C><<<blocks, NT, smem, stream>>>(
+      X, h, tiles, n_tiles, K, rowpart, colpart, reinterpret_cast<float4*>(scratch), n, L, g);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t dispatch_l(const float* X, const float* h, float* K, float* rowpart,
-                       float* colpart, int n, int L, cudaStream_t stream) {
-  if (L <= 16) return launch<16, C>(X, h, K, rowpart, colpart, n, L, stream);
-  if (L <= 40) return launch<40, C>(X, h, K, rowpart, colpart, n, L, stream);
-  if (L <= 64) return launch<64, C>(X, h, K, rowpart, colpart, n, L, stream);
-  return cudaErrorInvalidValue;
+// The plan (kernels/sigkernel_block.py::block_plan) picks g and the span
+// template; these are the shapes K1 takes.
+bool lanes_valid(int L, int C, int g, int span) {
+  if (L < 2 || L > 64 || C < 1 || C > 3) return false;
+  if (g < 1 || g > 16 || g > L - 1 || (g & (g - 1)) != 0) return false;
+  if (span != 3 && span != 5) return false;
+  return (L - 1 + g - 1) / g <= span;
 }
 
 template <int LMAX, int C>
@@ -385,33 +743,52 @@ cudaError_t dispatch_values(const float* X, const float* h, float* K, int n, int
 
 }  // namespace
 
+#define K1_DISPATCH(RET, FN, ...)                                   \
+  switch (span * 4 + C) {                                           \
+    case 13: RET FN<3, 1>(__VA_ARGS__); break;                      \
+    case 14: RET FN<3, 2>(__VA_ARGS__); break;                      \
+    case 15: RET FN<3, 3>(__VA_ARGS__); break;                      \
+    case 21: RET FN<5, 1>(__VA_ARGS__); break;                      \
+    case 22: RET FN<5, 2>(__VA_ARGS__); break;                      \
+    case 23: RET FN<5, 3>(__VA_ARGS__); break;                      \
+    default: return (int)cudaErrorInvalidValue;                     \
+  }
+
 extern "C" {
 
-// Shape envelope of the kernel (checked again by the Python wrapper).
+// Shape envelope of the kernels (checked again by the Python wrapper).
 int sigkernel_block_max_l() { return 64; }
 int sigkernel_block_max_c() { return 3; }
-int sigkernel_block_tile_rows() { return TR; }
-int sigkernel_block_tile_cols() { return TC; }
 
-// X [n, L, C], h [1], K [n, n], dX [n, L, C], rowpart [ceil(n/TC), n, L·C],
-// colpart [ceil(n/TR), n, L·C]; all fp32, contiguous, on the stream's device.
-// Returns cudaGetLastError() after both launches (0 on success).
-int sigkernel_block_gram_grad(const float* X, const float* h, float* K, float* dX,
-                              float* rowpart, float* colpart, int n, int L, int C,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Number of persistent K1 blocks for a launch: the blocks resident on the
+// device at once, at most one per tile. The caller sizes the scratch by it.
+int sigkernel_block_grid(int L, int C, int g, int span, int n_tiles, int* blocks) {
+  if (!lanes_valid(L, C, g, span)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  switch (C) {
-    case 1: err = dispatch_l<1>(X, h, K, rowpart, colpart, n, L, s); break;
-    case 2: err = dispatch_l<2>(X, h, K, rowpart, colpart, n, L, s); break;
-    case 3: err = dispatch_l<3>(X, h, K, rowpart, colpart, n, L, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  K1_DISPATCH(err =, lanes_grid, L, g, n_tiles, blocks)
+  return (int)err;
+}
+
+// K1: X [n, L, C], h [1], tiles [n_tiles, 2] int32 (I, J) with I·8 <= J·tc +
+// tc - 1 (tc = 128/g), K [n, n], dX [n, L, C], rowpart [ceil(n/tc), n, L·C],
+// colpart [ceil(n/8), n, L·C], scratch [blocks·4·(8·ceil((L-1)/8) + g-1)·
+// 32·4·slot_f4] floats; fp32, contiguous, on the stream's device. Returns
+// cudaGetLastError() after both launches (0 on success).
+int sigkernel_block_gram_grad(const float* X, const float* h, const int* tiles, float* K,
+                              float* dX, float* rowpart, float* colpart, float* scratch,
+                              int n_tiles, int blocks, int n, int L, int C, int g, int span,
+                              void* stream) {
+  if (!lanes_valid(L, C, g, span)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  K1_DISPATCH(err =, lanes_launch, X, h, tiles, n_tiles, K, rowpart, colpart, scratch, blocks,
+              n, L, g, st)
   if (err != cudaSuccess) return (int)err;
   const int LC = L * C;
   const int total = n * LC;
-  reduce_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(
-      rowpart, colpart, h, dX, n, LC, (n + TR - 1) / TR, (n + TC - 1) / TC);
+  const int tc = NT / g;
+  reduce_partials_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+      rowpart, colpart, h, dX, n, LC, (n + TR - 1) / TR, (n + tc - 1) / tc, tc);
   return (int)cudaGetLastError();
 }
 

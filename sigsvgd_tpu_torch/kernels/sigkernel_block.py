@@ -14,10 +14,13 @@ twins share one arithmetic, written out in the twins below: the
 static Gram in expand form on paths pre-scaled by √(2/h), the order-0 row
 sweep, the per-cell adjoint factor ``fac``, the λ rows top-down and the
 pull-back of the row differences ``D[i][q] = dz[i][q-1] - dz[i][q]``.
+K1 spreads each pair over a group of lanes (:func:`block_lanes`,
+:func:`block_plan`); K3 solves a pair in one thread.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -26,35 +29,21 @@ from ._build import load
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# kernel envelope and tile (csrc/sigkernel_block.cu)
+# kernel envelope (csrc/sigkernel_block.cu)
 MAX_L = 64
 MAX_C = 3
-TILE_ROWS = 8
-TILE_COLS = 16
-SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _smem_bytes(L: int, C: int) -> int:
-    lc = L * C
-    nt = TILE_ROWS * TILE_COLS
-    return 4 * (lc * (TILE_ROWS + TILE_COLS) + L * TILE_COLS + 2 * lc * nt)
-
-
 def block_supported(n: int, L: int, C: int, h) -> bool:
-    """Shapes K1 takes on the card: a bandwidth, L ≤ 64, C ≤ 3 (register
-    arrays are unrolled to L, one per path channel) and the per-block shared
-    memory within Hopper's 227 KB."""
-    return (
-        h is not None
-        and n >= 2
-        and 2 <= L <= MAX_L
-        and 1 <= C <= MAX_C
-        and _smem_bytes(L, C) <= SMEM_LIMIT
-    )
+    """Shapes K1 and K3 take on the card: a bandwidth, n ≥ 2, L ≤ 64 and
+    C ≤ 3 (one instantiation per channel count; a pair's cell row spreads
+    over at most 16 lanes, :func:`block_lanes`, and a block's shared memory,
+    :func:`block_plan`, fits Hopper's 227 KB at every such shape)."""
+    return h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
 
 
 # the JAX package's block envelope (pallas_sigkernel_block.py), copied: the
@@ -223,17 +212,159 @@ def block_gram_and_grad_plain(X: torch.Tensor, h):
 
 
 # ---------------------------------------------------------------------------
+# K1's plan: lanes, spans, tiles (the tile list and the lane rule are K2's
+# too, csrc/sigkernel_block3.cu).
+# ---------------------------------------------------------------------------
+
+THREADS = 128       # a block: 4 warps
+TILE_ROWS = 8       # row particles a tile: the pairs a lane group walks
+BAND_ROWS = 4       # cell rows a band, one pipeline step (a band's factors stay in
+                    # registers; 4-8 rows measured within 7%, 4 the fastest)
+SPAN_CAP = 5        # columns a lane holds at most
+SPAN_TEMPLATES = (3, 5)
+
+
+def block_lanes(L: int) -> tuple[int, int]:
+    """``(g, span)``: the fewest lanes a pair (a power of two) that leave no
+    lane more than :data:`SPAN_CAP` of the ``L - 1`` cell columns, and the
+    span template (3 or 5) that holds the widest span."""
+    l1 = L - 1
+    g = 1
+    while _cdiv(l1, g) > SPAN_CAP:
+        g *= 2
+    widest = _cdiv(l1, g)
+    return g, next(t for t in SPAN_TEMPLATES if widest <= t)
+
+
+def block_spans(L: int, g: int) -> list[int]:
+    """Cell columns of each lane: lane t holds ``[t(L-1)/g, (t+1)(L-1)/g)``."""
+    l1 = L - 1
+    return [(t + 1) * l1 // g - t * l1 // g for t in range(g)]
+
+
+def _slot_floats(span: int) -> int:
+    """Floats of one lane's scratch slot (csrc ``slot_f4``): the band's
+    bottom row over the span's ``span + 1`` nodes and its left column of
+    :data:`BAND_ROWS` nodes, in whole float4s."""
+    return 4 * _cdiv(span + 1 + BAND_ROWS, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """How K1 lays out one call: ``g`` lanes a pair, each holding ``spans``
+    [g] cell columns (at most ``span``, the template); bands of
+    ``band_rows`` cell rows, ``bands`` a pair; tiles of ``tile_rows`` ×
+    ``tile_cols`` pairs, one a block at a time; ``blocks`` persistent blocks
+    walk the ``tiles`` of the work list, each group through ``steps``
+    pipeline steps a pass. ``scratch_floats`` is the band checkpoints'
+    buffer (all blocks), ``smem_bytes`` a block's shared memory,
+    ``traffic_bytes`` the device-memory traffic of the call."""
+    g: int
+    span: int
+    spans: tuple
+    band_rows: int
+    bands: int
+    tile_rows: int
+    tile_cols: int
+    pairs_per_block: int
+    steps: int
+    tiles: int
+    blocks: int
+    scratch_floats: int
+    smem_bytes: int
+    traffic_bytes: float
+
+    @property
+    def scratch_mib(self) -> float:
+        return self.scratch_floats * 4 / 2**20
+
+
+def _bands(L: int) -> int:
+    return _cdiv(L - 1, BAND_ROWS)
+
+
+def _pipeline_steps(L: int, g: int) -> int:
+    """Steps of a group's pipeline over a tile column's 8 pairs: 8 pairs ×
+    their bands, the last lane starting g - 1 steps after the first."""
+    return TILE_ROWS * _bands(L) + g - 1
+
+
+def block_scratch_floats(L: int) -> int:
+    """Device scratch per persistent block, in floats: for each of its 4
+    warps and each pipeline step, the 32 lanes' slots."""
+    g, span = block_lanes(L)
+    return THREADS // 32 * _pipeline_steps(L, g) * 32 * _slot_floats(span)
+
+
+def block_plan(n: int, L: int, C: int, blocks: int) -> BlockPlan:
+    """K1's plan for ``X [n, L, C]`` over ``blocks`` persistent blocks, the
+    count the card reports (:func:`block_grid`).
+
+    ``smem_bytes`` (csrc ``lanes_smem_floats``): each lane's copy of its
+    next slot, its span of the column path with -½|y'|² [(span+1)·(C+1)]
+    and its column-path sums (the same size), the tile's scaled row paths
+    with -½|x'|², each warp's row-path sums [8][4][L·C] and each lane's two
+    hand-off slots [2][8 rows][3].
+    ``traffic_bytes``: each lane of each pair a ≤ b writes its slot once a
+    band and reads it back once; X is read once (it stays in L2), K and dX
+    written once, the per-tile partials written and read once. No per-cell
+    value goes to device or local memory."""
+    g, span = block_lanes(L)
+    tc = THREADS // g
+    tiles = _tile_list_len(n, tc)
+    smem = 4 * ((_slot_floats(span) + 2 * (span + 1) * (C + 1)) * THREADS
+                + L * (C + 1) * TILE_ROWS + TILE_ROWS * 4 * L * C
+                + 2 * BAND_ROWS * 3 * THREADS)
+    pairs = n * (n + 1) // 2
+    checkpoints = 2 * pairs * _bands(L) * g * _slot_floats(span)
+    partials = 2 * tiles * (TILE_ROWS + tc) * L * C
+    return BlockPlan(
+        g=g, span=span, spans=tuple(block_spans(L, g)), band_rows=BAND_ROWS,
+        bands=_bands(L), tile_rows=TILE_ROWS, tile_cols=tc,
+        pairs_per_block=TILE_ROWS * tc, steps=_pipeline_steps(L, g), tiles=tiles,
+        blocks=blocks, scratch_floats=blocks * block_scratch_floats(L), smem_bytes=smem,
+        traffic_bytes=4.0 * (checkpoints + partials + n * L * C + n * n + n * L * C))
+
+
+_tiles_cache: dict = {}
+
+
+def _tile_keep(n: int, tc: int):
+    nI, nJ = _cdiv(n, TILE_ROWS), _cdiv(n, tc)
+    I = torch.arange(nI).repeat_interleave(nJ)
+    J = torch.arange(nJ).repeat(nI)
+    keep = I * TILE_ROWS <= J * tc + tc - 1
+    return I[keep], J[keep]
+
+
+def _tile_list_len(n: int, tc: int) -> int:
+    return int(_tile_keep(n, tc)[0].numel())
+
+
+def _tile_list(n: int, tc: int, device) -> torch.Tensor:
+    """``[T, 2]`` int32 (row tile, column tile) pairs holding a pair a ≤ b,
+    for tiles of 8 rows × ``tc`` columns."""
+    key = (n, tc, str(device))
+    if key not in _tiles_cache:
+        _tiles_cache[key] = torch.stack(_tile_keep(n, tc), 1).to(
+            device=device, dtype=torch.int32).contiguous()
+    return _tiles_cache[key]
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
 
 def _lib():
     lib = load("sigkernel_block")
+    lib.sigkernel_block_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.sigkernel_block_gram_grad.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sigkernel_block_gram.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    for fn in (lib.sigkernel_block_gram_grad, lib.sigkernel_block_gram):
+    for fn in (lib.sigkernel_block_grid, lib.sigkernel_block_gram_grad,
+               lib.sigkernel_block_gram):
         fn.restype = ctypes.c_int
     return lib
 
@@ -253,6 +384,18 @@ def _check(X: torch.Tensor, h, what: str):
     return n, L, C, torch.as_tensor(h, dtype=torch.float32, device=X.device).reshape(1)
 
 
+def block_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
+    """The tile list of a K1 launch on ``device`` and its number of
+    persistent blocks (those resident on the card, at most one per tile)."""
+    g, span = block_lanes(L)
+    tiles = _tile_list(n, THREADS // g, device)
+    blocks = ctypes.c_int(0)
+    rc = _lib().sigkernel_block_grid(L, C, g, span, tiles.shape[0], ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"K1 occupancy query failed: cudaError {rc}")
+    return tiles, blocks.value
+
+
 def block_gram_and_grad(X: torch.Tensor, h):
     """``(K, dX)`` for paths ``X [n, L, C]`` and RBF bandwidth ``h`` (float or
     0-d tensor). CPU tensors take the plain twin; CUDA tensors launch K1 and
@@ -260,16 +403,19 @@ def block_gram_and_grad(X: torch.Tensor, h):
     if X.device.type == "cpu":
         return block_gram_and_grad_plain(X, h)
     n, L, C, h_t = _check(X, h, "K1")
+    g, span = block_lanes(L)
+    tc = THREADS // g
+    tiles, blocks = block_grid(n, L, C, X.device)
     K = torch.empty(n, n, dtype=X.dtype, device=X.device)
     dX = torch.empty_like(X)
-    rowpart = torch.empty(_cdiv(n, TILE_COLS), n, L * C, dtype=X.dtype,
-                          device=X.device)
-    colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype,
-                          device=X.device)
+    rowpart = torch.empty(_cdiv(n, tc), n, L * C, dtype=X.dtype, device=X.device)
+    colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype, device=X.device)
+    scratch = torch.empty(blocks * block_scratch_floats(L), dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = _lib().sigkernel_block_gram_grad(
-        X.data_ptr(), h_t.data_ptr(), K.data_ptr(), dX.data_ptr(), rowpart.data_ptr(),
-        colpart.data_ptr(), n, L, C, stream)
+        X.data_ptr(), h_t.data_ptr(), tiles.data_ptr(), K.data_ptr(), dX.data_ptr(),
+        rowpart.data_ptr(), colpart.data_ptr(), scratch.data_ptr(), tiles.shape[0],
+        blocks, n, L, C, g, span, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     block_gram_and_grad.launches += 1
@@ -277,8 +423,8 @@ def block_gram_and_grad(X: torch.Tensor, h):
 
 
 def block_gram(X: torch.Tensor, h) -> torch.Tensor:
-    """``K [n, n]`` alone, by K1's forward: CPU tensors take the plain twin;
-    CUDA tensors launch K3 and add one to ``block_gram.launches``."""
+    """``K [n, n]`` alone, by K1's forward arithmetic: CPU tensors take the
+    plain twin; CUDA tensors launch K3 and add one to ``block_gram.launches``."""
     if X.device.type == "cpu":
         return block_gram_plain(X, h)
     n, L, C, h_t = _check(X, h, "K3")

@@ -33,7 +33,10 @@ import dataclasses
 import torch
 
 from ._build import load
-from .sigkernel_block import _cdiv
+from .sigkernel_block import (
+    SPAN_CAP, SPAN_TEMPLATES, THREADS, _cdiv, _tile_list, _tile_list_len, block_lanes,
+    block_spans,
+)
 from .sigkernel_fused import _M, fused_pairs_plain, grid_forward, pair_statics
 
 # kernel envelope and tile rows (csrc/sigkernel_block3.cu)
@@ -127,11 +130,6 @@ def block3_gram_plain(X: torch.Tensor, h) -> torch.Tensor:
 # Kernel plan and wrapper.
 # ---------------------------------------------------------------------------
 
-THREADS = 128       # a block: 4 warps
-SPAN_CAP = 5        # coarse columns a lane holds at most
-SPAN_TEMPLATES = (3, 5)
-
-
 @dataclasses.dataclass(frozen=True)
 class Block3Plan:
     """How K2 lays out one call: ``g`` lanes a pair, each holding a span of
@@ -159,22 +157,10 @@ class Block3Plan:
         return self.scratch_floats * 4 / 2**20
 
 
-def block3_lanes(L: int) -> tuple[int, int]:
-    """``(g, span)``: the fewest lanes a pair (a power of two) that leave no
-    lane more than :data:`SPAN_CAP` coarse columns, and the span template
-    (3 or 5) that holds the widest span."""
-    l1 = L - 1
-    g = 1
-    while _cdiv(l1, g) > SPAN_CAP:
-        g *= 2
-    widest = _cdiv(l1, g)
-    return g, next(t for t in SPAN_TEMPLATES if widest <= t)
-
-
-def block3_spans(L: int, g: int) -> list[int]:
-    """Coarse columns of each lane: lane t holds ``[t(L-1)/g, (t+1)(L-1)/g)``."""
-    l1 = L - 1
-    return [(t + 1) * l1 // g - t * l1 // g for t in range(g)]
+# K2's lanes and spans over the L - 1 coarse columns: K1's rule
+# (sigkernel_block.py), with the tile list
+block3_lanes = block_lanes
+block3_spans = block_spans
 
 
 def _pipeline_steps(L: int, g: int) -> int:
@@ -218,31 +204,6 @@ def block3_plan(n: int, L: int, C: int, blocks: int) -> Block3Plan:
         tiles=tiles, blocks=blocks, scratch_floats=blocks * block3_scratch_floats(L),
         smem_bytes=smem,
         traffic_bytes=4.0 * (checkpoints + partials + n * L * C + n * n + n * L * C))
-
-
-_tiles_cache: dict = {}
-
-
-def _tile_keep(n: int, tc: int):
-    nI, nJ = _cdiv(n, TILE_ROWS), _cdiv(n, tc)
-    I = torch.arange(nI).repeat_interleave(nJ)
-    J = torch.arange(nJ).repeat(nI)
-    keep = I * TILE_ROWS <= J * tc + tc - 1
-    return I[keep], J[keep]
-
-
-def _tile_list_len(n: int, tc: int) -> int:
-    return int(_tile_keep(n, tc)[0].numel())
-
-
-def _tile_list(n: int, tc: int, device) -> torch.Tensor:
-    """``[T, 2]`` int32 (row tile, column tile) pairs holding a pair a ≤ b,
-    for tiles of 8 rows × ``tc`` columns."""
-    key = (n, tc, str(device))
-    if key not in _tiles_cache:
-        _tiles_cache[key] = torch.stack(_tile_keep(n, tc), 1).to(
-            device=device, dtype=torch.int32).contiguous()
-    return _tiles_cache[key]
 
 
 def _lib():

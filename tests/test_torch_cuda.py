@@ -1,7 +1,8 @@
 """The port's kernels on the card, each held against its plain twin:
 
-* K1 (λ=0 Gram + adjoint): K atol 3e-5, dX scaled by max|dX| atol 5e-5,
-  the tolerances of ``tests/test_pallas_block.py``;
+* K1 (λ=0 Gram + adjoint; a lane group per pair): K bit for bit (within
+  ``tests/test_pallas_block.py``'s atol 3e-5), dX scaled by max|dX| atol
+  5e-5, its tolerance; dX bit for bit across two calls;
 * K2 (λ=3 Gram + adjoint): K atol 1e-4, dX scaled atol 4e-4 (against the
   twin in fp64), those of ``tests/test_pallas_block3.py``;
 * K9 (fused RBF Stein velocity): rtol 2e-4, atol 5e-5, those of
@@ -20,8 +21,8 @@
 * K7 (the λ=0 pair-list forward and backward): k and fac atol 3e-5, both
   tiles' gradients scaled by their max atol 5e-5, those of
   ``tests/test_pallas_small.py``;
-* K3 (the λ=0 values-only block Gram): K equal to K1's bit for bit (the same
-  staging and forward sweep) and to its twin atol 3e-5;
+* K3 (the λ=0 values-only block Gram): K equal to K1's bit for bit (both
+  round as the twin does) and to its twin atol 3e-5;
 * K5 (the λ=3 solve on given increments, forward and stable backward): k
   rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| atol 5e-4 against the fp32
   twin, those of ``tests/test_pallas_sigkernel.py`` (at its MPC shape 1e-4
@@ -72,14 +73,33 @@ def _paths(device, n, L, C, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (333, 40, 2), (33, 21, 3), (7, 5, 3),
-                                   (40, 64, 3)])
+                                   (40, 64, 3), (5, 2, 1), (2, 2, 3), (19, 30, 1),
+                                   (130, 45, 2)])
 def test_k1_matches_plain_twin_on_the_card(cuda_device, n, L, C):
+    """1, 2, 4, 8 and 16 lanes a pair (L = 2 and 5, 21, 30 and 40, 45 and
+    64), ragged n, one pair (n = 2), and at [1024, 40, 2] more tiles than
+    resident blocks. K is the twin's bit for bit: the statics and the
+    forward sweep round as the twin does, whatever the lanes."""
     X = _paths(cuda_device, n, L, C)
     before = kb.block_gram_and_grad.launches
     K, dX = kb.block_gram_and_grad(X, 4.0)
     assert kb.block_gram_and_grad.launches == before + 1
     Kp, dXp = kb.block_gram_and_grad_plain(X, 4.0)
+    assert torch.equal(K, Kp)
     _assert_k_dx(K.cpu(), dX.cpu(), Kp.cpu(), dXp.cpu())
+    if n == 1024:
+        tiles, blocks = kb.block_grid(n, L, C, cuda_device)
+        assert tiles.shape[0] > blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (77, 64, 3)])
+def test_k1_is_bitwise_repeatable(cuda_device, n, L, C):
+    """No atomics: the gradient sums run in a fixed order."""
+    X = _paths(cuda_device, n, L, C, seed=1)
+    K1, dX1 = kb.block_gram_and_grad(X, 4.0)
+    K2, dX2 = kb.block_gram_and_grad(X, 4.0)
+    assert torch.equal(K1, K2) and torch.equal(dX1, dX2)
 
 
 @pytest.mark.cuda
