@@ -17,7 +17,10 @@ CUDA events), the pinned λ=3 solve on linear statics
 flagship linear list, the upper triangle of that solve's τ (``k5_timing``:
 the tree's ``tiled_forward`` with checkpoints and ``tiled_backward``, a
 warm-up call each, then the median of three runs of 5 calls by CUDA
-events), the planning
+events), K8 alone at the planning shape [1048576, 2, 2] λ=6 (``k8_timing``:
+the tree's ``mxu_chain_fwd`` and ``mxu_chain_bwd`` on ``knot_increments(1024)``
+from seed 8, a warm-up call each, then the median of three runs of 5 and
+of 3 calls by CUDA events), the planning
 iteration at 1024 particles (5 chained iterations) and the reference's
 planning run (``PlannerConfig()``, 20 particles × 500 iterations), the
 policy-mode solve (``policy_solve``) and last K9's ``k9_vs_plain`` (its
@@ -55,6 +58,8 @@ METRICS = {
     "k2_timing": ("k2_timing", "kernel_ms"),
     "k5_timing_forward": ("k5_timing", "forward_ms"),
     "k5_timing_backward": ("k5_timing", "backward_ms"),
+    "k8_timing_forward": ("k8_timing", "forward_ms"),
+    "k8_timing_backward": ("k8_timing", "backward_ms"),
 }
 
 
@@ -117,6 +122,33 @@ def k5_timing(cs, tau) -> None:
                       **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
 
 
+def k8_timing(cs) -> None:
+    """K8 alone at the planning shape [1048576, 2, 2] λ=6 (the increments of
+    1024 knot paths, ``knot_increments(1024)`` from seed 8, cotangent from
+    the same generator) through the tree's public ``mxu_chain_fwd`` and
+    ``mxu_chain_bwd``: a warm-up call each, then the median of three runs of
+    5 (forward) and 3 (backward) calls timed by CUDA events; one JSON line."""
+    import torch
+    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    inc = cs.knot_increments(1024, gen)
+    B = inc.shape[0]
+    g = torch.randn(B, generator=gen, device="cuda")
+    z = (inc / float(4 ** 6)).reshape(B, 4).contiguous()
+    del inc
+    geom = (2, 2, 1, 2)
+    mc.mxu_chain_fwd(z, *geom)
+    mc.mxu_chain_bwd(z, g, *geom)
+    torch.cuda.synchronize()
+    times = {"forward": [cs.event_ms(lambda: mc.mxu_chain_fwd(z, *geom), 5) for _ in range(3)],
+             "backward": [cs.event_ms(lambda: mc.mxu_chain_bwd(z, g, *geom), 3)
+                          for _ in range(3)]}
+    print(json.dumps({"phase": "k8_timing", "shape": [B, 2, 2], "dyadic_order": 6,
+                      **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
+                      **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
+
+
 K9_SHAPES = ((1024, 280), (1024, 840), (1024, 1400))
 
 
@@ -147,6 +179,7 @@ def child(root: Path, n_solves: int) -> int:
     _, tau = cs.phase_pinned_linear()
     k5_timing(cs, tau)
     del tau
+    k8_timing(cs)
     cs.phase_planning_iter()
     cs.phase_planning_run()
     cs.phase_policy()

@@ -10,9 +10,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a, one
    process per source, with the registers, spills and stack frame of each
    function of each source from ptxas (its report kept beside the library,
-   so a cached library reports too); a K1, K2 or K5 function that spills
-   or is missing from the report, or a K1 function with a stack frame,
-   fails the smoke;
+   so a cached library reports too); a K1, K2, K5 or K8 function that
+   spills or is missing from the report, or a K1 or K8 function with a
+   stack frame, fails the smoke;
 2. K1 (the λ=0 signature-kernel Gram + adjoint; a lane group per pair)
    against its plain PyTorch twin on the card, at the flagship shape
    [1024, 40, 2], a ragged [333, 40, 2] and [40, 64, 3] (16 lanes a pair):
@@ -68,8 +68,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    planning shape [1048576, 2, 2] λ=6 (the increments of 1024 knot paths
    at h = 1.5), a ragged [389, 4, 4] λ=6 (16 hops) and [1000, 2, 2] λ=7:
    K and dz scaled by their max, atol 1e-3 / 2e-3 against the twin and
-   5e-3 / 1e-2 against the fp32 route; the times of both kernels, of the
-   twin and of the fp32 route, and the first launch's memory;
+   5e-3 / 1e-2 against the fp32 route; each shape's launch plan
+   (``chain_plan``: warpgroups, ring stages, shared memory, scratch, the
+   basis bytes read through L2); at the planning shape k and dz bit for
+   bit across two calls, the times of both kernels, of the twin and of the
+   fp32 route, and the first launch's memory;
 13. ``planning_iter``: bench's planning shape (1024 knot particles, depth 6,
    ``mxu_precision="default"``, T=200, ``bookshelf_small``), 3 warm-up and
    5 timed chained SVGD iterations with K8's counters read around them
@@ -248,7 +251,8 @@ def phase_build():
     # every K1 and K2 instantiation (span template × C = 1..3) and every K5
     # kernel (forward and backward × span template) is in the report and
     # spills nothing, and K1 keeps no stack frame (no per-cell value in local
-    # memory); the other sources' spills are reported, not gated
+    # memory); K8's two kernels as K1's; the other sources' spills are
+    # reported, not gated
     spills = lambda fns: any(  # noqa: E731
         r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in fns.values())
     k1 = {f: r for f, r in ptxas["sigkernel_block"].items() if "block_lanes_kernel" in f}
@@ -262,6 +266,14 @@ def phase_build():
     k5 = {f: r for f, r in ptxas["sigkernel_tiled"].items() if "tiled_" in f}
     if len(k5) != 2 * len(kt.SPAN_TEMPLATES) or spills(k5):
         raise AssertionError(f"K5's kernels not all reported spill-free: {k5}")
+    # K8's forward and backward (chain_kernel<false>, <true>): no spill, no
+    # stack frame (the consumers' registers under setmaxnreg hold every
+    # accumulator and fragment)
+    k8 = {f: r for f, r in ptxas["mxu_chain"].items() if "chain_kernel" in f}
+    if (sorted("ILb1E" in f for f in k8) != [False, True] or spills(k8)
+            or any(r.get("stack_frame", 1) for r in k8.values())):
+        raise AssertionError(f"K8's kernels not both reported spill-free with no "
+                             f"stack frame: {k8}")
     return smi
 
 
@@ -913,8 +925,10 @@ def chunked_vjp(fn, inc: torch.Tensor, g: torch.Tensor, chunk: int):
 
 def phase_k8():
     """K8's forward and backward against the bf16 twin and the fp32 block
-    propagator at three shapes; times, bound and first-launch memory at the
-    planning shape."""
+    propagator at three shapes, each with its launch plan (``chain_plan``:
+    warpgroups, ring stages, shared memory, scratch, the basis bytes read
+    through L2); at the planning shape k and dz bit for bit across two
+    calls, times, bound and first-launch memory."""
     from sigsvgd_tpu_torch.kernels import mxu_chain as mc
     from sigsvgd_tpu_torch.kernels.sigkernel import solve_goursat_pde_mxu
 
@@ -961,12 +975,16 @@ def phase_k8():
         if first:
             row["first_launch_mib_outside_allocator"] = mib
             first = False
+        nbx, nby, sub = mc._geometry(lx1, ly1, lam)
+        row["plan"] = {which: mc.device_plan(B, lx1 * ly1, nbx, nby, 10, bwd, "cuda").__dict__
+                       for which, bwd in (("forward", False), ("backward", True))}
         if name == "planning":
-            nbx, nby, sub = mc._geometry(lx1, ly1, lam)
             z = (inc / float(4 ** lam)).reshape(B, lx1 * ly1).contiguous()
             geom = (nbx, nby, sub, ly1)
-            row["blocks"] = {"forward": mc._grid(B, lx1 * ly1, 10, False),
-                             "backward": mc._grid(B, lx1 * ly1, 10, True)}
+            k2, d2 = mc.mxu_chain_fwd(z, *geom), mc.mxu_chain_bwd(z, g, *geom)
+            row["bitwise_repeatable"] = bool(torch.equal(k2, mc.mxu_chain_fwd(z, *geom))
+                                             and torch.equal(d2, mc.mxu_chain_bwd(z, g, *geom)))
+            del k2, d2
             row["fwd_ms"] = event_ms(lambda: mc.mxu_chain_fwd(z, *geom), 5)
             row["bwd_ms"] = event_ms(lambda: mc.mxu_chain_bwd(z, g, *geom), 3)
 
@@ -993,7 +1011,8 @@ def phase_k8():
         ok = (finite and row["k_scaled_err_vs_plain"] <= K8_TOL[0]
               and row["dz_scaled_err_vs_plain"] <= K8_TOL[1]
               and row["k_scaled_err_vs_fp32"] <= K8_FP32_TOL[0]
-              and row["dz_scaled_err_vs_fp32"] <= K8_FP32_TOL[1])
+              and row["dz_scaled_err_vs_fp32"] <= K8_FP32_TOL[1]
+              and row.get("bitwise_repeatable", True))
         if not ok:
             raise AssertionError(f"K8 disagrees with its twin or the fp32 route: {row}")
     return rows["planning"]

@@ -27,6 +27,7 @@ kernel of ``csrc/mxu_chain.cu`` (counted by ``mxu_chain_fwd.launches`` and
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -37,11 +38,9 @@ from ._build import load
 _M = 64            # block edge (fine cells); the contraction is 2m = 128
 _NB = 2 * _M + 1   # nodes per hop input/output vector
 _FP = _NB + 7      # the JAX package's degree-slice height (136)
-MAX_HOPS = 64      # hops per pair K8 takes (its scratch is in device memory)
+MAX_HOPS = 64      # hops per pair K8 takes
 
-# csrc/mxu_chain.cu tile: P pairs per block, output rows padded to 9 m-tiles
-TILE_PAIRS = 64
-_ROWS = 144
+_ROWS = 144        # csrc/mxu_chain.cu's slice height (9 k-steps of d_in's product)
 
 
 @lru_cache(maxsize=4)
@@ -65,9 +64,9 @@ def _stacked_polys(degree: int):
 def chain_supported(lx1: int, ly1: int, dyadic_order: int) -> bool:
     """Shapes K8 takes: dyadic order ≥ 6 (the refinement is a multiple of
     the 64-wide block) and at most ``MAX_HOPS`` block hops per pair. The
-    hop inputs and north rows live in device scratch and only ``z``/``dz``
-    grow the shared memory (2 KB per coarse cell), so the envelope is wider
-    than the TPU's VMEM-bound 16 hops, which it contains."""
+    north rows and kept hop inputs go to per-block device scratch where
+    shared memory cannot hold them (:func:`chain_plan`), so the envelope is
+    wider than the TPU's VMEM-bound 16 hops, which it contains."""
     if dyadic_order < 6:
         return False
     sub = (1 << dyadic_order) // _M
@@ -241,26 +240,34 @@ def solve_goursat_pde_mxu_chain_plain(inc: torch.Tensor, dyadic_order: int,
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
+SLICE_BYTES = 2 * _ROWS * 128   # one degree slice M_d, bf16 [144, 128]
+WG_PAIRS = 64                   # pairs a consumer warpgroup (wgmma's M)
+WG_THREADS = 128
+RING_STAGES = 3                 # slices in flight in a block's ring
+SMEM_LIMIT = 232448             # dynamic shared memory a block may take
+SMS = 132                       # H100 SXM
+_SLOT_BYTES = 9 * 16 * WG_THREADS   # a north or kept-input slot of a warpgroup
 
-def _frag_a(A: torch.Tensor) -> torch.Tensor:
-    """Matrices ``A [n, R, K]`` (R, K multiples of 16) → bf16
-    ``[n, R/16, K/16, 32, 8]``: lane ℓ's ``mma.m16n8k16`` A fragment of each
-    16×16 tile, in register order (rows g and g+8, columns 2q, 2q+1 and
-    2q+8, 2q+9 with g = ℓ/4, q = ℓ%4), one 16-byte load per lane."""
-    n, R, K = A.shape
-    t = A.reshape(n, R // 16, 16, K // 16, 16).permute(0, 1, 3, 2, 4)
-    lane = torch.arange(32)
-    g, q = lane // 4, lane % 4
-    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], 1)
-    cols = torch.stack([2 * q, 2 * q + 1, 2 * q, 2 * q + 1,
-                        2 * q + 8, 2 * q + 9, 2 * q + 8, 2 * q + 9], 1)
-    return t[:, :, :, rows, cols].to(torch.bfloat16).contiguous()
+
+def pack_slices(main: torch.Tensor) -> torch.Tensor:
+    """``main [D1, 144, 128]`` (fp32 holding the basis) → the kernel's
+    staged layout, bf16 ``[D1, 2, 144, 64]``: slice d is two column blocks
+    (e < 64, e ≥ 64) of 144 rows f of 128 bytes, 16-byte chunk c of row f
+    stored at chunk ``c ^ (f % 8)`` (the 128-byte swizzle of the row-major
+    address). One bulk copy a slice puts it in shared memory as the wgmma
+    descriptors of ``csrc/mxu_chain.cu`` read it: K-major for ``U_d``,
+    MN-major for ``d_in``."""
+    D1 = main.shape[0]
+    x = main.to(torch.bfloat16).reshape(D1, _ROWS, 2, 8, 8).permute(0, 2, 1, 3, 4)
+    f = torch.arange(_ROWS)[:, None]
+    src = torch.arange(8)[None, :] ^ (f % 8)
+    return x[:, :, f.expand(_ROWS, 8), src].contiguous()
 
 
 def kernel_basis(degree: int, device):
-    """The kernel's basis on ``device``: forward fragments of ``M_d``
-    (``[D+1, 144, 128]``, rows padded with zeros), backward fragments of
-    ``M_dᵀ`` (``[D+1, 128, 144]``) and ``mlast [D+1, 144]`` fp32."""
+    """The kernel's basis on ``device``: the packed degree slices of
+    :func:`pack_slices` (``M_d`` rows padded to 144 with zeros) and
+    ``mlast [D+1, 144]`` fp32 (``M_d[f, 128]``)."""
     key = ("kernel", degree, str(device))
     if key not in _basis_cache:
         from .sigkernel import _propagator_polys
@@ -271,32 +278,73 @@ def kernel_basis(degree: int, device):
         main[:, :_NB] = Md[:, :, :128]
         mlast = torch.zeros(D1, _ROWS)
         mlast[:, :_NB] = Md[:, :, 128]
-        _basis_cache[key] = (_frag_a(main).to(device),
-                             _frag_a(main.transpose(1, 2).contiguous()).to(device),
-                             mlast.to(device).contiguous())
+        _basis_cache[key] = (pack_slices(main).to(device), mlast.to(device).contiguous())
     return _basis_cache[key]
 
 
-def _lib():
-    lib = load("mxu_chain")
-    lib.mxu_chain_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.mxu_chain_blocks.restype = ctypes.c_int
-    lib.mxu_chain_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.mxu_chain_fwd.restype = ctypes.c_int
-    lib.mxu_chain_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.mxu_chain_bwd.restype = ctypes.c_int
+@dataclass(frozen=True)
+class ChainPlan:
+    """How K8 lays a call out (``csrc/mxu_chain.cu``): ``warpgroups``
+    consumer warpgroups of 64 pairs a block beside one producer warpgroup,
+    ``stages`` ring slices, one persistent block an SM walking the tiles of
+    ``pairs_per_block`` pairs; each thread's north slots (and, in the
+    backward, each hop's kept input) in shared memory where they fit, else
+    in per-block device scratch; and the basis bytes read through L2."""
+
+    warpgroups: int
+    pairs_per_block: int
+    threads: int
+    stages: int
+    tiles: int
+    blocks: int
+    north_in_smem: bool
+    kept_in_smem: bool
+    smem_bytes: int
+    north_scratch_bytes: int
+    kept_scratch_bytes: int
+    slices_per_tile: int
+    basis_l2_bytes: int
+
+
+def chain_plan(B: int, nc: int, nbx: int, nby: int, degree: int = 10,
+               backward: bool = False, sms: int = SMS) -> ChainPlan:
+    """K8's launch plan for ``B`` pairs of ``nbx × nby`` hops on a card of
+    ``sms`` SMs. Two consumer warpgroups a block (128 pairs a staged slice)
+    when that still gives every SM a tile, else one, so a small ``B`` (the
+    planning run's 400 pairs) spreads over as many SMs as it can."""
+    D1 = degree + 1
+    hops = nbx * nby
+    wgs = 2 if -(-B // (2 * WG_PAIRS)) >= sms else 1
+    pairs = wgs * WG_PAIRS
+    tiles = max(1, -(-B // pairs))
+    blocks = min(tiles, sms)
+    smem = 1024 + RING_STAGES * SLICE_BYTES + D1 * _ROWS * 4 + 16 * RING_STAGES
+    north = wgs * nbx * _SLOT_BYTES if nby > 1 else 0
+    north_in = 0 < north and smem + north <= SMEM_LIMIT
+    smem += north if north_in else 0
+    kept = wgs * hops * _SLOT_BYTES if backward else 0
+    kept_in = 0 < kept and smem + kept <= SMEM_LIMIT
+    smem += kept if kept_in else 0
+    per_tile = (2 * hops - 1 if backward else hops) * D1
+    return ChainPlan(
+        warpgroups=wgs, pairs_per_block=pairs, threads=(wgs + 1) * WG_THREADS,
+        stages=RING_STAGES, tiles=tiles, blocks=blocks, north_in_smem=north_in,
+        kept_in_smem=kept_in, smem_bytes=smem,
+        north_scratch_bytes=0 if north_in else blocks * north,
+        kept_scratch_bytes=0 if kept_in else blocks * kept,
+        slices_per_tile=per_tile, basis_l2_bytes=tiles * per_tile * SLICE_BYTES)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s ``mxu_chain_launch`` with its C signature."""
+    lib.mxu_chain_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                     + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    lib.mxu_chain_launch.restype = ctypes.c_int
     return lib
 
 
-def chain_blocks(nc: int, degree: int, backward: bool) -> int:
-    """Resident blocks of the forward or backward kernel on the current
-    card (blocks per SM by occupancy × SMs): each walks the pair tiles
-    ``tile = block, block + grid, ...`` and owns one slice of scratch."""
-    blocks = ctypes.c_int(0)
-    rc = _lib().mxu_chain_blocks(nc, degree + 1, int(backward), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"K8 occupancy query failed: cudaError {rc}")
-    return blocks.value
+def _lib():
+    return bind(load("mxu_chain"))
 
 
 def _check_cuda(z: torch.Tensor, nbx: int, nby: int):
@@ -306,9 +354,39 @@ def _check_cuda(z: torch.Tensor, nbx: int, nby: int):
         raise ValueError(f"K8 takes at most {MAX_HOPS} hops, got {nbx * nby}")
 
 
-def _grid(B: int, nc: int, degree: int, backward: bool) -> int:
-    tiles = -(-B // TILE_PAIRS)
-    return max(1, min(tiles, chain_blocks(nc, degree, backward)))
+def device_plan(B: int, nc: int, nbx: int, nby: int, degree: int, backward: bool,
+                device) -> ChainPlan:
+    """:func:`chain_plan` on ``device``'s SM count."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return chain_plan(B, nc, nbx, nby, degree, backward, sms)
+
+
+def launch(z, gout, nbx, nby, sub, ly1, degree, backward, lib=None):
+    """One launch of ``lib`` (default: ``csrc/mxu_chain.cu``'s library) on
+    :func:`device_plan`, uncounted: ``k`` or, with ``backward``, ``dz``."""
+    _check_cuda(z, nbx, nby)
+    B, nc = z.shape
+    basis, mlast = kernel_basis(degree, z.device)
+    plan = device_plan(B, nc, nbx, nby, degree, backward, z.device)
+    out = torch.empty((B, nc) if backward else (B,), dtype=z.dtype, device=z.device)
+
+    def scratch(nbytes):
+        return torch.empty(nbytes, dtype=torch.uint8, device=z.device) if nbytes else None
+
+    north, kept = scratch(plan.north_scratch_bytes), scratch(plan.kept_scratch_bytes)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    rc = (lib or _lib()).mxu_chain_launch(
+        int(backward), z.data_ptr(), gout.data_ptr() if backward else None,
+        basis.data_ptr(), mlast.data_ptr(), out.data_ptr(),
+        north.data_ptr() if north is not None else None,
+        kept.data_ptr() if kept is not None else None,
+        B, nc, nbx, nby, sub, ly1, degree + 1, plan.warpgroups, plan.stages,
+        int(plan.north_in_smem), int(plan.kept_in_smem), plan.smem_bytes, plan.blocks,
+        stream)
+    if rc != 0:
+        which = "backward" if backward else "forward"
+        raise RuntimeError(f"K8 {which} launch failed: cudaError {rc}")
+    return out
 
 
 def mxu_chain_fwd(z: torch.Tensor, nbx: int, nby: int, sub: int, ly1: int,
@@ -320,19 +398,7 @@ def mxu_chain_fwd(z: torch.Tensor, nbx: int, nby: int, sub: int, ly1: int,
         return _plain_forward(z, nbx, nby, sub, ly1, degree)[0]
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
-    _check_cuda(z, nbx, nby)
-    B, nc = z.shape
-    afrag, _, mlast = kernel_basis(degree, z.device)
-    blocks = _grid(B, nc, degree, False)
-    k = torch.empty(B, dtype=z.dtype, device=z.device)
-    north = torch.empty(blocks * nbx * (_M + 1) * TILE_PAIRS, dtype=z.dtype,
-                        device=z.device)
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = _lib().mxu_chain_fwd(z.data_ptr(), afrag.data_ptr(), mlast.data_ptr(),
-                              k.data_ptr(), north.data_ptr(), B, nc, nbx, nby, sub,
-                              ly1, degree + 1, blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"K8 forward launch failed: cudaError {rc}")
+    k = launch(z, None, nbx, nby, sub, ly1, degree, False)
     mxu_chain_fwd.launches += 1
     return k
 
@@ -346,24 +412,7 @@ def mxu_chain_bwd(z: torch.Tensor, gout: torch.Tensor, nbx: int, nby: int,
         return _plain_backward(z, gout, nbx, nby, sub, ly1, degree)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
-    _check_cuda(z, nbx, nby)
-    gout = gout.to(torch.float32).contiguous()
-    B, nc = z.shape
-    afrag, atfrag, mlast = kernel_basis(degree, z.device)
-    blocks = _grid(B, nc, degree, True)
-    dz = torch.empty_like(z)
-    north = torch.empty(blocks * nbx * (_M + 1) * TILE_PAIRS, dtype=z.dtype,
-                        device=z.device)
-    # per block and hop: the bf16 input [P, 136] and its fp32 last node [P]
-    inputs = torch.empty(blocks * nbx * nby * TILE_PAIRS * (136 * 2 + 4),
-                         dtype=torch.uint8, device=z.device)
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = _lib().mxu_chain_bwd(z.data_ptr(), gout.data_ptr(), afrag.data_ptr(),
-                              atfrag.data_ptr(), mlast.data_ptr(), dz.data_ptr(),
-                              north.data_ptr(), inputs.data_ptr(), B, nc, nbx, nby,
-                              sub, ly1, degree + 1, blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"K8 backward launch failed: cudaError {rc}")
+    dz = launch(z, gout.to(torch.float32).contiguous(), nbx, nby, sub, ly1, degree, True)
     mxu_chain_bwd.launches += 1
     return dz
 

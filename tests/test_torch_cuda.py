@@ -11,7 +11,9 @@
 * K8 (the order ≥ 6 hop chain, forward and backward): K and dz scaled by
   their max, atol 1e-3 and 2e-3 (twin and kernel round to bf16 in the same
   places, but a hop input that differs in its last fp32 bit can round to
-  another bf16);
+  another bf16), at the plan's corners (one and two warpgroups a block,
+  ragged tiles, more tiles than blocks, 1 to 64 hops, sub = 2); k and dz bit
+  for bit across two calls;
 * K4 (the λ=3 pair-list forward and fp32 backward): K atol 1e-4, both
   tiles' gradients scaled atol 4e-4 against the twin in fp64, K2's;
 * K6 (the bf16 delta-form backward, C ≤ 4): against its bf16 twin rel ≤
@@ -257,6 +259,53 @@ def test_k8_matches_plain_twin_on_the_card(cuda_device, case):
     assert torch.isfinite(k).all() and torch.isfinite(d).all()
     assert _scaled(k, kp) <= 1e-3
     assert _scaled(d, dp) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,lx1,ly1,lam", [
+    (130, 2, 2, 6),      # ragged: two warpgroups' worth of tiles is 128 pairs
+    (40000, 2, 2, 6),    # two warpgroups a block, more tiles than resident blocks
+    (1000, 4, 4, 6),     # 16 hops, the kept inputs in device scratch
+    (700, 2, 2, 7),      # sub = 2
+    (200, 8, 8, 6),      # MAX_HOPS
+    (77, 1, 1, 6),       # one hop
+])
+def test_k8_wgmma_design_matches_plain_twin(cuda_device, B, lx1, ly1, lam):
+    """The redesigned K8 (pairs on wgmma's M side, a producer warp's ring of
+    staged slices, one reverse pass a degree) against its twin, at the
+    plan's corners: one and two consumer warpgroups, a ragged last tile,
+    persistent blocks over several tiles, north rows and kept inputs in
+    shared memory and in device scratch, 1 to 64 hops."""
+    inc = _clipped_normal(cuda_device, B, lx1, ly1, seed=B)
+    inc[1] = 0.0    # a zero-increment pair
+    g = torch.randn(B, generator=torch.Generator(device=cuda_device).manual_seed(7),
+                    device=cuda_device)
+    nbx, nby, _ = mc._geometry(lx1, ly1, lam)
+    plan = mc.device_plan(B, lx1 * ly1, nbx, nby, 10, True, cuda_device)
+    if B == 40000:
+        assert plan.warpgroups == 2 and plan.tiles > plan.blocks
+    t = inc.clone().requires_grad_(True)
+    k = mc.solve_goursat_pde_mxu_chain(t, lam)
+    (d,) = torch.autograd.grad(k, t, g)
+    tp = inc.clone().requires_grad_(True)
+    kp = mc.solve_goursat_pde_mxu_chain_plain(tp, lam)
+    (dp,) = torch.autograd.grad(kp, tp, g)
+    assert torch.isfinite(k).all() and torch.isfinite(d).all()
+    assert _scaled(k, kp) <= 1e-3
+    assert _scaled(d, dp) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_k8_is_bitwise_repeatable(cuda_device):
+    """Pairs are independent and their sums run in a fixed order: k and dz
+    bit for bit across two calls."""
+    inc = _clipped_normal(cuda_device, 40000, 2, 2, seed=3)
+    z = (inc / 4.0 ** 6).reshape(40000, 4).contiguous()
+    g = torch.randn(40000, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    k1, k2 = (mc.mxu_chain_fwd(z, 2, 2, 1, 2) for _ in range(2))
+    d1, d2 = (mc.mxu_chain_bwd(z, g, 2, 2, 1, 2) for _ in range(2))
+    assert torch.equal(k1, k2) and torch.equal(d1, d2)
 
 
 @pytest.mark.cuda

@@ -146,25 +146,6 @@ def test_solver_routing_matches_jax_on_the_tpu():
         SignatureKernel(6, 1.5, mxu_precision="bf16")
 
 
-def test_fragment_layout_round_trips():
-    """The wrapper's mma.m16n8k16 A-fragment layout holds each 16×16 tile
-    once: lane ℓ holds rows g, g+8 (g = ℓ/4) at columns 2q, 2q+1, 2q+8,
-    2q+9 (q = ℓ%4), in register order."""
-    A = torch.randn(2, 32, 48).to(torch.bfloat16).to(torch.float32)
-    fr = mc._frag_a(A).to(torch.float32)  # [2, 2, 3, 32, 8]
-    assert fr.shape == (2, 2, 3, 32, 8)
-    back = torch.empty_like(A)
-    for lane in range(32):
-        g, q = lane // 4, lane % 4
-        slots = [(g, 2 * q), (g, 2 * q + 1), (g + 8, 2 * q), (g + 8, 2 * q + 1),
-                 (g, 2 * q + 8), (g, 2 * q + 9), (g + 8, 2 * q + 8), (g + 8, 2 * q + 9)]
-        for v, (r, c) in enumerate(slots):
-            for mt in range(2):
-                for ks in range(3):
-                    back[:, mt * 16 + r, ks * 16 + c] = fr[:, mt, ks, lane, v]
-    torch.testing.assert_close(back, A, atol=0, rtol=0)
-
-
 def test_kernel_bound_counts():
     bf16, fp32 = mc.chain_flops(1 << 20, 2, 2, 6)
     assert bf16 == (1 << 20) * 4 * 2.0 * 11 * 129 * 128
