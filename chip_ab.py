@@ -12,7 +12,13 @@ fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
 ``N`` chained solves each, default 7, after a warm-up), K2 alone at
 [1024, 40, 2] through the tree's ``block3_gram_and_grad`` on the smoke's
 seeded paths (``k2_timing``: a warm-up call, then three times 5 calls by
-CUDA events), the pinned λ=3 solve on linear statics
+CUDA events), K4's forward alone at the flagship pair list, the upper
+triangle of the smoke's seeded [1024, 40, 2] paths at h = 4 (``k4_timing``:
+the tree's ``fused_forward`` with residuals and values only, a warm-up call
+each, then the median of three runs of 5 calls by CUDA events, and a SHA-1
+of k's, ck's and rc's bytes, which the two trees must share), K6 alone on
+those residuals with K4's fp32 backward beside it as a control
+(``k6_timing``, timed alike), the pinned λ=3 solve on linear statics
 (``pinned_linear_solve``, ``N`` chained solves) and K5 alone at its
 flagship linear list, the upper triangle of that solve's τ (``k5_timing``:
 the tree's ``tiled_forward`` with checkpoints and ``tiled_backward``, a
@@ -23,7 +29,9 @@ from seed 8, a warm-up call each, then the median of three runs of 5 and
 of 3 calls by CUDA events), the planning
 iteration at 1024 particles (5 chained iterations) and the reference's
 planning run (``PlannerConfig()``, 20 particles × 500 iterations), the
-policy-mode solve (``policy_solve``) and last K9's ``k9_vs_plain`` (its
+policy-mode solve (``policy_solve``), the streamed λ=3 ``gram(X, Y)`` at
+[1024, 40, 2]² with its gradient (``streamed_gram``, its wall ms) and last
+K9's ``k9_vs_plain`` (its
 rows at [1024, 280], [1024, 840] and [1024, 1400] carry the kernel's and
 the library call's times; where the tree has ``phase_k9_timing``, those
 times are taken right after the build, in a fresh process). Each phase keeps its own checks (launch counts,
@@ -56,6 +64,11 @@ METRICS = {
     "planning_run": ("planning_run", "wall_s"),
     "policy_solve": ("policy_solve", "ms_per_solve_median"),
     "k2_timing": ("k2_timing", "kernel_ms"),
+    "k4_timing_forward": ("k4_timing", "forward_ms"),
+    "k4_timing_values_only": ("k4_timing", "values_only_ms"),
+    "k6_timing": ("k6_timing", "k6_ms"),
+    "k6_timing_k4_backward": ("k6_timing", "k4_backward_ms"),
+    "streamed_gram": ("streamed_gram", "wall_ms"),
     "k5_timing_forward": ("k5_timing", "forward_ms"),
     "k5_timing_backward": ("k5_timing", "backward_ms"),
     "k8_timing_forward": ("k8_timing", "forward_ms"),
@@ -94,6 +107,47 @@ def k2_timing(cs) -> None:
     print(json.dumps({"phase": "k2_timing", "shape": [1024, 40, 2],
                       "kernel_ms": statistics.median(samples),
                       "kernel_ms_samples": samples}), flush=True)
+
+
+def k4_k6_timing(cs) -> None:
+    """K4's forward and K6 at the flagship pair list (``phase_k4``'s: the
+    upper triangle of the smoke's smooth [1024, 40, 2] paths from seed 4 at
+    h = 4, cotangent 1 on the diagonal and 2 off it) through the tree's
+    ``fused_forward`` (with residuals, and values only), ``fused_backward_bf16``
+    and, as a control on the same residuals, ``fused_backward``: a warm-up
+    call each, then the median of three runs of 5 calls timed by CUDA
+    events; two JSON lines, the first with a SHA-1 of k's, ck's and rc's
+    bytes."""
+    import hashlib
+
+    import torch
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xt, yt, g = cs.triu_tiles(cs.smooth_paths(1024, 40, 2, gen), 4.0)[:3]
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    kf.fused_forward(xt, yt, residuals=False)
+    sha = hashlib.sha1()
+    for t in (k, ck, rc):
+        sha.update(t.cpu().numpy())
+    times = {}
+    for which, fn in (("forward", lambda: kf.fused_forward(xt, yt, residuals=True)),
+                      ("values_only", lambda: kf.fused_forward(xt, yt, residuals=False))):
+        times[which] = [cs.event_ms(fn, 5) for _ in range(3)]
+    print(json.dumps({"phase": "k4_timing", "shape": [1024, 40, 2], "pairs": xt.shape[2],
+                      "sha1_k_ck_rc": sha.hexdigest(),
+                      **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
+                      **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
+    kf.fused_backward_bf16(xt, yt, ck, rc, g)
+    kf.fused_backward(xt, yt, ck, rc, g)
+    torch.cuda.synchronize()
+    times = {}
+    for which, fn in (("k6", lambda: kf.fused_backward_bf16(xt, yt, ck, rc, g)),
+                      ("k4_backward", lambda: kf.fused_backward(xt, yt, ck, rc, g))):
+        times[which] = [cs.event_ms(fn, 5) for _ in range(3)]
+    print(json.dumps({"phase": "k6_timing", "shape": [1024, 40, 2], "pairs": xt.shape[2],
+                      **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
+                      **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
 
 
 def k5_timing(cs, tau) -> None:
@@ -176,6 +230,7 @@ def child(root: Path, n_solves: int) -> int:
     k1_timing(cs)
     cs.phase_pinned()
     k2_timing(cs)
+    k4_k6_timing(cs)
     _, tau = cs.phase_pinned_linear()
     k5_timing(cs, tau)
     del tau
@@ -183,6 +238,7 @@ def child(root: Path, n_solves: int) -> int:
     cs.phase_planning_iter()
     cs.phase_planning_run()
     cs.phase_policy()
+    cs.phase_streamed_gram()
     # last: the parent's profiler sessions slow later host dispatch
     if timing is None:
         cs.phase_k9()
@@ -218,6 +274,7 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
                 got[metric + "_samples"] = rows[phase][samples]
     for n, d in K9_SHAPES:
         got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}
+    got["k4_sha1"] = rows["k4_timing"]["sha1_k_ck_rc"]
     print(json.dumps(got), flush=True)
     return got
 
@@ -253,7 +310,11 @@ def main() -> int:
         key = f"k9_{n}x{d}"
         compare[key] = {f"{label}_{k}": statistics.median(r[key][k] for r in rs)
                         for label, rs in runs.items() for k in ("kernel_ms", "library_ms")}
-    print(json.dumps({"compare": compare, "A": str(a), "B": str(b)}), flush=True)
+    sums = {r["k4_sha1"] for rs in runs.values() for r in rs}
+    print(json.dumps({"compare": compare, "A": str(a), "B": str(b),
+                      "k4_sha1_agree": len(sums) == 1}), flush=True)
+    if len(sums) != 1:
+        raise SystemExit(f"chip_ab: the trees' K4 forwards disagree: {sorted(sums)}")
     return 0
 
 

@@ -10,9 +10,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a, one
    process per source, with the registers, spills and stack frame of each
    function of each source from ptxas (its report kept beside the library,
-   so a cached library reports too); a K1, K2, K5 or K8 function that
-   spills or is missing from the report, or a K1 or K8 function with a
-   stack frame, fails the smoke;
+   so a cached library reports too); a K1, K2, K5 or K8 function, or an
+   instantiation of K4's forward (span template × C = 1..8) or K6 (× C =
+   1..4), that spills or is missing from the report, or a K1, K8, K4
+   forward or K6 function with a stack frame, fails the smoke;
 2. K1 (the λ=0 signature-kernel Gram + adjoint; a lane group per pair)
    against its plain PyTorch twin on the card, at the flagship shape
    [1024, 40, 2], a ragged [333, 40, 2] and [40, 64, 3] (16 lanes a pair):
@@ -82,17 +83,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
    mean cost at the first and last iteration (it must fall), the success
    rate and K8's launches (500 each);
-15. K4 (the λ=3 pair-list forward and fp32 backward) against its twin at
-   the flagship upper-triangle pair list of [1024, 40, 2] (524,800 pairs:
-   the first and the last 16,384 held, the last solved by the later passes
-   of the backward's persistent threads, all of them timed), [77, 40, 2] ×
+15. K4 (the λ=3 pair-list forward, a lane group per pair, and the fp32
+   backward) against its twin at the flagship upper-triangle pair list of
+   [1024, 40, 2] (524,800 pairs: the first and the last 16,384 held, the
+   last solved by the later passes of both kernels' persistent loops, all
+   of them timed), [77, 40, 2] ×
    [64, 33, 2] random pairs, [40, 49, 3] (ly1 = 48) and [64, 17, 7]: K to atol 1e-4,
    dX and dY (the pairs' gradients summed per path) scaled against the
-   twin in fp64 to atol 4e-4; times, bound, the twin's times and the
-   residuals' memory;
-16. K6 (the bf16 delta-form backward) against its bf16 twin at [128, 40, 2],
-   [77, 41, 4] and the flagship pair list, where each persistent thread
-   takes several pair couples (rel ≤ 2e-2, cos ≥ 0.999), and against K4's
+   twin in fp64 to atol 4e-4; the forward's plan (``fused_plan``: lanes,
+   spans, runs, tiles, blocks, shared memory, traffic, sector share);
+   times, bound, the twin's times and the residuals' memory;
+16. K6 (the bf16 delta-form backward, a lane group per pair couple) against
+   its bf16 twin at [128, 40, 2], [77, 41, 4] and the flagship pair list,
+   where each persistent block takes several tiles of pair couples (rel ≤
+   2e-2, cos ≥ 0.999), with its plan, and against K4's
    backward on the same residuals (rel < 0.25, cos > 0.98); its time
    against K4's backward at the flagship pair list;
 17. the pinned solve with ``grad_precision="bf16"``, as phase 10, right after
@@ -251,8 +255,9 @@ def phase_build():
     # every K1 and K2 instantiation (span template × C = 1..3) and every K5
     # kernel (forward and backward × span template) is in the report and
     # spills nothing, and K1 keeps no stack frame (no per-cell value in local
-    # memory); K8's two kernels as K1's; the other sources' spills are
-    # reported, not gated
+    # memory); K8's two kernels, K4's forward (span template × C = 1..8) and
+    # K6 (× C = 1..4) as K1's; the other sources' spills are reported, not
+    # gated
     spills = lambda fns: any(  # noqa: E731
         r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in fns.values())
     k1 = {f: r for f, r in ptxas["sigkernel_block"].items() if "block_lanes_kernel" in f}
@@ -274,6 +279,15 @@ def phase_build():
             or any(r.get("stack_frame", 1) for r in k8.values())):
         raise AssertionError(f"K8's kernels not both reported spill-free with no "
                              f"stack frame: {k8}")
+    # K4's forward and K6 keep each pair's fine rows in registers: no spill,
+    # no stack frame at any instantiation
+    for what, tag, n_c in (("K4's forward", "fused_fwd_lanes_kernel", 8),
+                           ("K6", "fused_bwd_bf16_lanes_kernel", 4)):
+        fns = {f: r for f, r in ptxas["sigkernel_fused"].items() if tag in f}
+        if (len(fns) != n_c * len(kb.SPAN_TEMPLATES) or spills(fns)
+                or any(r.get("stack_frame", 1) for r in fns.values())):
+            raise AssertionError(f"{what}'s instantiations not all reported spill-free "
+                                 f"with no stack frame: {fns}")
     return smi
 
 
@@ -1228,7 +1242,8 @@ def phase_k4():
     triu_case("triu_64x17x7", 64, 17, 7)
     for name, shape, ix, iy, nx, ny, xt, yt, g in cases:
         P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
-        threads = kf.bwd_grid(Ly - 1, C, False, P) * kf.NT_BWD
+        threads = kf.bwd_grid(Ly - 1, C, P) * kf.NT_BWD
+        plan = kf.launch_plan(P, Lx - 1, Ly - 1, C, "forward", "cuda")
         hold = min(P, 16384)
         held = torch.arange(hold, device="cuda")
         if P > threads:
@@ -1264,18 +1279,21 @@ def phase_k4():
                "plain_tile_dx_scaled_err_vs_fp64": scaled_err(dxp, dx64),
                "k_range": [k.min().item(), k.max().item()],
                "residual_mib": kf.residual_bytes(P, Lx - 1, Ly - 1) / 2**20,
-               "forward_peak_mib": fwd_peak_mib, "finite": finite}
+               "forward_peak_mib": fwd_peak_mib, "finite": finite,
+               "plan": plan.report()}
         del dx64, dy64, dxp, dyp
         if name == "flagship_triu":
-            if P <= threads:
-                raise AssertionError(f"K4's backward took {P} pairs on {threads} threads: "
-                                     "its loop's later passes went unchecked")
+            if P <= threads or plan.tiles <= plan.blocks:
+                raise AssertionError(f"K4 took {P} pairs on {threads} backward threads and "
+                                     f"{plan.tiles} forward tiles on {plan.blocks} blocks: "
+                                     "its loops' later passes went unchecked")
             row["fwd_ms"] = event_ms(lambda: kf.fused_forward(xt, yt, residuals=True), 3)
             row["bwd_ms"] = event_ms(lambda: kf.fused_backward(xt, yt, ck, rc, g), 3)
             row["values_only_fwd_ms"] = event_ms(
                 lambda: kf.fused_forward(xt, yt, residuals=False), 3)
-            row["blocks"] = {"backward": kf.bwd_grid(Ly - 1, C, False, P),
-                             "bf16": kf.bwd_grid(Ly - 1, C, True, P)}
+            row["blocks"] = {"forward": plan.blocks, "backward": kf.bwd_grid(Ly - 1, C, P),
+                             "bf16": kf.launch_plan(P, Lx - 1, Ly - 1, C, "bf16",
+                                                    "cuda").blocks}
             row["plain_fwd_ms"] = event_ms(lambda: twin_in_chunks(
                 lambda a, b, c: kf.fused_forward_plain(a, b, False), xt, yt, g, 16384), 1)
             row["plain_bwd_ms"] = event_ms(lambda: twin_in_chunks(
@@ -1294,8 +1312,8 @@ def phase_k4():
 def phase_k6(k4):
     """K6 against its bf16 twin and against K4's backward on the same
     residuals, at two small lists and at the flagship pair list, where each
-    persistent thread takes several pair couples (asserted); its time
-    against K4's backward there."""
+    persistent block takes several tiles of pair couples (asserted); each
+    row with K6's plan; its time against K4's backward there."""
     from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1315,7 +1333,9 @@ def phase_k6(k4):
         twin_rel32, twin_cos32 = rel_cos(torch.cat([dxp.flatten(), dyp.flatten()]),
                                          torch.cat([dx32.flatten(), dy32.flatten()]))
         finite = bool(torch.isfinite(dx).all() and torch.isfinite(dy).all())
+        plan = kf.launch_plan(xt.shape[2], L - 1, L - 1, C, "bf16", "cuda")
         row = {"phase": "k6_vs_plain", "shape": [n, L, C], "pairs": xt.shape[2], "h": h,
+               "plan": plan.report(),
                "rel_vs_twin": rel, "cos_vs_twin": cos,
                "max_abs_err_vs_twin": (got - torch.cat([dxp.flatten(), dyp.flatten()])
                                        ).abs().max().item(),
@@ -1330,10 +1350,10 @@ def phase_k6(k4):
 
     xt, yt, g, ck, rc = k4["tiles"]
     P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
-    threads = kf.bwd_grid(Ly - 1, C, True, P) * kf.NT_BWD
-    if (P + 1) // 2 <= threads:
-        raise AssertionError(f"K6 took {(P + 1) // 2} pair couples on {threads} threads: "
-                             "its loop's later passes went unchecked")
+    plan = kf.launch_plan(P, Lx - 1, Ly - 1, C, "bf16", "cuda")
+    if plan.tiles <= plan.blocks:
+        raise AssertionError(f"K6 took {plan.tiles} tiles of pair couples on {plan.blocks} "
+                             "blocks: its loop's later passes went unchecked")
     dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, g)
     got = torch.cat([dx.flatten(), dy.flatten()])
     del dx, dy
@@ -1352,7 +1372,8 @@ def phase_k6(k4):
     t_ops = fp32 / PEAK_FP32_FLOPS + bf16 / PEAK_BF16_SIMT_FLOPS
     t_bytes = kf.fused_bytes(P, Lx, Ly, C, "bf16") / PEAK_BYTES
     row = {"phase": "k6_vs_plain", "case": "flagship_triu", "shape": [1024, 40, 2],
-           "pairs": P, "threads": threads, "rel_vs_twin": rel, "cos_vs_twin": cos,
+           "pairs": P, "plan": plan.report(), "rel_vs_twin": rel,
+           "cos_vs_twin": cos,
            "max_abs_err": (got - twin).abs().max().item(),
            "rel_vs_fp32": rel32, "cos_vs_fp32": cos32,
            "k6_ms": event_ms(lambda: kf.fused_backward_bf16(xt, yt, ck, rc, g), 3),
@@ -1403,7 +1424,7 @@ def phase_streamed_gram():
     launches = {c.__name__: c.launches for c in counters}
     _, chunk, nb = kern._chunk_plan(39, 39, 1024 * 1024, 2, X.device, h)
 
-    threads = kf.bwd_grid(39, 2, False, chunk) * kf.NT_BWD
+    threads = kf.bwd_grid(39, 2, chunk) * kf.NT_BWD
     if chunk <= threads:
         raise AssertionError(f"streamed_gram: {chunk} pairs a chunk on {threads} threads")
     rows = torch.cat([torch.arange(64), torch.arange(960, 1024)]).cuda()

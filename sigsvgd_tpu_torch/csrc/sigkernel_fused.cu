@@ -9,51 +9,76 @@
 // dyadic-order-3 Goursat-PDE signature kernel with static kernel
 // exp(-|x_a - y_b|^2) on the 8(Lx-1) × 8(Ly-1) fine grid; the backward gives
 // the gradients of Σ_p gout[p]·k[p] with respect to both tiles. All arrays
-// are pair-minor ([L][C][P], [nslots][G1][P], [lx1][8][P]) so a warp's
-// accesses coalesce.
+// are pair-minor ([L][C][P], [nslots][G1][P], [lx1][8][P]).
 //
 // What bounds it on an H100. Every pair sweeps G² = (8·39)² ≈ 97k fine cells
 // at the flagship shape (4 fp32 operations each forward, 14 in the fp32
 // backward, 12 bf16 in the bf16 one): 2.1e11 operations forward over the
 // 524,800 pairs of 1024 paths, against ~5.6 GB of residuals, so the bound is
-// the operations (3.2 ms forward at 67 TFLOP/s). A pair's fine row (8·ly1+1
-// values) fits neither a thread's registers nor, for enough threads, shared
-// memory, so the rows stream through device memory. The design, K2's
-// (csrc/sigkernel_block3.cu) on a pair list:
-//   * one thread per pair; the paths are read from device memory (a pair
-//     list shares no path tile between threads), the static node g on the
-//     fly, two exp per coarse cell per band, z, A, B once per coarse cell;
-//   * forward: bands of 8 fine rows whose carries stay in registers while
-//     the sweep walks the fine columns; the fine row lives in the pair's own
-//     checkpoint slot, so the checkpoints (every bpc = min(6, lx1) bands and
-//     the last) cost no copy, and the right edge of every row is written as
-//     the bf16 backward's anchor. Without residuals one slot is the working
-//     row. Bands stream, so lx1 is unbounded;
+// the operations (3.3 ms forward at 67 TFLOP/s, 5.3 ms for K6's bf16x2 at
+// 134). A pair's fine row (8·ly1+1 values) fits neither one thread's
+// registers nor, for enough threads, shared memory. The forward and K6
+// spread it over the registers of a group of lanes, the design of K2 and K5
+// (csrc/sigkernel_block3.cu, csrc/sigkernel_tiled.cu):
+//   * a lane group per pair (forward) or per pair couple (K6): g lanes (a
+//     power of two, the fewest that leave a lane at most 5 coarse columns:
+//     8 at ly1 = 39-40, 16 at 48, 1 up to 5) split the ly1 coarse columns
+//     into spans [t·ly1/g, (t+1)·ly1/g); a block (4 warps) takes a tile of
+//     runs × 128/g pairs (couples), the groups of a warp on adjacent pairs
+//     (adjoining couples), and each group walks its run band by band as one
+//     pipeline, so lanes idle only at the run's ends. The blocks are
+//     persistent over the tiles (kernels/sigkernel_fused.py::fused_plan
+//     sizes the runs, tiles and blocks);
+//   * forward (K5's pipeline, the statics formed in the kernel): at step k
+//     lane t sweeps band k - t of its run over its span, its fine row in
+//     registers, and hands its 8 right-edge values and the corner to lane
+//     t+1 by __shfl_up_sync. Each lane keeps its span's y points in shared
+//     memory (loaded once a pair) and the band's lower static row in
+//     registers: the upper row takes one exp a node and becomes the next
+//     band's lower row; z, A, B once per coarse cell. At the checkpoint
+//     bands (every bpc = min(6, lx1)-th band and the last) each lane writes
+//     its span of the band's top row into ck (lane 0 also column 0), and
+//     the last lane writes the band's right edge into rc; values only,
+//     nothing but k is written;
 //   * fp32 backward (K4): per checkpoint segment, top down, the segment's
 //     band tops and right edges are recomputed from the checkpoint below it
 //     into per-thread scratch (bit-identical to the forward), then K2's band
 //     backward runs on them: three chains per fine column in registers
 //     (adjoint of the band's 8 rows, the primal of the column to the left
 //     rebuilt toward -j and re-anchored at every band's top row and every
-//     row's right edge, the dz sums), the adjoint row handed down in scratch;
-//   * bf16 backward (K6): the band's 8 rows advance together column by
-//     column right to left, each row carrying its ρ and σ chains and its
-//     previous column's outputs in registers, so that only the band's top
-//     and bottom rows pass through memory (bf16 scratch). It re-anchors
-//     where the JAX kernel does: the checkpoint rows (rounded to bf16) and
-//     every row's fp32 right edge. Two pairs per thread, packed in bf16x2
-//     registers (add.rn/sub.rn/mul.rn.bf16x2: one rounding per half and
-//     operation, never fused, as the scalar twin rounds), which Hopper's
-//     CUDA cores issue at twice the fp32 rate; C ≤ 4, JAX's bf16 envelope;
-//   * both backwards pull dz back through the statics per coarse column:
-//     the row-path gradient in registers; the column-path gradient in a
-//     per-thread shared-memory slot written out once per pair (K6: two
-//     slots, 41 KB a block at the flagship shape, which caps it at five
-//     resident blocks per SM; accumulating in the output instead gave six
-//     blocks but took 4% longer on the H100). No atomics.
-// The backwards are persistent (as many blocks as are resident) and size
-// their scratch by the resident threads. Speed work (K6's rows staggered by
-// a column, wider bands, shared y tiles) comes later.
+//     row's right edge, the dz sums), the adjoint row handed down in scratch.
+//     One thread a pair, persistent;
+//   * bf16 backward (K6): the three delta chains (ρ, σ, the dz sum) all run
+//     right to left and top down, so one pipeline right to left over the
+//     group's units (couple, band), bands top down, serves them: lane g-1
+//     takes unit k at step k, lane t unit k - (g-1-t). A register holds one
+//     bf16 value of each pair of the couple (add.rn/sub.rn/mul.rn.bf16x2:
+//     one rounding per half and operation, never fused, as the scalar twin
+//     rounds; Hopper issues them at twice the fp32 rate), and each lane
+//     owns its span of the band's top-row primal kb, of the adjoint row gb
+//     and of the band above's z/2, carried in registers from one band of
+//     its couple to the next. At its span's left edge it hands lane t-1
+//     (__shfl_down_sync) the 8 rows' ρ, σ and previous-column outputs, row
+//     0's inputs there, the z/2 of the cell to its right, the pull-back's
+//     per-pair state and the row-path sums. It re-anchors where the JAX
+//     kernel does: at checkpoint bands each lane replaces its span of kb by
+//     the bf16-rounded checkpoint row, copied a step ahead by cp.async with
+//     the band's x points (the lanes reach such a band at different steps,
+//     so a load at the unit's start would hold up the warp); lane g-1
+//     re-anchors every row at its fp32 right edge. C ≤ 4, JAX's bf16
+//     envelope;
+//   * both backwards pull dz back through the statics per coarse column, a
+//     lane through its own cells: the column-path gradient of the node
+//     columns it owns (inside and at the right edge of its span, lane 0
+//     also column 0) in its shared-memory slots, written once a pair; the
+//     row-path sums in registers (K6: handed on with the pipeline, lane 0
+//     writes the band's upper row). No atomics; dx and dy are
+//     deterministic.
+// Neither the forward nor K6 sends a fine row, an adjoint row or a scratch
+// row through device memory: the paths, k, the residuals and the gradients
+// are their only traffic. Each node keeps the twin's rounding (the
+// forward's product by A fused into its subtraction; K6's bf16 order), so k
+// and the residuals are the twin's on the card up to the exp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +86,10 @@
 
 namespace {
 
-constexpr int M = 8;  // fine cells per coarse cell side (2^λ)
-constexpr int NT_FWD = 128;
+constexpr int M = 8;      // fine cells per coarse cell side (2^λ)
+constexpr int NT = 128;   // threads per forward / K6 block
 constexpr int NT_BWD = 64;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float ZS = 1.0f / 64.0f;
 constexpr float I6 = 1.0f / 6.0f;
 constexpr float I12 = 1.0f / 12.0f;
@@ -99,6 +125,165 @@ __device__ __forceinline__ Coef coef(float gu1, float gu0, float gd1, float gd0)
   k.A = __fadd_rn(__fadd_rn(1.f, __fmul_rn(0.5f, k.z)), __fmul_rn(zz, I12));
   k.B = __fsub_rn(1.f, __fmul_rn(zz, I12));
   return k;
+}
+
+// A lane's place in its group: position t, the group's index in the block,
+// and its span of coarse columns [c0, c0 + nspan).
+struct Lanes {
+  int t, gi, c0, nspan;
+};
+
+__device__ __forceinline__ Lanes lanes(int g, int ly1) {
+  Lanes L;
+  const int tid = threadIdx.x;
+  L.t = (tid & 31) & (g - 1);
+  L.gi = tid / g;
+  L.c0 = (L.t * ly1) / g;
+  L.nspan = ((L.t + 1) * ly1) / g - L.c0;
+  return L;
+}
+
+// Bands whose top row is a checkpoint: every bpc-th and the last.
+__device__ __forceinline__ bool ck_band(int b, int lx1, int bpc) {
+  return (b + 1) % bpc == 0 || b == lx1 - 1;
+}
+
+// ---- K4 forward ---------------------------------------------------------------
+// Shared memory: per thread the y points of its span, [(SPAN+1)·C][NT].
+__host__ __device__ inline size_t fwd_smem_floats(int span, int C) {
+  return (size_t)(span + 1) * C * NT;
+}
+
+template <int SPAN, int C>
+__global__ void __launch_bounds__(NT, C <= 4 ? 4 : 3)
+fused_fwd_lanes_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
+                 float* __restrict__ kout, float* __restrict__ ck, float* __restrict__ rc,
+                 int P_, int lx1, int ly1, int g, int bpc, int runs, int tiles) {
+  extern __shared__ float smem[];
+  const size_t P = P_;
+  const Lanes L = lanes(g, ly1);
+  const int t = L.t, nspan = L.nspan, c0 = L.c0;
+  const int NG = NT / g;
+  const int U = runs * lx1, steps = U + g - 1;
+  const size_t G1 = (size_t)M * ly1 + 1;
+  float* ys = smem + threadIdx.x;  // [(SPAN+1)·C][NT]
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t pbase = (size_t)tile * runs * NG + L.gi;
+    float row[M * SPAN];  // the span's node row below the band, then its top
+    float gd[SPAN + 1];   // the band's lower static row at node columns c0..
+    float left[M], corner[M], inL[M], inC = 1.f, edge = 1.f, xn[C];
+#pragma unroll
+    for (int s = 0; s < M; ++s) left[s] = corner[s] = inL[s] = 1.f;
+#pragma unroll
+    for (int i = 0; i < M * SPAN; ++i) row[i] = 1.f;
+#pragma unroll
+    for (int q = 0; q <= SPAN; ++q) gd[q] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) xn[c] = 0.f;
+    // unit u of the run: pair pbase + (u / lx1)·NG, band u % lx1 (bottom up);
+    // x row b+1 of a unit is loaded a step ahead
+    auto prefetch = [&](int u) {
+      if (u < 0 || u >= U) return;
+      const int r = u / lx1;
+      const size_t p = pbase + (size_t)r * NG;
+      if (p < P) load_pt<C>(xt, u - r * lx1 + 1, P, p, xn);
+    };
+    prefetch(-t);
+    for (int k = 0; k < steps; ++k) {
+      const int u = k - t;
+      float xu[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) xu[c] = xn[c];
+      prefetch(u + 1);
+      if (u >= 0 && u < U) {
+        const int r = u / lx1, b = u - r * lx1;
+        const size_t p = pbase + (size_t)r * NG;
+        if (p < P) {
+          if (b == 0) {  // a pair's start: its y points and static row 0
+            float xd[C];
+            load_pt<C>(xt, 0, P, p, xd);
+#pragma unroll
+            for (int i = 0; i < M * SPAN; ++i) row[i] = 1.f;
+            edge = 1.f;
+#pragma unroll
+            for (int q = 0; q <= SPAN; ++q) {
+              if (q <= nspan) {
+                float yq[C];
+#pragma unroll
+                for (int c = 0; c < C; ++c) {
+                  yq[c] = yt[((size_t)(c0 + q) * C + c) * P + p];
+                  ys[(q * C + c) * NT] = yq[c];
+                }
+                gd[q] = gval<C>(xd, yq);
+              }
+            }
+          }
+          // the carries at node column 8c0, from lane t-1 (1 on the boundary)
+#pragma unroll
+          for (int s = 0; s < M; ++s) {
+            corner[s] = t == 0 ? 1.f : (s == 0 ? inC : inL[s - 1]);
+            left[s] = t == 0 ? 1.f : inL[s];
+          }
+          const bool keep = ck != nullptr && ck_band(b, lx1, bpc);
+          float* dst = keep ? ck + (size_t)(b / bpc) * G1 * P + p : nullptr;
+          if (keep && t == 0) dst[0] = 1.f;  // node column 0
+          float gu0;
+          {
+            float yq[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) yq[c] = ys[c * NT];
+            gu0 = gval<C>(xu, yq);
+          }
+#pragma unroll
+          for (int kk = 0; kk < SPAN; ++kk) {
+            if (kk < nspan) {
+              float yq[C];
+#pragma unroll
+              for (int c = 0; c < C; ++c) yq[c] = ys[((kk + 1) * C + c) * NT];
+              const float gu1 = gval<C>(xu, yq);
+              const Coef q = coef(gu1, gu0, gd[kk + 1], gd[kk]);
+              // the upper static row becomes the next band's lower row
+              gd[kk] = gu0;
+              if (kk + 1 == nspan) gd[kk + 1] = gu1;
+              gu0 = gu1;
+#pragma unroll
+              for (int tt = 0; tt < M; ++tt) {
+                float up = row[kk * M + tt];
+#pragma unroll
+                for (int s = 0; s < M; ++s) {
+                  const float kn =
+                      __fmaf_rn(__fadd_rn(left[s], up), q.A, -__fmul_rn(corner[s], q.B));
+                  corner[s] = up;
+                  left[s] = kn;
+                  up = kn;
+                }
+                row[kk * M + tt] = up;
+              }
+              if (keep) {  // the band's top row at node columns 8cj+1 .. 8cj+8
+#pragma unroll
+                for (int tt = 0; tt < M; ++tt)
+                  dst[(size_t)(1 + M * (c0 + kk) + tt) * P] = row[kk * M + tt];
+              }
+            }
+          }
+          if (t == g - 1) {  // the right edge: rc[b, s] = k[8b+s][G]
+            if (rc != nullptr) {
+              float* e = rc + (size_t)b * M * P + p;
+              e[0] = edge;
+#pragma unroll
+              for (int s = 1; s < M; ++s) e[s * P] = left[s - 1];
+            }
+            edge = left[M - 1];
+            if (b == lx1 - 1) kout[p] = left[M - 1];
+          }
+        }
+      }
+      inC = __shfl_up_sync(FULL, corner[0], 1, g);
+#pragma unroll
+      for (int s = 0; s < M; ++s) inL[s] = __shfl_up_sync(FULL, left[s], 1, g);
+    }
+  }
 }
 
 // Advance one band (x rows xd = b, xu = b+1) over the fine row: node row 8b
@@ -140,39 +325,6 @@ __device__ __forceinline__ void band_forward(const float (&xd)[C], const float (
     gd0 = gd1;
     gu0 = gu1;
   }
-}
-
-template <int C>
-__global__ void __launch_bounds__(NT_FWD)
-fused_fwd_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
-                 float* __restrict__ kout, float* ck, float* __restrict__ rc, int P_,
-                 int Lx, int Ly, int bpc) {
-  const size_t P = P_;
-  const size_t p = (size_t)blockIdx.x * NT_FWD + threadIdx.x;
-  if (p >= P) return;
-  const int lx1 = Lx - 1, ly1 = Ly - 1;
-  const size_t G1 = (size_t)M * ly1 + 1;
-  float xd[C], xu[C], left[M];
-  load_pt<C>(xt, 0, P, p, xd);
-  float edge = 1.f;  // k[8b][G]
-  for (int b = 0; b < lx1; ++b) {
-    load_pt<C>(xt, b + 1, P, p, xu);
-    float* slot = ck + (size_t)(b / bpc) * G1 * P + p;
-    const bool first = b % bpc == 0;
-    if (first) slot[0] = 1.f;  // node column 0
-    const float* below = b == 0 ? nullptr : (first ? slot - G1 * P : slot) + P;
-    band_forward<C>(xd, xu, yt, P, p, ly1, below, P, slot + P, P, left);
-    if (rc) {
-      float* r = rc + (size_t)b * M * P + p;
-      r[0] = edge;
-#pragma unroll
-      for (int s = 1; s < M; ++s) r[s * P] = left[s - 1];
-    }
-    edge = left[M - 1];
-#pragma unroll
-    for (int c = 0; c < C; ++c) xd[c] = xu[c];
-  }
-  kout[p] = edge;
 }
 
 // Pull one adjoint increment E back through static column q of the band's
@@ -365,9 +517,9 @@ fused_bwd_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
   }
 }
 
-// ---- K6: bf16 delta-form backward, two pairs per thread ----------------------
-// A register holds one bf16 value of each of the thread's two pairs (low
-// half: pair a, high half: pair b); add.rn/sub.rn/mul.rn.bf16x2 round each
+// ---- K6: bf16 delta-form backward, a lane group per pair couple ------------
+// A register holds one bf16 value of each of the couple's pairs (low half:
+// pair 2q, high half: pair 2q+1); add.rn/sub.rn/mul.rn.bf16x2 round each
 // half once, as the scalar twin does.
 __device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
   unsigned r;
@@ -397,210 +549,372 @@ __device__ __forceinline__ float half2f(unsigned u, int i) {
   return __uint_as_float(i == 0 ? u << 16 : u & 0xffff0000u);
 }
 
-template <int C>
-__global__ void __launch_bounds__(NT_BWD)
-fused_bwd_bf16_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory of a K6 block in floats, per thread (thread-minor, [i][NT]):
+// the y points of its span and their column-path gradients, [(SPAN+1)·C·2]
+// each (node, channel, pair); the stage the next unit's inputs are copied
+// into: its anchor row [8·SPAN][2], the checkpoint's node column G [2] and
+// the right edges rc[b] [8][2] (lane g-1), x rows b+1 and b [2][C][2].
+__host__ __device__ inline int bf16_thread_floats(int span, int C) {
+  return 4 * (span + 1) * C + 16 * span + 2 + 16 + 4 * C;
+}
+
+template <int SPAN, int C>
+__global__ void __launch_bounds__(NT, 2)
+fused_bwd_bf16_lanes_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
                       const float* __restrict__ ck, const float* __restrict__ rc,
                       const float* __restrict__ gout, float* __restrict__ dxt,
-                      float* __restrict__ dyt, unsigned* scratch, int P_, int Lx, int Ly,
-                      int bpc) {
-  extern __shared__ float dys[];  // [2][Ly][C][NT_BWD] column-path gradients
+                      float* __restrict__ dyt, int P_, int lx1, int ly1, int g, int bpc,
+                      int runs, int tiles) {
+  extern __shared__ float smem[];
+  constexpr int YN = (SPAN + 1) * C * 2;
   const size_t P = P_;
-  const size_t Q = (P + 1) / 2;   // pair couples (2q, 2q+1)
-  const int tid = threadIdx.x;
-  const size_t T = (size_t)gridDim.x * NT_BWD;
-  const size_t t = (size_t)blockIdx.x * NT_BWD + tid;
-  const int lx1 = Lx - 1, ly1 = Ly - 1, G = M * ly1;
+  const size_t Q = (P + 1) / 2;  // pair couples (2q, 2q+1)
+  const Lanes L = lanes(g, ly1);
+  const int t = L.t, nspan = L.nspan, c0 = L.c0;
+  const bool last = t == g - 1;
+  const int NG = NT / g;
+  const int U = runs * lx1, steps = U + g - 1;
+  const int G = M * ly1;
   const size_t G1 = (size_t)G + 1;
-  // per-thread bf16x2 scratch, thread-minor: kb [G+1] (primal of the band's
-  // top row, then of its bottom row), gb [G+2] (adjoint of the row above the
-  // band, nodes 0..G+1; node G+1 stays 0), zhu [ly1] (z/2 of the band above)
-  unsigned* kb = scratch + t;
-  unsigned* gb = kb + G1 * T;
-  unsigned* zhu = gb + (G1 + 1) * T;
+  float* ys = smem + threadIdx.x;      // [(SPAN+1)][C][2]
+  float* dys = ys + YN * NT;           // [(SPAN+1)][C][2]
+  float* stk = dys + YN * NT;          // [8·SPAN][2]
+  float* stg = stk + 16 * SPAN * NT;   // [2]
+  float* str = stg + 2 * NT;           // [8][2]
+  float* stx = str + 16 * NT;          // [2][C][2]
 
-  for (size_t q = t; q < Q; q += T) {
-    const bool has_b = 2 * q + 1 < P;
-    const size_t pp[2] = {2 * q, has_b ? 2 * q + 1 : 2 * q};
-    const unsigned seed = pack2(gout[pp[0]], has_b ? gout[pp[1]] : 0.f);
-    float* dyq[2] = {dys + tid, dys + (size_t)Ly * C * NT_BWD + tid};
-    float carry[2][C];
-    start_pair<C>(dyq[0], NT_BWD, Ly, carry[0]);
-    start_pair<C>(dyq[1], NT_BWD, Ly, carry[1]);
-    for (int j = 0; j <= G + 1; ++j) gb[(size_t)j * T] = 0u;
-    for (int c = 0; c < ly1; ++c) zhu[(size_t)c * T] = 0u;
+#pragma unroll
+  for (int i = 0; i < YN; ++i) dys[i * NT] = 0.f;
+  // the lane's own rows (bf16x2, one half a pair): the band's top-row primal
+  // kb[8c0 + i] (then its bottom row), the adjoint row gb[8c0 + 1 + i], the
+  // band above's z/2 zhu[c0 + i]; lane g-1 also k[8b+8][G]
+  unsigned kb[M * SPAN], gb[M * SPAN], zhu[SPAN], kbG = 0u;
+#pragma unroll
+  for (int i = 0; i < M * SPAN; ++i) kb[i] = gb[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < SPAN; ++i) zhu[i] = 0u;
+  // the pipeline's state, handed to lane t-1 at the span's left edge: per row
+  // r (node row i = 8b+8-r) ρ, σ and the row's outputs at the previous
+  // column, k[i-1][j+1] and ĝ[i][j+2]; row 0's inputs k[8b+8][j+1],
+  // ĝ[8b+9][j+2]; z/2 of the cell to the right; per pair the dz, statics and
+  // row-path sums of the pull-back
+  unsigned rho[M], sig[M], pK[M], pG[M], k0r = 0u, g0r = 0u, zh_r = 0u;
+  float dz_r[2], gu_r[2], gd_r[2], swu[2], swd[2], sxu[2][C], sxd[2][C], carry[2][C];
+#pragma unroll
+  for (int r = 0; r < M; ++r) rho[r] = sig[r] = pK[r] = pG[r] = 0u;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dz_r[i] = gu_r[i] = gd_r[i] = swu[i] = swd[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) sxu[i][c] = sxd[i][c] = carry[i][c] = 0.f;
+  }
 
-    for (int b = lx1 - 1; b >= 0; --b) {
-      const bool anchored = (b + 1) % bpc == 0 || b == lx1 - 1;
-      const float* ckrow = ck + (size_t)(b / bpc) * G1 * P;  // node row 8b+8
-      const bool topband = b == lx1 - 1;
-      // per row r (node row i = 8b+8-r): ρ, σ, and the row's outputs at the
-      // previous (right) column, k[i-1][j+1] and ĝ[i][j+2]
-      unsigned kr0[M], rho[M], sig[M], pK[M], pG[M], s1[M];
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        const float* e = rc + ((size_t)b * M + (M - 1 - r)) * P;
-        kr0[r] = pack2(e[pp[0]], e[pp[1]]);
-      }
-      unsigned k0r = anchored ? pack2(ckrow[(size_t)G * P + pp[0]], ckrow[(size_t)G * P + pp[1]])
-                              : kb[(size_t)G * T];
-      unsigned g0r = 0u;  // ĝ of the row above at node G+1
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        sig[r] = sub2(kr0[r], r == 0 ? k0r : kr0[r > 0 ? r - 1 : 0]);
-        rho[r] = 0u;
-        pK[r] = kr0[r];
-        pG[r] = 0u;
-      }
-      float xu[2][C], xd[2][C], sxu[2][C], sxd[2][C], yr[2][C], yl[2][C];
-      float swu[2], swd[2], gu_r[2], gd_r[2], dz_r[2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t qbase = (size_t)tile * runs * NG + L.gi;
+    // unit u of the run: couple qbase + (u / lx1)·NG, band lx1-1 - u % lx1.
+    // Copy its inputs into the stage asynchronously (cp.async); the thread's
+    // own earlier reads of the stage are emitted before the copies (a
+    // compiler barrier: the copy instructions do not tell the compiler that
+    // they write shared memory).
+    auto fetch = [&](int u) {
+      asm volatile("" ::: "memory");
+      if (u < 0 || u >= U) return;
+      const int r = u / lx1, b = lx1 - 1 - (u - r * lx1);
+      const size_t q = qbase + (size_t)r * NG;
+      if (q >= Q) return;
+      const size_t pp[2] = {2 * q, 2 * q + 1 < P ? 2 * q + 1 : 2 * q};
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        load_pt<C>(xt, b + 1, P, pp[i], xu[i]);
-        load_pt<C>(xt, b, P, pp[i], xd[i]);
-        load_pt<C>(yt, ly1, P, pp[i], yr[i]);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          sxu[i][c] = 0.f;
-          sxd[i][c] = 0.f;
+          cp_async4(stx + (c * 2 + i) * NT, xt + ((size_t)(b + 1) * C + c) * P + pp[i]);
+          cp_async4(stx + ((C + c) * 2 + i) * NT, xt + ((size_t)b * C + c) * P + pp[i]);
         }
-        swu[i] = swd[i] = dz_r[i] = 0.f;
-        gu_r[i] = gval<C>(xu[i], yr[i]);
-        gd_r[i] = gval<C>(xd[i], yr[i]);
       }
-      unsigned zh_r = 0u;
-      for (int cc = ly1 - 1; cc >= 0; --cc) {
-        float gu_l[2], gd_l[2], zf[2];
+      if (ck_band(b, lx1, bpc)) {
+        const float* row = ck + (size_t)(b / bpc) * G1 * P;
+#pragma unroll
+        for (int j = 0; j < M * SPAN; ++j) {
+          if (j < M * nspan) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              cp_async4(stk + (2 * j + i) * NT, row + (size_t)(M * c0 + j) * P + pp[i]);
+          }
+        }
+        if (last) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) cp_async4(stg + i * NT, row + (size_t)G * P + pp[i]);
+        }
+      }
+      if (last) {
+#pragma unroll
+        for (int s = 0; s < M; ++s) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            cp_async4(str + (2 * s + i) * NT, rc + ((size_t)b * M + s) * P + pp[i]);
+        }
+      }
+    };
+    fetch(-(g - 1 - t));
+    cp_async_commit();
+
+    for (int k = 0; k < steps; ++k) {
+      cp_async_wait_all();
+      const int u = k - (g - 1 - t);
+      int b = 0;
+      size_t q = 0;
+      bool mine = false;
+      if (u >= 0 && u < U) {
+        const int r = u / lx1;
+        b = lx1 - 1 - (u - r * lx1);
+        q = qbase + (size_t)r * NG;
+        mine = q < Q;
+      }
+      const bool has_b = 2 * q + 1 < P;
+      const size_t pp[2] = {2 * q, has_b ? 2 * q + 1 : 2 * q};
+      const bool topband = b == lx1 - 1;
+      float xu[2][C], xd[2][C];
+      unsigned seed = 0u;
+      if (mine) {  // the unit's inputs, from the stage
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          load_pt<C>(yt, cc, P, pp[i], yl[i]);
-          gu_l[i] = gval<C>(xu[i], yl[i]);
-          gd_l[i] = gval<C>(xd[i], yl[i]);
-          zf[i] = __fmul_rn(coef(gu_r[i], gu_l[i], gd_r[i], gd_l[i]).z, 0.5f);
-        }
-        const unsigned zc = pack2(zf[0], zf[1]);
-        const unsigned zr = cc == ly1 - 1 ? zc : zh_r;  // z/2 of cell min(cc+1, ly1-1)
-        unsigned* zslot = zhu + (size_t)cc * T;
-        const unsigned zu = *zslot;  // the band above's (0 at the top band)
-        *zslot = zc;
 #pragma unroll
-        for (int tt = M - 1; tt >= 0; --tt) {
-          const int jn = cc * M + tt;  // node column of the rebuilt primal
-          // row 0's inputs: k[8b+8][jn], ĝ[8b+9][jn+1] and, from the
-          // previous column, k[8b+8][jn+1], ĝ[8b+9][jn+2]
-          unsigned kin = anchored ? pack2(ckrow[(size_t)jn * P + pp[0]],
-                                          ckrow[(size_t)jn * P + pp[1]])
-                                  : kb[(size_t)jn * T];
-          unsigned gin = gb[(size_t)(jn + 1) * T];
-          unsigned kin_r = k0r, gin_r = g0r;
-          k0r = kin;
-          g0r = gin;
-          const unsigned z1 = tt == M - 1 ? zr : zc;
+          for (int c = 0; c < C; ++c) {
+            xu[i][c] = stx[(c * 2 + i) * NT];
+            xd[i][c] = stx[((C + c) * 2 + i) * NT];
+          }
+        }
+        const bool anchored = ck_band(b, lx1, bpc);
+        if (anchored) {  // the lane's span of the bf16-rounded checkpoint row
+#pragma unroll
+          for (int j = 0; j < M * SPAN; ++j)
+            if (j < M * nspan) kb[j] = pack2(stk[2 * j * NT], stk[(2 * j + 1) * NT]);
+        }
+        if (topband) {  // a couple's first unit: the y points of the span
+#pragma unroll
+          for (int s = 0; s <= SPAN; ++s) {
+            if (s <= nspan) {
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                  ys[((s * C + c) * 2 + i) * NT] = yt[((size_t)(c0 + s) * C + c) * P + pp[i]];
+              }
+            }
+          }
+          if (last) seed = pack2(gout[pp[0]], has_b ? gout[pp[1]] : 0.f);
+        }
+        if (last) {  // the pipeline's start at the fp32 right edge
+          unsigned kr0[M];  // k[8b+7-r][G]
+#pragma unroll
+          for (int r = 0; r < M; ++r)
+            kr0[r] = pack2(str[2 * (M - 1 - r) * NT], str[(2 * (M - 1 - r) + 1) * NT]);
+          k0r = anchored ? pack2(stg[0], stg[NT]) : kbG;
+          g0r = 0u;  // ĝ of the row above at node G+1
 #pragma unroll
           for (int r = 0; r < M; ++r) {
-            // adjoint delta ρ[j] = ρ[j+1] + z1·ĝ[i+1][j+1] + zu·ĝ[i+1][j]
-            rho[r] = add2(add2(rho[r], mul2(z1, gin_r)), mul2(r == 0 ? zu : zc, gin));
-            if (r == 0 && topband && jn == G - 1) rho[r] = add2(rho[r], seed);
-            const unsigned g = add2(gin, rho[r]);
-            // primal delta and the dz term (m1 takes the incoming σ)
-            const unsigned s = add2(kin, kin_r);
-            const unsigned m1 = add2(s, sig[r]);
-            s1[r] = tt == M - 1 ? mul2(g, m1) : add2(s1[r], mul2(g, m1));
-            sig[r] = add2(sig[r], mul2(zc, s));
-            if (jn == 0) sig[r] = 0u;  // the left boundary is one
-            const unsigned kus = add2(kin, sig[r]);
-            // row r+1's inputs
-            kin_r = pK[r];
-            gin_r = pG[r];
-            pK[r] = kus;
-            pG[r] = g;
-            kin = kus;
-            gin = g;
+            sig[r] = sub2(kr0[r], r == 0 ? k0r : kr0[r > 0 ? r - 1 : 0]);
+            rho[r] = 0u;
+            pK[r] = kr0[r];
+            pG[r] = 0u;
           }
-          kb[(size_t)jn * T] = kin;        // k[8b][jn]
-          gb[(size_t)(jn + 1) * T] = gin;  // ĝ[8b+1][jn+1]
+          kbG = kr0[M - 1];  // k[8b][G], the next band's top edge
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float yr[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) yr[c] = ys[((nspan * C + c) * 2 + i) * NT];
+            gu_r[i] = gval<C>(xu[i], yr);
+            gd_r[i] = gval<C>(xd[i], yr);
+            dz_r[i] = swu[i] = swd[i] = 0.f;
+#pragma unroll
+            for (int c = 0; c < C; ++c) sxu[i][c] = sxd[i][c] = 0.f;
+          }
         }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float dz = __fmul_rn(half2f(s1[0], i), 0.5f);
-#pragma unroll
-          for (int r = 1; r < M; ++r) dz = __fadd_rn(dz, __fmul_rn(half2f(s1[r], i), 0.5f));
-          if (i == 0 || has_b)
-            pull_back<C>(__fmul_rn(__fsub_rn(dz, dz_r[i]), ZS), gu_r[i], gd_r[i], yr[i],
-                         dyq[i] + (size_t)(cc + 1) * C * NT_BWD, NT_BWD, xu[i], xd[i], sxu[i],
-                         sxd[i], swu[i], swd[i]);
-          dz_r[i] = dz;
-          gu_r[i] = gu_l[i];
-          gd_r[i] = gd_l[i];
-#pragma unroll
-          for (int c = 0; c < C; ++c) yr[i][c] = yl[i][c];
-        }
-        zh_r = zc;
       }
+      fetch(u + 1);
+      cp_async_commit();
+
+      if (mine) {
+#pragma unroll
+        for (int kk = SPAN - 1; kk >= 0; --kk) {
+          if (kk < nspan) {
+            const int cc = c0 + kk;
+            float gu_l[2], gd_l[2], zf[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float yl[C];
+#pragma unroll
+              for (int c = 0; c < C; ++c) yl[c] = ys[((kk * C + c) * 2 + i) * NT];
+              gu_l[i] = gval<C>(xu[i], yl);
+              gd_l[i] = gval<C>(xd[i], yl);
+              zf[i] = __fmul_rn(coef(gu_r[i], gu_l[i], gd_r[i], gd_l[i]).z, 0.5f);
+            }
+            const unsigned zc = pack2(zf[0], zf[1]);
+            const unsigned zr = cc == ly1 - 1 ? zc : zh_r;  // z/2 of cell min(cc+1, ly1-1)
+            const unsigned zu = zhu[kk];  // the band above's (0 at the top band)
+            zhu[kk] = zc;
+            unsigned s1[M];
+#pragma unroll
+            for (int tt = M - 1; tt >= 0; --tt) {
+              const int jn = cc * M + tt;  // node column of the rebuilt primal
+              // row 0's inputs: k[8b+8][jn], ĝ[8b+9][jn+1] and, from the
+              // previous column, k[8b+8][jn+1], ĝ[8b+9][jn+2]
+              unsigned kin = kb[kk * M + tt], gin = gb[kk * M + tt];
+              unsigned kin_r = k0r, gin_r = g0r;
+              k0r = kin;
+              g0r = gin;
+              const unsigned z1 = tt == M - 1 ? zr : zc;
+#pragma unroll
+              for (int r = 0; r < M; ++r) {
+                // adjoint delta ρ[j] = ρ[j+1] + z1·ĝ[i+1][j+1] + zu·ĝ[i+1][j]
+                rho[r] = add2(add2(rho[r], mul2(z1, gin_r)), mul2(r == 0 ? zu : zc, gin));
+                if (r == 0 && topband && jn == G - 1) rho[r] = add2(rho[r], seed);
+                const unsigned gg = add2(gin, rho[r]);
+                // primal delta and the dz term (m1 takes the incoming σ)
+                const unsigned s = add2(kin, kin_r);
+                const unsigned m1 = add2(s, sig[r]);
+                s1[r] = tt == M - 1 ? mul2(gg, m1) : add2(s1[r], mul2(gg, m1));
+                sig[r] = add2(sig[r], mul2(zc, s));
+                if (jn == 0) sig[r] = 0u;  // the left boundary is one
+                const unsigned kus = add2(kin, sig[r]);
+                // row r+1's inputs
+                kin_r = pK[r];
+                gin_r = pG[r];
+                pK[r] = kus;
+                pG[r] = gg;
+                kin = kus;
+                gin = gg;
+              }
+              kb[kk * M + tt] = kin;  // k[8b][jn]
+              gb[kk * M + tt] = gin;  // ĝ[8b+1][jn+1]
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float dz = __fmul_rn(half2f(s1[0], i), 0.5f);
+#pragma unroll
+              for (int r = 1; r < M; ++r) dz = __fadd_rn(dz, __fmul_rn(half2f(s1[r], i), 0.5f));
+              float yr[C];
+#pragma unroll
+              for (int c = 0; c < C; ++c) yr[c] = ys[(((kk + 1) * C + c) * 2 + i) * NT];
+              pull_back<C>(__fmul_rn(__fsub_rn(dz, dz_r[i]), ZS), gu_r[i], gd_r[i], yr,
+                           dys + ((kk + 1) * C * 2 + i) * NT, 2 * NT, xu[i], xd[i], sxu[i],
+                           sxd[i], swu[i], swd[i]);
+              dz_r[i] = dz;
+              gu_r[i] = gu_l[i];
+              gd_r[i] = gd_l[i];
+            }
+            zh_r = zc;
+          }
+        }
+        if (t == 0) {  // node column 0 and the band's row-path gradients
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float y0[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) y0[c] = ys[(c * 2 + i) * NT];
+            pull_back<C>(__fmul_rn(-dz_r[i], ZS), gu_r[i], gd_r[i], y0, dys + i * NT, 2 * NT,
+                         xu[i], xd[i], sxu[i], sxd[i], swu[i], swd[i]);
+            if (i == 0 || has_b) {
+              store_rows<C>(dxt, b, P, pp[i], xu[i], xd[i], sxu[i], sxd[i], swu[i], swd[i],
+                            carry[i]);
+              if (b == 0) store_row0<C>(dxt, P, pp[i], carry[i]);
+            }
+          }
+        }
+        if (b == 0) {  // the couple's end: its column-path gradients, and a clean slate
+#pragma unroll
+          for (int s = 0; s <= SPAN; ++s) {
+            if ((s > 0 || t == 0) && s <= nspan) {
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                  if (i == 0 || has_b)
+                    dyt[((size_t)(c0 + s) * C + c) * P + pp[i]] = dys[((s * C + c) * 2 + i) * NT];
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < YN; ++i) dys[i * NT] = 0.f;
+#pragma unroll
+          for (int i = 0; i < M * SPAN; ++i) gb[i] = 0u;
+#pragma unroll
+          for (int i = 0; i < SPAN; ++i) zhu[i] = 0u;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) carry[i][c] = 0.f;
+          }
+        }
+      }
+
+      // ---- the hand-off to lane t-1
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        rho[r] = __shfl_down_sync(FULL, rho[r], 1, g);
+        sig[r] = __shfl_down_sync(FULL, sig[r], 1, g);
+        pK[r] = __shfl_down_sync(FULL, pK[r], 1, g);
+        pG[r] = __shfl_down_sync(FULL, pG[r], 1, g);
+      }
+      k0r = __shfl_down_sync(FULL, k0r, 1, g);
+      g0r = __shfl_down_sync(FULL, g0r, 1, g);
+      zh_r = __shfl_down_sync(FULL, zh_r, 1, g);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        if (i == 1 && !has_b) continue;
-        pull_back<C>(__fmul_rn(-dz_r[i], ZS), gu_r[i], gd_r[i], yr[i], dyq[i], NT_BWD, xu[i],
-                     xd[i], sxu[i], sxd[i], swu[i], swd[i]);
-        store_rows<C>(dxt, b, P, pp[i], xu[i], xd[i], sxu[i], sxd[i], swu[i], swd[i],
-                      carry[i]);
+        dz_r[i] = __shfl_down_sync(FULL, dz_r[i], 1, g);
+        gu_r[i] = __shfl_down_sync(FULL, gu_r[i], 1, g);
+        gd_r[i] = __shfl_down_sync(FULL, gd_r[i], 1, g);
+        swu[i] = __shfl_down_sync(FULL, swu[i], 1, g);
+        swd[i] = __shfl_down_sync(FULL, swd[i], 1, g);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          sxu[i][c] = __shfl_down_sync(FULL, sxu[i][c], 1, g);
+          sxd[i][c] = __shfl_down_sync(FULL, sxd[i][c], 1, g);
+        }
       }
-      kb[(size_t)G * T] = kr0[M - 1];  // k[8b][G], the next band's top edge
-    }
-    for (int i = 0; i < (has_b ? 2 : 1); ++i) {
-      store_row0<C>(dxt, P, pp[i], carry[i]);
-      for (int k = 0; k < Ly * C; ++k) dyt[(size_t)k * P + pp[i]] = dyq[i][k * NT_BWD];
     }
   }
 }
 
-// The column-path gradient slots of a block: one pair a thread (K4) or two
-// (K6).
-size_t bwd_smem(int Ly, int C, int pairs) {
-  return sizeof(float) * (size_t)pairs * Ly * C * NT_BWD;
-}
+// ---- host side -----------------------------------------------------------------
 
-// `items`: pairs (K4) or pair couples (K6), one per thread.
-template <typename K>
-cudaError_t resident_blocks(K kernel, size_t smem, int items, int* blocks) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The column-path gradient slots of a K4 backward block: one pair a thread.
+size_t bwd_smem(int Ly, int C) { return sizeof(float) * (size_t)Ly * C * NT_BWD; }
+
+template <int C>
+cudaError_t grid32(int Ly, int P, int* blocks) {
+  const size_t smem = bwd_smem(Ly, C);
+  cudaError_t err = cudaFuncSetAttribute(fused_bwd_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT_BWD, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_bwd_kernel<C>, NT_BWD, smem);
   if (err != cudaSuccess) return err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int need = (items + NT_BWD - 1) / NT_BWD;
+  const int need = (P + NT_BWD - 1) / NT_BWD;
   *blocks = min(per_sm * sms, need > 0 ? need : 1);
   return cudaSuccess;
-}
-
-template <int C>
-cudaError_t fwd(const float* xt, const float* yt, float* k, float* ck, float* rc, int P, int Lx,
-                int Ly, int bpc, cudaStream_t st) {
-  const int grid = (P + NT_FWD - 1) / NT_FWD;
-  fused_fwd_kernel<C><<<grid, NT_FWD, 0, st>>>(xt, yt, k, ck, rc, P, Lx, Ly, bpc);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t grid32(int Ly, int P, int* blocks) {
-  return resident_blocks(fused_bwd_kernel<C>, bwd_smem(Ly, C, 1), P, blocks);
-}
-
-template <int C>
-cudaError_t grid16(int Ly, int P, int* blocks) {
-  return resident_blocks(fused_bwd_bf16_kernel<C>, bwd_smem(Ly, C, 2), (P + 1) / 2, blocks);
 }
 
 template <int C>
 cudaError_t bwd(const float* xt, const float* yt, const float* ck, const float* gout, float* dxt,
                 float* dyt, float* scratch, int blocks, int P, int Lx, int Ly, int bpc,
                 cudaStream_t st) {
-  const size_t smem = bwd_smem(Ly, C, 1);
+  const size_t smem = bwd_smem(Ly, C);
   cudaError_t err = cudaFuncSetAttribute(
       fused_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -609,55 +923,131 @@ cudaError_t bwd(const float* xt, const float* yt, const float* ck, const float* 
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t bwd16(const float* xt, const float* yt, const float* ck, const float* rc,
-                  const float* gout, float* dxt, float* dyt, unsigned* scratch, int blocks,
-                  int P, int Lx, int Ly, int bpc, cudaStream_t st) {
-  const size_t smem = bwd_smem(Ly, C, 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The plan (kernels/sigkernel_fused.py::fused_plan) picks g, the span
+// template, the runs, tiles and blocks; these are the shapes the lane
+// kernels take.
+bool valid(int lx1, int ly1, int C, int g, int span, int max_ly1, int max_c) {
+  if (lx1 < 1 || ly1 < 1 || ly1 > max_ly1 || C < 1 || C > max_c) return false;
+  if (g < 1 || g > 16 || g > ly1 || (g & (g - 1)) != 0) return false;
+  if (span != 3 && span != 5) return false;
+  return (ly1 + g - 1) / g <= span;
+}
+
+size_t fwd_smem(int span, int C) { return fwd_smem_floats(span, C) * sizeof(float); }
+size_t bf16_smem(int span, int C) {
+  return (size_t)bf16_thread_floats(span, C) * NT * sizeof(float);
+}
+
+template <typename K>
+cudaError_t occupancy(K kernel, size_t smem, int* per_sm) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_bwd_bf16_kernel<C><<<blocks, NT_BWD, smem, st>>>(xt, yt, ck, rc, gout, dxt, dyt,
-                                                         scratch, P, Lx, Ly, bpc);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, NT, smem);
+}
+
+template <int SPAN, int C>
+cudaError_t resident_fwd(int* per_sm) {
+  return occupancy(fused_fwd_lanes_kernel<SPAN, C>, fwd_smem(SPAN, C), per_sm);
+}
+
+template <int SPAN, int C>
+cudaError_t resident_bf16(int* per_sm) {
+  return occupancy(fused_bwd_bf16_lanes_kernel<SPAN, C>, bf16_smem(SPAN, C), per_sm);
+}
+
+template <int SPAN, int C>
+cudaError_t launch_fwd(const float* xt, const float* yt, float* k, float* ck, float* rc, int P,
+                       int lx1, int ly1, int g, int bpc, int runs, int tiles, int blocks,
+                       cudaStream_t st) {
+  const size_t smem = fwd_smem(SPAN, C);
+  cudaError_t err = cudaFuncSetAttribute(fused_fwd_lanes_kernel<SPAN, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_fwd_lanes_kernel<SPAN, C><<<blocks, NT, smem, st>>>(xt, yt, k, ck, rc, P, lx1, ly1, g,
+                                                            bpc, runs, tiles);
+  return cudaGetLastError();
+}
+
+template <int SPAN, int C>
+cudaError_t launch_bf16(const float* xt, const float* yt, const float* ck, const float* rc,
+                        const float* gout, float* dxt, float* dyt, int P, int lx1, int ly1,
+                        int g, int bpc, int runs, int tiles, int blocks, cudaStream_t st) {
+  const size_t smem = bf16_smem(SPAN, C);
+  cudaError_t err = cudaFuncSetAttribute(fused_bwd_bf16_lanes_kernel<SPAN, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_bwd_bf16_lanes_kernel<SPAN, C><<<blocks, NT, smem, st>>>(
+      xt, yt, ck, rc, gout, dxt, dyt, P, lx1, ly1, g, bpc, runs, tiles);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// span × C dispatch of the lane kernels: K4's forward at C = 1..8, K6 at 1..4
+#define FWD_DISPATCH(FN, ...)                                   \
+  switch (span * 16 + C) {                                      \
+    case 49: return (int)FN<3, 1>(__VA_ARGS__);                 \
+    case 50: return (int)FN<3, 2>(__VA_ARGS__);                 \
+    case 51: return (int)FN<3, 3>(__VA_ARGS__);                 \
+    case 52: return (int)FN<3, 4>(__VA_ARGS__);                 \
+    case 53: return (int)FN<3, 5>(__VA_ARGS__);                 \
+    case 54: return (int)FN<3, 6>(__VA_ARGS__);                 \
+    case 55: return (int)FN<3, 7>(__VA_ARGS__);                 \
+    case 56: return (int)FN<3, 8>(__VA_ARGS__);                 \
+    case 81: return (int)FN<5, 1>(__VA_ARGS__);                 \
+    case 82: return (int)FN<5, 2>(__VA_ARGS__);                 \
+    case 83: return (int)FN<5, 3>(__VA_ARGS__);                 \
+    case 84: return (int)FN<5, 4>(__VA_ARGS__);                 \
+    case 85: return (int)FN<5, 5>(__VA_ARGS__);                 \
+    case 86: return (int)FN<5, 6>(__VA_ARGS__);                 \
+    case 87: return (int)FN<5, 7>(__VA_ARGS__);                 \
+    case 88: return (int)FN<5, 8>(__VA_ARGS__);                 \
+    default: return (int)cudaErrorInvalidValue;                 \
+  }
+
+#define BF16_DISPATCH(FN, ...)                                  \
+  switch (span * 16 + C) {                                      \
+    case 49: return (int)FN<3, 1>(__VA_ARGS__);                 \
+    case 50: return (int)FN<3, 2>(__VA_ARGS__);                 \
+    case 51: return (int)FN<3, 3>(__VA_ARGS__);                 \
+    case 52: return (int)FN<3, 4>(__VA_ARGS__);                 \
+    case 81: return (int)FN<5, 1>(__VA_ARGS__);                 \
+    case 82: return (int)FN<5, 2>(__VA_ARGS__);                 \
+    case 83: return (int)FN<5, 3>(__VA_ARGS__);                 \
+    case 84: return (int)FN<5, 4>(__VA_ARGS__);                 \
+    default: return (int)cudaErrorInvalidValue;                 \
+  }
+
 extern "C" {
 
-// xt [Lx, C, P], yt [Ly, C, P] scaled path tiles; k [P]; ck [ceil(lx1/bpc),
-// 8(Ly-1)+1, P] (the working row and the checkpoints); rc [Lx-1, 8, P] or
-// null. fp32, contiguous, on the stream's device. Returns cudaGetLastError().
-int sigkernel_fused_fwd(const float* xt, const float* yt, float* k, float* ck, float* rc, int P,
-                        int Lx, int Ly, int C, int bpc, void* stream) {
-#define CALL(c) fwd<c>(xt, yt, k, ck, rc, P, Lx, Ly, bpc, static_cast<cudaStream_t>(stream))
-  switch (C) {
-    case 1: return (int)CALL(1);
-    case 2: return (int)CALL(2);
-    case 3: return (int)CALL(3);
-    case 4: return (int)CALL(4);
-    case 5: return (int)CALL(5);
-    case 6: return (int)CALL(6);
-    case 7: return (int)CALL(7);
-    case 8: return (int)CALL(8);
-    default: return (int)cudaErrorInvalidValue;
+// Blocks of K4's forward (part 0) or K6 (part 1) resident on one SM at once,
+// with their shared memory, for the plan.
+int sigkernel_fused_resident(int span, int C, int part, int* per_sm) {
+  if (part == 0) {
+    FWD_DISPATCH(resident_fwd, per_sm)
   }
-#undef CALL
+  BF16_DISPATCH(resident_bf16, per_sm)
 }
 
-// Number of persistent blocks for a backward launch (bf = 1: K6, C <= 4);
-// the caller sizes the scratch by blocks · 64 threads.
-int sigkernel_fused_bwd_grid(int Ly, int C, int bf, int P, int* blocks) {
-  if (bf) {
-    switch (C) {
-      case 1: return (int)grid16<1>(Ly, P, blocks);
-      case 2: return (int)grid16<2>(Ly, P, blocks);
-      case 3: return (int)grid16<3>(Ly, P, blocks);
-      case 4: return (int)grid16<4>(Ly, P, blocks);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
+// K4's forward. xt [Lx, C, P], yt [Ly, C, P] scaled path tiles; k [P]; ck
+// [ceil(lx1/bpc), 8(Ly-1)+1, P] and rc [Lx-1, 8, P], both null for values
+// only. fp32, contiguous, on the stream's device; g, span, runs (pairs a
+// group walks), tiles (of runs·128/g pairs) and blocks from the plan.
+// Returns cudaGetLastError() after the launch.
+int sigkernel_fused_fwd(const float* xt, const float* yt, float* k, float* ck, float* rc, int P,
+                        int Lx, int Ly, int C, int g, int span, int bpc, int runs, int tiles,
+                        int blocks, void* stream) {
+  if (!valid(Lx - 1, Ly - 1, C, g, span, 48, 8) || P < 1 || bpc < 1 || runs < 1 ||
+      tiles < 1 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  FWD_DISPATCH(launch_fwd, xt, yt, k, ck, rc, P, Lx - 1, Ly - 1, g, bpc, runs, tiles, blocks,
+               static_cast<cudaStream_t>(stream))
+}
+
+// Number of persistent blocks of a K4 backward launch; the caller sizes the
+// scratch by blocks · 64 threads.
+int sigkernel_fused_bwd_grid(int Ly, int C, int P, int* blocks) {
   switch (C) {
     case 1: return (int)grid32<1>(Ly, P, blocks);
     case 2: return (int)grid32<2>(Ly, P, blocks);
@@ -694,22 +1084,18 @@ int sigkernel_fused_bwd(const float* xt, const float* yt, const float* ck, const
 #undef CALL
 }
 
-// K6: as sigkernel_fused_bwd, with the right edges rc [Lx-1, 8, P], C <= 4;
-// scratch: blocks · 64 · 4·(2G + 3 + Ly-1) bytes (one bf16x2 per couple).
+// K6: xt, yt, ck as K4's backward, the right edges rc [Lx-1, 8, P], C <= 4,
+// Ly - 1 <= 40; g, span, runs (couples a group walks), tiles (of
+// runs·128/g couples) and blocks from the plan. No device scratch.
 int sigkernel_fused_bwd_bf16(const float* xt, const float* yt, const float* ck, const float* rc,
-                             const float* gout, float* dxt, float* dyt, void* scratch,
-                             int blocks, int P, int Lx, int Ly, int C, int bpc, void* stream) {
-#define CALL(c)                                                                     \
-  bwd16<c>(xt, yt, ck, rc, gout, dxt, dyt, static_cast<unsigned*>(scratch), blocks, P, Lx, \
-           Ly, bpc, static_cast<cudaStream_t>(stream))
-  switch (C) {
-    case 1: return (int)CALL(1);
-    case 2: return (int)CALL(2);
-    case 3: return (int)CALL(3);
-    case 4: return (int)CALL(4);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CALL
+                             const float* gout, float* dxt, float* dyt, int P, int Lx, int Ly,
+                             int C, int g, int span, int bpc, int runs, int tiles, int blocks,
+                             void* stream) {
+  if (!valid(Lx - 1, Ly - 1, C, g, span, 40, 4) || P < 1 || bpc < 1 || runs < 1 ||
+      tiles < 1 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  BF16_DISPATCH(launch_bf16, xt, yt, ck, rc, gout, dxt, dyt, P, Lx - 1, Ly - 1, g, bpc, runs,
+                tiles, blocks, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

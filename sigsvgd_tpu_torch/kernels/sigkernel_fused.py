@@ -19,23 +19,31 @@ length. The function, shared by the twins and the kernels:
   ``rc[b, s] = k[8b+s, 8·ly1]``;
 * fp32 backward (K4): the exact discrete adjoint. The twin keeps the whole
   grid; the kernel recomputes each checkpoint segment's band tops from the
-  checkpoint below it and runs K2's band backward on them;
+  checkpoint below it and runs K2's band backward on them, one thread a
+  pair;
 * bf16 backward (K6): ``_bwd_rows_fast_bf16``'s three first-order delta
   chains (ρ = ĝ[i] - ĝ[i+1], σ = k[i-1] - k[i], the dz sum) in bf16, re-
   anchored at the bf16-rounded checkpoints and at every row's fp32 right
   edge, as the JAX kernel re-anchors; statics, dz and the pull-back in fp32.
 
-Layouts are pair-minor (``[L, C, P]``, ``[nslots, G1, P]``) so that one
-thread per pair reads and writes coalesced. On CPU tensors the wrappers run
-the twins; on CUDA tensors they launch ``csrc/sigkernel_fused.cu`` or raise.
+Layouts are pair-minor (``[L, C, P]``, ``[nslots, G1, P]``). K4's forward
+and K6 run a lane group per pair (K6: per pair couple) with the fine rows in
+the lanes' registers; :func:`fused_plan` lays out their launches. On CPU
+tensors the wrappers run the twins; on CUDA tensors they launch
+``csrc/sigkernel_fused.cu`` or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from ._build import load
+from .sigkernel_block import (  # noqa: F401  (SPAN_CAP, SPAN_TEMPLATES: the plan's rule)
+    SPAN_CAP, SPAN_TEMPLATES, THREADS, block_lanes, block_spans,
+)
 
 _LAM = 3
 _M = 1 << _LAM  # 8 — fine rows per band / fine cols per coarse cell
@@ -43,11 +51,16 @@ _ZS = 1.0 / float(4**_LAM)  # dyadic grid scale on the increments
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# csrc/sigkernel_fused.cu: threads per backward block and the channel counts
-# it has instantiations for (K6 takes JAX's bf16 envelope, C ≤ 4)
+# csrc/sigkernel_fused.cu: threads per K4 backward block, the channel counts
+# it has instantiations for (K6 takes JAX's bf16 envelope, C ≤ 4 and ly1 ≤
+# 40), the most pairs (K6: couples) a lane group walks, and the SMs of an
+# H100, over which the plan spreads a short list where it can
 NT_BWD = 64
 MAX_C = 8
 MAX_C_BF16 = 4
+MAX_LY1_BF16 = 40
+TILE_ROWS = 8
+SMS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -277,12 +290,13 @@ def fused_backward_plain(xt: torch.Tensor, yt: torch.Tensor, gout: torch.Tensor)
     return fused_pairs_plain(xt, yt, gout)[1:]
 
 
-def fused_backward_bf16_plain(xt: torch.Tensor, yt: torch.Tensor, ck: torch.Tensor,
-                              rc: torch.Tensor, gout: torch.Tensor):
-    """The twin of K6: ``_bwd_rows_fast_bf16``'s delta chains in torch bf16
-    ops, one rounding per operation, in the JAX kernel's order (rows top
-    down, fine columns right to left); statics, dz and the pull-back in
-    fp32. Returns ``(dx, dy)``."""
+def bf16_dz(xt: torch.Tensor, yt: torch.Tensor, ck: torch.Tensor, rc: torch.Tensor,
+            gout: torch.Tensor):
+    """K6's twin up to its pull-back: ``(g [Lx, Ly, P], dz [lx1, ly1, P])``,
+    the static Gram and the cotangent of the scaled increments, by
+    ``_bwd_rows_fast_bf16``'s delta chains in torch bf16 ops, one rounding
+    per operation, in the JAX kernel's order (rows top down, fine columns
+    right to left); statics and dz in fp32."""
     bf = torch.bfloat16
     Lx, C, P = xt.shape
     Ly = yt.shape[0]
@@ -332,7 +346,145 @@ def fused_backward_bf16_plain(xt: torch.Tensor, yt: torch.Tensor, ck: torch.Tens
                     kbuf[knew, cc * _M + tt] = kc[tt] + sig
                 val = s1.to(xt.dtype) * 0.5
                 dz[b, cc] = val if t == 0 else dz[b, cc] + val
-    return pull_back(xt, yt, g, dz)
+    return g, dz
+
+
+def fused_backward_bf16_plain(xt: torch.Tensor, yt: torch.Tensor, ck: torch.Tensor,
+                              rc: torch.Tensor, gout: torch.Tensor):
+    """The twin of K6: :func:`bf16_dz` and the fp32 pull-back. Returns
+    ``(dx, dy)``."""
+    return pull_back(xt, yt, *bf16_dz(xt, yt, ck, rc, gout))
+
+
+# ---------------------------------------------------------------------------
+# The lane kernels' plan: lanes, spans, runs, tiles and blocks.
+# ---------------------------------------------------------------------------
+
+
+def fused_lanes(ly1: int) -> tuple[int, int]:
+    """``(g, span)``: the lanes of a pair (K6: of a pair couple) and the span
+    template, K5's rule (``sigkernel_tiled.tiled_lanes``) on the ly1 coarse
+    columns: the fewest lanes, a power of two, that leave no lane more than
+    :data:`SPAN_CAP` columns; 8 at ly1 = 39-40, 16 at 48, 1 up to 5."""
+    return block_lanes(ly1 + 1)
+
+
+def fused_spans(ly1: int, g: int) -> list[int]:
+    """Coarse columns of each lane: lane t holds ``[t·ly1/g, (t+1)·ly1/g)``."""
+    return block_spans(ly1 + 1, g)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _sector_share(P: int, rows: int, piece: int) -> float:
+    """Share of the bytes of ``rows`` pair-minor rows of ``P`` floats that a
+    warp's accesses move in whole, aligned 32-byte sectors, when one access
+    covers ``piece`` adjacent pairs from a multiple of ``piece``."""
+    if rows == 0:
+        return 1.0
+    starts = torch.arange(0, P, piece, dtype=torch.int64)
+    lens = torch.clamp(P - starts, max=piece)
+    counts = torch.bincount((torch.arange(rows, dtype=torch.int64) * P) % 8, minlength=8)
+    whole = 0
+    for off in range(8):          # a row's first float, modulo a sector's 8
+        if counts[off]:
+            a = 4 * (off + starts)
+            e = a + 4 * lens
+            sectors = (e // 32 - (a + 31) // 32).clamp(min=0).sum().item()
+            whole += int(counts[off]) * 32 * sectors
+    return whole / (4.0 * rows * P)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How K4's forward (``part`` "forward") or K6 ("bf16") lays out one call
+    on ``P`` pairs: ``g`` lanes a pair (K6: a pair couple), each holding a
+    span of whole coarse columns (``spans``, at most ``span``, the template);
+    tiles of ``tile_rows`` × ``tile_cols`` pairs (K6: couples; a group walks
+    ``tile_rows`` of them as one pipeline of ``steps`` steps), ``tiles`` of
+    them over ``blocks`` persistent blocks (those resident on the card at
+    once, ``resident``, where known; else one a tile); ``smem_bytes`` a
+    block's shared memory; ``scratch_bytes`` device scratch per thread
+    (none); ``traffic_bytes`` the device-memory traffic of a launch (the
+    forward with and without residuals); ``piece`` the adjacent pairs one
+    warp access of a residual column covers (lane position t's groups in a
+    warp), over ``residual_rows`` pair-minor rows of ``pairs`` floats."""
+    part: str
+    pairs: int
+    g: int
+    span: int
+    spans: tuple
+    tile_rows: int
+    tile_cols: int
+    pairs_per_tile: int
+    tiles: int
+    blocks: int
+    steps: int
+    smem_bytes: int
+    scratch_bytes: int
+    traffic_bytes: dict
+    piece: int
+    residual_rows: int
+    resident: int | None
+
+    @property
+    def passes(self) -> int:
+        """Tiles the busiest block takes: the persistent loop's passes."""
+        return _cdiv(self.tiles, self.blocks)
+
+    @property
+    def sector_share(self) -> float:
+        """The share of the residual stores (forward) or loads (K6) that a
+        warp's access moves in whole 32-byte sectors."""
+        return _sector_share(self.pairs, self.residual_rows, self.piece)
+
+    def report(self) -> dict:
+        """The plan's fields and properties, for a JSON row."""
+        return dict(dataclasses.asdict(self), passes=self.passes,
+                    sector_share=self.sector_share)
+
+
+def fused_plan(P: int, lx1: int, ly1: int, C: int, part: str,
+               resident: int | None = None, sms: int = SMS) -> FusedPlan:
+    """The plan of K4's forward (``part="forward"``) or K6 (``"bf16"``) for
+    ``P`` pairs of ``lx1 × ly1`` coarse cells and ``C`` channels.
+
+    A group walks ``tile_rows`` pairs (K6: couples (2q, 2q+1)): the most of
+    8, 4, 2, 1 that still gives ``sms`` tiles, so that a short list spreads
+    over as many SMs as it can (a run of one pays the pipeline's fill, g-1
+    of its lx1 + g-1 steps). ``smem_bytes`` (csrc ``fwd_smem_floats``,
+    ``bf16_thread_floats``): per thread the forward's y points of its span,
+    ``(span+1)·C`` floats; K6's y points and their column-path gradients
+    for both pairs, ``2·(span+1)·C`` floats each, and the stage its next
+    unit's inputs are copied into (the anchor row ``16·span``, the
+    checkpoint's last column 2, the right edges 16, x rows ``4C``).
+    ``traffic_bytes``: the paths read once (the group's lanes share x
+    through L1), k, the residuals, the cotangent and the gradients once
+    each; no fine row, adjoint row or scratch row goes to device memory."""
+    if part not in ("forward", "bf16"):
+        raise ValueError(f"unknown part {part!r}")
+    g, span = fused_lanes(ly1)
+    tc = THREADS // g
+    per = 1 if part == "forward" else 2
+    units = _cdiv(P, per)
+    rows = next((r for r in (TILE_ROWS, 4, 2) if _cdiv(units, r * tc) >= sms), 1)
+    tiles = _cdiv(units, rows * tc)
+    blocks = tiles if resident is None else max(1, min(tiles, resident))
+    nres = _n_ck_slots(lx1, _bands_per_ck(lx1)) * (_M * ly1 + 1) + lx1 * _M
+    if part == "forward":
+        smem = 4 * THREADS * (span + 1) * C
+        traffic = {"forward": fused_bytes(P, lx1 + 1, ly1 + 1, C),
+                   "values": 4.0 * (P * (lx1 + ly1 + 2) * C + P)}
+    else:
+        smem = 4 * THREADS * (4 * (span + 1) * C + 16 * span + 18 + 4 * C)
+        traffic = {"bf16": fused_bytes(P, lx1 + 1, ly1 + 1, C, "bf16")}
+    return FusedPlan(
+        part=part, pairs=P, g=g, span=span, spans=tuple(fused_spans(ly1, g)),
+        tile_rows=rows, tile_cols=tc, pairs_per_tile=rows * tc * per, tiles=tiles,
+        blocks=blocks, steps=rows * lx1 + g - 1, smem_bytes=smem, scratch_bytes=0,
+        traffic_bytes=traffic, piece=per * (32 // g), residual_rows=nres, resident=resident)
 
 
 # ---------------------------------------------------------------------------
@@ -349,15 +501,17 @@ def kernel_supported(lx1: int, ly1: int, C: int) -> bool:
 
 def _lib():
     lib = load("sigkernel_fused")
-    lib.sigkernel_fused_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    lib.sigkernel_fused_resident.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.sigkernel_fused_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
-    lib.sigkernel_fused_bwd_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.sigkernel_fused_bwd_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.sigkernel_fused_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
-    lib.sigkernel_fused_bwd_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    lib.sigkernel_fused_bwd_bf16.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
-    for fn in (lib.sigkernel_fused_fwd, lib.sigkernel_fused_bwd_grid,
-               lib.sigkernel_fused_bwd, lib.sigkernel_fused_bwd_bf16):
+    for fn in (lib.sigkernel_fused_resident, lib.sigkernel_fused_fwd,
+               lib.sigkernel_fused_bwd_grid, lib.sigkernel_fused_bwd,
+               lib.sigkernel_fused_bwd_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -386,6 +540,29 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def resident_blocks(span: int, C: int, part: str, device_index: int) -> int:
+    """Blocks of K4's forward or K6 (``part``) with span template ``span``
+    resident on the card at once: the occupancy query's blocks an SM (with
+    the plan's shared memory) times the SMs."""
+    per_sm = ctypes.c_int(0)
+    err = _lib().sigkernel_fused_resident(span, C, int(part == "bf16"), ctypes.byref(per_sm))
+    if err != 0 or per_sm.value < 1:
+        raise RuntimeError(f"fused {part} occupancy query failed: cudaError {err}")
+    return per_sm.value * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch_plan(P: int, lx1: int, ly1: int, C: int, part: str, device) -> FusedPlan:
+    """:func:`fused_plan` for a launch on ``device``: its SMs and the
+    kernel's resident blocks there."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    span = fused_lanes(ly1)[1]
+    return fused_plan(P, lx1, ly1, C, part, resident=resident_blocks(span, C, part, index),
+                      sms=torch.cuda.get_device_properties(index).multi_processor_count)
+
+
 def fused_forward(xt: torch.Tensor, yt: torch.Tensor, residuals: bool):
     """K4's forward on scaled path tiles ``xt [Lx, C, P]``, ``yt [Ly, C, P]``:
     ``(k,)``, or ``(k, ck, rc)`` with the residuals. CPU tensors take the
@@ -394,74 +571,75 @@ def fused_forward(xt: torch.Tensor, yt: torch.Tensor, residuals: bool):
     if xt.device.type == "cpu":
         return fused_forward_plain(xt, yt, residuals)
     lx1, ly1, C, P = _check(xt, yt, "K4")
-    # without residuals one slot serves as the working fine row
-    bpc = _bands_per_ck(lx1) if residuals else lx1
+    plan = launch_plan(P, lx1, ly1, C, "forward", xt.device)
+    bpc = _bands_per_ck(lx1)
     k = torch.empty(P, dtype=xt.dtype, device=xt.device)
-    ck = torch.empty(_n_ck_slots(lx1, bpc), _M * ly1 + 1, P, dtype=xt.dtype,
-                     device=xt.device)
-    rc = torch.empty(lx1, _M, P, dtype=xt.dtype, device=xt.device) if residuals else None
+    ck = rc = None
+    if residuals:
+        ck = torch.empty(_n_ck_slots(lx1, bpc), _M * ly1 + 1, P, dtype=xt.dtype,
+                         device=xt.device)
+        rc = torch.empty(lx1, _M, P, dtype=xt.dtype, device=xt.device)
     err = _lib().sigkernel_fused_fwd(
-        xt.data_ptr(), yt.data_ptr(), k.data_ptr(), ck.data_ptr(),
-        rc.data_ptr() if residuals else None, P, lx1 + 1, ly1 + 1, C, bpc, _stream(xt))
+        xt.data_ptr(), yt.data_ptr(), k.data_ptr(), ck.data_ptr() if residuals else None,
+        rc.data_ptr() if residuals else None, P, lx1 + 1, ly1 + 1, C, plan.g, plan.span,
+        bpc, plan.tile_rows, plan.tiles, plan.blocks, _stream(xt))
     if err != 0:
         raise RuntimeError(f"K4 forward launch failed: cudaError {err}")
     fused_forward.launches += 1
     return (k, ck, rc) if residuals else (k,)
 
 
-def bwd_grid(ly1: int, C: int, bf16: bool, P: int) -> int:
-    """Persistent blocks of a backward launch: those resident on the card at
-    once, at most one per ``NT_BWD`` pairs (K6: pair couples)."""
+def bwd_grid(ly1: int, C: int, P: int) -> int:
+    """Persistent blocks of a K4 backward launch: those resident on the card
+    at once, at most one per ``NT_BWD`` pairs."""
     blocks = ctypes.c_int(0)
-    err = _lib().sigkernel_fused_bwd_grid(ly1 + 1, C, int(bf16), P, ctypes.byref(blocks))
+    err = _lib().sigkernel_fused_bwd_grid(ly1 + 1, C, P, ctypes.byref(blocks))
     if err != 0:
-        raise RuntimeError(f"fused backward occupancy query failed: cudaError {err}")
+        raise RuntimeError(f"K4 backward occupancy query failed: cudaError {err}")
     return blocks.value
 
 
-def bwd_scratch_bytes(lx1: int, ly1: int, bf16: bool) -> int:
-    """Device scratch per resident thread of a backward launch: K4's band
-    tops and right edges of one checkpoint segment and its adjoint row
-    (fp32); K6's band-top primal and adjoint rows and the band above's z/2
-    (bf16x2: the thread's two pairs)."""
+def bwd_scratch_bytes(lx1: int, ly1: int) -> int:
+    """Device scratch per resident thread of a K4 backward launch: the band
+    tops and right edges of one checkpoint segment and its adjoint row."""
     G = _M * ly1
-    if bf16:
-        return 4 * ((G + 1) + (G + 2) + ly1)
     bpc = _bands_per_ck(lx1)
     return 4 * (bpc * G + bpc * _M + G)
 
 
 def _backward(xt, yt, ck, rc, gout, bf16: bool):
     lx1, ly1, C, P = _check(xt, yt, "K6" if bf16 else "K4")
-    if bf16 and C > MAX_C_BF16:
-        raise ValueError(f"K6 takes C ≤ {MAX_C_BF16} (the JAX package's bf16 envelope); "
-                         "wider paths take K4's fp32 backward, as SignatureKernel "
-                         "routes them")
+    if bf16 and (C > MAX_C_BF16 or ly1 > MAX_LY1_BF16):
+        raise ValueError(f"K6 takes C ≤ {MAX_C_BF16} and ly1 ≤ {MAX_LY1_BF16} (the JAX "
+                         "package's bf16 envelope); other paths take K4's fp32 backward, "
+                         "as SignatureKernel routes them")
     if gout.shape != (P,) or gout.dtype != torch.float32 or not gout.is_contiguous():
         raise ValueError("the cotangent must be a contiguous fp32 [P] tensor")
-    residuals = {"ck": (ck, (_n_ck_slots(lx1, _bands_per_ck(lx1)), _M * ly1 + 1, P))}
+    bpc = _bands_per_ck(lx1)
+    residuals = {"ck": (ck, (_n_ck_slots(lx1, bpc), _M * ly1 + 1, P))}
     if bf16:
         residuals["rc"] = (rc, (lx1, _M, P))
     for name, (t, shape) in residuals.items():
         if (t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != xt.device):
             raise ValueError(f"{name} must be K4's forward residual, fp32 {shape}")
-    blocks = bwd_grid(ly1, C, bf16, P)
-    scratch = torch.empty(blocks * NT_BWD * bwd_scratch_bytes(lx1, ly1, bf16),
-                          dtype=torch.uint8, device=xt.device)
     dx = torch.empty_like(xt)
     dy = torch.empty_like(yt)
     lib = _lib()
     if bf16:
+        plan = launch_plan(P, lx1, ly1, C, "bf16", xt.device)
         err = lib.sigkernel_fused_bwd_bf16(
             xt.data_ptr(), yt.data_ptr(), ck.data_ptr(), rc.data_ptr(), gout.data_ptr(),
-            dx.data_ptr(), dy.data_ptr(), scratch.data_ptr(), blocks, P, lx1 + 1,
-            ly1 + 1, C, _bands_per_ck(lx1), _stream(xt))
+            dx.data_ptr(), dy.data_ptr(), P, lx1 + 1, ly1 + 1, C, plan.g, plan.span, bpc,
+            plan.tile_rows, plan.tiles, plan.blocks, _stream(xt))
     else:
+        blocks = bwd_grid(ly1, C, P)
+        scratch = torch.empty(blocks * NT_BWD * bwd_scratch_bytes(lx1, ly1),
+                              dtype=torch.uint8, device=xt.device)
         err = lib.sigkernel_fused_bwd(
             xt.data_ptr(), yt.data_ptr(), ck.data_ptr(), gout.data_ptr(),
             dx.data_ptr(), dy.data_ptr(), scratch.data_ptr(), blocks, P, lx1 + 1,
-            ly1 + 1, C, _bands_per_ck(lx1), _stream(xt))
+            ly1 + 1, C, bpc, _stream(xt))
     if err != 0:
         raise RuntimeError(f"{'K6' if bf16 else 'K4 backward'} launch failed: "
                            f"cudaError {err}")
@@ -481,8 +659,8 @@ def fused_backward(xt, yt, ck, rc, gout):
 
 
 def fused_backward_bf16(xt, yt, ck, rc, gout):
-    """K6: as :func:`fused_backward`, by the bf16 delta-form chains (two
-    pairs per thread in bf16x2, C ≤ 4); counted in
+    """K6: as :func:`fused_backward`, by the bf16 delta-form chains (a lane
+    group per pair couple in bf16x2, C ≤ 4, ly1 ≤ 40); counted in
     ``fused_backward_bf16.launches``."""
     if xt.device.type == "cpu":
         return fused_backward_bf16_plain(xt, yt, ck, rc, gout)

@@ -16,10 +16,13 @@
   for bit across two calls;
 * K4 (the λ=3 pair-list forward and fp32 backward): K atol 1e-4, both
   tiles' gradients scaled atol 4e-4 against the twin in fp64, K2's;
-* K6 (the bf16 delta-form backward, C ≤ 4): against its bf16 twin rel ≤
-  2e-2 and cos ≥ 0.999 (the bf16 chains see inputs that differ from the
-  twin's in their last fp32 bit); against K4's fp32 backward rel < 0.25,
-  cos > 0.98;
+* K4's forward on its lane schedule: k, ck and rc bit for bit against the
+  twin and across calls, at 1, 8 and 16 lanes a pair and over several
+  tiles a block;
+* K6 (the bf16 delta-form backward, C ≤ 4, ly1 ≤ 40): against its bf16 twin
+  rel ≤ 2e-2 and cos ≥ 0.999 (the bf16 chains see inputs that differ from
+  the twin's in their last fp32 bit); against K4's fp32 backward rel <
+  0.25, cos > 0.98; dx, dy bit for bit across calls;
 * K7 (the λ=0 pair-list forward and backward): k and fac atol 3e-5, both
   tiles' gradients scaled by their max atol 5e-5, those of
   ``tests/test_pallas_small.py``;
@@ -395,16 +398,23 @@ def test_k6_matches_plain_twin_on_the_card(cuda_device, C, Lx, Ly, P):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fused_backwards_solve_every_pass_of_their_persistent_loop(cuda_device, bf16):
-    """More pairs than the backward's resident threads take at once (K6:
-    pair couples), so every thread's loop runs three passes, the last a
-    partial one, and K6's last couple is a lone pair; every pair is held
-    against the twin."""
+    """More pairs than the backward's persistent blocks take at once, so its
+    loop runs three passes, the last a partial one: K4's backward one pair a
+    thread (its resident threads), K6 over the tiles of its plan (runs of
+    pair couples), its last couple a lone pair; every pair is held against
+    the twin."""
     L, C = 6, 2
-    threads = kf.bwd_grid(L - 1, C, bf16, 1 << 24) * kf.NT_BWD
-    P = (2 if bf16 else 1) * 2 * threads + 37
+    if bf16:
+        plan = kf.launch_plan(1 << 24, L - 1, L - 1, C, "bf16", cuda_device)
+        P = plan.pairs_per_tile * 2 * plan.blocks + plan.pairs_per_tile // 2 + 1
+        plan = kf.launch_plan(P, L - 1, L - 1, C, "bf16", cuda_device)
+        assert plan.passes == 3 and plan.tiles % plan.blocks and P % 2
+    else:
+        threads = kf.bwd_grid(L - 1, C, 1 << 24) * kf.NT_BWD
+        P = 2 * threads + 37
+        assert kf.bwd_grid(L - 1, C, P) * kf.NT_BWD == threads
     xt, yt, gout = _pair_tiles(cuda_device, P, L, L, C, seed=5)
     k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
-    assert kf.bwd_grid(L - 1, C, bf16, P) * kf.NT_BWD == threads
     if bf16:
         dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, gout)
         dxp, dyp = kf.fused_backward_bf16_plain(xt, yt, ck, rc, gout)
@@ -420,6 +430,69 @@ def test_fused_backwards_solve_every_pass_of_their_persistent_loop(cuda_device, 
         for got, want in ((dx[..., sl], dx64), (dy[..., sl], dy64)):
             scale = want.abs().max()
             torch.testing.assert_close(got.double() / scale, want / scale, atol=4e-4, rtol=0)
+
+
+def _held(P, n=4096):
+    """The first and last ``n`` pairs of ``P``."""
+    return torch.cat([torch.arange(min(n, P)), torch.arange(max(min(n, P), P - n), P)]).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Lx,Ly,C", [(1001, 40, 40, 2), (150_001, 40, 40, 2),
+                                       (333, 9, 49, 8), (257, 23, 49, 3), (300, 12, 6, 4),
+                                       (77, 3, 2, 1), (1, 40, 40, 2)])
+def test_k4_forward_lanes_match_the_twin(cuda_device, P, Lx, Ly, C):
+    """K4's forward, a lane group per pair: a ragged P, more tiles than
+    resident blocks (150,001 pairs: each block's loop takes several tiles),
+    ly1 = 48 (16 lanes a pair), ly1 ≤ 5 (one lane a pair), a single pair.
+    k, ck and rc are the twin's bit for bit (the statics and the sweep round
+    as the twin does, and the card's exp matched the twin's on every pair
+    held) on the first and last 4,096 pairs; the values-only call gives the
+    same k."""
+    xt, yt, _ = _pair_tiles(cuda_device, P, Lx, Ly, C, seed=11)
+    plan = kf.launch_plan(P, Lx - 1, Ly - 1, C, "forward", cuda_device)
+    if P > 100_000:
+        assert plan.tiles > plan.blocks
+    before = kf.fused_forward.launches
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    (k_values_only,) = kf.fused_forward(xt, yt, residuals=False)
+    assert kf.fused_forward.launches == before + 2
+    held = _held(P)
+    kp, ckp, rcp = kf.fused_forward_plain(xt[..., held], yt[..., held], residuals=True)
+    assert torch.equal(k[held], kp) and torch.equal(k_values_only, k)
+    assert torch.equal(ck[..., held], ckp) and torch.equal(rc[..., held], rcp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", range(1, 5))
+def test_k6_lanes_at_the_bf16_envelope(cuda_device, C):
+    """K6, a lane group per pair couple, at ly1 = 40 (8 lanes of 5 coarse
+    columns) with an odd P (a lone pair in the last couple) and Lx ≠ Ly,
+    against its bf16 twin (rel ≤ 2e-2, cos ≥ 0.999) and K4's fp32 backward
+    (rel < 0.25, cos > 0.98)."""
+    xt, yt, gout = _pair_tiles(cuda_device, 301, 14, 41, C, seed=13)
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    dx, dy = kf.fused_backward_bf16(xt, yt, ck, rc, gout)
+    dxp, dyp = kf.fused_backward_bf16_plain(xt, yt, ck, rc, gout)
+    dx32, dy32 = kf.fused_backward(xt, yt, ck, rc, gout)
+    got = torch.cat([dx.flatten(), dy.flatten()])
+    rel, cos = _rel_cos(got, torch.cat([dxp.flatten(), dyp.flatten()]))
+    assert rel <= 2e-2 and cos >= 0.999, (rel, cos)
+    rel, cos = _rel_cos(got, torch.cat([dx32.flatten(), dy32.flatten()]))
+    assert rel < 0.25 and cos > 0.98, (rel, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Lx,Ly,C", [(20_001, 40, 40, 2), (301, 14, 41, 4)])
+def test_fused_lanes_are_bitwise_repeatable(cuda_device, P, Lx, Ly, C):
+    """No atomics: k, ck, rc and K6's dx, dy bit for bit across two calls."""
+    xt, yt, gout = _pair_tiles(cuda_device, P, Lx, Ly, C, seed=17)
+    k1, ck1, rc1 = kf.fused_forward(xt, yt, residuals=True)
+    k2, ck2, rc2 = kf.fused_forward(xt, yt, residuals=True)
+    assert torch.equal(k1, k2) and torch.equal(ck1, ck2) and torch.equal(rc1, rc2)
+    dx1, dy1 = kf.fused_backward_bf16(xt, yt, ck1, rc1, gout)
+    dx2, dy2 = kf.fused_backward_bf16(xt, yt, ck1, rc1, gout)
+    assert torch.equal(dx1, dx2) and torch.equal(dy1, dy2)
 
 
 @pytest.mark.cuda
@@ -494,6 +567,11 @@ def test_fused_kernels_raise_outside_their_envelope(cuda_device):
     xt = torch.zeros(5, 5, 4, device=cuda_device)               # C = 5 in bf16
     with pytest.raises(ValueError, match="K6 takes"):
         kf.fused_backward_bf16(xt, xt, *kf.fused_forward(xt, xt, residuals=True)[1:],
+                               torch.zeros(4, device=cuda_device))
+    yt = torch.zeros(42, 2, 4, device=cuda_device)              # ly1 = 41 in bf16
+    with pytest.raises(ValueError, match="K6 takes"):
+        kf.fused_backward_bf16(xt[:, :2].contiguous(), yt,
+                               *kf.fused_forward(xt[:, :2].contiguous(), yt, residuals=True)[1:],
                                torch.zeros(4, device=cuda_device))
     # C = 9 solves through K5 on the card, as its twin on the CPU
     X = _paths(cuda_device, 4, 5, 9)
