@@ -12,13 +12,13 @@ fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
 ``N`` chained solves each, default 7, after a warm-up), K2 alone at
 [1024, 40, 2] through the tree's ``block3_gram_and_grad`` on the smoke's
 seeded paths (``k2_timing``: a warm-up call, then three times 5 calls by
-CUDA events), K4's forward alone at the flagship pair list, the upper
-triangle of the smoke's seeded [1024, 40, 2] paths at h = 4 (``k4_timing``:
-the tree's ``fused_forward`` with residuals and values only, a warm-up call
-each, then the median of three runs of 5 calls by CUDA events, and a SHA-1
-of k's, ck's and rc's bytes, which the two trees must share), K6 alone on
-those residuals with K4's fp32 backward beside it as a control
-(``k6_timing``, timed alike), the pinned λ=3 solve on linear statics
+CUDA events), K4 alone at the flagship pair list, the upper triangle of
+the smoke's seeded [1024, 40, 2] paths at h = 4 (``k4_timing``: the tree's
+``fused_forward`` with residuals and values only and its ``fused_backward``
+on those residuals, a warm-up call each, then the median of three runs of 5
+calls by CUDA events, and a SHA-1 of k's, ck's and rc's bytes, which the two
+trees must share), K6 alone on the same residuals (``k6_timing``, timed
+alike), the pinned λ=3 solve on linear statics
 (``pinned_linear_solve``, ``N`` chained solves) and K5 alone at its
 flagship linear list, the upper triangle of that solve's τ (``k5_timing``:
 the tree's ``tiled_forward`` with checkpoints and ``tiled_backward``, a
@@ -66,8 +66,8 @@ METRICS = {
     "k2_timing": ("k2_timing", "kernel_ms"),
     "k4_timing_forward": ("k4_timing", "forward_ms"),
     "k4_timing_values_only": ("k4_timing", "values_only_ms"),
+    "k4_timing_backward": ("k4_timing", "backward_ms"),
     "k6_timing": ("k6_timing", "k6_ms"),
-    "k6_timing_k4_backward": ("k6_timing", "k4_backward_ms"),
     "streamed_gram": ("streamed_gram", "wall_ms"),
     "k5_timing_forward": ("k5_timing", "forward_ms"),
     "k5_timing_backward": ("k5_timing", "backward_ms"),
@@ -110,14 +110,13 @@ def k2_timing(cs) -> None:
 
 
 def k4_k6_timing(cs) -> None:
-    """K4's forward and K6 at the flagship pair list (``phase_k4``'s: the
-    upper triangle of the smoke's smooth [1024, 40, 2] paths from seed 4 at
-    h = 4, cotangent 1 on the diagonal and 2 off it) through the tree's
-    ``fused_forward`` (with residuals, and values only), ``fused_backward_bf16``
-    and, as a control on the same residuals, ``fused_backward``: a warm-up
-    call each, then the median of three runs of 5 calls timed by CUDA
-    events; two JSON lines, the first with a SHA-1 of k's, ck's and rc's
-    bytes."""
+    """K4 and K6 at the flagship pair list (``phase_k4``'s: the upper
+    triangle of the smoke's smooth [1024, 40, 2] paths from seed 4 at h = 4,
+    cotangent 1 on the diagonal and 2 off it) through the tree's
+    ``fused_forward`` (with residuals, and values only), ``fused_backward``
+    and ``fused_backward_bf16`` on those residuals: a warm-up call each,
+    then the median of three runs of 5 calls timed by CUDA events; two JSON
+    lines, the first (K4) with a SHA-1 of k's, ck's and rc's bytes."""
     import hashlib
 
     import torch
@@ -130,21 +129,21 @@ def k4_k6_timing(cs) -> None:
     sha = hashlib.sha1()
     for t in (k, ck, rc):
         sha.update(t.cpu().numpy())
+    kf.fused_backward(xt, yt, ck, rc, g)
+    torch.cuda.synchronize()
     times = {}
     for which, fn in (("forward", lambda: kf.fused_forward(xt, yt, residuals=True)),
-                      ("values_only", lambda: kf.fused_forward(xt, yt, residuals=False))):
+                      ("values_only", lambda: kf.fused_forward(xt, yt, residuals=False)),
+                      ("backward", lambda: kf.fused_backward(xt, yt, ck, rc, g))):
         times[which] = [cs.event_ms(fn, 5) for _ in range(3)]
     print(json.dumps({"phase": "k4_timing", "shape": [1024, 40, 2], "pairs": xt.shape[2],
                       "sha1_k_ck_rc": sha.hexdigest(),
                       **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
                       **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
     kf.fused_backward_bf16(xt, yt, ck, rc, g)
-    kf.fused_backward(xt, yt, ck, rc, g)
     torch.cuda.synchronize()
-    times = {}
-    for which, fn in (("k6", lambda: kf.fused_backward_bf16(xt, yt, ck, rc, g)),
-                      ("k4_backward", lambda: kf.fused_backward(xt, yt, ck, rc, g))):
-        times[which] = [cs.event_ms(fn, 5) for _ in range(3)]
+    times = {"k6": [cs.event_ms(lambda: kf.fused_backward_bf16(xt, yt, ck, rc, g), 5)
+                    for _ in range(3)]}
     print(json.dumps({"phase": "k6_timing", "shape": [1024, 40, 2], "pairs": xt.shape[2],
                       **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
                       **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)

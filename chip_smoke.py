@@ -83,14 +83,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
    mean cost at the first and last iteration (it must fall), the success
    rate and K8's launches (500 each);
-15. K4 (the λ=3 pair-list forward, a lane group per pair, and the fp32
-   backward) against its twin at the flagship upper-triangle pair list of
+15. K4 (the λ=3 pair-list forward and fp32 backward, each a lane group per
+   pair) against its twin at the flagship upper-triangle pair list of
    [1024, 40, 2] (524,800 pairs: the first and the last 16,384 held, the
-   last solved by the later passes of both kernels' persistent loops, all
-   of them timed), [77, 40, 2] ×
+   last solved by the later passes of both kernels' persistent loops,
+   asserted, all of them timed), [77, 40, 2] ×
    [64, 33, 2] random pairs, [40, 49, 3] (ly1 = 48) and [64, 17, 7]: K to atol 1e-4,
    dX and dY (the pairs' gradients summed per path) scaled against the
-   twin in fp64 to atol 4e-4; the forward's plan (``fused_plan``: lanes,
+   twin in fp64 to atol 4e-4; both kernels' plans (``fused_plan``: lanes,
    spans, runs, tiles, blocks, shared memory, traffic, sector share);
    times, bound, the twin's times and the residuals' memory;
 16. K6 (the bf16 delta-form backward, a lane group per pair couple) against
@@ -279,9 +279,10 @@ def phase_build():
             or any(r.get("stack_frame", 1) for r in k8.values())):
         raise AssertionError(f"K8's kernels not both reported spill-free with no "
                              f"stack frame: {k8}")
-    # K4's forward and K6 keep each pair's fine rows in registers: no spill,
-    # no stack frame at any instantiation
+    # K4's forward and backward and K6 keep each pair's fine rows in
+    # registers: no spill, no stack frame at any instantiation
     for what, tag, n_c in (("K4's forward", "fused_fwd_lanes_kernel", 8),
+                           ("K4's backward", "fused_bwd_lanes_kernel", 8),
                            ("K6", "fused_bwd_bf16_lanes_kernel", 4)):
         fns = {f: r for f, r in ptxas["sigkernel_fused"].items() if tag in f}
         if (len(fns) != n_c * len(kb.SPAN_TEMPLATES) or spills(fns)
@@ -1214,11 +1215,11 @@ def phase_k4():
     """K4's forward and fp32 backward against the twin at four pair lists:
     K against the fp32 twin; dX and dY (the pairs' tile gradients summed per
     path, as autograd returns them) against the twin in fp64, on the first
-    16,384 pairs and, where the backward's persistent threads each take
-    several pairs, also on the last 16,384, which its loop's last passes
-    solve. At the flagship list (asserted to hold more pairs than threads)
-    the times of both kernels and of the twin, the bound and the residuals'
-    memory."""
+    16,384 pairs and, where the backward's persistent blocks each take
+    several tiles, also on the last 16,384, which its loop's last passes
+    solve. At the flagship list (asserted to hold more tiles than blocks in
+    both kernels) the times of both kernels and of the twin, the bound and
+    the residuals' memory; each row with both kernels' plans."""
     from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1242,11 +1243,12 @@ def phase_k4():
     triu_case("triu_64x17x7", 64, 17, 7)
     for name, shape, ix, iy, nx, ny, xt, yt, g in cases:
         P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
-        threads = kf.bwd_grid(Ly - 1, C, P) * kf.NT_BWD
         plan = kf.launch_plan(P, Lx - 1, Ly - 1, C, "forward", "cuda")
+        bplan = kf.launch_plan(P, Lx - 1, Ly - 1, C, "backward", "cuda")
+        first_pass = bplan.blocks * bplan.pairs_per_tile  # pairs of the loop's first pass
         hold = min(P, 16384)
         held = torch.arange(hold, device="cuda")
-        if P > threads:
+        if P > first_pass:
             held = torch.cat([held, torch.arange(max(hold, P - hold), P, device="cuda")])
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1270,8 +1272,8 @@ def phase_k4():
         finite = bool(torch.isfinite(k).all() and torch.isfinite(dx).all()
                       and torch.isfinite(dy).all())
         row = {"phase": "k4_vs_plain", "case": name, "shape": shape, "pairs": P,
-               "backward_threads": threads, "pairs_held": held.numel(),
-               "tail_held": P > threads, "h": h, "k_max_abs_err": k_err,
+               "pairs_held": held.numel(), "tail_held": P > first_pass, "h": h,
+               "k_max_abs_err": k_err,
                "dX_scaled_err_vs_fp64": dx_err, "dY_scaled_err_vs_fp64": dy_err,
                "plain_dX_scaled_err_vs_fp64": scaled_err(scatter(dxp, ixh, nx), dX64),
                "dX_max_abs_err_vs_fp64": (dX - dX64).abs().max().item(),
@@ -1280,18 +1282,18 @@ def phase_k4():
                "k_range": [k.min().item(), k.max().item()],
                "residual_mib": kf.residual_bytes(P, Lx - 1, Ly - 1) / 2**20,
                "forward_peak_mib": fwd_peak_mib, "finite": finite,
-               "plan": plan.report()}
+               "plan": plan.report(), "backward_plan": bplan.report()}
         del dx64, dy64, dxp, dyp
         if name == "flagship_triu":
-            if P <= threads or plan.tiles <= plan.blocks:
-                raise AssertionError(f"K4 took {P} pairs on {threads} backward threads and "
-                                     f"{plan.tiles} forward tiles on {plan.blocks} blocks: "
-                                     "its loops' later passes went unchecked")
+            if plan.tiles <= plan.blocks or bplan.tiles <= bplan.blocks:
+                raise AssertionError(f"K4 took {plan.tiles} forward tiles on {plan.blocks} "
+                                     f"blocks and {bplan.tiles} backward tiles on "
+                                     f"{bplan.blocks}: its loops' later passes went unchecked")
             row["fwd_ms"] = event_ms(lambda: kf.fused_forward(xt, yt, residuals=True), 3)
             row["bwd_ms"] = event_ms(lambda: kf.fused_backward(xt, yt, ck, rc, g), 3)
             row["values_only_fwd_ms"] = event_ms(
                 lambda: kf.fused_forward(xt, yt, residuals=False), 3)
-            row["blocks"] = {"forward": plan.blocks, "backward": kf.bwd_grid(Ly - 1, C, P),
+            row["blocks"] = {"forward": plan.blocks, "backward": bplan.blocks,
                              "bf16": kf.launch_plan(P, Lx - 1, Ly - 1, C, "bf16",
                                                     "cuda").blocks}
             row["plain_fwd_ms"] = event_ms(lambda: twin_in_chunks(
@@ -1394,7 +1396,7 @@ def phase_streamed_gram():
     """``gram(X, Y)`` above the dense limit at [1024, 40, 2] × [1024, 40, 2]
     and its gradient with respect to X; rows 0..63 and 960..1023 held
     against the twin (the tail's pairs fall in the last passes of K4's
-    persistent backward, asserted)."""
+    persistent backward, asserted), with the backward's plan."""
     from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
     from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
 
@@ -1424,9 +1426,10 @@ def phase_streamed_gram():
     launches = {c.__name__: c.launches for c in counters}
     _, chunk, nb = kern._chunk_plan(39, 39, 1024 * 1024, 2, X.device, h)
 
-    threads = kf.bwd_grid(39, 2, chunk) * kf.NT_BWD
-    if chunk <= threads:
-        raise AssertionError(f"streamed_gram: {chunk} pairs a chunk on {threads} threads")
+    bplan = kf.launch_plan(chunk, 39, 39, 2, "backward", "cuda")
+    if chunk <= bplan.blocks * bplan.pairs_per_tile:
+        raise AssertionError(f"streamed_gram: {chunk} pairs a chunk in one pass of "
+                             f"{bplan.blocks} backward blocks")
     rows = torch.cat([torch.arange(64), torch.arange(960, 1024)]).cuda()
     nr = rows.numel()
     iu = rows.repeat_interleave(1024)
@@ -1445,7 +1448,7 @@ def phase_streamed_gram():
     row = {"phase": "streamed_gram", "shape": [[1024, 40, 2], [1024, 40, 2]],
            "pairs": 1024 * 1024, "h": h, "chunk": chunk, "chunks": nb,
            "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
-           "backward_threads": threads, "rows_held": [[0, 63], [960, 1023]],
+           "backward_plan": bplan.report(), "rows_held": [[0, 63], [960, 1023]],
            "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
            "k_range": [K.min().item(), K.max().item()], "finite": finite}
     emit(row)

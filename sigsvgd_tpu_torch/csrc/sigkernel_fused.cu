@@ -15,12 +15,13 @@
 // at the flagship shape (4 fp32 operations each forward, 14 in the fp32
 // backward, 12 bf16 in the bf16 one): 2.1e11 operations forward over the
 // 524,800 pairs of 1024 paths, against ~5.6 GB of residuals, so the bound is
-// the operations (3.3 ms forward at 67 TFLOP/s, 5.3 ms for K6's bf16x2 at
-// 134). A pair's fine row (8·ly1+1 values) fits neither one thread's
-// registers nor, for enough threads, shared memory. The forward and K6
-// spread it over the registers of a group of lanes, the design of K2 and K5
-// (csrc/sigkernel_block3.cu, csrc/sigkernel_tiled.cu):
-//   * a lane group per pair (forward) or per pair couple (K6): g lanes (a
+// the operations (3.3 ms forward at 67 TFLOP/s, 11.3 ms for the fp32
+// backward, 5.3 ms for K6's bf16x2 at 134). A pair's fine row (8·ly1+1
+// values) fits neither one thread's registers nor, for enough threads,
+// shared memory. All three kernels spread it over the registers of a group
+// of lanes, the design of K2 and K5 (csrc/sigkernel_block3.cu,
+// csrc/sigkernel_tiled.cu):
+//   * a lane group per pair (K4) or per pair couple (K6): g lanes (a
 //     power of two, the fewest that leave a lane at most 5 coarse columns:
 //     8 at ly1 = 39-40, 16 at 48, 1 up to 5) split the ly1 coarse columns
 //     into spans [t·ly1/g, (t+1)·ly1/g); a block (4 warps) takes a tile of
@@ -40,45 +41,54 @@
 //     its span of the band's top row into ck (lane 0 also column 0), and
 //     the last lane writes the band's right edge into rc; values only,
 //     nothing but k is written;
-//   * fp32 backward (K4): per checkpoint segment, top down, the segment's
-//     band tops and right edges are recomputed from the checkpoint below it
-//     into per-thread scratch (bit-identical to the forward), then K2's band
-//     backward runs on them: three chains per fine column in registers
-//     (adjoint of the band's 8 rows, the primal of the column to the left
-//     rebuilt toward -j and re-anchored at every band's top row and every
-//     row's right edge, the dz sums), the adjoint row handed down in scratch.
-//     One thread a pair, persistent;
-//   * bf16 backward (K6): the three delta chains (ρ, σ, the dz sum) all run
-//     right to left and top down, so one pipeline right to left over the
-//     group's units (couple, band), bands top down, serves them: lane g-1
-//     takes unit k at step k, lane t unit k - (g-1-t). A register holds one
-//     bf16 value of each pair of the couple (add.rn/sub.rn/mul.rn.bf16x2:
-//     one rounding per half and operation, never fused, as the scalar twin
-//     rounds; Hopper issues them at twice the fp32 rate), and each lane
-//     owns its span of the band's top-row primal kb, of the adjoint row gb
-//     and of the band above's z/2, carried in registers from one band of
-//     its couple to the next. At its span's left edge it hands lane t-1
-//     (__shfl_down_sync) the 8 rows' ρ, σ and previous-column outputs, row
-//     0's inputs there, the z/2 of the cell to its right, the pull-back's
-//     per-pair state and the row-path sums. It re-anchors where the JAX
-//     kernel does: at checkpoint bands each lane replaces its span of kb by
-//     the bf16-rounded checkpoint row, copied a step ahead by cp.async with
-//     the band's x points (the lanes reach such a band at different steps,
-//     so a load at the unit's start would hold up the warp); lane g-1
-//     re-anchors every row at its fp32 right edge. C ≤ 4, JAX's bf16
-//     envelope;
+//   * both backwards run the JAX kernels' order: three chains per fine
+//     column, all right to left and top down (the adjoint of the band's 8
+//     rows; the primal of the column to the left, rebuilt toward -j from the
+//     band's top row and re-anchored at every row's right edge, the top row
+//     itself carried from the band above and re-anchored at the checkpoint
+//     bands, never recomputed forward; the dz sums). So one pipeline right
+//     to left over the group's units (pair or couple, band), bands top down,
+//     serves them: lane g-1 takes unit k at step k, lane t unit
+//     k - (g-1-t). Each lane owns its span of the band's top-row primal and
+//     of the adjoint row handed from band to band, carried in registers, and
+//     at its span's left edge hands lane t-1 (__shfl_down_sync) the 8 rows'
+//     state at that column, the coefficients or z/2 of the cell to its
+//     right, the pull-back's per-pair state and the row-path sums. The
+//     checkpoint rows (the lane's span), lane g-1's checkpoint column G and
+//     right edges and the x rows are copied a step ahead by cp.async into a
+//     per-lane stage in shared memory (the lanes reach a band at different
+//     steps, so a load at the unit's start would hold up the warp);
+//   * fp32 backward (K4): the exact discrete adjoint in the form of K2's band
+//     backward; each lane keeps its span's kb (k[8b+8] at node columns
+//     8c0..8c0+8·nspan-1, rebuilt in place into k[8b]), lam (the band
+//     above's part of the adjoint of node row 8b+8) and the band's upper
+//     static row (one exp a node a band, the lower row carried as the next
+//     band's upper) in registers, and hands on the 8 rows' adjoint and 9
+//     rows' primal at its left edge, the A and B of the cell to its right
+//     and that cell's dz. The fp32 right edges rc[b] start each row;
+//   * bf16 backward (K6): the three delta chains (ρ, σ, the dz sum). A
+//     register holds one bf16 value of each pair of the couple
+//     (add.rn/sub.rn/mul.rn.bf16x2: one rounding per half and operation,
+//     never fused, as the scalar twin rounds; Hopper issues them at twice
+//     the fp32 rate); each lane's kb,
+//     gb (the adjoint row) and the band above's z/2 in bf16x2, the anchor
+//     rows rounded to bf16. C ≤ 4, JAX's bf16 envelope;
 //   * both backwards pull dz back through the statics per coarse column, a
 //     lane through its own cells: the column-path gradient of the node
 //     columns it owns (inside and at the right edge of its span, lane 0
 //     also column 0) in its shared-memory slots, written once a pair; the
-//     row-path sums in registers (K6: handed on with the pipeline, lane 0
+//     row-path sums in registers, handed on with the pipeline (lane 0
 //     writes the band's upper row). No atomics; dx and dy are
 //     deterministic.
-// Neither the forward nor K6 sends a fine row, an adjoint row or a scratch
-// row through device memory: the paths, k, the residuals and the gradients
-// are their only traffic. Each node keeps the twin's rounding (the
-// forward's product by A fused into its subtraction; K6's bf16 order), so k
-// and the residuals are the twin's on the card up to the exp.
+// No kernel sends a fine row, a band top, a right edge, an adjoint row or a
+// scratch row through device memory: the paths, k, the residuals and the
+// gradients are their only traffic. Each node keeps the twin's rounding
+// where the twin fixes it (the forward's product by A fused into its
+// subtraction; K6's bf16 order), so k and the residuals are the twin's on
+// the card up to the exp. The fp32 backward's rounding is pinned by
+// intrinsics (tests/test_torch_fused_schedule.py models it); its rebuild
+// toward -j drifts from the exact grid by rounding alone, as the JAX
+// kernel's does, within K2's tolerance at every shape tested.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,8 +97,7 @@
 namespace {
 
 constexpr int M = 8;      // fine cells per coarse cell side (2^λ)
-constexpr int NT = 128;   // threads per forward / K6 block
-constexpr int NT_BWD = 64;
+constexpr int NT = 128;   // threads per block of every kernel here
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float ZS = 1.0f / 64.0f;
 constexpr float I6 = 1.0f / 6.0f;
@@ -286,47 +295,6 @@ fused_fwd_lanes_kernel(const float* __restrict__ xt, const float* __restrict__ y
   }
 }
 
-// Advance one band (x rows xd = b, xu = b+1) over the fine row: node row 8b
-// is read from `below` (nullptr: ones) at columns 1..G with stride bs, node
-// row 8b+8 is written to `above` with stride as (in place when they alias:
-// each column is read before it is written). left[s] = k[8b+1+s][G].
-template <int C>
-__device__ __forceinline__ void band_forward(const float (&xd)[C], const float (&xu)[C],
-                                             const float* __restrict__ yt, size_t P,
-                                             size_t p, int ly1, const float* below,
-                                             size_t bs, float* above, size_t as,
-                                             float (&left)[M]) {
-  float corner[M];
-#pragma unroll
-  for (int s = 0; s < M; ++s) {
-    left[s] = 1.f;
-    corner[s] = 1.f;
-  }
-  float yq[C];
-  load_pt<C>(yt, 0, P, p, yq);
-  float gd0 = gval<C>(xd, yq), gu0 = gval<C>(xu, yq);
-  for (int cj = 0; cj < ly1; ++cj) {
-    load_pt<C>(yt, cj + 1, P, p, yq);
-    const float gd1 = gval<C>(xd, yq), gu1 = gval<C>(xu, yq);
-    const Coef k = coef(gu1, gu0, gd1, gd0);
-#pragma unroll
-    for (int tt = 0; tt < M; ++tt) {
-      const size_t j = (size_t)(cj * M + tt);  // node column j+1
-      float up = below ? below[j * bs] : 1.f;
-#pragma unroll
-      for (int s = 0; s < M; ++s) {
-        const float kn = __fmaf_rn(__fadd_rn(left[s], up), k.A, -__fmul_rn(corner[s], k.B));
-        corner[s] = up;
-        left[s] = kn;
-        up = kn;
-      }
-      above[j * as] = up;
-    }
-    gd0 = gd1;
-    gu0 = gu1;
-  }
-}
-
 // Pull one adjoint increment E back through static column q of the band's
 // two static rows: dg = +E on the upper row (x row xu), -E on the lower.
 // dyq[c·ds] accumulates the column-path gradient of node q.
@@ -363,158 +331,12 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dxt, int b, size_
   }
 }
 
-// A pair's start: its column-path gradient dy[k·ds] (k < Ly·C) and the
-// row-path carry set to 0.
-template <int C>
-__device__ __forceinline__ void start_pair(float* dy, size_t ds, int Ly, float (&carry)[C]) {
-  for (int k = 0; k < Ly * C; ++k) dy[k * ds] = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) carry[c] = 0.f;
-}
-
 // Static row 0's row-path gradient: only band 0's lower-row part.
 template <int C>
 __device__ __forceinline__ void store_row0(float* __restrict__ dxt, size_t P, size_t p,
                                            const float (&carry)[C]) {
 #pragma unroll
   for (int c = 0; c < C; ++c) dxt[(size_t)c * P + p] = carry[c];
-}
-
-// ---- K4 backward ------------------------------------------------------------
-template <int C>
-__global__ void __launch_bounds__(NT_BWD)
-fused_bwd_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
-                 const float* __restrict__ ck, const float* __restrict__ gout,
-                 float* __restrict__ dxt, float* __restrict__ dyt, float* scratch, int P_,
-                 int Lx, int Ly, int bpc) {
-  extern __shared__ float dyc[];  // [Ly][C][NT_BWD] column-path gradient
-  const size_t P = P_;
-  const int tid = threadIdx.x;
-  const size_t T = (size_t)gridDim.x * NT_BWD;
-  const size_t t = (size_t)blockIdx.x * NT_BWD + tid;
-  const int lx1 = Lx - 1, ly1 = Ly - 1, G = M * ly1;
-  const size_t G1 = (size_t)G + 1;
-  const int nslots = (lx1 + bpc - 1) / bpc;
-  // per-thread scratch, thread-minor: rows [bpc][G] (band tops of one
-  // segment, columns 1..G), redge [bpc·M] (rows 8b+1.. at column G),
-  // lamb [G] (the adjoint row handed from band to band)
-  float* rows = scratch + t;
-  float* redge = rows + (size_t)bpc * G * T;
-  float* lamb = redge + (size_t)bpc * M * T;
-
-  for (size_t p = t; p < P; p += T) {
-    const float sd = gout[p];
-    float carry[C];
-    start_pair<C>(dyc + tid, NT_BWD, Ly, carry);
-    for (int seg = nslots - 1; seg >= 0; --seg) {
-      const int b0 = seg * bpc, b1 = min(b0 + bpc, lx1);
-      const float* ckb = seg > 0 ? ck + (size_t)(seg - 1) * G1 * P + p : nullptr;
-      // recompute the segment's band tops and right edges
-      {
-        float xd[C], xu[C], left[M];
-        load_pt<C>(xt, b0, P, p, xd);
-        for (int ci = b0; ci < b1; ++ci) {
-          const int lb = ci - b0;
-          load_pt<C>(xt, ci + 1, P, p, xu);
-          const float* below =
-              lb == 0 ? (ckb ? ckb + P : nullptr) : rows + (size_t)(lb - 1) * G * T;
-          band_forward<C>(xd, xu, yt, P, p, ly1, below, lb == 0 ? P : T,
-                          rows + (size_t)lb * G * T, T, left);
-#pragma unroll
-          for (int s = 0; s < M; ++s) redge[(size_t)(lb * M + s) * T] = left[s];
-#pragma unroll
-          for (int c = 0; c < C; ++c) xd[c] = xu[c];
-        }
-      }
-      const float edge0 = ckb ? ckb[(size_t)G * P] : 1.f;  // k[8·b0][G]
-
-      for (int ci = b1 - 1; ci >= b0; --ci) {
-        const int lb = ci - b0;
-        const float* top = rows + (size_t)lb * G * T;  // node row 8ci+8
-        const bool topband = ci == lx1 - 1;
-        float Pv[M + 1], Lm[M + 1];  // primal at column j, adjoint at column j+1
-        Pv[0] = lb == 0 ? edge0 : redge[(size_t)(lb * M - 1) * T];
-#pragma unroll
-        for (int s = 1; s <= M; ++s) Pv[s] = redge[(size_t)(lb * M + s - 1) * T];
-#pragma unroll
-        for (int s = 0; s <= M; ++s) Lm[s] = 0.f;
-        float xu[C], xd[C], sxu[C], sxd[C], yr[C], yl[C];
-        load_pt<C>(xt, ci + 1, P, p, xu);
-        load_pt<C>(xt, ci, P, p, xd);
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          sxu[c] = 0.f;
-          sxd[c] = 0.f;
-        }
-        float swu = 0.f, swd = 0.f;
-        load_pt<C>(yt, ly1, P, p, yr);
-        float gu_r = gval<C>(xu, yr), gd_r = gval<C>(xd, yr);
-        float Ar = 0.f, Br = 0.f;  // coefficients of coarse column cj+1 (none at the edge)
-        float dinc_r = 0.f;        // dinc of coarse column cj+1
-        for (int cj = ly1 - 1; cj >= 0; --cj) {
-          load_pt<C>(yt, cj, P, p, yl);
-          const float gu_l = gval<C>(xu, yl), gd_l = gval<C>(xd, yl);
-          const Coef k = coef(gu_r, gu_l, gd_r, gd_l);
-          const float Bi = 1.f / k.B;
-          float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-          for (int tt = M - 1; tt >= 0; --tt) {
-            const int j = cj * M + tt + 1;  // node column, G .. 1
-            const float ar = tt == M - 1 ? Ar : k.A;  // cell column j
-            const float br = tt == M - 1 ? Br : k.B;
-            float* lj = lamb + (size_t)(j - 1) * T;
-            // adjoint of the band's rows at column j
-            float Ln[M + 1];
-            const float lt = topband ? (j == G ? sd : 0.f) : *lj;
-            Ln[M] = fmaf(Lm[M], ar, lt);
-#pragma unroll
-            for (int s = M - 1; s >= 1; --s)
-              Ln[s] = fmaf(Lm[s], ar, Ln[s + 1] * k.A) - Lm[s + 1] * br;
-            // partial adjoint of node row 8ci, handed to the band below
-            if (ci > 0) *lj = Ln[1] * k.A - Lm[1] * br;
-            // primal of column j-1, rebuilt toward -j from column j
-            float Pn[M + 1];
-            if (j == 1) {
-#pragma unroll
-              for (int s = 0; s <= M; ++s) Pn[s] = 1.f;
-            } else {
-              Pn[M] = top[(size_t)(j - 2) * T];
-#pragma unroll
-              for (int s = M - 1; s >= 0; --s)
-                Pn[s] = ((Pn[s + 1] + Pv[s]) * k.A - Pv[s + 1]) * Bi;
-              if (ci == 0) Pn[0] = 1.f;
-            }
-            // dz of cells (s, j-1): weight λ[s+1][j]
-#pragma unroll
-            for (int s = 0; s < M; ++s) {
-              s1 = fmaf(Ln[s + 1], Pn[s + 1] + Pv[s], s1);
-              s2 = fmaf(Ln[s + 1], Pn[s], s2);
-            }
-#pragma unroll
-            for (int s = 0; s <= M; ++s) {
-              Pv[s] = Pn[s];
-              Lm[s] = Ln[s];
-            }
-          }
-          const float dinc = ((0.5f + k.z * I6) * s1 + (k.z * I6) * s2) * ZS;
-          pull_back<C>(dinc - dinc_r, gu_r, gd_r, yr,
-                       dyc + (size_t)(cj + 1) * C * NT_BWD + tid, NT_BWD, xu, xd, sxu, sxd,
-                       swu, swd);
-          dinc_r = dinc;
-          gu_r = gu_l;
-          gd_r = gd_l;
-#pragma unroll
-          for (int c = 0; c < C; ++c) yr[c] = yl[c];
-          Ar = k.A;
-          Br = k.B;
-        }
-        pull_back<C>(-dinc_r, gu_r, gd_r, yr, dyc + tid, NT_BWD, xu, xd, sxu, sxd, swu, swd);
-        store_rows<C>(dxt, ci, P, p, xu, xd, sxu, sxd, swu, swd, carry);
-      }
-    }
-    store_row0<C>(dxt, P, p, carry);
-    for (int k = 0; k < Ly * C; ++k) dyt[(size_t)k * P + p] = dyc[k * NT_BWD + tid];
-  }
 }
 
 // ---- K6: bf16 delta-form backward, a lane group per pair couple ------------
@@ -887,41 +709,272 @@ fused_bwd_bf16_lanes_kernel(const float* __restrict__ xt, const float* __restric
   }
 }
 
+// ---- K4 backward: fp32, a lane group per pair --------------------------------
+// Shared memory of a K4 backward block in floats, per thread (thread-minor,
+// [i][NT]): the y points of its span and their column-path gradients,
+// [(SPAN+1)·C] each; the stage the next unit's inputs are copied into: its
+// anchor row [8·SPAN], the checkpoint's node column G [1] and the right
+// edges rc[b] [8] (lane g-1), x rows b+1 and b [2][C].
+__host__ __device__ inline int bwd_thread_floats(int span, int C) {
+  return 2 * (span + 1) * C + M * span + 1 + M + 2 * C;
+}
+
+template <int SPAN, int C>
+__global__ void __launch_bounds__(NT, 2)
+fused_bwd_lanes_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
+                       const float* __restrict__ ck, const float* __restrict__ rc,
+                       const float* __restrict__ gout, float* __restrict__ dxt,
+                       float* __restrict__ dyt, int P_, int lx1, int ly1, int g, int bpc,
+                       int runs, int tiles) {
+  extern __shared__ float smem[];
+  constexpr int YN = (SPAN + 1) * C;
+  const size_t P = P_;
+  const Lanes L = lanes(g, ly1);
+  const int t = L.t, nspan = L.nspan, c0 = L.c0;
+  const bool last = t == g - 1;
+  const int NG = NT / g;
+  const int U = runs * lx1, steps = U + g - 1;
+  const int G = M * ly1;
+  const size_t G1 = (size_t)G + 1;
+  float* ys = smem + threadIdx.x;    // [SPAN+1][C]
+  float* dys = ys + YN * NT;         // [SPAN+1][C]
+  float* stk = dys + YN * NT;        // [8·SPAN]
+  float* stg = stk + M * SPAN * NT;  // [1]
+  float* str = stg + NT;             // [8]
+  float* stx = str + M * NT;         // [2][C]
+
+#pragma unroll
+  for (int i = 0; i < YN; ++i) dys[i * NT] = 0.f;
+  // the lane's own rows: the band's top-row primal kb[i] = k[8b+8][8c0+i]
+  // (rebuilt toward -j into k[8b][8c0+i], the next band's top row), the
+  // band above's part of the adjoint of node row 8b+8, lam[i] at node column
+  // 8c0+1+i, and the band's upper static row gs[q] at node column c0+q;
+  // lane g-1 also k[8b+8][G]
+  float kb[M * SPAN], lam[M * SPAN], gs[SPAN + 1], kbG = 0.f;
+#pragma unroll
+  for (int i = 0; i < M * SPAN; ++i) kb[i] = lam[i] = 0.f;
+#pragma unroll
+  for (int q = 0; q <= SPAN; ++q) gs[q] = 0.f;
+  // the pipeline's state, handed to lane t-1 at the span's left edge: the
+  // adjoint of node rows 8b+s (s = 1..8) at the last column done, lm[s], the
+  // primal of rows 8b+s (s = 0..8) at the column left of it, pv[s], the
+  // coarse cell to the right's A, B and dz·ZS, and the row-path sums
+  float lm[M + 1], pv[M + 1], Ar = 0.f, Br = 0.f, dinc_r = 0.f, swu = 0.f, swd = 0.f;
+  float sxu[C], sxd[C], carry[C];
+#pragma unroll
+  for (int s = 0; s <= M; ++s) lm[s] = pv[s] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) sxu[c] = sxd[c] = carry[c] = 0.f;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t pbase = (size_t)tile * runs * NG + L.gi;
+    // unit u of the run: pair pbase + (u / lx1)·NG, band lx1-1 - u % lx1.
+    // Copy its inputs into the stage asynchronously (cp.async), behind a
+    // compiler barrier: the thread's own earlier reads of the stage must not
+    // move past the copies, which the compiler does not see write it.
+    auto fetch = [&](int u) {
+      asm volatile("" ::: "memory");
+      if (u < 0 || u >= U) return;
+      const int r = u / lx1, b = lx1 - 1 - (u - r * lx1);
+      const size_t p = pbase + (size_t)r * NG;
+      if (p >= P) return;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        cp_async4(stx + c * NT, xt + ((size_t)(b + 1) * C + c) * P + p);
+        cp_async4(stx + (C + c) * NT, xt + ((size_t)b * C + c) * P + p);
+      }
+      if (ck_band(b, lx1, bpc)) {
+        const float* row = ck + (size_t)(b / bpc) * G1 * P + p;
+#pragma unroll
+        for (int j = 0; j < M * SPAN; ++j)
+          if (j < M * nspan) cp_async4(stk + j * NT, row + (size_t)(M * c0 + j) * P);
+        if (last) cp_async4(stg, row + (size_t)G * P);
+      }
+      if (last) {
+#pragma unroll
+        for (int s = 0; s < M; ++s) cp_async4(str + s * NT, rc + ((size_t)b * M + s) * P + p);
+      }
+    };
+    fetch(-(g - 1 - t));
+    cp_async_commit();
+
+    for (int k = 0; k < steps; ++k) {
+      cp_async_wait_all();
+      const int u = k - (g - 1 - t);
+      int b = 0;
+      size_t p = 0;
+      bool mine = false;
+      if (u >= 0 && u < U) {
+        const int r = u / lx1;
+        b = lx1 - 1 - (u - r * lx1);
+        p = pbase + (size_t)r * NG;
+        mine = p < P;
+      }
+      const bool topband = b == lx1 - 1;
+      float xu[C], xd[C], gd[SPAN + 1], sd = 0.f;
+      if (mine) {  // the unit's inputs, from the stage
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          xu[c] = stx[c * NT];
+          xd[c] = stx[(C + c) * NT];
+        }
+        const bool anchored = ck_band(b, lx1, bpc);
+        if (anchored) {  // the lane's span of the checkpoint row
+#pragma unroll
+          for (int j = 0; j < M * SPAN; ++j)
+            if (j < M * nspan) kb[j] = stk[j * NT];
+        }
+        if (topband) {  // a pair's first unit: the span's y points, static row lx1
+#pragma unroll
+          for (int q = 0; q <= SPAN; ++q) {
+            if (q <= nspan) {
+              float yq[C];
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                yq[c] = yt[((size_t)(c0 + q) * C + c) * P + p];
+                ys[(q * C + c) * NT] = yq[c];
+              }
+              gs[q] = gval<C>(xu, yq);
+            }
+          }
+          if (last) sd = gout[p];
+        }
+        // the band's lower static row: one exp a node
+#pragma unroll
+        for (int q = 0; q <= SPAN; ++q) {
+          if (q <= nspan) {
+            float yq[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) yq[c] = ys[(q * C + c) * NT];
+            gd[q] = gval<C>(xd, yq);
+          }
+        }
+        if (last) {  // the pipeline's start at the right edge: rc[b] and k[8b+8][G]
+#pragma unroll
+          for (int s = 0; s < M; ++s) pv[s] = str[s * NT];
+          pv[M] = anchored ? stg[0] : kbG;
+          kbG = pv[0];  // k[8b][G], the next band's
+#pragma unroll
+          for (int s = 0; s <= M; ++s) lm[s] = 0.f;
+          Ar = Br = dinc_r = swu = swd = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) sxu[c] = sxd[c] = 0.f;
+        }
+      }
+      fetch(u + 1);
+      cp_async_commit();
+
+      if (mine) {
+#pragma unroll
+        for (int kk = SPAN - 1; kk >= 0; --kk) {
+          if (kk < nspan) {
+            const Coef q = coef(gs[kk + 1], gs[kk], gd[kk + 1], gd[kk]);
+            const float Bi = __frcp_rn(q.B);
+            float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+            for (int tt = M - 1; tt >= 0; --tt) {
+              const int i = kk * M + tt;     // node column j = 8c0 + 1 + i
+              const float ar = tt == M - 1 ? Ar : q.A;  // cell column j
+              const float br = tt == M - 1 ? Br : q.B;
+              // the adjoint of rows 8b+s at column j
+              float ln[M + 1];
+              const float lt = topband ? (c0 * M + 1 + i == G ? sd : 0.f) : lam[i];
+              ln[M] = __fmaf_rn(lm[M], ar, lt);
+#pragma unroll
+              for (int s = M - 1; s >= 1; --s)
+                ln[s] = __fmaf_rn(lm[s], ar, __fmaf_rn(ln[s + 1], q.A, -__fmul_rn(lm[s + 1], br)));
+              // its part of row 8b's adjoint, handed to the band below in place
+              if (b > 0) lam[i] = __fmaf_rn(ln[1], q.A, -__fmul_rn(lm[1], br));
+              // the primal of column j-1, rebuilt toward -j from column j
+              float pn[M + 1], h[M];
+              pn[M] = kb[i];
+#pragma unroll
+              for (int s = M - 1; s >= 0; --s) {
+                h[s] = __fadd_rn(pn[s + 1], pv[s]);
+                pn[s] = __fmul_rn(__fmaf_rn(h[s], q.A, -pv[s + 1]), Bi);
+              }
+              if (b == 0) pn[0] = 1.f;  // node row 0 is one
+              if (c0 + kk == 0 && tt == 0) {  // and node column 0
+#pragma unroll
+                for (int s = M - 1; s >= 0; --s) {
+                  pn[s + 1] = 1.f;
+                  h[s] = __fadd_rn(1.f, pv[s]);
+                }
+                pn[0] = 1.f;
+              }
+              kb[i] = pn[0];
+              // dz of cells (8b+s, j-1): weight λ[8b+s+1][j]
+#pragma unroll
+              for (int s = 0; s < M; ++s) {
+                s1 = __fmaf_rn(ln[s + 1], h[s], s1);
+                s2 = __fmaf_rn(ln[s + 1], pn[s], s2);
+              }
+#pragma unroll
+              for (int s = 0; s <= M; ++s) {
+                pv[s] = pn[s];
+                if (s > 0) lm[s] = ln[s];
+              }
+            }
+            const float t1 = __fmul_rn(q.z, I6);
+            const float dinc = __fmul_rn(__fmaf_rn(__fadd_rn(0.5f, t1), s1, __fmul_rn(t1, s2)), ZS);
+            float yq[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) yq[c] = ys[((kk + 1) * C + c) * NT];
+            pull_back<C>(__fsub_rn(dinc, dinc_r), gs[kk + 1], gd[kk + 1], yq,
+                         dys + (kk + 1) * C * NT, NT, xu, xd, sxu, sxd, swu, swd);
+            dinc_r = dinc;
+            Ar = q.A;
+            Br = q.B;
+          }
+        }
+        if (t == 0) {  // node column 0 and the band's row-path gradients
+          float y0[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) y0[c] = ys[c * NT];
+          pull_back<C>(-dinc_r, gs[0], gd[0], y0, dys, NT, xu, xd, sxu, sxd, swu, swd);
+          store_rows<C>(dxt, b, P, p, xu, xd, sxu, sxd, swu, swd, carry);
+          if (b == 0) store_row0<C>(dxt, P, p, carry);
+        }
+#pragma unroll
+        for (int q = 0; q <= SPAN; ++q)
+          if (q <= nspan) gs[q] = gd[q];  // the next band's upper row
+        if (b == 0) {  // the pair's end: its column-path gradients, and a clean slate
+#pragma unroll
+          for (int q = 0; q <= SPAN; ++q) {
+            if ((q > 0 || t == 0) && q <= nspan) {
+#pragma unroll
+              for (int c = 0; c < C; ++c)
+                dyt[((size_t)(c0 + q) * C + c) * P + p] = dys[(q * C + c) * NT];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < YN; ++i) dys[i * NT] = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) carry[c] = 0.f;
+        }
+      }
+
+      // ---- the hand-off to lane t-1
+#pragma unroll
+      for (int s = 0; s <= M; ++s) {
+        if (s > 0) lm[s] = __shfl_down_sync(FULL, lm[s], 1, g);
+        pv[s] = __shfl_down_sync(FULL, pv[s], 1, g);
+      }
+      Ar = __shfl_down_sync(FULL, Ar, 1, g);
+      Br = __shfl_down_sync(FULL, Br, 1, g);
+      dinc_r = __shfl_down_sync(FULL, dinc_r, 1, g);
+      swu = __shfl_down_sync(FULL, swu, 1, g);
+      swd = __shfl_down_sync(FULL, swd, 1, g);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        sxu[c] = __shfl_down_sync(FULL, sxu[c], 1, g);
+        sxd[c] = __shfl_down_sync(FULL, sxd[c], 1, g);
+      }
+    }
+  }
+}
+
 // ---- host side -----------------------------------------------------------------
-
-// The column-path gradient slots of a K4 backward block: one pair a thread.
-size_t bwd_smem(int Ly, int C) { return sizeof(float) * (size_t)Ly * C * NT_BWD; }
-
-template <int C>
-cudaError_t grid32(int Ly, int P, int* blocks) {
-  const size_t smem = bwd_smem(Ly, C);
-  cudaError_t err = cudaFuncSetAttribute(fused_bwd_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_bwd_kernel<C>, NT_BWD, smem);
-  if (err != cudaSuccess) return err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int need = (P + NT_BWD - 1) / NT_BWD;
-  *blocks = min(per_sm * sms, need > 0 ? need : 1);
-  return cudaSuccess;
-}
-
-template <int C>
-cudaError_t bwd(const float* xt, const float* yt, const float* ck, const float* gout, float* dxt,
-                float* dyt, float* scratch, int blocks, int P, int Lx, int Ly, int bpc,
-                cudaStream_t st) {
-  const size_t smem = bwd_smem(Ly, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_bwd_kernel<C><<<blocks, NT_BWD, smem, st>>>(xt, yt, ck, gout, dxt, dyt, scratch, P, Lx,
-                                                    Ly, bpc);
-  return cudaGetLastError();
-}
 
 // The plan (kernels/sigkernel_fused.py::fused_plan) picks g, the span
 // template, the runs, tiles and blocks; these are the shapes the lane
@@ -937,6 +990,9 @@ size_t fwd_smem(int span, int C) { return fwd_smem_floats(span, C) * sizeof(floa
 size_t bf16_smem(int span, int C) {
   return (size_t)bf16_thread_floats(span, C) * NT * sizeof(float);
 }
+size_t bwd_smem(int span, int C) {
+  return (size_t)bwd_thread_floats(span, C) * NT * sizeof(float);
+}
 
 template <typename K>
 cudaError_t occupancy(K kernel, size_t smem, int* per_sm) {
@@ -949,6 +1005,11 @@ cudaError_t occupancy(K kernel, size_t smem, int* per_sm) {
 template <int SPAN, int C>
 cudaError_t resident_fwd(int* per_sm) {
   return occupancy(fused_fwd_lanes_kernel<SPAN, C>, fwd_smem(SPAN, C), per_sm);
+}
+
+template <int SPAN, int C>
+cudaError_t resident_bwd(int* per_sm) {
+  return occupancy(fused_bwd_lanes_kernel<SPAN, C>, bwd_smem(SPAN, C), per_sm);
 }
 
 template <int SPAN, int C>
@@ -970,6 +1031,19 @@ cudaError_t launch_fwd(const float* xt, const float* yt, float* k, float* ck, fl
 }
 
 template <int SPAN, int C>
+cudaError_t launch_bwd(const float* xt, const float* yt, const float* ck, const float* rc,
+                       const float* gout, float* dxt, float* dyt, int P, int lx1, int ly1, int g,
+                       int bpc, int runs, int tiles, int blocks, cudaStream_t st) {
+  const size_t smem = bwd_smem(SPAN, C);
+  cudaError_t err = cudaFuncSetAttribute(fused_bwd_lanes_kernel<SPAN, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_bwd_lanes_kernel<SPAN, C><<<blocks, NT, smem, st>>>(xt, yt, ck, rc, gout, dxt, dyt, P,
+                                                            lx1, ly1, g, bpc, runs, tiles);
+  return cudaGetLastError();
+}
+
+template <int SPAN, int C>
 cudaError_t launch_bf16(const float* xt, const float* yt, const float* ck, const float* rc,
                         const float* gout, float* dxt, float* dyt, int P, int lx1, int ly1,
                         int g, int bpc, int runs, int tiles, int blocks, cudaStream_t st) {
@@ -984,8 +1058,9 @@ cudaError_t launch_bf16(const float* xt, const float* yt, const float* ck, const
 
 }  // namespace
 
-// span × C dispatch of the lane kernels: K4's forward at C = 1..8, K6 at 1..4
-#define FWD_DISPATCH(FN, ...)                                   \
+// span × C dispatch of the lane kernels: K4's forward and backward at C = 1..8,
+// K6 at 1..4
+#define K4_DISPATCH(FN, ...)                                    \
   switch (span * 16 + C) {                                      \
     case 49: return (int)FN<3, 1>(__VA_ARGS__);                 \
     case 50: return (int)FN<3, 2>(__VA_ARGS__);                 \
@@ -1021,11 +1096,14 @@ cudaError_t launch_bf16(const float* xt, const float* yt, const float* ck, const
 
 extern "C" {
 
-// Blocks of K4's forward (part 0) or K6 (part 1) resident on one SM at once,
-// with their shared memory, for the plan.
+// Blocks of K4's forward (part 0), K6 (part 1) or K4's backward (part 2)
+// resident on one SM at once, with their shared memory, for the plan.
 int sigkernel_fused_resident(int span, int C, int part, int* per_sm) {
   if (part == 0) {
-    FWD_DISPATCH(resident_fwd, per_sm)
+    K4_DISPATCH(resident_fwd, per_sm)
+  }
+  if (part == 2) {
+    K4_DISPATCH(resident_bwd, per_sm)
   }
   BF16_DISPATCH(resident_bf16, per_sm)
 }
@@ -1041,52 +1119,29 @@ int sigkernel_fused_fwd(const float* xt, const float* yt, float* k, float* ck, f
   if (!valid(Lx - 1, Ly - 1, C, g, span, 48, 8) || P < 1 || bpc < 1 || runs < 1 ||
       tiles < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  FWD_DISPATCH(launch_fwd, xt, yt, k, ck, rc, P, Lx - 1, Ly - 1, g, bpc, runs, tiles, blocks,
+  K4_DISPATCH(launch_fwd, xt, yt, k, ck, rc, P, Lx - 1, Ly - 1, g, bpc, runs, tiles, blocks,
                static_cast<cudaStream_t>(stream))
 }
 
-// Number of persistent blocks of a K4 backward launch; the caller sizes the
-// scratch by blocks · 64 threads.
-int sigkernel_fused_bwd_grid(int Ly, int C, int P, int* blocks) {
-  switch (C) {
-    case 1: return (int)grid32<1>(Ly, P, blocks);
-    case 2: return (int)grid32<2>(Ly, P, blocks);
-    case 3: return (int)grid32<3>(Ly, P, blocks);
-    case 4: return (int)grid32<4>(Ly, P, blocks);
-    case 5: return (int)grid32<5>(Ly, P, blocks);
-    case 6: return (int)grid32<6>(Ly, P, blocks);
-    case 7: return (int)grid32<7>(Ly, P, blocks);
-    case 8: return (int)grid32<8>(Ly, P, blocks);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// K4's fp32 backward: xt, yt as the forward, ck [ceil(lx1/bpc), 8(Ly-1)+1, P]
+// its checkpoints at spacing bpc = min(6, Lx-1), rc [Lx-1, 8, P] its right
+// edges, gout [P]; writes dxt [Lx, C, P], dyt [Ly, C, P]. g, span, runs
+// (pairs a group walks), tiles (of runs·128/g pairs) and blocks from the
+// plan. No device scratch.
+int sigkernel_fused_bwd(const float* xt, const float* yt, const float* ck, const float* rc,
+                        const float* gout, float* dxt, float* dyt, int P, int Lx, int Ly, int C,
+                        int g, int span, int bpc, int runs, int tiles, int blocks,
+                        void* stream) {
+  if (!valid(Lx - 1, Ly - 1, C, g, span, 48, 8) || P < 1 || bpc < 1 || runs < 1 ||
+      tiles < 1 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  K4_DISPATCH(launch_bwd, xt, yt, ck, rc, gout, dxt, dyt, P, Lx - 1, Ly - 1, g, bpc, runs,
+              tiles, blocks, static_cast<cudaStream_t>(stream))
 }
 
-// K4's fp32 backward: xt, yt as the forward, ck its checkpoints at spacing
-// bpc = min(6, Lx-1), gout [P]; writes dxt [Lx, C, P], dyt [Ly, C, P].
-// scratch: blocks · 64 · 4·(bpc·G + 8·bpc + G) bytes, G = 8(Ly-1).
-int sigkernel_fused_bwd(const float* xt, const float* yt, const float* ck, const float* gout,
-                        float* dxt, float* dyt, void* scratch, int blocks, int P, int Lx,
-                        int Ly, int C, int bpc, void* stream) {
-#define CALL(c)                                                                      \
-  bwd<c>(xt, yt, ck, gout, dxt, dyt, static_cast<float*>(scratch), blocks, P, Lx, Ly, bpc, \
-         static_cast<cudaStream_t>(stream))
-  switch (C) {
-    case 1: return (int)CALL(1);
-    case 2: return (int)CALL(2);
-    case 3: return (int)CALL(3);
-    case 4: return (int)CALL(4);
-    case 5: return (int)CALL(5);
-    case 6: return (int)CALL(6);
-    case 7: return (int)CALL(7);
-    case 8: return (int)CALL(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CALL
-}
-
-// K6: xt, yt, ck as K4's backward, the right edges rc [Lx-1, 8, P], C <= 4,
-// Ly - 1 <= 40; g, span, runs (couples a group walks), tiles (of
-// runs·128/g couples) and blocks from the plan. No device scratch.
+// K6: xt, yt, ck, rc as K4's backward, C <= 4, Ly - 1 <= 40; g, span, runs
+// (couples a group walks), tiles (of runs·128/g couples) and blocks from
+// the plan. No device scratch.
 int sigkernel_fused_bwd_bf16(const float* xt, const float* yt, const float* ck, const float* rc,
                              const float* gout, float* dxt, float* dyt, int P, int Lx, int Ly,
                              int C, int g, int span, int bpc, int runs, int tiles, int blocks,

@@ -18,17 +18,18 @@ length. The function, shared by the twins and the kernels:
   8·ly1+1, P]``) and the right-edge column ``rc [lx1, 8, P]``,
   ``rc[b, s] = k[8b+s, 8·ly1]``;
 * fp32 backward (K4): the exact discrete adjoint. The twin keeps the whole
-  grid; the kernel recomputes each checkpoint segment's band tops from the
-  checkpoint below it and runs K2's band backward on them, one thread a
-  pair;
+  grid; the kernel, as ``_bwd_rows_fast``, rebuilds each band's primal
+  toward -j from the band's top row (carried from the band above,
+  re-anchored at the checkpoints) and every row's right edge, band by band
+  top down, beside the adjoint and the dz sums;
 * bf16 backward (K6): ``_bwd_rows_fast_bf16``'s three first-order delta
   chains (ρ = ĝ[i] - ĝ[i+1], σ = k[i-1] - k[i], the dz sum) in bf16, re-
   anchored at the bf16-rounded checkpoints and at every row's fp32 right
   edge, as the JAX kernel re-anchors; statics, dz and the pull-back in fp32.
 
-Layouts are pair-minor (``[L, C, P]``, ``[nslots, G1, P]``). K4's forward
-and K6 run a lane group per pair (K6: per pair couple) with the fine rows in
-the lanes' registers; :func:`fused_plan` lays out their launches. On CPU
+Layouts are pair-minor (``[L, C, P]``, ``[nslots, G1, P]``). All three
+kernels run a lane group per pair (K6: per pair couple) with the fine rows
+in the lanes' registers; :func:`fused_plan` lays out their launches. On CPU
 tensors the wrappers run the twins; on CUDA tensors they launch
 ``csrc/sigkernel_fused.cu`` or raise.
 """
@@ -51,11 +52,10 @@ _ZS = 1.0 / float(4**_LAM)  # dyadic grid scale on the increments
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# csrc/sigkernel_fused.cu: threads per K4 backward block, the channel counts
-# it has instantiations for (K6 takes JAX's bf16 envelope, C ≤ 4 and ly1 ≤
-# 40), the most pairs (K6: couples) a lane group walks, and the SMs of an
-# H100, over which the plan spreads a short list where it can
-NT_BWD = 64
+# csrc/sigkernel_fused.cu: the channel counts K4 has instantiations for (K6
+# takes JAX's bf16 envelope, C ≤ 4 and ly1 ≤ 40), the most pairs (K6:
+# couples) a lane group walks, and the SMs of an H100, over which the plan
+# spreads a short list where it can
 MAX_C = 8
 MAX_C_BF16 = 4
 MAX_LY1_BF16 = 40
@@ -125,18 +125,15 @@ def fused_flops(P: int, Lx: int, Ly: int, C: int, part: str = "forward"):
 def fused_bytes(P: int, Lx: int, Ly: int, C: int, part: str = "forward") -> float:
     """Bytes a call must move, each input read once and each output written
     once: the forward reads the path tiles and writes k and the residuals;
-    the fp32 backward reads the tiles, the checkpoints and the cotangent and
-    writes both tiles' gradients; the bf16 backward also reads the right
-    edges."""
+    both backwards read the tiles, the checkpoints, the right edges and the
+    cotangent and write both tiles' gradients."""
     lx1, ly1 = Lx - 1, Ly - 1
     tiles = P * (Lx + Ly) * C
     ck = P * _n_ck_slots(lx1, _bands_per_ck(lx1)) * (_M * ly1 + 1)
     rc = P * lx1 * _M
     if part == "forward":
         return 4.0 * (tiles + P + ck + rc)
-    if part == "backward":
-        return 4.0 * (tiles + ck + P + tiles)
-    if part == "bf16":
+    if part in ("backward", "bf16"):
         return 4.0 * (tiles + ck + rc + P + tiles)
     raise ValueError(f"unknown part {part!r}")
 
@@ -360,6 +357,9 @@ def fused_backward_bf16_plain(xt: torch.Tensor, yt: torch.Tensor, ck: torch.Tens
 # The lane kernels' plan: lanes, spans, runs, tiles and blocks.
 # ---------------------------------------------------------------------------
 
+# the kernels a plan lays out, by their index in csrc sigkernel_fused_resident
+_PARTS = {"forward": 0, "bf16": 1, "backward": 2}
+
 
 def fused_lanes(ly1: int) -> tuple[int, int]:
     """``(g, span)``: the lanes of a pair (K6: of a pair couple) and the span
@@ -399,13 +399,14 @@ def _sector_share(P: int, rows: int, piece: int) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """How K4's forward (``part`` "forward") or K6 ("bf16") lays out one call
-    on ``P`` pairs: ``g`` lanes a pair (K6: a pair couple), each holding a
-    span of whole coarse columns (``spans``, at most ``span``, the template);
-    tiles of ``tile_rows`` × ``tile_cols`` pairs (K6: couples; a group walks
-    ``tile_rows`` of them as one pipeline of ``steps`` steps), ``tiles`` of
-    them over ``blocks`` persistent blocks (those resident on the card at
-    once, ``resident``, where known; else one a tile); ``smem_bytes`` a
+    """How K4's forward (``part`` "forward"), K4's backward ("backward") or
+    K6 ("bf16") lays out one call on ``P`` pairs: ``g`` lanes a pair (K6: a
+    pair couple), each holding a span of whole coarse columns (``spans``, at
+    most ``span``, the template); tiles of ``tile_rows`` × ``tile_cols``
+    pairs (K6: couples; a group walks ``tile_rows`` of them as one pipeline
+    of ``steps`` steps), ``tiles`` of them over ``blocks`` persistent
+    blocks (those resident on the card at once, ``resident``, where known;
+    else one a tile); ``smem_bytes`` a
     block's shared memory; ``scratch_bytes`` device scratch per thread
     (none); ``traffic_bytes`` the device-memory traffic of a launch (the
     forward with and without residuals); ``piece`` the adjacent pairs one
@@ -436,8 +437,8 @@ class FusedPlan:
 
     @property
     def sector_share(self) -> float:
-        """The share of the residual stores (forward) or loads (K6) that a
-        warp's access moves in whole 32-byte sectors."""
+        """The share of the residual stores (forward) or loads (backwards)
+        that a warp's access moves in whole 32-byte sectors."""
         return _sector_share(self.pairs, self.residual_rows, self.piece)
 
     def report(self) -> dict:
@@ -448,26 +449,29 @@ class FusedPlan:
 
 def fused_plan(P: int, lx1: int, ly1: int, C: int, part: str,
                resident: int | None = None, sms: int = SMS) -> FusedPlan:
-    """The plan of K4's forward (``part="forward"``) or K6 (``"bf16"``) for
-    ``P`` pairs of ``lx1 × ly1`` coarse cells and ``C`` channels.
+    """The plan of K4's forward (``part="forward"``), K4's backward
+    (``"backward"``) or K6 (``"bf16"``) for ``P`` pairs of ``lx1 × ly1``
+    coarse cells and ``C`` channels.
 
     A group walks ``tile_rows`` pairs (K6: couples (2q, 2q+1)): the most of
     8, 4, 2, 1 that still gives ``sms`` tiles, so that a short list spreads
     over as many SMs as it can (a run of one pays the pipeline's fill, g-1
     of its lx1 + g-1 steps). ``smem_bytes`` (csrc ``fwd_smem_floats``,
-    ``bf16_thread_floats``): per thread the forward's y points of its span,
-    ``(span+1)·C`` floats; K6's y points and their column-path gradients
-    for both pairs, ``2·(span+1)·C`` floats each, and the stage its next
-    unit's inputs are copied into (the anchor row ``16·span``, the
-    checkpoint's last column 2, the right edges 16, x rows ``4C``).
+    ``bwd_thread_floats``, ``bf16_thread_floats``): per thread the
+    forward's y points of its span, ``(span+1)·C`` floats; the fp32
+    backward's y points and their column-path gradients, ``(span+1)·C``
+    floats each, and the stage its next unit's inputs are copied into (the
+    anchor row ``8·span``, the checkpoint's last column 1, the right edges
+    8, x rows ``2C``); K6's the same for both pairs of a couple (``2·(span
+    +1)·C`` floats each, a stage of ``16·span + 2 + 16 + 4C``).
     ``traffic_bytes``: the paths read once (the group's lanes share x
     through L1), k, the residuals, the cotangent and the gradients once
     each; no fine row, adjoint row or scratch row goes to device memory."""
-    if part not in ("forward", "bf16"):
+    if part not in _PARTS:
         raise ValueError(f"unknown part {part!r}")
     g, span = fused_lanes(ly1)
     tc = THREADS // g
-    per = 1 if part == "forward" else 2
+    per = 2 if part == "bf16" else 1
     units = _cdiv(P, per)
     rows = next((r for r in (TILE_ROWS, 4, 2) if _cdiv(units, r * tc) >= sms), 1)
     tiles = _cdiv(units, rows * tc)
@@ -477,6 +481,9 @@ def fused_plan(P: int, lx1: int, ly1: int, C: int, part: str,
         smem = 4 * THREADS * (span + 1) * C
         traffic = {"forward": fused_bytes(P, lx1 + 1, ly1 + 1, C),
                    "values": 4.0 * (P * (lx1 + ly1 + 2) * C + P)}
+    elif part == "backward":
+        smem = 4 * THREADS * (2 * (span + 1) * C + 8 * span + 9 + 2 * C)
+        traffic = {"backward": fused_bytes(P, lx1 + 1, ly1 + 1, C, "backward")}
     else:
         smem = 4 * THREADS * (4 * (span + 1) * C + 16 * span + 18 + 4 * C)
         traffic = {"bf16": fused_bytes(P, lx1 + 1, ly1 + 1, C, "bf16")}
@@ -504,14 +511,10 @@ def _lib():
     lib.sigkernel_fused_resident.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.sigkernel_fused_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
-    lib.sigkernel_fused_bwd_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.sigkernel_fused_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    lib.sigkernel_fused_bwd_bf16.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p]
+    for fn in (lib.sigkernel_fused_bwd, lib.sigkernel_fused_bwd_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     for fn in (lib.sigkernel_fused_resident, lib.sigkernel_fused_fwd,
-               lib.sigkernel_fused_bwd_grid, lib.sigkernel_fused_bwd,
-               lib.sigkernel_fused_bwd_bf16):
+               lib.sigkernel_fused_bwd, lib.sigkernel_fused_bwd_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -542,11 +545,11 @@ def _stream(t: torch.Tensor):
 
 @functools.lru_cache(maxsize=None)
 def resident_blocks(span: int, C: int, part: str, device_index: int) -> int:
-    """Blocks of K4's forward or K6 (``part``) with span template ``span``
-    resident on the card at once: the occupancy query's blocks an SM (with
-    the plan's shared memory) times the SMs."""
+    """Blocks of K4's forward, K4's backward or K6 (``part``) with span
+    template ``span`` resident on the card at once: the occupancy query's
+    blocks an SM (with the plan's shared memory) times the SMs."""
     per_sm = ctypes.c_int(0)
-    err = _lib().sigkernel_fused_resident(span, C, int(part == "bf16"), ctypes.byref(per_sm))
+    err = _lib().sigkernel_fused_resident(span, C, _PARTS[part], ctypes.byref(per_sm))
     if err != 0 or per_sm.value < 1:
         raise RuntimeError(f"fused {part} occupancy query failed: cudaError {err}")
     return per_sm.value * torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -589,24 +592,6 @@ def fused_forward(xt: torch.Tensor, yt: torch.Tensor, residuals: bool):
     return (k, ck, rc) if residuals else (k,)
 
 
-def bwd_grid(ly1: int, C: int, P: int) -> int:
-    """Persistent blocks of a K4 backward launch: those resident on the card
-    at once, at most one per ``NT_BWD`` pairs."""
-    blocks = ctypes.c_int(0)
-    err = _lib().sigkernel_fused_bwd_grid(ly1 + 1, C, P, ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"K4 backward occupancy query failed: cudaError {err}")
-    return blocks.value
-
-
-def bwd_scratch_bytes(lx1: int, ly1: int) -> int:
-    """Device scratch per resident thread of a K4 backward launch: the band
-    tops and right edges of one checkpoint segment and its adjoint row."""
-    G = _M * ly1
-    bpc = _bands_per_ck(lx1)
-    return 4 * (bpc * G + bpc * _M + G)
-
-
 def _backward(xt, yt, ck, rc, gout, bf16: bool):
     lx1, ly1, C, P = _check(xt, yt, "K6" if bf16 else "K4")
     if bf16 and (C > MAX_C_BF16 or ly1 > MAX_LY1_BF16):
@@ -616,30 +601,19 @@ def _backward(xt, yt, ck, rc, gout, bf16: bool):
     if gout.shape != (P,) or gout.dtype != torch.float32 or not gout.is_contiguous():
         raise ValueError("the cotangent must be a contiguous fp32 [P] tensor")
     bpc = _bands_per_ck(lx1)
-    residuals = {"ck": (ck, (_n_ck_slots(lx1, bpc), _M * ly1 + 1, P))}
-    if bf16:
-        residuals["rc"] = (rc, (lx1, _M, P))
+    residuals = {"ck": (ck, (_n_ck_slots(lx1, bpc), _M * ly1 + 1, P)), "rc": (rc, (lx1, _M, P))}
     for name, (t, shape) in residuals.items():
         if (t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != xt.device):
             raise ValueError(f"{name} must be K4's forward residual, fp32 {shape}")
     dx = torch.empty_like(xt)
     dy = torch.empty_like(yt)
+    plan = launch_plan(P, lx1, ly1, C, "bf16" if bf16 else "backward", xt.device)
     lib = _lib()
-    if bf16:
-        plan = launch_plan(P, lx1, ly1, C, "bf16", xt.device)
-        err = lib.sigkernel_fused_bwd_bf16(
-            xt.data_ptr(), yt.data_ptr(), ck.data_ptr(), rc.data_ptr(), gout.data_ptr(),
-            dx.data_ptr(), dy.data_ptr(), P, lx1 + 1, ly1 + 1, C, plan.g, plan.span, bpc,
-            plan.tile_rows, plan.tiles, plan.blocks, _stream(xt))
-    else:
-        blocks = bwd_grid(ly1, C, P)
-        scratch = torch.empty(blocks * NT_BWD * bwd_scratch_bytes(lx1, ly1),
-                              dtype=torch.uint8, device=xt.device)
-        err = lib.sigkernel_fused_bwd(
-            xt.data_ptr(), yt.data_ptr(), ck.data_ptr(), gout.data_ptr(),
-            dx.data_ptr(), dy.data_ptr(), scratch.data_ptr(), blocks, P, lx1 + 1,
-            ly1 + 1, C, bpc, _stream(xt))
+    launch = lib.sigkernel_fused_bwd_bf16 if bf16 else lib.sigkernel_fused_bwd
+    err = launch(xt.data_ptr(), yt.data_ptr(), ck.data_ptr(), rc.data_ptr(), gout.data_ptr(),
+                 dx.data_ptr(), dy.data_ptr(), P, lx1 + 1, ly1 + 1, C, plan.g, plan.span, bpc,
+                 plan.tile_rows, plan.tiles, plan.blocks, _stream(xt))
     if err != 0:
         raise RuntimeError(f"{'K6' if bf16 else 'K4 backward'} launch failed: "
                            f"cudaError {err}")
@@ -648,9 +622,10 @@ def _backward(xt, yt, ck, rc, gout, bf16: bool):
 
 def fused_backward(xt, yt, ck, rc, gout):
     """K4's fp32 backward: ``(dx [Lx, C, P], dy [Ly, C, P])``, the gradients
-    of ``Σ gout·k`` with respect to the scaled tiles. CPU tensors take the
-    twin (which ignores the residuals); CUDA tensors launch the kernel and
-    add one to ``fused_backward.launches``."""
+    of ``Σ gout·k`` with respect to the scaled tiles, from the forward's
+    residuals ``ck`` and ``rc``. CPU tensors take the twin (which ignores
+    the residuals); CUDA tensors launch the kernel (a lane group per pair)
+    and add one to ``fused_backward.launches``."""
     if xt.device.type == "cpu":
         return fused_backward_plain(xt, yt, gout)
     out = _backward(xt, yt, ck, rc, gout, bf16=False)

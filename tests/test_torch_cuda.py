@@ -18,7 +18,10 @@
   tiles' gradients scaled atol 4e-4 against the twin in fp64, K2's;
 * K4's forward on its lane schedule: k, ck and rc bit for bit against the
   twin and across calls, at 1, 8 and 16 lanes a pair and over several
-  tiles a block;
+  tiles a block; its backward on its lane schedule at the same tolerance
+  over three passes of its persistent loop and at ly1 = 48 with C = 8
+  (16 lanes of at most 3 coarse columns), dx and dy bit for bit across
+  calls;
 * K6 (the bf16 delta-form backward, C ≤ 4, ly1 ≤ 40): against its bf16 twin
   rel ≤ 2e-2 and cos ≥ 0.999 (the bf16 chains see inputs that differ from
   the twin's in their last fp32 bit); against K4's fp32 backward rel <
@@ -399,20 +402,15 @@ def test_k6_matches_plain_twin_on_the_card(cuda_device, C, Lx, Ly, P):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fused_backwards_solve_every_pass_of_their_persistent_loop(cuda_device, bf16):
     """More pairs than the backward's persistent blocks take at once, so its
-    loop runs three passes, the last a partial one: K4's backward one pair a
-    thread (its resident threads), K6 over the tiles of its plan (runs of
-    pair couples), its last couple a lone pair; every pair is held against
-    the twin."""
+    loop runs three passes, the last a partial one, over the tiles of its
+    plan: K4's backward runs of pairs, K6 runs of pair couples, its last
+    couple a lone pair; every pair is held against the twin."""
     L, C = 6, 2
-    if bf16:
-        plan = kf.launch_plan(1 << 24, L - 1, L - 1, C, "bf16", cuda_device)
-        P = plan.pairs_per_tile * 2 * plan.blocks + plan.pairs_per_tile // 2 + 1
-        plan = kf.launch_plan(P, L - 1, L - 1, C, "bf16", cuda_device)
-        assert plan.passes == 3 and plan.tiles % plan.blocks and P % 2
-    else:
-        threads = kf.bwd_grid(L - 1, C, 1 << 24) * kf.NT_BWD
-        P = 2 * threads + 37
-        assert kf.bwd_grid(L - 1, C, P) * kf.NT_BWD == threads
+    part = "bf16" if bf16 else "backward"
+    plan = kf.launch_plan(1 << 24, L - 1, L - 1, C, part, cuda_device)
+    P = plan.pairs_per_tile * 2 * plan.blocks + plan.pairs_per_tile // 2 + 1
+    plan = kf.launch_plan(P, L - 1, L - 1, C, part, cuda_device)
+    assert plan.passes == 3 and plan.tiles % plan.blocks and P % 2
     xt, yt, gout = _pair_tiles(cuda_device, P, L, L, C, seed=5)
     k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
     if bf16:
@@ -493,6 +491,38 @@ def test_fused_lanes_are_bitwise_repeatable(cuda_device, P, Lx, Ly, C):
     dx1, dy1 = kf.fused_backward_bf16(xt, yt, ck1, rc1, gout)
     dx2, dy2 = kf.fused_backward_bf16(xt, yt, ck1, rc1, gout)
     assert torch.equal(dx1, dx2) and torch.equal(dy1, dy2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Lx,Ly,C", [(20_001, 40, 40, 2), (301, 14, 41, 4), (257, 9, 49, 8)])
+def test_k4_backward_is_bitwise_repeatable(cuda_device, P, Lx, Ly, C):
+    """No atomics and a fixed order of every sum: K4's backward gives dx and
+    dy bit for bit across two calls, over several tiles a block and at 8
+    and 16 lanes a pair."""
+    xt, yt, gout = _pair_tiles(cuda_device, P, Lx, Ly, C, seed=19)
+    _, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    dx1, dy1 = kf.fused_backward(xt, yt, ck, rc, gout)
+    dx2, dy2 = kf.fused_backward(xt, yt, ck, rc, gout)
+    assert torch.equal(dx1, dx2) and torch.equal(dy1, dy2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Lx", [(333, 9), (64, 14)])
+def test_k4_backward_at_sixteen_lanes_and_eight_channels(cuda_device, P, Lx):
+    """The span-3 template at its corner: ly1 = 48 (16 lanes of 3 coarse
+    columns a pair) with C = 8, the y points and column-path gradients in
+    shared memory; lx1 = 8 (two checkpoint slots, 6 + 2) and 13 (three):
+    dx and dy within K2's scaled 4e-4 of the twin in fp64, as K4's card
+    tests."""
+    xt, yt, gout = _pair_tiles(cuda_device, P, Lx, 49, 8, seed=23)
+    plan = kf.launch_plan(P, Lx - 1, 48, 8, "backward", cuda_device)
+    assert (plan.g, plan.span, max(plan.spans)) == (16, 3, 3)
+    _, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    dx, dy = kf.fused_backward(xt, yt, ck, rc, gout)
+    _, dx64, dy64 = kf.fused_pairs_plain(xt.double(), yt.double(), gout.double())
+    for got, want in ((dx, dx64), (dy, dy64)):
+        scale = want.abs().max()
+        torch.testing.assert_close(got.double() / scale, want / scale, atol=4e-4, rtol=0)
 
 
 @pytest.mark.cuda

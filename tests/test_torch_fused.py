@@ -214,7 +214,15 @@ def test_kernel_bound_counts():
     ck = 7 * 313
     assert kf.fused_bytes(P_, 40, 40, 2) == 4.0 * P_ * (160 + 1 + ck + 312)
     assert kf.residual_bytes(P_, 39, 39) == 4 * P_ * (ck + 312)
-    assert kf.bwd_scratch_bytes(39, 39) == 4 * (6 * 312 + 48 + 312)
+    # K4's backward reads the tiles, both residuals and the cotangent and
+    # writes both gradients; it keeps its rows in registers: no device
+    # scratch, a block's shared memory the y points and their gradients
+    # (6·2 floats each a thread) and the stage (40 + 1 + 8 + 4)
+    assert kf.fused_bytes(P_, 40, 40, 2, "backward") == 4.0 * P_ * (160 + ck + 312 + 1 + 160)
+    plan = kf.fused_plan(P_, 39, 39, 2, "backward")
+    assert plan.scratch_bytes == 0
+    assert plan.smem_bytes == 4 * 128 * (2 * 12 + 40 + 1 + 8 + 4)
+    assert plan.traffic_bytes == {"backward": kf.fused_bytes(P_, 40, 40, 2, "backward")}
     # K6 keeps its rows in registers: no device scratch, a block's shared
     # memory the y points and their gradients (2·6·2 floats each a thread)
     # and the stage of the next unit's inputs (80 + 2 + 16 + 8)

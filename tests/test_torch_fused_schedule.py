@@ -1,5 +1,5 @@
-"""K4's forward and K6 (``csrc/sigkernel_fused.cu``) modelled lane by lane on
-the CPU.
+"""K4's forward, K4's fp32 backward and K6 (``csrc/sigkernel_fused.cu``)
+modelled lane by lane on the CPU.
 
 The models run what each lane of a group does, step by step, vectorised
 over the groups of all tiles, with the spans and runs of :func:`fused_plan`:
@@ -11,6 +11,21 @@ over the groups of all tiles, with the spans and runs of :func:`fused_plan`:
   span of each checkpoint band's top row into ``ck [nslots, 8·ly1+1, P]``
   (lane 0 also column 0) and, as the last lane, the band's right edge into
   ``rc [lx1, 8, P]``. k, ck and rc are the twin's bit for bit.
+* K4's backward: one pipeline right to left over the units (pair, band),
+  bands top down: lane g-1 takes unit k at step k, lane t unit
+  ``k - (g-1-t)``. Each lane owns its span of the band's top-row primal kb
+  (replaced by the checkpoint row at anchored bands, else the band above's
+  rebuild toward -j), of the band above's part of the adjoint of the top
+  row and of the band's upper static row (the lower row carried as the next
+  band's upper), and hands lane t-1 the adjoint of the band's 8 rows and
+  the primal of its 9 at its left edge, the A and B of the cell to its
+  right, that cell's dz and the row-path sums; lane g-1 starts every row at
+  its fp32 right edge ``rc`` and adds the seed at the top band. The fp32
+  arithmetic is the kernel's, each rounding as its intrinsics pin it (a
+  fused multiply-add by ``_fma``). Each lane pulls dz back into the node
+  columns it owns; lane 0 writes the band's row-path gradient. dx and dy
+  are bit-equal whatever the lanes (a schedule does not change a node's
+  arithmetic) and within K4's tolerance of the fp32 and fp64 twins.
 * K6: one pipeline right to left over the units (couple, band), bands top
   down: lane g-1 takes unit k at step k, lane t unit ``k - (g-1-t)``. Each
   lane owns its span of the band's top-row primal kb, of the adjoint row gb
@@ -31,6 +46,8 @@ unit that last wrote them, and every residual float, dz and gradient entry
 its single writer. No JAX: the twins are held against the JAX package in
 ``test_torch_fused.py`` and ``test_torch_fused_bf16.py``.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -162,12 +179,12 @@ def _state0(shape, C):
             "sxu": [zero] * C, "sxd": [zero] * C}
 
 
-def _pull(E, S, y, dys, xu, xd):
+def _pull(E, S, y, dys, xu, xd, gu=None, gd=None):
     """csrc ``pull_back``: E through the upper (+E) and lower (-E) static
-    nodes of one column, the row-path sums in ``S``, the column path's
-    gradient into ``dys``."""
-    wu = -S["gu"] * E
-    wd = S["gd"] * E
+    nodes ``gu``, ``gd`` of one column (default ``S``'s), the row-path sums
+    in ``S``, the column path's gradient into ``dys``."""
+    wu = -(S["gu"] if gu is None else gu) * E
+    wd = (S["gd"] if gd is None else gd) * E
     S["swu"] = S["swu"] + wu
     S["swd"] = S["swd"] + wd
     for c in range(len(y)):
@@ -334,6 +351,144 @@ def bf16_model(xt, yt, ck, rc, gout, sms=kf.SMS):
     return dz.value, dx.value, dy.value
 
 
+def backward_model(xt, yt, ck, rc, gout, sms=kf.SMS, g=None):
+    """``(dz·ZS, dx, dy)`` by K4's backward lane schedule from the forward's
+    residuals, at the plan's lanes or at ``g`` lanes a pair (the plan's runs,
+    ``128/g`` groups a tile)."""
+    Lx, C, P = xt.shape
+    Ly = yt.shape[0]
+    lx1, ly1 = Lx - 1, Ly - 1
+    plan = kf.fused_plan(P, lx1, ly1, C, "backward", sms=sms)
+    if g is not None and g != plan.g:
+        tc = kf.THREADS // g
+        plan = SimpleNamespace(g=g, spans=kf.fused_spans(ly1, g), tile_rows=plan.tile_rows,
+                               tile_cols=tc, tiles=-(-P // (plan.tile_rows * tc)))
+    g, R = plan.g, plan.tile_rows
+    G = M * ly1
+    bpc = kf._bands_per_ck(lx1)
+    c0s = [t * ly1 // g for t in range(g)]
+    widths = list(plan.spans)
+    gst = kf.pair_statics(xt, yt)[0]
+    pidx, live = _groups(plan, P)
+    n = pidx[0].numel()
+    zero, one = torch.zeros(n), torch.ones(n)
+    dinc_all = Writes((lx1, ly1, P))
+    dx, dy = Writes((Lx, C, P)), Writes((Ly, C, P))
+    U = R * lx1
+    # what each lane owns, with the unit that last wrote it
+    kb, lam, gs, ys = [None] * g, [None] * g, [None] * g, [None] * g
+    kbG = [None] * g
+    own = [{"kb": None, "lam": None, "gs": None, "kbG": None} for _ in range(g)]
+    dys = [[[zero] * C for _ in range(w + 1)] for w in widths]
+    carry = [[zero] * C for _ in range(g)]
+    hand = [None] * g
+    for k in range(U + g - 1):
+        out = [None] * g
+        for t in range(g):
+            u = k - (g - 1 - t)
+            if not (0 <= u < U and live[u // lx1]):
+                continue
+            r = u // lx1
+            b = lx1 - 1 - (u - r * lx1)
+            p = pidx[r]
+            ok = p < P
+            pc = torch.where(ok, p, 0)
+            top, anchored = b == lx1 - 1, (b + 1) % bpc == 0 or b == lx1 - 1
+            c0, w = c0s[t], widths[t]
+            L = own[t]
+            xu = [xt[b + 1, c, pc] for c in range(C)]
+            xd = [xt[b, c, pc] for c in range(C)]
+            if anchored:  # the lane's span of the checkpoint row
+                kb[t] = [ck[b // bpc, M * c0 + j, pc] for j in range(M * w)]
+            else:
+                assert L["kb"] == (r, b + 1), "kb from another unit"
+            if top:  # a pair's first unit: the span's y points, static row lx1
+                ys[t] = [[yt[c0 + q, c, pc] for c in range(C)] for q in range(w + 1)]
+                gs[t] = [gst[b + 1, c0 + q, pc] for q in range(w + 1)]
+                lam[t] = [None] * (M * w)
+                sd = gout[pc]
+            else:
+                assert L["gs"] == L["lam"] == (r, b + 1), "gs or lam from another unit"
+            gd = [gst[b, c0 + q, pc] for q in range(w + 1)]   # one exp a node
+            if t == g - 1:  # the pipeline's start at the right edge
+                pv = [rc[b, s, pc] for s in range(M)]
+                if anchored:
+                    pv.append(ck[b // bpc, G, pc])
+                else:
+                    assert L["kbG"] == (r, b + 1), "k[8b+8][G] from another unit"
+                    pv.append(kbG[t])
+                kbG[t], L["kbG"] = pv[0], (r, b)
+                lm = [zero] * (M + 1)
+                Ar = Br = dinc_r = zero
+                S = _state0((n,), C)
+            else:
+                tag, st = hand[t]
+                assert tag == (r, b), "lane t took another unit's state"
+                lm, pv, Ar, Br, dinc_r, S = st
+                lm, pv = list(lm), list(pv)
+            for kk in reversed(range(w)):
+                cc = c0 + kk
+                z = (((gs[t][kk + 1] - gs[t][kk]) - gd[kk + 1]) + gd[kk]) * ZS
+                A, B = kf._coef(z)
+                Bi = 1.0 / B
+                s1 = s2 = zero
+                for tt in reversed(range(M)):
+                    i, j = kk * M + tt, cc * M + tt + 1
+                    ar, br = (Ar, Br) if tt == M - 1 else (A, B)
+                    if top:
+                        lt = torch.where(torch.tensor(j == G), sd, zero)
+                    else:
+                        lt = lam[t][i]
+                    ln = [None] * (M + 1)
+                    ln[M] = _fma(lm[M], ar, lt)
+                    for s in range(M - 1, 0, -1):
+                        ln[s] = _fma(lm[s], ar, _fma(ln[s + 1], A, -(lm[s + 1] * br)))
+                    if b > 0:  # the band below's part of row 8b's adjoint
+                        lam[t][i] = _fma(ln[1], A, -(lm[1] * br))
+                    pn, h = [None] * (M + 1), [None] * M
+                    pn[M] = kb[t][i]
+                    for s in range(M - 1, -1, -1):
+                        h[s] = pn[s + 1] + pv[s]
+                        pn[s] = _fma(h[s], A, -pv[s + 1]) * Bi
+                    if b == 0:
+                        pn[0] = one
+                    if j == 1:  # node column 0 is one
+                        pn = [one] * (M + 1)
+                        h = [one + pv[s] for s in range(M)]
+                    kb[t][i] = pn[0]
+                    for s in range(M):
+                        s1 = _fma(ln[s + 1], h[s], s1)
+                        s2 = _fma(ln[s + 1], pn[s], s2)
+                    pv, lm = pn, ln
+                t1 = z * (1.0 / 6.0)
+                dinc = _fma(0.5 + t1, s1, t1 * s2) * ZS
+                dinc_all.put((b, cc, p), dinc, ok)
+                _pull(dinc - dinc_r, S, ys[t][kk + 1], dys[t][kk + 1], xu, xd,
+                      gs[t][kk + 1], gd[kk + 1])
+                dinc_r, Ar, Br = dinc, A, B
+            if t == 0:  # node column 0 and the band's row-path gradients
+                _pull(-dinc_r, S, ys[t][0], dys[t][0], xu, xd, gs[t][0], gd[0])
+                for c in range(C):
+                    dx.put((b + 1, c, p), carry[t][c] + 2.0 * (xu[c] * S["swu"] - S["sxu"][c]),
+                           ok)
+                    carry[t][c] = 2.0 * (xd[c] * S["swd"] - S["sxd"][c])
+                    if b == 0:
+                        dx.put((0, c, p), carry[t][c], ok)
+            gs[t] = gd
+            L["kb"] = L["lam"] = L["gs"] = (r, b)
+            if b == 0:  # the pair's end: the column-path gradients it owns
+                for q in range(0 if t == 0 else 1, w + 1):
+                    for c in range(C):
+                        dy.put((c0 + q, c, p), dys[t][q][c], ok)
+                dys[t] = [[zero] * C for _ in range(w + 1)]
+                carry[t] = [zero] * C
+            out[t] = ((r, b), (lm, pv, Ar, Br, dinc_r, S))
+        hand = out[1:] + [None]
+    for what in (dinc_all, dx, dy):
+        assert (what.count == 1).all(), "an output entry written twice or never"
+    return dinc_all.value, dx.value, dy.value
+
+
 class _Slot:
     """One pair's half of a lane's column-path gradient slots ``[C][2, NG]``."""
 
@@ -399,22 +554,67 @@ def test_bf16_schedule_matches_the_twin(rng, P, Lx, Ly, C, sms):
         assert err <= 1e-5, err
 
 
+@pytest.mark.parametrize("P,Lx,Ly,C,sms", [
+    (37, 4, 5, 1, kf.SMS),     # g = 1, lx1 = 3 < 6: one checkpoint slot, odd P
+    (21, 8, 10, 4, kf.SMS),    # g = 2, ly1 = 9, lx1 = 7: slots 6 + 1, odd P
+    (41, 6, 18, 2, 1),         # g = 4, ly1 = 17, runs of 8 pairs (six live), odd P
+    (9, 3, 34, 8, kf.SMS),     # g = 8, spans of 4 and 5, C = 8, Lx ≠ Ly
+    (3, 9, 49, 8, kf.SMS),     # g = 16, ly1 = 48 (spans of 3), C = 8, slots 6 + 2
+], ids=["g1", "g2_ly9", "g4_runs", "g8_c8", "g16_ly48_c8"])
+def test_backward_schedule_holds_the_twins(rng, P, Lx, Ly, C, sms):
+    """dx and dy, scaled by their max, within K4's atol 4e-4 of the twin in
+    fp32 and in fp64 (``chip_smoke.K4_TOL``): the rebuild toward -j from
+    carried band tops drifts from the exact grid by rounding alone; the
+    largest seen at these cases was 4.8e-5 against fp64."""
+    xt, yt, gout = _tiles(rng, P, Lx, Ly, C)
+    _, ck, rc = kf.fused_forward_plain(xt, yt, residuals=True)
+    _, dx, dy = backward_model(xt, yt, ck, rc, gout, sms)
+    dxp, dyp = kf.fused_backward_plain(xt, yt, gout)
+    _, dx64, dy64 = kf.fused_pairs_plain(xt.double(), yt.double(), gout.double())
+    assert torch.isfinite(dx).all() and torch.isfinite(dy).all()
+    for got, want in ((dx, dxp), (dy, dyp), (dx, dx64), (dy, dy64)):
+        err = ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+        assert err <= 4e-4, err
+
+
+@pytest.mark.parametrize("P,Lx,Ly,C,sms", [
+    (41, 6, 18, 2, 1),         # 4 lanes a pair against 1, runs of 8 pairs
+    (7, 3, 34, 3, kf.SMS),     # 8 lanes a pair against 1
+], ids=["g4_runs", "g8"])
+def test_backward_schedule_is_the_one_lane_sweep(rng, P, Lx, Ly, C, sms):
+    """A pair's lanes split its columns, not its arithmetic: every coarse
+    cell's dz and dx, dy are bit-equal to the one-lane schedule's (each
+    node's chain and each sum in the same order)."""
+    xt, yt, gout = _tiles(rng, P, Lx, Ly, C)
+    _, ck, rc = kf.fused_forward_plain(xt, yt, residuals=True)
+    got = backward_model(xt, yt, ck, rc, gout, sms)
+    one = backward_model(xt, yt, ck, rc, gout, sms, g=1)
+    for a, b in zip(got, one):
+        assert torch.equal(a, b)
+
+
 def test_plan_at_the_flagship_list():
     """524,800 pairs of 40-point paths (39 × 39 coarse cells): 8 lanes a pair
     (K6: a couple) over spans of 4-5 coarse columns, runs of 8, tiles of
-    128 pairs (256), persistent over the resident blocks; the traffic is
-    the bound's bytes, no fine row through device memory; K6's checkpoint
-    loads fill whole sectors (8 adjacent pairs a lane position), the
-    forward's stores half sectors (4)."""
+    128 pairs (256), persistent over the resident blocks (the backward's
+    two an SM: 16 passes); the traffic is the bound's bytes, no fine row
+    through device memory; K6's checkpoint loads fill whole sectors (8
+    adjacent pairs a lane position), the forward's stores and the fp32
+    backward's loads half sectors (4)."""
     P = 524_800
     fwd = kf.fused_plan(P, 39, 39, 2, "forward", resident=132 * 4)
+    bwd = kf.fused_plan(P, 39, 39, 2, "backward", resident=132 * 2)
     k6 = kf.fused_plan(P, 39, 39, 2, "bf16", resident=132 * 2)
-    for plan in (fwd, k6):
+    for plan in (fwd, bwd, k6):
         assert (plan.g, plan.span, plan.spans) == (8, 5, (4, 5, 5, 5, 5, 5, 5, 5))
         assert (plan.tile_rows, plan.tile_cols, plan.steps) == (8, 16, 8 * 39 + 7)
         assert plan.scratch_bytes == 0
     assert (fwd.pairs_per_tile, fwd.tiles, fwd.blocks, fwd.passes) == (128, 4100, 528, 8)
     assert (k6.pairs_per_tile, k6.tiles, k6.blocks, k6.passes) == (256, 2050, 264, 8)
+    assert (bwd.pairs_per_tile, bwd.tiles, bwd.blocks, bwd.passes) == (128, 4100, 264, 16)
+    assert bwd.smem_bytes == 4 * 128 * (2 * 6 * 2 + 40 + 9 + 4)
+    assert bwd.traffic_bytes == {"backward": kf.fused_bytes(P, 40, 40, 2, "backward")}
+    assert bwd.sector_share == 0.0
     assert fwd.smem_bytes == 4 * 128 * 6 * 2
     assert k6.smem_bytes == 4 * 128 * (4 * 6 * 2 + 80 + 18 + 8)
     assert fwd.traffic_bytes == {"forward": kf.fused_bytes(P, 40, 40, 2),
@@ -429,7 +629,8 @@ def test_plan_spreads_a_short_list(P):
     """The tests' lists: runs of one pair (couple), so the list spreads over
     as many blocks as a group a pair gives; an odd P leaves a lone pair."""
     for ly1, part, g, tiles in ((39, "forward", 8, -(-P // 16)), (39, "bf16", 8, -(-P // 32)),
-                                (8, "bf16", 2, -(-P // 128)), (4, "forward", 1, 2)):
+                                (8, "bf16", 2, -(-P // 128)), (4, "forward", 1, 2),
+                                (48, "backward", 16, -(-P // 8)), (5, "backward", 1, 2)):
         plan = kf.fused_plan(P, 5, ly1, 2, part)
         assert (plan.g, plan.tile_rows, plan.tiles, plan.blocks) == (g, 1, tiles, tiles)
         assert plan.tiles * plan.pairs_per_tile >= P
@@ -438,9 +639,10 @@ def test_plan_spreads_a_short_list(P):
 
 def test_plan_envelope():
     """Every shape the kernels take: the spans cover ly1 once, at most 5 a
-    lane; a block's shared memory within Hopper's 232,448 B; K6 two blocks
-    an SM (8 warps), the forward three."""
-    for part, max_ly1, max_c, per_sm in (("forward", 48, 8, 3), ("bf16", 40, 4, 2)):
+    lane; a block's shared memory within Hopper's 232,448 B; the backwards
+    two blocks an SM (8 warps), the forward three."""
+    for part, max_ly1, max_c, per_sm in (("forward", 48, 8, 3), ("backward", 48, 8, 2),
+                                         ("bf16", 40, 4, 2)):
         for ly1 in range(1, max_ly1 + 1):
             for C in range(1, max_c + 1):
                 plan = kf.fused_plan(1000, 7, ly1, C, part)
@@ -450,7 +652,7 @@ def test_plan_envelope():
                 assert plan.smem_bytes <= 232_448
                 assert per_sm * (plan.smem_bytes + 1024) <= 228 * 1024
     with pytest.raises(ValueError, match="part"):
-        kf.fused_plan(10, 5, 5, 2, "backward")
+        kf.fused_plan(10, 5, 5, 2, "sideways")
 
 
 def test_sector_share_counts_whole_aligned_sectors():
