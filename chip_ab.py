@@ -27,7 +27,14 @@ events), K8 alone at the planning shape [1048576, 2, 2] λ=6 (``k8_timing``:
 the tree's ``mxu_chain_fwd`` and ``mxu_chain_bwd`` on ``knot_increments(1024)``
 from seed 8, a warm-up call each, then the median of three runs of 5 and
 of 3 calls by CUDA events), the planning
-iteration at 1024 particles (5 chained iterations) and the reference's
+iteration at 1024 particles (5 chained iterations), K7 alone at the
+streamed λ=0 Gram's list (every pair of the τ of two flagship rollouts,
+1,048,576 pairs) and at the flagship triangle list (``k7_timing``: the
+tree's ``small_forward`` values only and with the residual and its
+``small_backward``, median of three runs of 5 calls by CUDA events, and a
+SHA-1 of each list's k, which the trees should share, reported), the
+calibrated kernel's streamed ``gram(X, Y)`` with its gradient
+(``lambda0_streamed_gram``: wall ms and peak memory), the reference's
 planning run (``PlannerConfig()``, 20 particles × 500 iterations), the
 policy-mode solve (``policy_solve``), the streamed λ=3 ``gram(X, Y)`` at
 [1024, 40, 2]² with its gradient (``streamed_gram``, its wall ms) and last
@@ -73,6 +80,14 @@ METRICS = {
     "k5_timing_backward": ("k5_timing", "backward_ms"),
     "k8_timing_forward": ("k8_timing", "forward_ms"),
     "k8_timing_backward": ("k8_timing", "backward_ms"),
+    "k7_streamed_values_only": ("k7_timing", "streamed.values_only_ms"),
+    "k7_streamed_forward": ("k7_timing", "streamed.forward_ms"),
+    "k7_streamed_backward": ("k7_timing", "streamed.backward_ms"),
+    "k7_flagship_values_only": ("k7_timing", "flagship.values_only_ms"),
+    "k7_flagship_forward": ("k7_timing", "flagship.forward_ms"),
+    "k7_flagship_backward": ("k7_timing", "flagship.backward_ms"),
+    "lambda0_streamed_gram": ("lambda0_streamed_gram", "wall_ms"),
+    "lambda0_streamed_gram_peak_mib": ("lambda0_streamed_gram", "peak_allocated_mib"),
 }
 
 
@@ -202,6 +217,49 @@ def k8_timing(cs) -> None:
                       **{f"{w}_ms_samples": t for w, t in times.items()}}), flush=True)
 
 
+def k7_timing(cs, kern, taus) -> None:
+    """K7 alone at two pair lists through the tree's ``small_forward``
+    (values only, and with the residual) and ``small_backward`` on that
+    residual: the streamed λ=0 Gram's list (every pair of ``taus``, the τ of
+    two flagship rollouts, 1,048,576 pairs, at the calibrated kernel's
+    bandwidth; cotangent 1) and the flagship triangle list (``phase_k7``'s:
+    the upper triangle of the smoke's smooth [1024, 40, 2] paths from seed
+    8 at h = 4). A warm-up call each, then the median of three runs of 5
+    calls timed by CUDA events, and a SHA-1 of each list's values-only k,
+    which the two trees should share; one JSON line."""
+    import hashlib
+
+    import torch
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    X, Y = taus
+    n, m = X.shape[0], Y.shape[0]
+    idx = torch.arange(n * m, device="cuda")
+    lists = {"streamed": (*cs.pair_tiles(X, Y, idx // m, idx % m, kern.bandwidth),
+                          torch.ones(n * m, device="cuda"))}
+    del idx
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    lists["flagship"] = cs.triu_tiles(cs.smooth_paths(1024, 40, 2, gen), 4.0)[:3]
+    row = {"phase": "k7_timing", "sha1_k": {}}
+    for name, (xt, yt, g) in lists.items():
+        (k,) = ks.small_forward(xt, yt, residuals=False)
+        _, fac = ks.small_forward(xt, yt, residuals=True)
+        ks.small_backward(xt, yt, fac, g)
+        torch.cuda.synchronize()
+        row["sha1_k"][name] = hashlib.sha1(k.cpu().numpy().tobytes()).hexdigest()
+        times = {}
+        for which, fn in (("values_only", lambda: ks.small_forward(xt, yt, residuals=False)),
+                          ("forward", lambda: ks.small_forward(xt, yt, residuals=True)),
+                          ("backward", lambda: ks.small_backward(xt, yt, fac, g))):
+            times[which] = [cs.event_ms(fn, 5) for _ in range(3)]
+        row[name] = {"pairs": xt.shape[2],
+                     **{f"{w}_ms": statistics.median(t) for w, t in times.items()},
+                     **{f"{w}_ms_samples": t for w, t in times.items()}}
+        del k, fac
+    del lists
+    print(json.dumps(row), flush=True)
+
+
 K9_SHAPES = ((1024, 280), (1024, 840), (1024, 1400))
 
 
@@ -225,8 +283,11 @@ def child(root: Path, n_solves: int) -> int:
     cs.phase_build()
     # K9 timed in a fresh process before the paths, where the tree has it
     timing = cs.phase_k9_timing() if hasattr(cs, "phase_k9_timing") else None
-    cs.phase_flagship()
+    _, kern0, taus = cs.phase_flagship()
     k1_timing(cs)
+    k7_timing(cs, kern0, taus)
+    cs.phase_lambda0_streamed_gram(kern0, *taus)
+    del kern0, taus
     cs.phase_pinned()
     k2_timing(cs)
     k4_k6_timing(cs)
@@ -274,6 +335,7 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
     for n, d in K9_SHAPES:
         got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}
     got["k4_sha1"] = rows["k4_timing"]["sha1_k_ck_rc"]
+    got["k7_sha1"] = rows["k7_timing"]["sha1_k"]
     print(json.dumps(got), flush=True)
     return got
 
@@ -310,8 +372,13 @@ def main() -> int:
         compare[key] = {f"{label}_{k}": statistics.median(r[key][k] for r in rs)
                         for label, rs in runs.items() for k in ("kernel_ms", "library_ms")}
     sums = {r["k4_sha1"] for rs in runs.values() for r in rs}
+    k7_sums = {label: sorted({json.dumps(r["k7_sha1"], sort_keys=True) for r in rs})
+               for label, rs in runs.items()}
     print(json.dumps({"compare": compare, "A": str(a), "B": str(b),
-                      "k4_sha1_agree": len(sums) == 1}), flush=True)
+                      "k4_sha1_agree": len(sums) == 1,
+                      "k7_sha1": k7_sums,
+                      "k7_sha1_agree": len({s for v in k7_sums.values() for s in v}) == 1}),
+          flush=True)
     if len(sums) != 1:
         raise SystemExit(f"chip_ab: the trees' K4 forwards disagree: {sorted(sums)}")
     return 0

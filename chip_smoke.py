@@ -11,9 +11,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    process per source, with the registers, spills and stack frame of each
    function of each source from ptxas (its report kept beside the library,
    so a cached library reports too); a K1, K2, K5 or K8 function, or an
-   instantiation of K4's forward (span template × C = 1..8) or K6 (× C =
-   1..4), that spills or is missing from the report, or a K1, K8, K4
-   forward or K6 function with a stack frame, fails the smoke;
+   instantiation of K4 (span template × C = 1..8), K6 (× C = 1..4) or K7
+   (span 3 × C = 1..8, span 5 × C = 1..4; the forward values only and with
+   the residual), that spills or is missing from the report, or a K1, K8,
+   K4, K6 or K7 function with a stack frame, fails the smoke;
 2. K1 (the λ=0 signature-kernel Gram + adjoint; a lane group per pair)
    against its plain PyTorch twin on the card, at the flagship shape
    [1024, 40, 2], a ragged [333, 40, 2] and [40, 64, 3] (16 lanes a pair):
@@ -32,14 +33,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (atol 3e-5) and against K1's K (bit for bit) at K1's three shapes, with
    its time beside K1's at [1024, 40, 2];
 5. K7 (the λ=0 pair-list forward, values only and with its residual, and
-   its backward) against its twin at the flagship upper-triangle list of
-   [1024, 40, 2] (524,800 pairs: the first and the last 16,384 held, the
-   last in the later passes of both launches' persistent loops, asserted),
+   its backward; a lane group per pair) against its twin at the flagship
+   upper-triangle list of [1024, 40, 2] (524,800 pairs: the first and the
+   last 16,384 held, the last in the later passes of the three launches'
+   persistent loops, asserted),
    [77, 40, 2] × [64, 33, 2] random pairs, [40, 64, 3] (ly1 = 63),
    [64, 41, 4] (L·C > 128) and [256, 20, 8]: k and fac to atol 3e-5, dX and
    dY (summed per path) scaled to atol 5e-5 against the fp32 twin, each
-   also against the twin in fp64 (reported); times, bounds, the twin's
-   times and the residual's memory;
+   also against the twin in fp64 (reported); each launch's plan
+   (``small_plan``: lanes, spans, runs, tiles, resident blocks, stages,
+   traffic, sector share); times, bounds, the twin's times and the
+   residual's memory;
 6. ``lambda0_streamed_gram``: the calibrated flagship kernel's
    ``gram(X, Y)`` on the two τ batches ([1024, 40, 2] × [1024, 40, 2],
    1,048,576 pairs) with its gradient: wall time, peak memory, exactly 2 K7
@@ -255,9 +259,8 @@ def phase_build():
     # every K1 and K2 instantiation (span template × C = 1..3) and every K5
     # kernel (forward and backward × span template) is in the report and
     # spills nothing, and K1 keeps no stack frame (no per-cell value in local
-    # memory); K8's two kernels, K4's forward (span template × C = 1..8) and
-    # K6 (× C = 1..4) as K1's; the other sources' spills are reported, not
-    # gated
+    # memory); K8's two kernels and every instantiation of K4, K6 and K7 as
+    # K1's; the other sources' spills are reported, not gated
     spills = lambda fns: any(  # noqa: E731
         r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in fns.values())
     k1 = {f: r for f, r in ptxas["sigkernel_block"].items() if "block_lanes_kernel" in f}
@@ -280,12 +283,17 @@ def phase_build():
         raise AssertionError(f"K8's kernels not both reported spill-free with no "
                              f"stack frame: {k8}")
     # K4's forward and backward and K6 keep each pair's fine rows in
-    # registers: no spill, no stack frame at any instantiation
-    for what, tag, n_c in (("K4's forward", "fused_fwd_lanes_kernel", 8),
-                           ("K4's backward", "fused_bwd_lanes_kernel", 8),
-                           ("K6", "fused_bwd_bf16_lanes_kernel", 4)):
-        fns = {f: r for f, r in ptxas["sigkernel_fused"].items() if tag in f}
-        if (len(fns) != n_c * len(kb.SPAN_TEMPLATES) or spills(fns)
+    # registers, K7 each pair's K, static and adjoint rows: no spill, no
+    # stack frame at any instantiation (K7: span 3 at C = 1..8 and span 5
+    # at C = 1..4, the forward values only and with the residual)
+    for what, stem, tag, n in (
+            ("K4's forward", "sigkernel_fused", "fused_fwd_lanes_kernel", 16),
+            ("K4's backward", "sigkernel_fused", "fused_bwd_lanes_kernel", 16),
+            ("K6", "sigkernel_fused", "fused_bwd_bf16_lanes_kernel", 8),
+            ("K7's forward", "sigkernel_small", "small_fwd_lanes_kernel", 24),
+            ("K7's backward", "sigkernel_small", "small_bwd_lanes_kernel", 12)):
+        fns = {f: r for f, r in ptxas[stem].items() if tag in f}
+        if (len(fns) != n or spills(fns)
                 or any(r.get("stack_frame", 1) for r in fns.values())):
             raise AssertionError(f"{what}'s instantiations not all reported spill-free "
                                  f"with no stack frame: {fns}")
@@ -1472,8 +1480,10 @@ def small_twin(xt, yt, g, dtype=torch.float64):
 
 def time_k7(xt, yt, g, fac) -> dict:
     """K7's three launches on the pair list ``xt``, ``yt`` (CUDA events, 3
-    runs after a warm one) and its twin's (one run by chunks of 65,536
-    pairs), with the bounds and the residual's memory."""
+    runs after a warm one of each, so that no timed run waits for the
+    allocator to find a new residual's memory) and its twin's (one run by
+    chunks of 65,536 pairs), with the bounds, the residual's memory and
+    each launch's plan."""
     from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
 
     P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
@@ -1487,6 +1497,9 @@ def time_k7(xt, yt, g, fac) -> dict:
             else:
                 ks.small_forward_plain(xt[..., c0:c1], yt[..., c0:c1], residuals)
 
+    ks.small_forward(xt, yt, residuals=False)
+    ks.small_forward(xt, yt, residuals=True)
+    ks.small_backward(xt, yt, fac, g)
     out = {"fwd_ms": event_ms(lambda: ks.small_forward(xt, yt, residuals=False), 3),
            "fwd_res_ms": event_ms(lambda: ks.small_forward(xt, yt, residuals=True), 3),
            "bwd_ms": event_ms(lambda: ks.small_backward(xt, yt, fac, g), 3),
@@ -1494,12 +1507,21 @@ def time_k7(xt, yt, g, fac) -> dict:
            "plain_fwd_res_ms": event_ms(lambda: twin(True), 1),
            "plain_bwd_ms": event_ms(lambda: twin(None), 1),
            "residual_mib": ks.residual_bytes(P, Lx - 1, Ly - 1) / 2**20,
-           "blocks": {"forward": ks.small_grid(Ly - 1, C, False, P),
-                      "backward": ks.small_grid(Ly - 1, C, True, P)}}
+           "plans": k7_plans(Lx - 1, Ly - 1, C, P)}
     for part, key in (("forward", "fwd"), ("residuals", "fwd_res"), ("backward", "bwd")):
         out[f"{key}_bound"] = bound(ks.small_flops(P, Lx, Ly, C, part),
                                     ks.small_bytes(P, Lx, Ly, C, part))
     return out
+
+
+def k7_plans(lx1, ly1, C, P) -> dict:
+    """The plan of each of K7's three launches on the card (``small_plan``:
+    lanes, spans, runs, tiles, resident blocks, threads, stages, traffic,
+    sector share)."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+
+    return {part: ks.launch_plan(lx1, ly1, C, P, part, "cuda").report()
+            for part in ks.PARTS}
 
 
 def phase_k7():
@@ -1507,9 +1529,10 @@ def phase_k7():
     the fp32 twin at five pair lists: k and fac to atol 3e-5; dX and dY (the
     pairs' tile gradients summed per path) scaled by their max to atol
     5e-5; each also against the twin in fp64, reported, not gated. Held
-    pairs: the first 16,384 and, where the launches' persistent threads each
-    take several pairs, the last 16,384. At the flagship list (asserted to
-    hold more pairs than either launch's threads) the times of the three
+    pairs: the first 16,384 and, where the launches' persistent blocks each
+    take several tiles, the last 16,384. Each row carries the three
+    launches' plans. At the flagship list (its last 16,384 pairs asserted
+    to lie beyond every launch's first pass) the times of the three
     launches and of the twin, the bounds and the residual's memory."""
     from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
 
@@ -1535,10 +1558,12 @@ def phase_k7():
     triu_case("triu_256x20x8", 256, 20, 8)
     for name, shape, ix, iy, nx, ny, xt, yt, g in cases:
         P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
-        threads = {b: ks.small_grid(Ly - 1, C, b, P) * ks.NT for b in (False, True)}
+        plans = k7_plans(Lx - 1, Ly - 1, C, P)
         hold = min(P, 16384)
         held = torch.arange(hold, device="cuda")
-        tail = P > min(threads.values())
+        # the pairs the launches' first pass takes: every block's first tile
+        first = min(pl["blocks"] * pl["pairs_per_tile"] for pl in plans.values())
+        tail = P > first
         if tail:
             held = torch.cat([held, torch.arange(max(hold, P - hold), P, device="cuda")])
         torch.cuda.reset_peak_memory_stats()
@@ -1563,7 +1588,7 @@ def phase_k7():
         finite = bool(torch.isfinite(k).all() and torch.isfinite(fac).all()
                       and torch.isfinite(dx).all() and torch.isfinite(dy).all())
         row = {"phase": "k7_vs_plain", "case": name, "shape": shape, "pairs": P,
-               "threads": {"forward": threads[False], "backward": threads[True]},
+               "plans": plans, "first_pass_pairs": first,
                "pairs_held": held.numel(), "tail_held": tail, "h": h,
                "k_max_abs_err": k_err, "fac_max_abs_err": fac_err,
                "values_only_equal": bool(torch.equal(kv, k)),
@@ -1580,9 +1605,9 @@ def phase_k7():
                "forward_peak_mib": fwd_peak_mib, "finite": finite}
         del k64, fac64, dx64, dy64, fac_h
         if name == "flagship_triu":
-            if not tail:
-                raise AssertionError(f"K7 took {P} pairs on {threads} threads: its loops' "
-                                     "later passes went unchecked")
+            if not (tail and P - hold >= first):
+                raise AssertionError(f"K7's first passes took {first} of {P} pairs: its "
+                                     "loops' later passes went unchecked")
             row.update(time_k7(xt, yt, g, fac))
             rows["flagship"] = row
         emit(row)

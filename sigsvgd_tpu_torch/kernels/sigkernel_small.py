@@ -17,25 +17,34 @@ may differ in length. The function, shared by the twins and the kernels:
   reconstruction) and the pull-back of ``dz`` through the statics into
   both tiles.
 
-Layouts are pair-minor (``[L][C][P]``, ``fac [lx1][ly1][P]``) so one thread
-per pair reads and writes coalesced. On CPU tensors the wrappers run the
-twins; on CUDA tensors they launch ``csrc/sigkernel_small.cu`` or raise.
+The path tiles are pair-minor (``[L][C][P]``), ``fac`` is ``[lx1, ly1,
+P]``. On CPU tensors the wrappers run the twins; on CUDA tensors they
+launch ``csrc/sigkernel_small.cu`` (a lane group per pair, laid out by
+:func:`small_plan`) or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from ._build import load
+from .sigkernel_fused import _sector_share
 
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# csrc/sigkernel_small.cu: threads per block and its envelope
-NT = 64
+# csrc/sigkernel_small.cu: its envelope, a block's threads and the span
+# templates; the most pairs a lane group walks and the SMs a plan assumes
+# off the card
 MAX_LY = 64
 MAX_C = 8
+THREADS = 128
+SPAN_TEMPLATES = (3, 5)
+TILE_ROWS = 8
+SMS = 132
 
 
 def small_supported(lx1: int, ly1: int, dyadic_order: int, n_channels: int,
@@ -56,8 +65,9 @@ def small_supported(lx1: int, ly1: int, dyadic_order: int, n_channels: int,
 
 
 def kernel_supported(lx1: int, ly1: int, C: int) -> bool:
-    """Shapes ``csrc/sigkernel_small.cu`` takes: ly ≤ 64 (the K, static and
-    adjoint rows live in shared memory), C ≤ 8, any lx1."""
+    """Shapes ``csrc/sigkernel_small.cu`` takes: ly ≤ 64 (a pair's K, static
+    and adjoint rows spread over at most 32 lanes' registers), C ≤ 8, any
+    lx1."""
     return lx1 >= 1 and 1 <= ly1 <= MAX_LY - 1 and 1 <= C <= MAX_C
 
 
@@ -221,19 +231,152 @@ def small_backward_plain(xt: torch.Tensor, yt: torch.Tensor, fac: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The lane schedule's plan.
+# ---------------------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def span_cap(C: int) -> int:
+    """Columns a lane holds at most: 5 up to 4 channels, 3 beyond, where
+    each column's y point and its column-path gradient take 2C registers."""
+    return 5 if C <= 4 else 3
+
+
+def small_lanes(ly1: int, C: int) -> tuple[int, int]:
+    """``(g, span)``: the lanes of a pair, the fewest (a power of two, at
+    most 32) that leave no lane more than :func:`span_cap` of the ly1
+    columns (8 at ly1 = 33-40 and 16 at 41-63 up to C = 4; 1 at ly1 ≤ 5),
+    and the span template (3 or 5) that holds the widest span. Every lane
+    holds that many columns of the grid padded by ``g·span - ly1`` virtual
+    columns (csrc: the forward's on the left, their y point point 0; the
+    backward's on the right, point ly1; z = 0 in every virtual cell, so k
+    stays 1 and the adjoint 0 there exactly)."""
+    g = 1
+    while _cdiv(ly1, g) > span_cap(C):
+        g *= 2
+    return g, next(t for t in SPAN_TEMPLATES if _cdiv(ly1, g) <= t)
+
+
+def small_spans(ly1: int, C: int) -> list[int]:
+    """Real columns of each lane in the forward: lane t holds ``[t·span -
+    pad, (t+1)·span - pad)``, the negative ones virtual."""
+    g, span = small_lanes(ly1, C)
+    pad = g * span - ly1
+    return [max(0, (t + 1) * span - pad) - max(0, t * span - pad) for t in range(g)]
+
+
+def stage_stride(g: int) -> int:
+    """Floats between two rows of a block's residual stage (csrc
+    ``stage_stride``): the block's ``THREADS/g`` pairs and 4 more, so a row
+    starts 16-byte aligned and, at 8 lanes a pair, a warp's lanes write 32
+    banks."""
+    return THREADS // g + 4
+
+
+# the kernels a plan lays out, by their index in csrc sigkernel_small_resident
+PARTS = {"forward": 0, "residuals": 1, "backward": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class SmallPlan:
+    """How K7 lays out one call on ``pairs`` pairs of ``lx1 × ly1`` cells
+    and ``C`` channels: ``g`` lanes a pair, each holding ``span`` columns
+    of the grid padded by ``pad`` virtual ones (``spans``: the real columns
+    of each lane in the forward); tiles of
+    ``tile_rows`` × ``tile_cols`` pairs (a group walks ``tile_rows`` of
+    them as one pipeline of ``steps`` steps), ``tiles`` of them over
+    ``blocks`` persistent blocks of ``THREADS`` (``threads`` in all; the
+    blocks resident on the card at once, ``resident``, where known, else
+    one a tile); ``stage_bytes`` one of a block's residual stages (the
+    forward with the residual alternates two, the backward cycles three;
+    values only none), ``traffic_bytes`` the device-memory traffic of each
+    launch (values only, with the residual, the backward); no scratch."""
+    pairs: int
+    lx1: int
+    ly1: int
+    C: int
+    g: int
+    span: int
+    pad: int
+    spans: tuple
+    tile_rows: int
+    tile_cols: int
+    pairs_per_tile: int
+    tiles: int
+    blocks: int
+    threads: int
+    steps: int
+    stage_bytes: int
+    traffic_bytes: dict
+    resident: int | None
+
+    @property
+    def passes(self) -> int:
+        """Tiles the busiest block takes: the persistent loop's passes."""
+        return _cdiv(self.tiles, self.blocks)
+
+    @property
+    def sector_share(self) -> float:
+        """The share of the residual's stores (forward) and loads (backward)
+        that a warp moves in whole 32-byte sectors: a stage row is one
+        column of ``tile_cols`` adjacent pairs."""
+        return _sector_share(self.pairs, self.lx1 * self.ly1, self.tile_cols)
+
+    def report(self) -> dict:
+        """The plan's fields and properties, for a JSON row."""
+        return dict(dataclasses.asdict(self), passes=self.passes,
+                    sector_share=self.sector_share)
+
+
+def small_plan(lx1: int, ly1: int, C: int, P: int, blocks: int | None = None,
+               sms: int = SMS) -> SmallPlan:
+    """K7's plan for ``P`` pairs of ``lx1 × ly1`` cells and ``C`` channels
+    over ``blocks`` persistent blocks (those the card holds at once,
+    :func:`resident_blocks`; None: one a tile).
+
+    A group walks ``tile_rows`` pairs: the most of 8, 4, 2, 1 that still
+    gives ``sms`` tiles, so that a short list spreads over as many SMs as
+    it can (a run of one pays the pipeline's fill, g-1 of its lx1 + g-1
+    steps). ``stage_bytes`` (csrc ``stage_floats``): ``g · span`` rows of
+    :func:`stage_stride` floats, each row one lane position's column of the
+    block's pairs. ``traffic_bytes``: the tiles
+    read once (the group's lanes share each x point through L1), k,
+    ``fac``, the cotangent and the gradients once each; no K, static or
+    adjoint row goes to device memory or shared memory."""
+    g, span = small_lanes(ly1, C)
+    tc = THREADS // g
+    rows = next((r for r in (TILE_ROWS, 4, 2) if _cdiv(P, r * tc) >= sms), 1)
+    tiles = _cdiv(P, rows * tc)
+    nb = tiles if blocks is None else max(1, min(tiles, blocks))
+    Lx, Ly = lx1 + 1, ly1 + 1
+    traffic = {part: small_bytes(P, Lx, Ly, C, part)
+               for part in ("forward", "residuals", "backward")}
+    return SmallPlan(
+        pairs=P, lx1=lx1, ly1=ly1, C=C, g=g, span=span, pad=g * span - ly1,
+        spans=tuple(small_spans(ly1, C)),
+        tile_rows=rows, tile_cols=tc, pairs_per_tile=rows * tc, tiles=tiles, blocks=nb,
+        threads=nb * THREADS, steps=rows * lx1 + g - 1,
+        stage_bytes=4 * g * span * stage_stride(g), traffic_bytes=traffic,
+        resident=blocks)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
 
 def _lib():
     lib = load("sigkernel_small")
-    lib.sigkernel_small_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    lib.sigkernel_small_resident.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.sigkernel_small_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
-    lib.sigkernel_small_bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    lib.sigkernel_small_bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
-    lib.sigkernel_small_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for fn in (lib.sigkernel_small_fwd, lib.sigkernel_small_bwd,
-               lib.sigkernel_small_grid):
+    for fn in (lib.sigkernel_small_resident, lib.sigkernel_small_fwd,
+               lib.sigkernel_small_bwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -261,20 +404,34 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def small_grid(ly1: int, C: int, backward: bool, P: int) -> int:
-    """Persistent blocks of a launch: those resident on the card at once, at
-    most one per ``NT`` pairs."""
-    blocks = ctypes.c_int(0)
-    err = _lib().sigkernel_small_grid(ly1 + 1, C, int(backward), P, ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"K7 occupancy query failed: cudaError {err}")
-    return blocks.value
+@functools.lru_cache(maxsize=None)
+def resident_blocks(span: int, C: int, g: int, part: str, device_index: int) -> int:
+    """Blocks of K7's ``part`` ("forward": values only, "residuals",
+    "backward") at span template ``span`` and ``g`` lanes a pair (its
+    stages' size) resident on the card at once: the occupancy query's
+    blocks an SM times the SMs."""
+    per_sm = ctypes.c_int(0)
+    err = _lib().sigkernel_small_resident(span, C, PARTS[part], g, ctypes.byref(per_sm))
+    if err != 0 or per_sm.value < 1:
+        raise RuntimeError(f"K7 {part} occupancy query failed: cudaError {err}")
+    return per_sm.value * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch_plan(lx1: int, ly1: int, C: int, P: int, part: str, device) -> SmallPlan:
+    """:func:`small_plan` for a launch of ``part`` on ``device``: its SMs and
+    the kernel's resident blocks there."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    g, span = small_lanes(ly1, C)
+    return small_plan(lx1, ly1, C, P, blocks=resident_blocks(span, C, g, part, index),
+                      sms=torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def small_forward(xt: torch.Tensor, yt: torch.Tensor, residuals: bool):
     """K7's forward on scaled path tiles ``xt [Lx, C, P]``, ``yt [Ly, C, P]``:
-    ``(k,)``, or ``(k, fac)`` with the residual. CPU tensors take the twin;
-    CUDA tensors launch the kernel and add one to
+    ``(k,)``, or ``(k, fac [lx1, ly1, P])`` with the residual. CPU tensors
+    take the twin; CUDA tensors launch the kernel and add one to
     ``small_forward.launches``."""
     if xt.device.type == "cpu":
         return small_forward_plain(xt, yt, residuals)
@@ -282,10 +439,13 @@ def small_forward(xt: torch.Tensor, yt: torch.Tensor, residuals: bool):
     k = torch.empty(P, dtype=xt.dtype, device=xt.device)
     fac = (torch.empty(lx1, ly1, P, dtype=xt.dtype, device=xt.device)
            if residuals else None)
+    if P == 0:
+        return (k, fac) if residuals else (k,)
+    plan = launch_plan(lx1, ly1, C, P, "residuals" if residuals else "forward", xt.device)
     err = _lib().sigkernel_small_fwd(
-        xt.data_ptr(), yt.data_ptr(), k.data_ptr(),
-        fac.data_ptr() if residuals else None, small_grid(ly1, C, False, P), P,
-        lx1 + 1, ly1 + 1, C, _stream(xt))
+        xt.data_ptr(), yt.data_ptr(), k.data_ptr(), fac.data_ptr() if residuals else None,
+        P, lx1 + 1, ly1 + 1, C, plan.g, plan.span, plan.tile_rows, plan.tiles, plan.blocks,
+        _stream(xt))
     if err != 0:
         raise RuntimeError(f"K7 forward launch failed: cudaError {err}")
     small_forward.launches += 1
@@ -295,8 +455,9 @@ def small_forward(xt: torch.Tensor, yt: torch.Tensor, residuals: bool):
 def small_backward(xt: torch.Tensor, yt: torch.Tensor, fac: torch.Tensor,
                    gout: torch.Tensor):
     """K7's backward: ``(dxt, dyt)``, the gradients of ``Σ gout·k`` with
-    respect to the scaled tiles. CPU tensors take the twin; CUDA tensors
-    launch the kernel and add one to ``small_backward.launches``."""
+    respect to the scaled tiles, from the forward's ``fac``. CPU tensors
+    take the twin; CUDA tensors launch the kernel and add one to
+    ``small_backward.launches``."""
     if xt.device.type == "cpu":
         return small_backward_plain(xt, yt, fac, gout)
     lx1, ly1, C, P = _check(xt, yt, "K7 backward")
@@ -307,10 +468,13 @@ def small_backward(xt: torch.Tensor, yt: torch.Tensor, fac: torch.Tensor,
         raise ValueError(f"fac must be K7's forward residual, fp32 {(lx1, ly1, P)}")
     dxt = torch.empty_like(xt)
     dyt = torch.empty_like(yt)
+    if P == 0:
+        return dxt, dyt
+    plan = launch_plan(lx1, ly1, C, P, "backward", xt.device)
     err = _lib().sigkernel_small_bwd(
         xt.data_ptr(), yt.data_ptr(), fac.data_ptr(), gout.data_ptr(), dxt.data_ptr(),
-        dyt.data_ptr(), small_grid(ly1, C, True, P), P, lx1 + 1, ly1 + 1, C,
-        _stream(xt))
+        dyt.data_ptr(), P, lx1 + 1, ly1 + 1, C, plan.g, plan.span, plan.tile_rows,
+        plan.tiles, plan.blocks, _stream(xt))
     if err != 0:
         raise RuntimeError(f"K7 backward launch failed: cudaError {err}")
     small_backward.launches += 1

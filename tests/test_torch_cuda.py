@@ -26,9 +26,11 @@
   rel ≤ 2e-2 and cos ≥ 0.999 (the bf16 chains see inputs that differ from
   the twin's in their last fp32 bit); against K4's fp32 backward rel <
   0.25, cos > 0.98; dx, dy bit for bit across calls;
-* K7 (the λ=0 pair-list forward and backward): k and fac atol 3e-5, both
-  tiles' gradients scaled by their max atol 5e-5, those of
-  ``tests/test_pallas_small.py``;
+* K7 (the λ=0 pair-list forward and backward; a lane group per pair): k
+  and fac atol 3e-5, both tiles' gradients scaled by their max atol 5e-5,
+  those of ``tests/test_pallas_small.py``, at C = 1..8, over three passes
+  of each launch's persistent loop, at one row and one column of cells;
+  k, fac, dx and dy bit for bit across calls;
 * K3 (the λ=0 values-only block Gram): K equal to K1's bit for bit (both
   round as the twin does) and to its twin atol 3e-5;
 * K5 (the λ=3 solve on given increments, forward and stable backward): k
@@ -642,16 +644,42 @@ def test_k7_matches_plain_twin_on_the_card(cuda_device, C, Lx, Ly):
 
 @pytest.mark.cuda
 def test_k7_solves_every_pass_of_its_persistent_loops(cuda_device):
-    """More pairs than the resident threads of either launch take at once,
-    so every thread's loop runs three passes, the last a partial one; every
-    pair is held against the twin."""
-    L, C = 6, 2
-    threads = max(ks.small_grid(L - 1, C, bwd, 1 << 24) for bwd in (False, True)) * ks.NT
-    P = 2 * threads + 37
+    """More pairs than the tiles the resident blocks of any of K7's three
+    launches take at once, so each persistent loop runs three or more
+    passes, the last over a partial tile; every pair is held against the
+    twin."""
+    L, C = 40, 2
+    full = [ks.launch_plan(L - 1, L - 1, C, 1 << 24, part, cuda_device) for part in ks.PARTS]
+    P = 2 * max(plan.blocks * plan.pairs_per_tile for plan in full) + 37
+    for part in ks.PARTS:
+        plan = ks.launch_plan(L - 1, L - 1, C, P, part, cuda_device)
+        assert plan.passes >= 3 and P % plan.pairs_per_tile != 0, plan
     xt, yt, gout = _pair_tiles(cuda_device, P, L, L, C, seed=5)
-    for bwd in (False, True):
-        assert ks.small_grid(L - 1, C, bwd, P) * ks.NT < P
     _assert_k7(xt, yt, gout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 8])
+@pytest.mark.parametrize("Lx,Ly", [(2, 40), (40, 2), (2, 2), (2, 64), (64, 2)])
+def test_k7_at_one_row_or_one_column(cuda_device, C, Lx, Ly):
+    """The grid's edges: one row of cells (lx1 = 1: a pair's start is its
+    end), one column (ly1 = 1: one lane) and one cell, at an odd P."""
+    xt, yt, gout = _pair_tiles(cuda_device, 301, Lx, Ly, C, seed=7)
+    _assert_k7(xt, yt, gout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lx,Ly,C", [(40, 40, 2), (64, 64, 8), (23, 9, 3)])
+def test_k7_backward_is_bitwise_repeatable(cuda_device, Lx, Ly, C):
+    """No atomics: two backward calls on one residual give dx and dy bit for
+    bit (and two forwards k and fac)."""
+    xt, yt, gout = _pair_tiles(cuda_device, 5003, Lx, Ly, C, seed=9)
+    k, fac = ks.small_forward(xt, yt, residuals=True)
+    k2, fac2 = ks.small_forward(xt, yt, residuals=True)
+    dx, dy = ks.small_backward(xt, yt, fac, gout)
+    dx2, dy2 = ks.small_backward(xt, yt, fac, gout)
+    for a, b in ((k, k2), (fac, fac2), (dx, dx2), (dy, dy2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
