@@ -7,7 +7,11 @@ order A, B, B, A, so that a slow or fast spell of the host falls on both:
 the calibrated λ=0 solve (``flagship_solve``, with its Gram + adjoint stage
 ``sig_gram_adjoint``), K1 alone at [1024, 40, 2] through the tree's
 ``block_gram_and_grad`` on the smoke's seeded paths (``k1_timing``: a
-warm-up call, then three times 5 calls by CUDA events), the pinned λ=3 solves in
+warm-up call, then three times 5 calls by CUDA events), K3 alone at the
+same shape through the tree's ``block_gram`` (``k3_timing``: timed alike,
+with a SHA-1 of K, which the two trees must share) and ``gram_sym`` at
+λ=0 on τ-like knots [1024, 16, 8] (its wall ms, the median of 5 host-timed
+calls, and its launches: K3 or the tree's pair list), the pinned λ=3 solves in
 fp32 and with the bf16 adjoint (``pinned_solve``, ``bf16_pinned_solve``;
 ``N`` chained solves each, default 7, after a warm-up), K2 alone at
 [1024, 40, 2] through the tree's ``block3_gram_and_grad`` on the smoke's
@@ -88,6 +92,8 @@ METRICS = {
     "k7_flagship_backward": ("k7_timing", "flagship.backward_ms"),
     "lambda0_streamed_gram": ("lambda0_streamed_gram", "wall_ms"),
     "lambda0_streamed_gram_peak_mib": ("lambda0_streamed_gram", "peak_allocated_mib"),
+    "k3_timing": ("k3_timing", "kernel_ms"),
+    "gram_sym_c8": ("k3_timing", "gram_sym_c8_wall_ms"),
 }
 
 
@@ -106,6 +112,46 @@ def k1_timing(cs) -> None:
     print(json.dumps({"phase": "k1_timing", "shape": [1024, 40, 2],
                       "kernel_ms": statistics.median(samples),
                       "kernel_ms_samples": samples}), flush=True)
+
+
+def k3_timing(cs) -> None:
+    """K3 at [1024, 40, 2] through the tree's public ``block_gram`` on the
+    smoke's seeded smooth paths (``phase_k3``'s first shape, seed 3, h = 4):
+    one warm-up call, then the median of three runs of 5 calls timed by CUDA
+    events, and a SHA-1 of K's bytes, which the two trees must share. Then
+    ``gram_sym`` at λ=0 on τ-like knots [1024, 16, 8] (seed 16, bandwidth
+    4; the tree's route: K3 inside the JAX block envelope where the tree
+    takes it there, else K7's pair list): a warm-up call, then the median of
+    five host-timed calls ending in a synchronise, and the launches of one
+    call; one JSON line."""
+    import hashlib
+    import time
+
+    import torch
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    X = cs.smooth_paths(1024, 40, 2, torch.Generator(device="cuda").manual_seed(3))
+    K = kb.block_gram(X, 4.0)
+    torch.cuda.synchronize()
+    sha = hashlib.sha1(K.cpu().numpy().tobytes()).hexdigest()
+    samples = [cs.event_ms(lambda: kb.block_gram(X, 4.0), 5) for _ in range(3)]
+    Xk = cs.smooth_paths(1024, 16, 8, torch.Generator(device="cuda").manual_seed(16))
+    kern = SignatureKernel(0, 4.0)
+    _, launches, _, _ = cs.run_counted(lambda: kern.gram_sym(Xk))
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern.gram_sym(Xk)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"phase": "k3_timing", "shape": [1024, 40, 2], "sha1_k": sha,
+                      "kernel_ms": statistics.median(samples), "kernel_ms_samples": samples,
+                      "gram_sym_c8_shape": [1024, 16, 8],
+                      "gram_sym_c8_wall_ms": statistics.median(walls),
+                      "gram_sym_c8_wall_ms_samples": walls,
+                      "gram_sym_c8_launches": launches}), flush=True)
 
 
 def k2_timing(cs) -> None:
@@ -285,6 +331,7 @@ def child(root: Path, n_solves: int) -> int:
     timing = cs.phase_k9_timing() if hasattr(cs, "phase_k9_timing") else None
     _, kern0, taus = cs.phase_flagship()
     k1_timing(cs)
+    k3_timing(cs)
     k7_timing(cs, kern0, taus)
     cs.phase_lambda0_streamed_gram(kern0, *taus)
     del kern0, taus
@@ -335,6 +382,8 @@ def run(root: Path, label: str, n_solves: int, out) -> dict:
     for n, d in K9_SHAPES:
         got[f"k9_{n}x{d}"] = {k: k9[(n, d)][k] for k in ("kernel_ms", "library_ms")}
     got["k4_sha1"] = rows["k4_timing"]["sha1_k_ck_rc"]
+    got["k3_sha1"] = rows["k3_timing"]["sha1_k"]
+    got["gram_sym_c8_launches"] = rows["k3_timing"]["gram_sym_c8_launches"]
     got["k7_sha1"] = rows["k7_timing"]["sha1_k"]
     print(json.dumps(got), flush=True)
     return got
@@ -372,15 +421,21 @@ def main() -> int:
         compare[key] = {f"{label}_{k}": statistics.median(r[key][k] for r in rs)
                         for label, rs in runs.items() for k in ("kernel_ms", "library_ms")}
     sums = {r["k4_sha1"] for rs in runs.values() for r in rs}
+    k3_sums = {r["k3_sha1"] for rs in runs.values() for r in rs}
     k7_sums = {label: sorted({json.dumps(r["k7_sha1"], sort_keys=True) for r in rs})
                for label, rs in runs.items()}
     print(json.dumps({"compare": compare, "A": str(a), "B": str(b),
                       "k4_sha1_agree": len(sums) == 1,
+                      "k3_sha1_agree": len(k3_sums) == 1,
+                      "gram_sym_c8_launches": {label: rs[0]["gram_sym_c8_launches"]
+                                               for label, rs in runs.items()},
                       "k7_sha1": k7_sums,
                       "k7_sha1_agree": len({s for v in k7_sums.values() for s in v}) == 1}),
           flush=True)
     if len(sums) != 1:
         raise SystemExit(f"chip_ab: the trees' K4 forwards disagree: {sorted(sums)}")
+    if len(k3_sums) != 1:
+        raise SystemExit(f"chip_ab: the trees' K3 values disagree: {sorted(k3_sums)}")
     return 0
 
 

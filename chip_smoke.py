@@ -11,10 +11,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    process per source, with the registers, spills and stack frame of each
    function of each source from ptxas (its report kept beside the library,
    so a cached library reports too); a K1, K2, K5 or K8 function, or an
-   instantiation of K4 (span template × C = 1..8), K6 (× C = 1..4) or K7
-   (span 3 × C = 1..8, span 5 × C = 1..4; the forward values only and with
-   the residual), that spills or is missing from the report, or a K1, K8,
-   K4, K6 or K7 function with a stack frame, fails the smoke;
+   instantiation of K3 (length bucket × C inside L·C ≤ 128), K4 (span
+   template × C = 1..8), K6 (× C = 1..4) or K7 (span 3 × C = 1..8, span 5 ×
+   C = 1..4; the forward values only and with the residual), that spills or
+   is missing from the report, or a K1, K8, K3, K4, K6 or K7 function with a
+   stack frame, fails the smoke;
 2. K1 (the λ=0 signature-kernel Gram + adjoint; a lane group per pair)
    against its plain PyTorch twin on the card, at the flagship shape
    [1024, 40, 2], a ragged [333, 40, 2] and [40, 64, 3] (16 lanes a pair):
@@ -29,9 +30,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the solve timed apart (rollout + cost gradient; Gram + adjoint) and one
    more solve traced with ``torch.profiler``; then τ of two rollouts of
    fresh policy draws for phases 6 and 7;
-4. K3 (the λ=0 values-only block Gram, one thread a pair) against its twin
-   (atol 3e-5) and against K1's K (bit for bit) at K1's three shapes, with
-   its time beside K1's at [1024, 40, 2];
+4. K3 (the λ=0 values-only block Gram, one thread a pair swept in bands
+   as a wavefront) against its twin (bit for bit) at [1024, 40, 2],
+   [333, 40, 2] and [40, 64, 2] (L·C = 128, the 64-node bucket), where it
+   must also give K1's K bit for bit, and at C = 8 ([1024, 16, 8]
+   and [300, 16, 8]), with its time beside K1's at [1024, 40, 2], its
+   plan, its registers and the issue floor its SASS implies;
 5. K7 (the λ=0 pair-list forward, values only and with its residual, and
    its backward; a lane group per pair) against its twin at the flagship
    upper-triangle list of [1024, 40, 2] (524,800 pairs: the first and the
@@ -50,7 +54,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    forward and 1 K7 backward launches and no other kernel, rows 0..63 and
    960..1023 held against the twin; K7's launches timed at that list;
 7. ``gram_sym`` of that kernel on τ [1024, 40, 2]: exactly 1 K3 launch and
-   no other kernel, K equal to K1's bit for bit;
+   no other kernel, K equal to K1's bit for bit; and at τ-like knots
+   [1024, 16, 8] (C = 8, inside the JAX package's block envelope): 1 K3
+   launch, no K7, K the twin's bit for bit;
 8. λ=0 ``gram_and_grad`` outside K1's envelope, at bench's planning knots
    [1024, 3, 7] and at [64, 41, 4]: one K7 forward and one backward each,
    no K1, K and dX against the same route with the twins;
@@ -282,11 +288,13 @@ def phase_build():
             or any(r.get("stack_frame", 1) for r in k8.values())):
         raise AssertionError(f"K8's kernels not both reported spill-free with no "
                              f"stack frame: {k8}")
-    # K4's forward and backward and K6 keep each pair's fine rows in
-    # registers, K7 each pair's K, static and adjoint rows: no spill, no
-    # stack frame at any instantiation (K7: span 3 at C = 1..8 and span 5
-    # at C = 1..4, the forward values only and with the residual)
+    # K3 keeps each pair's band rows, K4's forward and backward and K6 each
+    # pair's fine rows in registers, K7 each pair's K, static and adjoint
+    # rows: no spill, no stack frame at any instantiation (K3: each length
+    # bucket × C inside L·C ≤ 128; K7: span 3 at C = 1..8 and span 5 at
+    # C = 1..4, the forward values only and with the residual)
     for what, stem, tag, n in (
+            ("K3", "sigkernel_block", "block_values_kernel", len(kb.values_instantiations())),
             ("K4's forward", "sigkernel_fused", "fused_fwd_lanes_kernel", 16),
             ("K4's backward", "sigkernel_fused", "fused_bwd_lanes_kernel", 16),
             ("K6", "sigkernel_fused", "fused_bwd_bf16_lanes_kernel", 8),
@@ -316,6 +324,74 @@ def ptxas_functions(report: str) -> dict:
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
+
+
+def sass_counts(lib, tag: str) -> dict:
+    """Instructions of the function whose mangled name holds ``tag`` in the
+    SASS of library ``lib`` (``cuobjdump``; empty where it is missing): by
+    opcode (the 12 most frequent), in all, and in its longest loop (from a
+    backward branch's target to the branch)."""
+    import collections
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    for part in text.split("Function : ")[1:]:
+        if tag not in part.split("\n", 1)[0]:
+            continue
+        ins, labels, branches, pending = [], {}, [], []
+        for ln in part.splitlines():
+            if (lab := re.match(r"\s*(\.L_x_\d+):", ln)):
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", ln)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            labels.update((lab, addr) for lab in pending)
+            pending = []
+            ins.append(m.group(2))
+            if m.group(2).startswith("BRA") and (
+                    t := re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", m.group(3))):
+                branches.append((addr, t.group(1) or int(t.group(2), 16)))
+        loop = 0
+        for addr, target in branches:
+            tgt = labels.get(target) if isinstance(target, str) else target
+            if tgt is not None and tgt < addr:
+                loop = max(loop, (addr - tgt) // 16 + 1)
+        ops = collections.Counter(ins)
+        return {"all": len(ins), "loop": loop, **dict(ops.most_common(12))}
+    return {}
+
+
+def k3_issue_floor(n: int, sass: dict, bands: int) -> dict:
+    """K3's issue floor, derived from its SASS: the instructions a pair (the
+    band loop once a band, the rest once) issued at one a cycle on each of
+    the card's 528 sub-partitions at its maximum SM clock, for the warps
+    that hold a pair a ≤ b (a tile's 8 row × 16 column particles, 4 warps
+    of 2 rows each)."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+
+    if not sass:
+        return {"issue_floor_ms": None}
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    tiles = kb._tile_list(n, kb.VALUES_TILE_COLS, "cpu").long()
+    r = torch.arange(0, kb.TILE_ROWS, 2)
+    # a warp (row pair r, r+1 of tile (I, J)) holds a pair if a ≤ b for its
+    # lowest row and highest column inside [0, n)
+    a = tiles[:, :1] * kb.TILE_ROWS + r
+    b = torch.clamp(tiles[:, 1:] * kb.VALUES_TILE_COLS + kb.VALUES_TILE_COLS - 1, max=n - 1)
+    warps = int(((a < n) & (a <= b)).sum())
+    per_pair = sass["all"] - sass["loop"] + sass["loop"] * bands
+    return {"sass_per_pair": per_pair, "sass_band_loop": sass["loop"], "active_warps": warps,
+            "max_sm_mhz": mhz,
+            "issue_floor_ms": warps * per_pair / (4 * 132 * mhz * 1e6) * 1e3}
 
 
 def device_mib_outside_allocator(fn) -> float:
@@ -1620,37 +1696,51 @@ def phase_k7():
 
 
 def phase_k3():
-    """K3 against its twin (atol 3e-5) and against K1's K (bit for bit: both
-    round the statics and the forward sweep as the twin does) at K1's three
-    shapes; its time beside K1's and the twin's at [1024, 40, 2]."""
+    """K3 against its twin (bit for bit: the statics and the forward sweep
+    round as the twin does) and against K1's K (bit for bit) at [1024, 40,
+    2], [333, 40, 2] and [40, 64, 2], and against the twin at C = 8 ([1024, 16, 8], τ-like knots, and
+    [300, 16, 8]); at [1024, 40, 2] its time beside K1's and the twin's,
+    its plan (band rows, tiles, length bucket), the registers of its
+    instantiation and the issue floor its SASS implies; at [1024, 16, 8] its
+    time and the twin's."""
+    from sigsvgd_tpu_torch.kernels import _build
     from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     h = 4.0
     out = None
-    for n, L, C in ((1024, 40, 2), (333, 40, 2), (40, 64, 3)):
+    regs = ptxas_functions(_build.build_all()["sigkernel_block"])
+    lib = _build._lib_path(_build.CSRC / "sigkernel_block.cu")
+    for n, L, C in ((1024, 40, 2), (333, 40, 2), (40, 64, 2), (1024, 16, 8), (300, 16, 8)):
         X = smooth_paths(n, L, C, gen)
         K = kb.block_gram(X, h)
-        K1, _ = kb.block_gram_and_grad(X, h)
         Kp = kb.block_gram_plain(X, h)
         K64 = kb.block_gram_plain(X.double(), h)
         torch.cuda.synchronize()
         k_err = (K - Kp).abs().max().item()
+        plan = kb.block_values_plan(n, L, C)
+        tag = f"block_values_kernelILi{plan.bucket}ELi{C}E"
         row = {"phase": "k3_vs_plain", "shape": [n, L, C], "h": h,
-               "k_max_abs_err": k_err, "bit_equal_k1": bool(torch.equal(K, K1)),
+               "k_max_abs_err": k_err, "bit_equal_twin": bool(torch.equal(K, Kp)),
                "k_err_vs_fp64": {"kernel": (K.double() - K64).abs().max().item(),
                                  "plain": (Kp.double() - K64).abs().max().item()},
-               "finite": bool(torch.isfinite(K).all())}
+               "finite": bool(torch.isfinite(K).all()),
+               "band_rows": plan.band_rows, "bucket": plan.bucket, "tiles": plan.tiles,
+               "registers": next((r["registers"] for f, r in regs.items() if tag in f), None)}
+        if C <= kb.MAX_C:
+            row["bit_equal_k1"] = bool(torch.equal(K, kb.block_gram_and_grad(X, h)[0]))
         if n == 1024:
             row.update(kernel_ms=event_ms(lambda: kb.block_gram(X, h), 5),
-                       k1_ms=event_ms(lambda: kb.block_gram_and_grad(X, h), 3),
                        plain_ms=event_ms(lambda: kb.block_gram_plain(X, h), 1),
                        library_ms=None,
                        **bound(kb.block_values_flops(n, L, C),
-                               kb.block_values_bytes(n, L, C)))
-            out = row
+                               kb.block_values_bytes(n, L, C)),
+                       **k3_issue_floor(n, sass_counts(lib, tag), plan.bands))
+            if C <= kb.MAX_C:
+                row["k1_ms"] = event_ms(lambda: kb.block_gram_and_grad(X, h), 3)
+                out = row
         emit(row)
-        if not (row["finite"] and row["bit_equal_k1"] and k_err <= 3e-5):
+        if not (row["finite"] and row["bit_equal_twin"] and row.get("bit_equal_k1", True)):
             raise AssertionError(f"K3 disagrees with K1 or its twin: {row}")
     return out
 
@@ -1753,7 +1843,10 @@ def phase_lambda0_streamed_gram(kern, X, Y):
 
 def phase_gram_sym(kern, X):
     """``gram_sym`` of the calibrated flagship kernel on τ [1024, 40, 2]:
-    exactly 1 K3 launch and no other kernel, K equal to K1's K bit for bit."""
+    exactly 1 K3 launch and no other kernel, K equal to K1's K bit for bit;
+    then at τ-like knots [1024, 16, 8] (C = 8, inside the JAX package's block
+    envelope, outside K1's): 1 K3 launch and no K7, K the twin's bit for
+    bit. Returns the τ row with the knots' row under ``"c8"``."""
     from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     K, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_sym(X))
@@ -1766,6 +1859,27 @@ def phase_gram_sym(kern, X):
     expect_launches("gram_sym", launches, block_gram=1)
     if not (row["finite"] and row["bit_equal_k1"]):
         raise AssertionError(f"gram_sym disagrees with K1: {row}")
+    row["c8"] = gram_sym_c8()
+    return row
+
+
+def gram_sym_c8() -> dict:
+    """``gram_sym`` at λ=0 on τ-like knots [1024, 16, 8] (bandwidth 4):
+    exactly 1 K3 launch and no other kernel, K the twin's bit for bit."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    X = smooth_paths(1024, 16, 8, torch.Generator(device="cuda").manual_seed(16))
+    kern = SignatureKernel(0, 4.0)
+    K, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_sym(X))
+    row = {"phase": "gram_sym", "kernel": repr(kern), "shape": list(X.shape),
+           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "bit_equal_twin": bool(torch.equal(K, kb.block_gram_plain(X, 4.0))),
+           "requires_grad": K.requires_grad, "finite": bool(torch.isfinite(K).all())}
+    emit(row)
+    expect_launches("gram_sym c8", launches, block_gram=1)
+    if not (row["finite"] and row["bit_equal_twin"]):
+        raise AssertionError(f"gram_sym at C = 8 disagrees with the twin: {row}")
     return row
 
 
@@ -2325,10 +2439,14 @@ def main() -> int:
                     streamed["launches"]["fused_backward"], k4, "bwd",
                     {"streamed_gram": streamed["launches"]["fused_backward"],
                      "bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_backward")]}),
-        kernel_entry("sigkernel_block_gram (K3)",
-                     "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
-                     "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:291",
-                     sym["launches"]["block_gram"], k3),
+        {**kernel_entry("sigkernel_block_gram (K3)",
+                        "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
+                        "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:291",
+                        sym["launches"]["block_gram"], k3),
+         "launches_by_path": {"gram_sym [1024, 40, 2]": sym["launches"]["block_gram"],
+                              "gram_sym [1024, 16, 8]": sym["c8"]["launches"]["block_gram"]},
+         **{k: k3.get(k) for k in ("registers", "band_rows", "tiles", "sass_per_pair",
+                                   "issue_floor_ms")}},
         small_entry("small_forward (K7 forward)",
                     "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:88", streamed0, k7, gg0,
                     "small_forward"),

@@ -3,7 +3,7 @@
 //
 // K1 replaces the TPU kernel sigsvgd_tpu/kernels/pallas_sigkernel_block.py::
 // _block_kernel (launched by _block_call); K3 replaces ::_block_values_kernel
-// (launched by block_gram), K1's forward without checkpoints or adjoint.
+// (launched by block_gram), the same forward without checkpoints or adjoint.
 // Contract, as block_gram_and_grad there: for paths X [n, L, C] fp32 and
 // static bandwidth h,
 //   K  [n, n]    the λ=0 Goursat-PDE signature kernel with the RBF static
@@ -69,10 +69,37 @@
 // sum on its own in the twin's order (so K is the twin's bit for bit); the
 // adjoint contracts freely (dX is compared at a scaled 5e-5). 12 warps an
 // SM (at most 151 registers, no stack frame).
-// K3 solves a pair in one thread, the staging and forward sweep of K1's
-// first port, with nothing stored for an adjoint: its operations bound it
-// (~1.5e10 at [1024, 40, 2], 0.2 ms at 67 TFLOP/s). Its statics and sweep
-// round as K1's do, so both give the twin's K bit for bit.
+// K3, values only at λ=0, takes the JAX package's block envelope (C ≤ 8,
+// L·C ≤ 128, L ≤ 64; K1 stops at C ≤ 3). Its work is the forward alone: per
+// pair L² static nodes (~13 instructions each at C = 2, the IEEE expf ~8 of
+// them) and (L-1)² cells (14, each product and sum rounded on its own, so
+// no FMA), ~42k instructions a pair at L = 40; issued at one an instruction
+// slot, the card's issue rate bounds it (~0.66 ms at [1024, 40, 2], ~2.6×
+// the fp32 operations bound, which counts an FMA as two). One thread solves
+// a pair, which pays no hand-off, pipeline fill or per-lane start; what a
+// row-at-a-time sweep loses is the cell chain (each cell's update waits ~12
+// cycles on its left neighbour) and three full rows in registers. So:
+//   * a block takes a tile of 8 row × 16 column particles from the list of
+//     the tiles holding a pair a <= b, and stages the tile's pre-scaled paths
+//     with -½|·|² in shared memory (the column paths padded to the length
+//     bucket LMAX = 16, 40 or 64 by repeating node L-1);
+//   * each thread sweeps its pair in bands of RV cell rows (2 up to L = 40,
+//     4 at 64: band_rows) as a skewed wavefront: at step t band row s
+//     updates cell (i0 + s, t - s), RV independent chains a step. The band's bottom K row is an [LMAX]
+//     register array, its bottom static row the thread's column of a
+//     shared [LMAX][128] array (each node read once a band, a step before
+//     row 0 needs it; with both rows in registers the 40- and 64-node
+//     buckets spilled under these launch bounds); each
+//     static node is formed once, serving the two cells that use it, and a
+//     column point is loaded once a band for the static nodes of all RV
+//     rows; the band's top rows replace the bottom ones behind the
+//     wavefront (at most 128 registers at LMAX = 16, 16 warps an SM; 168
+//     at 40 and 64, 12 warps);
+//   * no branch inside a band: cells past L-1 run on the repeated node (z =
+//     0) and are not read, the last band's rows past L-2 run on node row L-1
+//     and copy the row below, so the band's top hands on node row L-1;
+//   * statics and sweep round as K1's forward and the twin, so K is the
+//     twin's bit for bit (and K1's at C ≤ 3).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -82,129 +109,197 @@ namespace {
 constexpr int NT = 128;  // threads per block
 constexpr int NW = NT / 32;
 constexpr int TR = 8;    // row particles per tile (the pairs a K1 group walks)
-constexpr int TC = 16;   // K3: column particles per block
+constexpr int TC = 16;   // K3: column particles a tile
 constexpr int RB = 4;    // K1: cell rows a band (a pipeline step)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float I6 = 1.0f / 6.0f;
 constexpr float I12 = 1.0f / 12.0f;
 
-// ---- K3: one thread a pair, values only -------------------------------------
+// ---- the arithmetic both kernels share ----------------------------------------
 
-// Static-Gram row g[q] = exp(x'_p·y'_q - ½|x'_p|² - ½|y'_q|²), q < L.
-// Here and in the forward sweep every product and sum is rounded on its own
-// (no FMA contraction), in the plain twin's order: fp32 rounding alone moves
-// K by about the 3e-5 tolerance at the flagship shape (chip_smoke.py reports
-// both against the twin in fp64), so K agrees with the twin to atol 3e-5
-// only if both round the same operations the same way.
-template <int LMAX, int C>
-__device__ __forceinline__ void g_row(const float* xs, const float* ys,
-                                      const float* ynh, int p, int r, int cl,
-                                      int L, float (&g)[LMAX]) {
-  float xv[C];
-  float xn = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    xv[c] = xs[(p * C + c) * TR + r];
-    xn = __fadd_rn(xn, __fmul_rn(xv[c], xv[c]));
-  }
-  const float xnh = -0.5f * xn;
-#pragma unroll
-  for (int q = 0; q < LMAX; ++q) {
-    if (q < L) {
-      float cross = __fmul_rn(xv[0], ys[(q * C) * TC + cl]);
-#pragma unroll
-      for (int c = 1; c < C; ++c)
-        cross = __fadd_rn(cross, __fmul_rn(xv[c], ys[(q * C + c) * TC + cl]));
-      g[q] = expf(__fadd_rn(cross, __fadd_rn(ynh[q * TC + cl], xnh)));
-    }
-  }
+struct Coef {
+  float z, A, B;
+};
+
+// z, A and B of the cell between static rows u (upper) and d, node columns
+// q and q+1, rounded as the twin rounds them.
+__device__ __forceinline__ Coef coef(float u1, float u0, float d1, float d0) {
+  Coef k;
+  k.z = ((u1 - u0) - d1) + d0;
+  k.A = __fadd_rn(1.f, __fmul_rn(k.z, __fadd_rn(0.5f, __fmul_rn(k.z, I12))));
+  k.B = __fsub_rn(1.f, __fmul_rn(__fmul_rn(k.z, k.z), I12));
+  return k;
 }
 
-// Stage the tile's pre-scaled row paths xs [L][C][TR], column paths
-// ys [L][C][TC] and -½|y'_q|² ynh [L][TC] in shared memory.
+// The cell update k[i+1][j+1] = (k[i+1][j] + k[i][j+1])·A - k[i][j]·B with
+// sm = k[i+1][j] + k[i][j+1], each operation rounded on its own.
+__device__ __forceinline__ float cell(float sm, float prev, const Coef& q) {
+  return __fsub_rn(__fmul_rn(sm, q.A), __fmul_rn(prev, q.B));
+}
+
+// ---- K3: one thread a pair, a band wavefront, values only ------------------
+
+// Static g = exp(x'·y' - ½|x'|² - ½|y'|²) of a row point x and a column point
+// y (each C channels, then -½|·|² at [C]), each product and sum rounded on
+// its own in the twin's order: fp32 rounding alone moves K by about the 3e-5
+// tolerance at the flagship shape, so K3 and K1 give the twin's K bit for
+// bit only if all three round the same operations the same way.
 template <int C>
-__device__ __forceinline__ void stage_paths(const float* __restrict__ X, float scale,
-                                            float* xs, float* ys, float* ynh, int I,
-                                            int J, int n, int L, int tid) {
-  const int LC = L * C;
+__device__ __forceinline__ float stat(const float (&x)[C + 1], const float (&y)[C + 1]) {
+  float cross = __fmul_rn(x[0], y[0]);
+#pragma unroll
+  for (int c = 1; c < C; ++c) cross = __fadd_rn(cross, __fmul_rn(x[c], y[c]));
+  return expf(__fadd_rn(cross, __fadd_rn(y[C], x[C])));
+}
+
+// A point of the tile's staged paths: C channels and -½|·|², STRIDE apart.
+template <int C, int STRIDE>
+__device__ __forceinline__ void load_point(const float* p, float (&v)[C + 1]) {
+#pragma unroll
+  for (int c = 0; c <= C; ++c) v[c] = p[c * STRIDE];
+}
+
+// Blocks an SM the launch bounds ask for: 16 warps at the 16-node bucket
+// (at most 128 registers), 12 at 40 and 64 (at most 168).
+template <int LMAX>
+__host__ __device__ constexpr int values_min_blocks() { return LMAX <= 16 ? 4 : 3; }
+
+// Cell rows a K3 band (the wavefront's independent chains), by length
+// bucket: 2 up to 40 nodes, the fastest of 1-8 (tools/k3_probe.py), 4 at 64,
+// where 2 spill under 168 registers.
+template <int LMAX>
+__host__ __device__ constexpr int band_rows() { return LMAX <= 40 ? 2 : 4; }
+
+// Shared memory of a K3 block, in floats: xs [L][C+1][TR] (the tile's row
+// paths, pre-scaled, with -½|x'|²), ys [LMAX][C+1][TC] (its column paths,
+// the nodes past L-1 repeating node L-1) and gs [LMAX][NT] (each thread's
+// bottom static row of its band).
+template <int LMAX, int C>
+size_t values_smem_floats(int L) {
+  return (size_t)(C + 1) * (L * TR + LMAX * TC) + (size_t)LMAX * NT;
+}
+
+template <int LMAX, int C>
+__global__ void __launch_bounds__(NT, values_min_blocks<LMAX>())
+block_values_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
+                    const int* __restrict__ tiles, float* __restrict__ K, int n, int L) {
+  extern __shared__ float smem[];
+  constexpr int CP = C + 1;
+  constexpr int RV = band_rows<LMAX>();
+  const int tid = threadIdx.x;
+  const int L1 = L - 1, LC = L * C;
+  const int I = tiles[2 * blockIdx.x], J = tiles[2 * blockIdx.x + 1];
+  float* xs = smem;
+  float* ys = xs + L * CP * TR;
+  const float scale = sqrtf(2.0f / hptr[0]);
   for (int e = tid; e < LC * TR; e += NT) {
     const int rr = e / LC, k = e % LC;
     const int a = I * TR + rr;
-    xs[k * TR + rr] = a < n ? X[(size_t)a * LC + k] * scale : 0.f;
+    xs[((k / C) * CP + k % C) * TR + rr] =
+        a < n ? __fmul_rn(X[(size_t)a * LC + k], scale) : 0.f;
   }
-  for (int e = tid; e < LC * TC; e += NT) {
-    const int cc = e / LC, k = e % LC;
+  for (int e = tid; e < LMAX * C * TC; e += NT) {
+    const int cc = e / (LMAX * C), k = e % (LMAX * C);
     const int b = J * TC + cc;
-    ys[k * TC + cc] = b < n ? X[(size_t)b * LC + k] * scale : 0.f;
+    ys[((k / C) * CP + k % C) * TC + cc] =
+        b < n ? __fmul_rn(X[((size_t)b * L + min(k / C, L1)) * C + k % C], scale) : 0.f;
   }
   __syncthreads();
-  for (int e = tid; e < L * TC; e += NT) {
-    const int q = e / TC, cc = e % TC;
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float v = ys[(q * C + c) * TC + cc];
-      s = __fadd_rn(s, __fmul_rn(v, v));
-    }
-    ynh[e] = -0.5f * s;
+  // -½|·|², summed in the twin's order
+  for (int e = tid; e < L * TR + LMAX * TC; e += NT) {
+    const bool row = e < L * TR;
+    const int w = row ? TR : TC, f = row ? e : e - L * TR;
+    float* pt = (row ? xs : ys) + (f / w) * CP * w + f % w;
+    float sq = 0.f;
+    for (int c = 0; c < C; ++c) sq = __fadd_rn(sq, __fmul_rn(pt[c * w], pt[c * w]));
+    pt[C * w] = -0.5f * sq;
   }
   __syncthreads();
-}
+  const int r = tid / TC, cl = tid % TC;
+  const int a = I * TR + r, b = J * TC + cl;
+  if (a >= n || b >= n || a > b) return;
+  const float* xr = xs + r;   // node p, channel c: + (p·(C+1) + c)·TR
+  const float* yc = ys + cl;  // node q, channel c: + (q·(C+1) + c)·TC
 
-// The forward sweep of one pair: K node rows bottom-up. Returns
-// k[L-1][L-1].
-template <int LMAX, int C>
-__device__ __forceinline__ float forward_sweep(const float* xs, const float* ys,
-                                               const float* ynh, int r, int cl, int L) {
-  float gdn[LMAX];
-  float gup[LMAX], krow[LMAX];
-  float kl = 1.f;
+  // the band's bottom K row in registers and its bottom static row in the
+  // thread's column of gs, over the bucket's LMAX nodes; nodes past L-1 are
+  // computed on node L-1's column point (their z is 0) and never read by a
+  // kept cell
+  float* gs = ys + LMAX * CP * TC + tid;  // node q: + q·NT
+  float krow[LMAX];
+  {
+    float x[CP], y[CP];
+    load_point<C, TR>(xr, x);
 #pragma unroll
-  for (int q = 0; q < LMAX; ++q) krow[q] = 1.f;
-  g_row<LMAX, C>(xs, ys, ynh, 0, r, cl, L, gdn);
-  for (int i = 0; i < L - 1; ++i) {
-    g_row<LMAX, C>(xs, ys, ynh, i + 1, r, cl, L, gup);
-    float prev = krow[0];
-    kl = 1.f;
+    for (int q = 0; q < LMAX; ++q) {
+      load_point<C, TC>(yc + q * CP * TC, y);
+      gs[q * NT] = stat<C>(x, y);
+      krow[q] = 1.f;
+    }
+  }
+  for (int i0 = 0; i0 < L1; i0 += RV) {
+    // band row s: cell row i0 + s, between node rows i0 + s and i0 + s + 1;
+    // rows past L-2 (the last band's) run on node row L-1 and copy the row
+    // below, so the top row hands on node row L-1
+    float xp[RV][CP];
+    bool keep[RV];
 #pragma unroll
-    for (int j = 0; j < LMAX - 1; ++j) {
-      if (j < L - 1) {
-        const float z = ((gup[j + 1] - gup[j]) - gdn[j + 1]) + gdn[j];
-        const float A = __fadd_rn(1.f, __fmul_rn(z, __fadd_rn(0.5f, __fmul_rn(z, I12))));
-        const float B = __fsub_rn(1.f, __fmul_rn(__fmul_rn(z, z), I12));
-        const float old = krow[j + 1];
-        const float s = kl + old;
-        const float kn = __fsub_rn(__fmul_rn(s, A), __fmul_rn(prev, B));
-        krow[j + 1] = kn;
-        prev = old;
-        kl = kn;
+    for (int s = 0; s < RV; ++s) {
+      load_point<C, TR>(xr + min(i0 + s + 1, L1) * CP * TR, xp[s]);
+      keep[s] = i0 + s < L1;
+    }
+    // gr, kr: node row i0 + s + 1 of band row s, statics and K; gd: the
+    // bottom static row, each node read before the top row's replaces it.
+    // Each value lives from the step that makes it to the step after row
+    // s + 1 last reads it, so the compiler keeps a few a row.
+    float gr[RV][LMAX], kr[RV][LMAX], gd[LMAX];
+    {
+      float y[CP];
+      load_point<C, TC>(yc, y);
+      gd[0] = gs[0];
+#pragma unroll
+      for (int s = 0; s < RV; ++s) {
+        gr[s][0] = stat<C>(xp[s], y);
+        kr[s][0] = 1.f;
+      }
+      gs[0] = gr[RV - 1][0];
+    }
+    // step t: column node t + 1's statics for every band row (its column
+    // point loaded once), then cell (i0 + s, t - s) of each row s: RV
+    // independent chains a step
+#pragma unroll
+    for (int t = 0; t < LMAX + RV - 2; ++t) {
+      if (t + 1 < LMAX) {
+        float y[CP];
+        load_point<C, TC>(yc + (t + 1) * CP * TC, y);
+        gd[t + 1] = gs[(t + 1) * NT];
+#pragma unroll
+        for (int s = 0; s < RV; ++s) gr[s][t + 1] = stat<C>(xp[s], y);
+        gs[(t + 1) * NT] = gr[RV - 1][t + 1];
+      }
+#pragma unroll
+      for (int s = 0; s < RV; ++s) {
+        const int j = t - s;
+        if (j >= 0 && j < LMAX - 1) {
+          const int sb = s > 0 ? s - 1 : 0;
+          const float gd0 = s > 0 ? gr[sb][j] : gd[j];
+          const float gd1 = s > 0 ? gr[sb][j + 1] : gd[j + 1];
+          const float kd0 = s > 0 ? kr[sb][j] : krow[j];
+          const float kd1 = s > 0 ? kr[sb][j + 1] : krow[j + 1];
+          const Coef q = coef(gr[s][j + 1], gr[s][j], gd1, gd0);
+          const float kn = cell(kr[s][j] + kd1, kd0, q);
+          kr[s][j + 1] = s == 0 || keep[s] ? kn : kd1;
+        }
       }
     }
 #pragma unroll
-    for (int q = 0; q < LMAX; ++q) gdn[q] = gup[q];
+    for (int q = 0; q < LMAX; ++q) krow[q] = kr[RV - 1][q];
   }
-  return kl;
-}
-
-template <int LMAX, int C>
-__global__ void __launch_bounds__(NT)
-block_values_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
-                    float* __restrict__ K, int n, int L) {
-  const int J = blockIdx.x, I = blockIdx.y;
-  if (I * TR > J * TC + TC - 1) return;
-  extern __shared__ float smem[];
-  const int LC = L * C;
-  float* xs = smem;
-  float* ys = xs + LC * TR;
-  float* ynh = ys + LC * TC;
-  const int tid = threadIdx.x;
-  const int r = tid / TC, cl = tid % TC;
-  stage_paths<C>(X, sqrtf(2.0f / hptr[0]), xs, ys, ynh, I, J, n, L, tid);
-  const int a = I * TR + r, b = J * TC + cl;
-  if (a < n && b < n && a <= b) {
-    const float kl = forward_sweep<LMAX, C>(xs, ys, ynh, r, cl, L);
-    K[(size_t)a * n + b] = kl;
-    K[(size_t)b * n + a] = kl;
-  }
+  float kv = krow[1];
+#pragma unroll
+  for (int q = 2; q < LMAX; ++q) kv = q == L1 ? krow[q] : kv;
+  K[(size_t)a * n + b] = kv;
+  K[(size_t)b * n + a] = kv;
 }
 
 // ---- K1: a lane group per pair --------------------------------------------
@@ -256,26 +351,6 @@ __device__ __forceinline__ void stat_row(const float* xp, const float* yq,
     for (int c = 1; c < C; ++c) cross = __fadd_rn(cross, __fmul_rn(xv[c], y[c * NT]));
     g[q] = expf(__fadd_rn(cross, __fadd_rn(y[C * NT], xv[C])));
   }
-}
-
-struct Coef {
-  float z, A, B;
-};
-
-// z, A and B of the cell between static rows u (upper) and d, node columns
-// q and q+1, rounded as the twin rounds them.
-__device__ __forceinline__ Coef coef(float u1, float u0, float d1, float d0) {
-  Coef k;
-  k.z = ((u1 - u0) - d1) + d0;
-  k.A = __fadd_rn(1.f, __fmul_rn(k.z, __fadd_rn(0.5f, __fmul_rn(k.z, I12))));
-  k.B = __fsub_rn(1.f, __fmul_rn(__fmul_rn(k.z, k.z), I12));
-  return k;
-}
-
-// The cell update k[i+1][j+1] = (k[i+1][j] + k[i][j+1])·A - k[i][j]·B with
-// sm = k[i+1][j] + k[i][j+1], each operation rounded on its own.
-__device__ __forceinline__ float cell(float sm, float prev, const Coef& q) {
-  return __fsub_rn(__fmul_rn(sm, q.A), __fmul_rn(prev, q.B));
 }
 
 // Pull back node row p's finished weights W = dg·g of the lane's owned node
@@ -723,22 +798,20 @@ bool lanes_valid(int L, int C, int g, int span) {
 }
 
 template <int LMAX, int C>
-cudaError_t launch_values(const float* X, const float* h, float* K, int n, int L,
-                          cudaStream_t stream) {
-  const int LC = L * C;
-  const size_t smem = sizeof(float) * (size_t)(LC * (TR + TC) + L * TC);
-  const dim3 grid((n + TC - 1) / TC, (n + TR - 1) / TR);
-  block_values_kernel<LMAX, C><<<grid, NT, smem, stream>>>(X, h, K, n, L);
+cudaError_t launch_values(const float* X, const float* h, const int* tiles, int n_tiles,
+                          float* K, int n, int L, cudaStream_t stream) {
+  const size_t smem = values_smem_floats<LMAX, C>(L) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_values_kernel<LMAX, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  block_values_kernel<LMAX, C><<<n_tiles, NT, smem, stream>>>(X, h, tiles, K, n, L);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t dispatch_values(const float* X, const float* h, float* K, int n, int L,
-                            cudaStream_t stream) {
-  if (L <= 16) return launch_values<16, C>(X, h, K, n, L, stream);
-  if (L <= 40) return launch_values<40, C>(X, h, K, n, L, stream);
-  if (L <= 64) return launch_values<64, C>(X, h, K, n, L, stream);
-  return cudaErrorInvalidValue;
+// K3's envelope, the JAX package's block envelope without its VMEM bound
+// (kernels/sigkernel_block.py::block_values_supported).
+bool values_valid(int n, int L, int C) {
+  return n >= 2 && L >= 2 && L <= 64 && C >= 1 && C <= 8 && L * C <= 128;
 }
 
 }  // namespace
@@ -756,9 +829,10 @@ cudaError_t dispatch_values(const float* X, const float* h, float* K, int n, int
 
 extern "C" {
 
-// Shape envelope of the kernels (checked again by the Python wrapper).
+// Shape envelope of the kernels (checked again by the Python wrapper): L ≤
+// 64 for both, C ≤ 8 with L·C ≤ 128 for K3, C ≤ 3 for K1.
 int sigkernel_block_max_l() { return 64; }
-int sigkernel_block_max_c() { return 3; }
+int sigkernel_block_max_c() { return 8; }
 
 // Number of persistent K1 blocks for a launch: the blocks resident on the
 // device at once, at most one per tile. The caller sizes the scratch by it.
@@ -792,15 +866,23 @@ int sigkernel_block_gram_grad(const float* X, const float* h, const int* tiles, 
   return (int)cudaGetLastError();
 }
 
-// K3: X [n, L, C], h [1], K [n, n]; fp32, contiguous, on the stream's
-// device. Returns cudaGetLastError() after the launch (0 on success).
-int sigkernel_block_gram(const float* X, const float* h, float* K, int n, int L, int C,
-                         void* stream) {
+// K3: X [n, L, C], h [1], tiles [n_tiles, 2] int32 (I, J) with I·8 <= J·16 +
+// 15, K [n, n]; fp32, contiguous, on the stream's device. One block a tile.
+// Returns cudaGetLastError() after the launch (0 on success).
+int sigkernel_block_gram(const float* X, const float* h, const int* tiles, int n_tiles,
+                         float* K, int n, int L, int C, void* stream) {
+  if (!values_valid(n, L, C) || n_tiles < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return (int)dispatch_values<1>(X, h, K, n, L, s);
-    case 2: return (int)dispatch_values<2>(X, h, K, n, L, s);
-    case 3: return (int)dispatch_values<3>(X, h, K, n, L, s);
+  const int lmax = L <= 16 ? 16 : L <= 40 ? 40 : 64;
+  switch (lmax * 16 + C) {
+#define K3_CASE(LM, CC) \
+  case LM * 16 + CC: return (int)launch_values<LM, CC>(X, h, tiles, n_tiles, K, n, L, s);
+    K3_CASE(16, 1) K3_CASE(16, 2) K3_CASE(16, 3) K3_CASE(16, 4)
+    K3_CASE(16, 5) K3_CASE(16, 6) K3_CASE(16, 7) K3_CASE(16, 8)
+    K3_CASE(40, 1) K3_CASE(40, 2) K3_CASE(40, 3) K3_CASE(40, 4)
+    K3_CASE(40, 5) K3_CASE(40, 6) K3_CASE(40, 7)
+    K3_CASE(64, 1) K3_CASE(64, 2) K3_CASE(64, 3)
+#undef K3_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,8 +15,10 @@ TPU (``solver="auto"``; the explicit solvers as the JAX package maps them):
 both K1's block envelope and the JAX package's, else the gathered
 upper-triangle pair list through ``sigkernel_small`` (K7's forward and
 backward), and ``gram`` above ``_DENSE_LIMIT`` streams pair chunks through
-K7; ``gram_sym`` takes ``sigkernel_block.block_gram`` (K3) inside both block
-envelopes, else the upper-triangle pair list. λ=3 with ly1 ≤ 48 → the
+K7; ``gram_sym`` takes ``sigkernel_block.block_gram`` (K3) inside K3's
+envelope and the JAX package's block envelope (C ≤ 8, L·C ≤ 128), where the
+JAX package takes its block values kernel, else the upper-triangle pair
+list. λ=3 with ly1 ≤ 48 → the
 ``"pallas"`` kind: ``gram_and_grad`` takes
 ``sigkernel_block3.block3_gram_and_grad`` (K2) at ``grad_precision="fp32"``
 inside K2's envelope (RBF statics), else the gathered upper-triangle pair
@@ -49,7 +51,8 @@ from ..utils.math import bw_median, relu
 from .mxu_chain import chain_supported, solve_goursat_pde_mxu_chain
 from . import sigkernel_fused, sigkernel_small, sigkernel_tiled
 from .sigkernel_block import (
-    block_gram, block_gram_and_grad, block_supported, jax_block_supported,
+    block_gram, block_gram_and_grad, block_supported, block_values_supported,
+    jax_block_supported,
 )
 from .sigkernel_block3 import block3_gram_and_grad, block3_supported
 from .sigkernel_fused import fused_supported, pair_gram_fused, pallas_supported
@@ -435,16 +438,17 @@ class SignatureKernel:
         """Symmetric Gram ``K(X, X)`` from the ``n(n+1)/2`` upper-triangle
         pairs, with the bandwidth from the first 256×256 block.
 
-        At λ=0 inside both K1's block envelope and the JAX package's, K3
-        (:func:`block_gram`) computes it: values only, with no autograd
-        graph, as the JAX package's fast path returns (its docstring
-        promises gradients there too). Otherwise the pair list (K7 at λ=0;
-        K4 or K5 at λ=3) gives the values, scattered into both halves, so
-        gradients flow through both arguments: ``grad(sum(gram_sym(x)))``
-        is twice the repulsion ``grad(sum(gram(x, x.detach())))``."""
+        At λ=0 inside the JAX package's block envelope (C ≤ 8, L·C ≤ 128
+        and its VMEM bound), where the JAX package takes its block values
+        kernel, K3 (:func:`block_gram`) computes it: values only, with no
+        autograd graph, as the JAX package's block route returns (its
+        docstring promises gradients there too). Otherwise the pair list (K7 at λ=0; K4 or K5 at λ=3)
+        gives the values, scattered into both halves, so gradients flow
+        through both arguments: ``grad(sum(gram_sym(x)))`` is twice the
+        repulsion ``grad(sum(gram(x, x.detach())))``."""
         n, L, C = X.shape
         h = self._subsampled_bandwidth(X, X)
-        if (self.dyadic_order == 0 and block_supported(n, L, C, h)
+        if (self.dyadic_order == 0 and block_values_supported(n, L, C, h)
                 and jax_block_supported(n, L, C, h)
                 and self._solver_kind(L - 1, L - 1) == "small"):
             with torch.no_grad():

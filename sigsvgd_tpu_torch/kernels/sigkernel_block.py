@@ -15,7 +15,10 @@ static Gram in expand form on paths pre-scaled by √(2/h), the order-0 row
 sweep, the per-cell adjoint factor ``fac``, the λ rows top-down and the
 pull-back of the row differences ``D[i][q] = dz[i][q-1] - dz[i][q]``.
 K1 spreads each pair over a group of lanes (:func:`block_lanes`,
-:func:`block_plan`); K3 solves a pair in one thread.
+:func:`block_plan`); K3 solves a pair in one thread, in bands of
+:data:`VALUES_BAND_ROWS` cell rows swept as a skewed wavefront
+(:func:`block_values_plan`), inside the JAX package's block envelope
+(:func:`block_values_supported`).
 """
 from __future__ import annotations
 
@@ -29,9 +32,11 @@ from ._build import load
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# kernel envelope (csrc/sigkernel_block.cu)
+# kernel envelopes (csrc/sigkernel_block.cu): K1 C ≤ 3, K3 C ≤ 8 with L·C ≤ 128
 MAX_L = 64
 MAX_C = 3
+VALUES_MAX_C = 8
+VALUES_MAX_LC = 128
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -39,11 +44,20 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def block_supported(n: int, L: int, C: int, h) -> bool:
-    """Shapes K1 and K3 take on the card: a bandwidth, n ≥ 2, L ≤ 64 and
-    C ≤ 3 (one instantiation per channel count; a pair's cell row spreads
-    over at most 16 lanes, :func:`block_lanes`, and a block's shared memory,
+    """Shapes K1 takes on the card: a bandwidth, n ≥ 2, L ≤ 64 and C ≤ 3
+    (one instantiation per channel count; a pair's cell row spreads over at
+    most 16 lanes, :func:`block_lanes`, and a block's shared memory,
     :func:`block_plan`, fits Hopper's 227 KB at every such shape)."""
     return h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+
+
+def block_values_supported(n: int, L: int, C: int, h) -> bool:
+    """Shapes K3 takes on the card: a bandwidth, n ≥ 2, 2 ≤ L ≤ 64,
+    1 ≤ C ≤ 8 and L·C ≤ 128, the JAX package's block envelope without its
+    VMEM bound (one instantiation per length bucket and channel count the
+    envelope reaches, :func:`values_bucket`)."""
+    return (h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= VALUES_MAX_C
+            and L * C <= VALUES_MAX_LC)
 
 
 # the JAX package's block envelope (pallas_sigkernel_block.py), copied: the
@@ -116,22 +130,32 @@ def _coefs(gup: torch.Tensor, gdn: torch.Tensor):
     return z, 1.0 + z * (0.5 + z * _I12), 1.0 - z * z * _I12
 
 
+def _channel_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``Σ_c u[:, c]·v[:, c]`` summed in channel order, as the kernels sum
+    it: ``[.., C, P] → [.., P]``."""
+    s = u[:, 0] * v[:, 0]
+    for c in range(1, u.shape[1]):
+        s = s + u[:, c] * v[:, c]
+    return s
+
+
 def _forward_plain(X: torch.Tensor, h, keep_fac: bool):
     """The forward half both twins share, vectorised over the upper-triangle
     pairs (a ≤ b) and sequential over the grid: the pre-scaled tiles, the
     static-row function, the values and, with ``keep_fac``, the per-cell
-    adjoint factors; ``gdn`` is static row L-1."""
+    adjoint factors; ``gdn`` is static row L-1. Channel sums run in channel
+    order, as the kernels take them."""
     n, L, C = X.shape
     scale = torch.sqrt(2.0 / torch.as_tensor(h, dtype=X.dtype, device=X.device))
     Xs = X * scale
     iu, ju = torch.triu_indices(n, n, device=X.device)
     x = Xs[iu].permute(1, 2, 0).contiguous()  # [L, C, P]
     y = Xs[ju].permute(1, 2, 0).contiguous()
-    ynh = -0.5 * (y * y).sum(1)                # [L, P]
-    xnh = -0.5 * (x * x).sum(1)
+    ynh = -0.5 * _channel_dot(y, y)            # [L, P]
+    xnh = -0.5 * _channel_dot(x, x)
 
     def g_row(p):
-        cross = (x[p][None] * y).sum(1)        # [L, P]
+        cross = _channel_dot(x[p][None].expand_as(y), y)  # [L, P]
         return torch.exp(cross + (ynh + xnh[p]))
 
     # node rows bottom-up; fac[i, j] feeds the adjoint of cell (i, j)
@@ -352,6 +376,72 @@ def _tile_list(n: int, tc: int, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# K3's plan: one thread a pair, bands of cell rows as a skewed wavefront.
+# ---------------------------------------------------------------------------
+
+VALUES_TILE_COLS = 16  # column particles a K3 tile (8 row particles, 128 pairs)
+VALUES_BUCKETS = (16, 40, 64)
+# cell rows a K3 band by length bucket (csrc band_rows): the wavefront's
+# independent chains; 2 the fastest of 1-8 at 16 and 40 nodes
+# (tools/k3_probe.py), 4 at 64, where 2 spill
+VALUES_BAND_ROWS = {16: 2, 40: 2, 64: 4}
+
+
+def values_bucket(L: int) -> int:
+    """The compile-time length K3 unrolls a row to (16, 40 or 64 nodes);
+    nodes past ``L - 1`` repeat node ``L - 1``."""
+    return next(b for b in VALUES_BUCKETS if L <= b)
+
+
+def values_instantiations() -> list[tuple[int, int]]:
+    """``(bucket, C)`` of every K3 instantiation: the channel counts each
+    length bucket's shortest path reaches inside ``L·C ≤ 128``."""
+    out, lo = [], 2
+    for b in VALUES_BUCKETS:
+        out += [(b, C) for C in range(1, min(VALUES_MAX_C, VALUES_MAX_LC // lo) + 1)]
+        lo = b + 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ValuesPlan:
+    """How K3 lays out one call: one block of 128 threads a tile of
+    ``tile_rows`` × ``tile_cols`` pairs, ``tiles`` of them (those holding a
+    pair a ≤ b); each thread sweeps its pair's ``bands`` bands of
+    ``band_rows`` cell rows over ``bucket`` columns (the last band's
+    ``padded_rows`` rows past the top run and are not kept);
+    ``blocks_per_sm`` resident blocks under the launch bounds;
+    ``smem_bytes`` a block's staged paths and its threads' bottom static
+    rows; ``statics`` and ``cells`` a pair the kernel computes, padding
+    included."""
+    bucket: int
+    band_rows: int
+    bands: int
+    padded_rows: int
+    tile_rows: int
+    tile_cols: int
+    tiles: int
+    blocks_per_sm: int
+    smem_bytes: int
+    statics: int
+    cells: int
+
+
+def block_values_plan(n: int, L: int, C: int) -> ValuesPlan:
+    """K3's plan for ``X [n, L, C]`` (csrc ``block_values_kernel``)."""
+    lmax = values_bucket(L)
+    R = VALUES_BAND_ROWS[lmax]
+    bands = _cdiv(L - 1, R)
+    return ValuesPlan(
+        bucket=lmax, band_rows=R, bands=bands, padded_rows=bands * R - (L - 1),
+        tile_rows=TILE_ROWS, tile_cols=VALUES_TILE_COLS,
+        tiles=_tile_list_len(n, VALUES_TILE_COLS), blocks_per_sm=4 if lmax <= 16 else 3,
+        smem_bytes=4 * ((C + 1) * (L * TILE_ROWS + lmax * VALUES_TILE_COLS)
+                        + lmax * THREADS),
+        statics=lmax * (1 + bands * R), cells=(lmax - 1) * bands * R)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -362,24 +452,24 @@ def _lib():
     lib.sigkernel_block_gram_grad.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sigkernel_block_gram.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     for fn in (lib.sigkernel_block_grid, lib.sigkernel_block_gram_grad,
                lib.sigkernel_block_gram):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(X: torch.Tensor, h, what: str):
+def _check(X: torch.Tensor, h, what: str, supported, envelope: str):
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     if X.dtype != torch.float32 or X.dim() != 3 or not X.is_contiguous():
         raise ValueError(f"{what} takes a contiguous fp32 [n, L, C] tensor")
     n, L, C = X.shape
-    if not block_supported(n, L, C, h):
+    if not supported(n, L, C, h):
         raise NotImplementedError(
-            f"shape {(n, L, C)} is outside {what}'s envelope (L ≤ {MAX_L}, "
-            f"C ≤ {MAX_C}); SignatureKernel sends such λ=0 shapes to the "
-            "pair-list kernel K7"
+            f"shape {(n, L, C)} is outside {what}'s envelope ({envelope}); "
+            "SignatureKernel sends such λ=0 shapes to the pair-list kernel K7"
         )
     return n, L, C, torch.as_tensor(h, dtype=torch.float32, device=X.device).reshape(1)
 
@@ -402,7 +492,7 @@ def block_gram_and_grad(X: torch.Tensor, h):
     add one to ``block_gram_and_grad.launches``."""
     if X.device.type == "cpu":
         return block_gram_and_grad_plain(X, h)
-    n, L, C, h_t = _check(X, h, "K1")
+    n, L, C, h_t = _check(X, h, "K1", block_supported, f"L ≤ {MAX_L}, C ≤ {MAX_C}")
     g, span = block_lanes(L)
     tc = THREADS // g
     tiles, blocks = block_grid(n, L, C, X.device)
@@ -424,14 +514,17 @@ def block_gram_and_grad(X: torch.Tensor, h):
 
 def block_gram(X: torch.Tensor, h) -> torch.Tensor:
     """``K [n, n]`` alone, by K1's forward arithmetic: CPU tensors take the
-    plain twin; CUDA tensors launch K3 and add one to ``block_gram.launches``."""
+    plain twin; CUDA tensors launch K3 (one block a tile of
+    :func:`block_values_plan`) and add one to ``block_gram.launches``."""
     if X.device.type == "cpu":
         return block_gram_plain(X, h)
-    n, L, C, h_t = _check(X, h, "K3")
+    n, L, C, h_t = _check(X, h, "K3", block_values_supported,
+                          f"L ≤ {MAX_L}, C ≤ {VALUES_MAX_C}, L·C ≤ {VALUES_MAX_LC}")
+    tiles = _tile_list(n, VALUES_TILE_COLS, X.device)
     K = torch.empty(n, n, dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = _lib().sigkernel_block_gram(X.data_ptr(), h_t.data_ptr(), K.data_ptr(), n, L, C,
-                                     stream)
+    rc = _lib().sigkernel_block_gram(X.data_ptr(), h_t.data_ptr(), tiles.data_ptr(),
+                                     tiles.shape[0], K.data_ptr(), n, L, C, stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc}")
     block_gram.launches += 1

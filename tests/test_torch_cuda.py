@@ -31,8 +31,11 @@
   those of ``tests/test_pallas_small.py``, at C = 1..8, over three passes
   of each launch's persistent loop, at one row and one column of cells;
   k, fac, dx and dy bit for bit across calls;
-* K3 (the λ=0 values-only block Gram): K equal to K1's bit for bit (both
-  round as the twin does) and to its twin atol 3e-5;
+* K3 (the λ=0 values-only block Gram; one thread a pair, bands swept as a
+  wavefront): K the twin's bit for bit at every instantiation's shapes
+  (C = 1..8, L·C ≤ 128, more tiles than resident blocks) and K1's where K1
+  takes the shape (C ≤ 3; all three round as the twin does); K bit for bit
+  across calls;
 * K5 (the λ=3 solve on given increments, forward and stable backward): k
   rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| atol 5e-4 against the fp32
   twin, those of ``tests/test_pallas_sigkernel.py`` (at its MPC shape 1e-4
@@ -683,16 +686,33 @@ def test_k7_backward_is_bitwise_repeatable(cuda_device, Lx, Ly, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (333, 40, 2), (33, 21, 3), (7, 5, 3),
-                                   (40, 64, 3)])
+@pytest.mark.parametrize("n,L,C", [
+    # L = 64 at L·C = 128 (K3's envelope ends at L·C ≤ 128; [40, 64, 3] left it)
+    (1024, 40, 2), (333, 40, 2), (33, 21, 3), (7, 5, 3), (40, 64, 2),
+    # C = 4..8 (K3 alone): L·C = 128 in the 16- and 40-node buckets, 4,160
+    # tiles (more than the card's resident blocks), a bucket's shortest
+    # path, L = 2
+    (1024, 16, 8), (300, 32, 4), (77, 18, 7), (50, 25, 5), (64, 21, 6), (20, 64, 1),
+    (9, 41, 3), (5, 2, 8), (130, 17, 4)])
 def test_k3_equals_k1_and_its_twin_on_the_card(cuda_device, n, L, C):
+    """K3 gives the twin's K bit for bit at every instantiation's shapes
+    (the statics and the sweep round as the twin does), and K1's where K1
+    takes the shape (C ≤ 3)."""
     X = _paths(cuda_device, n, L, C)
     before = kb.block_gram.launches
     K = kb.block_gram(X, 4.0)
     assert kb.block_gram.launches == before + 1
-    K1, _ = kb.block_gram_and_grad(X, 4.0)
-    torch.testing.assert_close(K, K1, atol=0, rtol=0)
-    torch.testing.assert_close(K, kb.block_gram_plain(X, 4.0), atol=3e-5, rtol=0)
+    if C <= kb.MAX_C:
+        K1, _ = kb.block_gram_and_grad(X, 4.0)
+        torch.testing.assert_close(K, K1, atol=0, rtol=0)
+    torch.testing.assert_close(K, kb.block_gram_plain(X, 4.0), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (1024, 16, 8), (97, 64, 1)])
+def test_k3_is_bitwise_repeatable(cuda_device, n, L, C):
+    X = _paths(cuda_device, n, L, C)
+    assert torch.equal(kb.block_gram(X, 4.0), kb.block_gram(X, 4.0))
 
 
 def _launches():
@@ -747,6 +767,13 @@ def test_gram_sym_launches_k3_at_lambda0_and_k7_outside_the_block(cuda_device):
     Kc = SignatureKernel(0, 4.0).gram_sym(x)
     (dXc,) = torch.autograd.grad(Kc.sum(), x)
     _assert_k_dx(K.detach().cpu(), dX.cpu(), Kc.detach(), dXc)
+    X = _paths(cuda_device, 200, 16, 8)                   # C = 8: JAX's block, not K1's
+    before = _launches()
+    K = SignatureKernel(0, 4.0).gram_sym(X)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"block_gram": 1}
+    assert not K.requires_grad
+    torch.testing.assert_close(K, kb.block_gram_plain(X, 4.0), atol=0, rtol=0)
 
 
 @pytest.mark.cuda
@@ -772,8 +799,10 @@ def test_k7_raises_outside_its_envelope(cuda_device):
     with pytest.raises(NotImplementedError, match="M6"):        # C = 9
         ks.small_forward(torch.zeros(5, 9, 4, device=cuda_device),
                          torch.zeros(5, 9, 4, device=cuda_device), residuals=False)
-    with pytest.raises(NotImplementedError, match="K7"):
-        kb.block_gram(torch.zeros(8, 5, 4, device=cuda_device), 4.0)
+    with pytest.raises(NotImplementedError, match="K7"):       # L·C = 136
+        kb.block_gram(torch.zeros(8, 17, 8, device=cuda_device), 4.0)
+    with pytest.raises(NotImplementedError, match="K7"):       # C = 9
+        kb.block_gram(torch.zeros(8, 5, 9, device=cuda_device), 4.0)
 
 
 def _increments(device, b, lx1, ly1, scale=0.3, seed=0):

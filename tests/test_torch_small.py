@@ -9,9 +9,13 @@ twins in the port:
   atol 5e-5 (``tests/test_pallas_small.py``);
 * the copied predicates ``small_supported`` and ``jax_block_supported``
   against JAX's over a grid of shapes;
-* K3's twin against JAX ``block_gram`` at [20, 9, 3] and [19, 12, 8], atol
-  3e-5 (``tests/test_pallas_block.py``);
-* ``gram_sym`` at λ=0 on the block route (values, no graph) and on K7's pair
+* K3's twin against JAX ``block_gram`` at [20, 9, 3] and, inside the JAX
+  block envelope K3 now takes, at C = 6 and 8 and L·C = 128 ([19, 12, 8],
+  [19, 16, 8], [21, 32, 4], [18, 21, 6]), atol 3e-5
+  (``tests/test_pallas_block.py``); the route predicate K3 ∧ JAX's block
+  envelope against JAX's ``block_supported`` at every L ≤ 64, C ≤ 10;
+* ``gram_sym`` at λ=0 on the block route (values, no graph; [20, 9, 3],
+  [19, 16, 8], [21, 24, 4]) and on K7's pair
   list ([6, 17, 8]: L·C > 128, with its gradient; K to K7's rtol 3e-5 /
   atol 2e-5), and at λ=3 on K4's pair list with its gradient (K atol 1e-4,
   dX scaled 4e-4, K4's), against JAX ``gram_sym`` on the same routes, and
@@ -140,7 +144,22 @@ def test_copied_predicates_match_jax():
     assert not kb.jax_block_supported(8, 5, 2, None)
 
 
-@pytest.mark.parametrize("n,L,C", [(20, 9, 3), (19, 12, 8)])
+def test_k3_route_predicate_is_jax_block_envelope():
+    """``gram_sym`` takes K3 where ``block_values_supported`` and
+    ``jax_block_supported`` both hold: exactly where the JAX package's
+    ``block_supported`` sends λ=0 to its block values kernel, at every
+    L ≤ 64 and C ≤ 10."""
+    for L in range(2, 65):
+        for C in range(1, 11):
+            for n in (1, 2, 30):
+                assert (kb.block_values_supported(n, L, C, 1.0)
+                        and kb.jax_block_supported(n, L, C, 1.0)) == \
+                    jblock.block_supported(n, L, C, "rbf", 1.0), (n, L, C)
+    assert not kb.block_values_supported(8, 9, 2, None)
+
+
+@pytest.mark.parametrize("n,L,C", [(20, 9, 3), (19, 12, 8), (19, 16, 8), (21, 32, 4),
+                                   (18, 21, 6)])
 def test_k3_twin_matches_jax_block_gram(rng, n, L, C):
     X = (rng.normal(size=(n, L, C)) * 0.3).astype(np.float32)
     K = kb.block_gram(torch.from_numpy(X), 3.0)  # CPU: the twin
@@ -151,12 +170,24 @@ def test_k3_twin_matches_jax_block_gram(rng, n, L, C):
 
 
 def test_gram_sym_lambda0_block_route_matches_jax(rng):
-    X = _paths(rng, 20, 9, 3, 0.2)
-    x = torch.from_numpy(X).requires_grad_(True)
-    K = SignatureKernel(dyadic_order=0).gram_sym(x)
-    Kj = JSignatureKernel(dyadic_order=0, solver="pallas_small").gram_sym(jnp.asarray(X))
-    assert not K.requires_grad  # the block route returns values only
-    np.testing.assert_allclose(K.numpy(), np.asarray(Kj), atol=3e-5)
+    """The block route at C ≤ 3 and, since K3 takes the JAX package's block
+    envelope, at C = 4..8 ([19, 16, 8]: L·C = 128; [21, 24, 4]): values
+    only, against JAX's block values kernel at its test's atol 3e-5. The
+    wide cases take ``tests/test_pallas_block.py``'s inputs (normal × 0.3,
+    h = 3, as ``test_k3_twin_matches_jax_block_gram``): with the median
+    bandwidth K reaches 76 to 300 there, where fp32 alone puts both
+    packages 7e-5 to 7.5e-4 from fp64. At L = 32 both packages lie 1.6e-5
+    to 3.1e-5 from fp64 on such inputs (four seeds), so they may differ by
+    more than 3e-5 there."""
+    for shape, h in (((20, 9, 3), None), ((19, 16, 8), 3.0), ((21, 24, 4), 3.0)):
+        X = (_paths(rng, *shape, 0.2) if h is None
+             else (rng.normal(size=shape) * 0.3).astype(np.float32))
+        x = torch.from_numpy(X).requires_grad_(True)
+        K = SignatureKernel(dyadic_order=0, bandwidth=h).gram_sym(x)
+        Kj = JSignatureKernel(dyadic_order=0, bandwidth=h,
+                              solver="pallas_small").gram_sym(jnp.asarray(X))
+        assert not K.requires_grad, shape  # the block route returns values only
+        np.testing.assert_allclose(K.numpy(), np.asarray(Kj), atol=3e-5, err_msg=str(shape))
 
 
 @pytest.mark.parametrize("order,shape,solver,tol", [
