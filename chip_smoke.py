@@ -29,7 +29,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    solves, with K1's launch count read around them, then the two stages of
    the solve timed apart (rollout + cost gradient; Gram + adjoint) and one
    more solve traced with ``torch.profiler``; then τ of two rollouts of
-   fresh policy draws for phases 6 and 7;
+   fresh policy draws for phases 6 and 7; then bench's MC workload
+   (``mc_solve``: the same calibrated controller with 10 action samples,
+   drawn from a seeded CUDA generator; 3 chained solves after a warm-up,
+   K1 launched twice a solve, costs [2, 10, 1024], the sampled rollout and
+   cost and the τ pull-back with ``gram_and_grad`` timed apart, one solve
+   traced) and ``mc_small_vs_cpu`` (the MC solve at 64 policies, H = 40,
+   10 samples on the card and on the CPU with the same given draws: the
+   first step's costs, K and the repulsion, the weights' argmax and the
+   new policies, as ``phase_mc_small_vs_cpu`` says);
 4. K3 (the λ=0 values-only block Gram, one thread a pair swept in bands
    as a wavefront) against its twin (bit for bit) at [1024, 40, 2],
    [333, 40, 2] and [40, 64, 2] (L·C = 128, the 64-node bucket), where it
@@ -183,6 +191,7 @@ import torch
 
 N_SOLVES = 3
 OPT_STEPS = 2
+MC_SAMPLES = 10  # bench.py's MC workload: n_action_samples=10
 K2_TOL = (1e-4, 4e-4)   # K atol, dX scaled atol (tests/test_pallas_block3.py)
 K9_TOL = (2e-4, 5e-5)   # rtol, atol (tests/test_pallas_svgd.py)
 K8_TOL = (1e-3, 2e-3)   # K, dz scaled atol against the twin
@@ -470,17 +479,20 @@ def phase_k1():
     return rows["flagship"]
 
 
-def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage) -> dict:
+def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage,
+                 generator=None, cost_shape=None) -> dict:
     """A few chained MPC solves of ``prob`` after a warm-up, with the
     launches of each wrapper in ``counters`` read around them (each must
     launch its given number of times a solve), the stages timed apart and
-    one more solve traced."""
+    one more solve traced. ``generator`` gives the solves' random draws
+    (action samples); ``cost_shape`` is the costs' shape, ``(OPT_STEPS,
+    n_pol)`` unless given."""
     ctrl = prob.ctrl
     t0 = time.perf_counter()
     cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(1))
     state = prob.q_start
     # warm-up solve (first-call allocations), not counted
-    ctrl.forward(state, cs, opt_steps=OPT_STEPS)
+    ctrl.forward(state, cs, generator=generator, opt_steps=OPT_STEPS)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -490,7 +502,7 @@ def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage) ->
     solve_ms = []
     for _ in range(n_solves):
         t1 = time.perf_counter()
-        a_seq, cs, data = ctrl.forward(state, cs, opt_steps=OPT_STEPS)
+        a_seq, cs, data = ctrl.forward(state, cs, generator=generator, opt_steps=OPT_STEPS)
         state = prob.model.step(state[None], a_seq[0:1])[0]
         torch.cuda.synchronize()
         solve_ms.append((time.perf_counter() - t1) * 1e3)
@@ -500,7 +512,7 @@ def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage) ->
     launches = {c.__name__: c.launches for c in counters}
     shapes = (tuple(a_seq.shape), tuple(cs.pol_mean.shape), tuple(data.costs.shape))
     if shapes != ((ctrl.hz_len, 7), (ctrl.n_pol, ctrl.hz_len, 7),
-                  (OPT_STEPS, ctrl.n_pol)):
+                  cost_shape or (OPT_STEPS, ctrl.n_pol)):
         raise AssertionError(f"{phase}: unexpected output shapes {shapes}")
     if not finite:
         raise AssertionError(f"{phase}: non-finite output")
@@ -511,21 +523,32 @@ def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage) ->
 
     # the stages bench.py separates, timed apart (launches not counted)
     pol0 = cs.pol_mean
+    if ctrl.n_action_samples:
+        eps = torch.randn((ctrl.n_action_samples,) + tuple(pol0.shape),
+                          generator=generator, device="cuda")
 
-    def stage_rollout():
-        pm = pol0.detach().requires_grad_(True)
-        c, _tr = ctrl._rollout_costs(state, pm)
-        torch.autograd.grad(c.sum(), pm)
+        def stage_rollout():
+            with torch.no_grad():
+                ctrl._rollout_costs(state, pol0[None] + eps)
 
-    stages = {"rollout_cost_grad": host_ms(stage_rollout, 3)}
+        stages = {"sampled_rollout_cost": host_ms(stage_rollout, 3)}
+    else:
+        def stage_rollout():
+            pm = pol0.detach().requires_grad_(True)
+            c, _tr = ctrl._rollout_costs(state, pm)
+            torch.autograd.grad(c.sum(), pm)
+
+        stages = {"rollout_cost_grad": host_ms(stage_rollout, 3)}
     stages.update(gram_stage(ctrl, state, pol0))
     row = {"phase": phase, "n_pol": ctrl.n_pol, "hz_len": ctrl.hz_len,
            "opt_steps": OPT_STEPS, "n_solves": n_solves,
            "kernel_mode": ctrl.kernel_mode,
+           "n_action_samples": ctrl.n_action_samples,
            "ms_per_solve_median": statistics.median(solve_ms),
+           "ms_per_solve_spread": [min(solve_ms), max(solve_ms)],
            "ms_per_solve_samples": solve_ms, "launches": launches,
            "stages_ms": stages,
-           "traced_solve": traced_solve(ctrl, state, cs),
+           "traced_solve": traced_solve(ctrl, state, cs, generator),
            "setup_s": setup_s, "final_cost_min": data.costs[-1].min().item(),
            "finite": finite}
     if ctrl.kernel_mode == "signature":
@@ -559,6 +582,99 @@ def phase_flagship():
             trs = ctrl._rollout_costs(prob.q_start, cs.pol_mean)[1]
         taus.append(ctrl._tau(trs).contiguous())
     return row["launches"]["block_gram_and_grad"], ctrl.sig_kernel, taus
+
+
+def mc_pullback_stage(ctrl, state, pol0) -> dict:
+    """The MC solve's kernel terms: the rollout of the sampled offsets with
+    autograd, τ averaged over the samples, ``gram_and_grad`` (K1) and the
+    pull-back of dτ to the policies."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    offsets = torch.randn((ctrl.n_action_samples,) + tuple(pol0.shape),
+                          generator=gen, device="cuda")
+    return {"tau_gram_pullback": host_ms(
+        lambda: ctrl._kernel_terms(pol0, state, None, offsets), 3)}
+
+
+def phase_mc_solve():
+    """bench.py's MC workload: the calibrated flagship controller with 10
+    action samples (``replace(ctrl_sig, n_action_samples=10)``), its draws
+    from a seeded CUDA generator: 2 K1 launches a solve."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
+    if prob.ctrl.sig_kernel.dyadic_order != 0:
+        raise AssertionError("calibration did not choose order 0")
+    ctrl = dataclasses.replace(prob.ctrl, n_action_samples=MC_SAMPLES)
+    prob = dataclasses.replace(prob, ctrl=ctrl)
+    row = drive_solves("mc_solve", prob, {kb.block_gram_and_grad: OPT_STEPS}, N_SOLVES,
+                       mc_pullback_stage,
+                       generator=torch.Generator(device="cuda").manual_seed(3),
+                       cost_shape=(OPT_STEPS, MC_SAMPLES, ctrl.n_pol))
+    return row["launches"]["block_gram_and_grad"]
+
+
+def phase_mc_small_vs_cpu():
+    """The port's MC solve at 64 policies, H = 40 and 10 samples, on the
+    card (K1) and on the CPU (K1's twin) with the same given draws: the
+    first step's costs (rtol 1e-5), K and the repulsion (K1's atol 3e-5 and
+    scaled 5e-5, ``tests/test_torch_dust.py``'s λ=0 mode), the weights'
+    argmax and the new policies (atol 2e-5) on the elements whose φ (the
+    CPU's, each step) stayed above 1e-4·max|φ|, which must be over 99%."""
+    from sigsvgd_tpu_torch.controllers.dust import DuStDraws
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
+
+    n, H = 64, 40
+    gen = torch.Generator().manual_seed(21)
+    pol = torch.rand((n, H, 7), generator=gen) * 4.0 - 2.0
+    eps = torch.randn((OPT_STEPS, MC_SAMPLES, n, H, 7), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        prob = build_arm_mpc(device=dev, n_pol=n, hz_len=H, dyadic_order=0,
+                             calibrate=False)
+        ctrl = dataclasses.replace(prob.ctrl, n_action_samples=MC_SAMPLES)
+        cs = ctrl.init(pol_mean=pol.to(dev))
+        before = kb.block_gram_and_grad.launches
+        a_seq, cs2, data = ctrl.forward(prob.q_start, cs, opt_steps=OPT_STEPS,
+                                        draws=DuStDraws(actions=eps.to(dev)))
+        launches = kb.block_gram_and_grad.launches - before
+        prior = ParticleGMM(cs.pol_mean.reshape(n, -1), ctrl._prior_var(),
+                            cs.prior_weights)
+        score, _tr = ctrl._score(cs.pol_mean, prob.q_start, prior, None, eps[0].to(dev))
+        keep = torch.ones((n, H, 7), dtype=torch.bool)
+        if dev == "cpu":
+            sampler = ctrl._sampler()
+            for t in range(OPT_STEPS):
+                s_t = ctrl._score(data.trace[t], prob.q_start, prior, None, eps[t])[0]
+                phi = sampler.velocity(data.trace[t], s_t, t)[0].abs()
+                keep &= phi > 1e-4 * phi.max()
+        out[dev] = {"costs": data.costs[0].cpu(), "k": score.k_xx.cpu(),
+                    "grad_k": score.grad_k.cpu(), "i_star": int(torch.argmax(data.pol_weights)),
+                    "a_seq": a_seq.cpu(), "pol": cs2.pol_mean.cpu(), "launches": launches,
+                    "keep": keep, "finite": bool(torch.isfinite(cs2.pol_mean).all())}
+    g, c = out["cuda"], out["cpu"]
+    keep = c["keep"]
+    rolled_keep = torch.cat([keep[:, 1:], keep[:, -1:]], dim=1)
+    row = {"phase": "mc_small_vs_cpu", "n_pol": n, "hz_len": H, "n_action_samples": MC_SAMPLES,
+           "k1_launches": g["launches"],
+           "costs_rel": ((g["costs"] - c["costs"]).abs() / c["costs"].abs()).max().item(),
+           "k_abs": (g["k"] - c["k"]).abs().max().item(),
+           "grad_k_scaled": ((g["grad_k"] - c["grad_k"]).abs().max()
+                             / c["grad_k"].abs().max()).item(),
+           "i_star": [g["i_star"], c["i_star"]],
+           "kept_share": keep.float().mean().item(),
+           "a_seq_abs": (g["a_seq"] - c["a_seq"]).abs()[keep[c["i_star"]]].max().item(),
+           "pol_abs": (g["pol"] - c["pol"]).abs()[rolled_keep].max().item()}
+    emit(row)
+    ok = (g["launches"] == OPT_STEPS and c["launches"] == 0 and g["finite"] and c["finite"]
+          and row["costs_rel"] <= 1e-5 and row["k_abs"] <= 3e-5
+          and row["grad_k_scaled"] <= 5e-5 and g["i_star"] == c["i_star"]
+          and row["kept_share"] > 0.99 and row["a_seq_abs"] <= 2e-5
+          and row["pol_abs"] <= 2e-5)
+    if not ok:
+        raise AssertionError(f"the card's MC solve disagrees with the CPU's: {row}")
 
 
 def phase_k2():
@@ -885,9 +1001,10 @@ def phase_policy():
     return row["launches"]["fused_rbf_velocity"]
 
 
-def traced_solve(ctrl, state, cs) -> dict:
+def traced_solve(ctrl, state, cs, generator=None) -> dict:
     """One more solve under ``torch.profiler``."""
-    return traced(lambda: ctrl.forward(state, cs, opt_steps=OPT_STEPS))
+    return traced(lambda: ctrl.forward(state, cs, generator=generator,
+                                       opt_steps=OPT_STEPS))
 
 
 def traced(fn) -> dict:
@@ -2380,6 +2497,8 @@ def main() -> int:
     k9_times = phase_k9_timing()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
+    k1_mc_launches = phase_mc_solve()
+    phase_mc_small_vs_cpu()
     k3 = phase_k3()
     k7 = phase_k7()
     streamed0 = phase_lambda0_streamed_gram(kern0, *taus)
@@ -2413,10 +2532,11 @@ def main() -> int:
     planning_small_vs_cpu()
     k9 = phase_k9(k9_times)
     emit({"kernels": [
-        kernel_entry("sigkernel_block_gram_grad (K1)",
-                     "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
-                     "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
-                     k1_launches, k1),
+        {**kernel_entry("sigkernel_block_gram_grad (K1)",
+                        "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
+                        "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
+                        k1_launches, k1),
+         "launches_by_path": {"flagship_solve": k1_launches, "mc_solve": k1_mc_launches}},
         kernel_entry("sigkernel_block3_gram_grad (K2)",
                      "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
                      "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",

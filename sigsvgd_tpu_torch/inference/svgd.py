@@ -10,11 +10,14 @@ gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
 The kernel terms come with the score (``ScoreResult.k_xx``/``grad_k``,
 signature mode) or from the sampler's own analytic kernel on the particles
 (policy mode), optionally through the fused velocity kernel (K9).
-``repulsion_schedule(step)`` scales the kernel gradient. :meth:`SVGD.run` is
-a Python loop over the steps (PyTorch runs eagerly, so the JAX package's
+``repulsion_schedule(step)`` scales the kernel gradient and
+``gradient_mask`` multiplies φ (frozen particles). The update is Adam, the
+hand-rolled Adagrad or the raw ``lr`` step; :func:`roll_opt_state` shifts
+the optimizer state with a receding horizon. :meth:`SVGD.run` is a Python
+loop over the steps (PyTorch runs eagerly, so the JAX package's
 ``run_host_loop`` is the same loop and is not ported separately).
-ScaledSVGD/MatrixSVGD, the hand-rolled Adagrad, ``gradient_mask`` and LBFGS
-are later slices (ROADMAP.md queue 1, M7 and M10) and raise.
+ScaledSVGD/MatrixSVGD and LBFGS are later slices (ROADMAP.md queue 1, M7
+and M10).
 """
 from __future__ import annotations
 
@@ -96,7 +99,8 @@ class SVGD:
     the score carries no kernel terms; ``fused_velocity`` sends a plain
     :class:`GaussianKernel` velocity through K9 (not with a
     ``repulsion_schedule``, which scales the kernel gradient apart).
-    ``adagrad=True`` and a ``gradient_mask`` raise (ROADMAP M7)."""
+    ``adagrad=True`` takes the hand-rolled Adagrad in the raw update; a
+    particle-shaped {0, 1} ``gradient_mask`` multiplies φ."""
 
     kernel: Any = dataclasses.field(default_factory=GaussianKernel)
     optimizer: Optional[Adam] = None
@@ -107,14 +111,13 @@ class SVGD:
     gradient_mask: Optional[torch.Tensor] = None
     fused_velocity: bool = False
 
-    def __post_init__(self):
-        if self.adagrad or self.gradient_mask is not None:
-            raise NotImplementedError(
-                "SVGD adagrad and gradient_mask are not ported yet "
-                "(ROADMAP.md queue 1, M7)")
-
     def init(self, particles: torch.Tensor) -> SVGDState:
-        opt_state = self.optimizer.init(particles) if self.optimizer else ()
+        if self.optimizer is not None:
+            opt_state = self.optimizer.init(particles)
+        elif self.adagrad:
+            opt_state = torch.zeros_like(particles)
+        else:
+            opt_state = ()
         return SVGDState(
             opt_state=opt_state,
             step=torch.zeros((), dtype=torch.int32, device=particles.device),
@@ -148,6 +151,8 @@ class SVGD:
             if self.repulsion_schedule is not None:
                 grad_k = grad_k * self.repulsion_schedule(step)
             phi = ((k_xx @ s - grad_k) / n).reshape(x.shape)
+        if self.gradient_mask is not None:
+            phi = phi * self.gradient_mask
         loss = score.loss if score.loss is not None else torch.linalg.norm(s)
         return phi, loss
 
@@ -156,6 +161,9 @@ class SVGD:
         if self.optimizer is not None:
             updates, opt_state = self.optimizer.update(grad, opt_state)
             return x + updates, opt_state
+        if self.adagrad:
+            inertia = opt_state + grad ** 2
+            return x - self.lr * grad / torch.sqrt(inertia + 1e-12), inertia
         return x - self.lr * grad, opt_state
 
     def step_update(self, x: torch.Tensor, state: SVGDState,
@@ -194,6 +202,33 @@ class SVGD:
                                  loss=torch.stack(losses) if losses else
                                  torch.zeros(0, device=particles.device),
                                  aux=_stack_aux(auxes))
+
+
+def roll_opt_state(opt_state, particle_shape: Tuple[int, ...]):
+    """Shift optimizer state with the receding horizon: every leaf whose
+    trailing dims are ``particle_shape`` (Adam's moments, the Adagrad
+    accumulator) rolls one step along the horizon axis (-2), its last step
+    zero-filled; other leaves (step counts) pass through."""
+    nd = len(particle_shape)
+
+    def roll_leaf(leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.ndim >= nd
+                and tuple(leaf.shape[-nd:]) == tuple(particle_shape)):
+            rolled = torch.roll(leaf, -1, dims=-2)
+            rolled[..., -1, :] = 0.0
+            return rolled
+        return leaf
+
+    def tree_map(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(tree_map(c) for c in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(tree_map(c) for c in node)
+        if isinstance(node, dict):
+            return {k: tree_map(v) for k, v in node.items()}
+        return roll_leaf(node)
+
+    return tree_map(opt_state)
 
 
 def _stack_aux(auxes):

@@ -78,3 +78,35 @@ def smoothed_box_log_prob(x: torch.Tensor, low, high,
     out_dist = relu(jabs(x - center) - half_width)
     log_z = torch.log(2.0 * half_width + math.sqrt(2.0 * math.pi) * sigma)
     return torch.sum(-0.5 * (out_dist / sigma) ** 2 - log_z, dim=-1)
+
+
+def gmm_log_prob(samples: torch.Tensor, means: torch.Tensor, var,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """``[s]`` log-densities of an equal-bandwidth GMM on particle ``means``
+    (``[k, *event]``; ``var`` scalar or ``[*event]``, ``weights [k]``
+    unnormalized) at ``samples [s, *event]``."""
+    s = samples.reshape(samples.shape[0], -1)
+    m = means.reshape(means.shape[0], -1)
+    v = torch.as_tensor(var, dtype=s.dtype, device=s.device).expand(m.shape[-1])
+    logw = torch.log_softmax(torch.log(weights), dim=0)
+    diff = s[:, None, :] - m[None, :, :]
+    quad = -0.5 * torch.sum(diff * diff / v, dim=-1)
+    log_norm = -0.5 * torch.sum(torch.log(2.0 * math.pi * v))
+    return torch.logsumexp(logw[None, :] + quad + log_norm, dim=-1)
+
+
+def exact_grad_gmm_log_p(samples: torch.Tensor, means: torch.Tensor, var,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Exact ``∇_x log p_GMM(x)``, by autograd of :func:`gmm_log_prob`."""
+    with torch.enable_grad():
+        x = samples.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(gmm_log_prob(x, means, var, weights).sum(), x)
+    return g
+
+
+def cholesky_psd(m: torch.Tensor, jitter: float = 1e-8,
+                 lower: bool = True) -> torch.Tensor:
+    """Cholesky factor of ``m + jitter·I`` (its transpose if not ``lower``)."""
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    chol = torch.linalg.cholesky(m + jitter * eye)
+    return chol if lower else chol.mT

@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +46,33 @@ class Box:
         return torch.tensor(self.high_t, dtype=torch.float32)
 
     @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.dim,)
+
+    @property
     def bounded(self) -> bool:
         return all(np.isfinite(self.low_t)) and all(np.isfinite(self.high_t))
 
     def clip(self, x: torch.Tensor) -> torch.Tensor:
         return clip(x, self.low, self.high)
+
+    def sample(self, batch_shape: Tuple[int, ...] = (),
+               generator: Optional[torch.Generator] = None, *,
+               draws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Uniform samples in the box; unbounded dims fall back to a standard
+        normal. ``draws`` (standard uniforms, or standard normals when
+        unbounded) replace the draws from ``generator``; with neither it
+        raises ``ValueError``."""
+        shape = tuple(batch_shape) + (self.dim,)
+        if draws is None:
+            if generator is None:
+                raise ValueError("Box.sample needs a torch.Generator or the draws given")
+            draw = torch.rand if self.bounded else torch.randn
+            draws = draw(shape, generator=generator, device=generator.device)
+        elif tuple(draws.shape) != shape:
+            raise ValueError(f"given draws have shape {tuple(draws.shape)}, "
+                             f"expected {shape}")
+        if not self.bounded:
+            return draws.to(torch.float32)
+        low, high = self.low.to(draws.device), self.high.to(draws.device)
+        return torch.maximum(low, draws.to(torch.float32) * (high - low) + low)

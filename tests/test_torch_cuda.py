@@ -43,6 +43,12 @@
   at the forward's tolerance, at 1, 2, 4, 8 and 16 lanes a pair, and the
   routes that launch it (the dense λ=3 ``gram``, linear statics, C > 8).
 
+And the score-function DuSt solve (10 action samples' kind, here 4 on 16
+policies, H = 8) on the card against the same solve on the CPU with the
+same given draws: K1 launched twice, the first step's costs rtol 1e-5, K
+atol 3e-5 and the repulsion scaled 5e-5 (``tests/test_torch_dust.py``'s
+λ=0 mode), φ scaled 1e-4, the weights' argmax.
+
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
 
@@ -922,3 +928,42 @@ def test_k5_routes_launch_it_and_match_the_cpu(cuda_device, monkeypatch):
     got = {k: v - before[k] for k, v in _k5_launches().items() if v != before[k]}
     assert got == {"tiled_forward": 2, "tiled_backward": 1}, got
     _assert_k_dx(K, dX, *grad_run(lin.gram, "cpu", Y), k_atol=1e-4, dx_atol=5e-4)
+
+
+def _mc_first_step(dev, pol, eps):
+    """The MC solve of 2 steps on ``dev`` with the given draws: its K1
+    launches, its data and the first step's score and Stein velocity."""
+    import dataclasses
+
+    from sigsvgd_tpu_torch.controllers.dust import DuStDraws
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
+
+    n, H = pol.shape[:2]
+    prob = build_arm_mpc(device=dev, n_pol=n, hz_len=H, dyadic_order=0, calibrate=False)
+    ctrl = dataclasses.replace(prob.ctrl, n_action_samples=eps.shape[1])
+    cs = ctrl.init(pol_mean=pol.to(dev))
+    before = kb.block_gram_and_grad.launches
+    _a, _cs, data = ctrl.forward(prob.q_start, cs, opt_steps=eps.shape[0],
+                                 draws=DuStDraws(actions=eps.to(dev)))
+    launches = kb.block_gram_and_grad.launches - before
+    prior = ParticleGMM(cs.pol_mean.reshape(n, -1), ctrl._prior_var(), cs.prior_weights)
+    score, _ = ctrl._score(cs.pol_mean, prob.q_start, prior, None, eps[0].to(dev))
+    phi, _ = ctrl._sampler().velocity(cs.pol_mean, score, 0)
+    return launches, data, score, phi
+
+
+@pytest.mark.cuda
+def test_mc_solve_matches_cpu(cuda_device):
+    gen = torch.Generator().manual_seed(8)
+    pol = torch.rand((16, 8, 7), generator=gen) * 4.0 - 2.0
+    eps = torch.randn((2, 4, 16, 8, 7), generator=gen)
+    n_card, d_card, s_card, phi_card = _mc_first_step(cuda_device, pol, eps)
+    n_cpu, d_cpu, s_cpu, phi_cpu = _mc_first_step("cpu", pol, eps)
+    assert (n_card, n_cpu) == (2, 0)
+    assert tuple(d_card.costs.shape) == (2, 4, 16)
+    torch.testing.assert_close(d_card.costs[0].cpu(), d_cpu.costs[0], rtol=1e-5, atol=0)
+    _assert_k_dx(s_card.k_xx.cpu(), s_card.grad_k.cpu(), s_cpu.k_xx, s_cpu.grad_k)
+    scale = phi_cpu.abs().max()
+    torch.testing.assert_close(phi_card.cpu() / scale, phi_cpu / scale, atol=1e-4, rtol=0)
+    assert int(torch.argmax(d_card.pol_weights)) == int(torch.argmax(d_cpu.pol_weights))

@@ -9,9 +9,11 @@ with λ=3 pinned (``solver="pallas"``, the block3 route in interpret mode),
 and with λ=3 pinned on linear statics (``lambda3_linear``: JAX's
 ``pallas_pair_values`` with K5 in interpret mode against K5's twin, held at
 the λ=3 mode's fp32 tolerances).
-``tests/test_torch_policy.py`` runs the same check in policy mode. The port
-takes its state from ``dust_state_from_numpy``. Two chained ``forward``
-calls with ``opt_steps=2`` run on each side.
+``tests/test_torch_policy.py`` runs the same check in policy mode, and
+``tests/test_torch_dust_mc.py`` with action samples (``n_samples``: the
+port takes JAX's draws, ``jax_action_draws``). The port takes its state
+from ``dust_state_from_numpy``. Two chained ``forward`` calls with
+``opt_steps=2`` run on each side.
 
 Per SVGD step, on the JAX step's own policies: costs (rtol 1e-5), K and the
 kernel gradient grad_k (scaled by its max), and the Stein velocity φ scaled
@@ -67,6 +69,7 @@ from sigsvgd_tpu.models.robot import PandaRobot as JPandaRobot
 from sigsvgd_tpu.models.robot import get_scene as j_get_scene
 from sigsvgd_tpu.utils import distributions as jdu
 from sigsvgd_tpu.utils.spaces import Box as JBox
+from sigsvgd_tpu_torch.controllers.dust import NO_DRAWS, DuStDraws
 from sigsvgd_tpu_torch.convert import dust_state_from_numpy
 from sigsvgd_tpu_torch.experiments.arm_mpc import (
     CALIBRATION_TOL, Q_START, Q_TARGET, build_arm_mpc,
@@ -76,9 +79,10 @@ from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
 N_POL, HZ, DOF, STEPS = 16, 8, 7, 2
 
 
-def _jax_ctrl(mode):
+def _jax_ctrl(mode, n_pol=N_POL, n_samples=0):
     """bench.py's flagship problem (``_setup``) at this test's size, with
-    the controller of ``mode`` (see ``MODES``)."""
+    the controller of ``mode`` (see ``MODES``) and ``n_samples`` action
+    samples."""
     robot = JPandaRobot.create()
     occ = j_occ(j_get_scene("bookshelf_small"))
     low, high = robot.joint_limits()
@@ -112,7 +116,7 @@ def _jax_ctrl(mode):
         return 10.0 * jnp.sum((ee - ee_target) ** 2, axis=-1)
 
     model = ArmModel(dt=0.05)
-    common = dict(model=model, hz_len=HZ, n_pol=N_POL, n_action_samples=0,
+    common = dict(model=model, hz_len=HZ, n_pol=n_pol, n_action_samples=n_samples,
                   optimizer=optax.adam(0.1), pol_hyper_prior=True,
                   inst_cost_fn=inst_cost, term_cost_fn=term_cost)
     if mode["kernel_mode"] == "policy":
@@ -130,15 +134,18 @@ def _jax_ctrl(mode):
     return ctrl, model
 
 
-def _port_problem(mode):
+def _port_problem(mode, n_pol=N_POL, n_samples=0):
     if mode["kernel_mode"] == "policy":
-        return build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ,
+        prob = build_arm_mpc(device="cpu", n_pol=n_pol, hz_len=HZ,
                              kernel_mode="policy",
                              fused_velocity=mode["fused_velocity"])
-    return build_arm_mpc(device="cpu", n_pol=N_POL, hz_len=HZ,
-                         dyadic_order=mode["order"], calibrate=False,
-                         grad_precision=mode.get("grad_precision", "fp32"),
-                         static=mode.get("static", "rbf"))
+    else:
+        prob = build_arm_mpc(device="cpu", n_pol=n_pol, hz_len=HZ,
+                             dyadic_order=mode["order"], calibrate=False,
+                             grad_precision=mode.get("grad_precision", "fp32"),
+                             static=mode.get("static", "rbf"))
+    return dataclasses.replace(
+        prob, ctrl=dataclasses.replace(prob.ctrl, n_action_samples=n_samples))
 
 
 MODES = {
@@ -170,13 +177,23 @@ def _scaled_close(got, want, atol):
     np.testing.assert_allclose(got / scale, want / scale, atol=atol)
 
 
-def run_two_chained_solves(mode_name, seed=0):
+def jax_action_draws(key, steps, shape):
+    """The action samples JAX's ``DuSt.forward`` draws from ``key``: its
+    key schedule (``key, key_par = split(key)``, then ``opt_steps + 1``
+    keys), one ``normal(keys[t], shape)`` a step; returns the step keys and
+    the draws, stacked."""
+    key, _key_par = jax.random.split(key)
+    keys = jax.random.split(key, steps + 1)[:steps]
+    return keys, np.stack([_n(jax.random.normal(k, shape, jnp.float32)) for k in keys])
+
+
+def run_two_chained_solves(mode_name, seed=0, n_pol=N_POL, n_samples=0):
     """Two chained solves on each side, checked as the module docstring
-    says."""
+    says; with ``n_samples`` action samples the port takes JAX's draws."""
     mode = MODES[mode_name]
     rng = np.random.default_rng(seed)
-    jctrl, jmodel = _jax_ctrl(mode)
-    prob = _port_problem(mode)
+    jctrl, jmodel = _jax_ctrl(mode, n_pol, n_samples)
+    prob = _port_problem(mode, n_pol, n_samples)
     tctrl = prob.ctrl
     assert tctrl.kernel_mode == mode["kernel_mode"]
     if mode["kernel_mode"] == "signature":
@@ -186,7 +203,7 @@ def run_two_chained_solves(mode_name, seed=0):
     jsampler, tsampler = jctrl._sampler(), tctrl._sampler()
     phi_atol, keep_rel = mode.get("phi_atol", 1e-4), mode.get("keep_rel", 1e-4)
 
-    pol0 = rng.uniform(-2.0, 2.0, size=(N_POL, HZ, DOF)).astype(np.float32)
+    pol0 = rng.uniform(-2.0, 2.0, size=(n_pol, HZ, DOF)).astype(np.float32)
     js = jctrl.init(jax.random.PRNGKey(0), pol_mean=jnp.asarray(pol0))
     adam = js.svgd_state.opt_state[0]
     ts = dust_state_from_numpy(
@@ -199,25 +216,28 @@ def run_two_chained_solves(mode_name, seed=0):
     j_forward = jax.jit(lambda q, s, k: jctrl.forward(q, s, None, k, opt_steps=STEPS))
     j_score = jax.jit(lambda p, q, pr, k: jctrl._score(p, q, pr, None, k))
     j_velocity = jax.jit(jsampler.velocity)
-    keep = np.ones((N_POL, HZ, DOF), bool)  # elements whose φ was never noise
+    keep = np.ones((n_pol, HZ, DOF), bool)  # elements whose φ was never noise
     for solve in range(2):
         key = jax.random.PRNGKey(10 + solve)
+        keys, eps = jax_action_draws(key, STEPS, (n_samples, n_pol, HZ, DOF))
         a_j, js_new, data_j = j_forward(jq, js, key)
-        a_t, ts_new, data_t = tctrl.forward(tq, ts, opt_steps=STEPS)
+        draws = DuStDraws(actions=torch.from_numpy(eps)) if n_samples else NO_DRAWS
+        a_t, ts_new, data_t = tctrl.forward(tq, ts, opt_steps=STEPS, draws=draws)
 
         # per-step internals on the JAX step's own policies
-        prior_j = jdu.ParticleGMM(js.pol_mean.reshape(N_POL, -1),
+        prior_j = jdu.ParticleGMM(js.pol_mean.reshape(n_pol, -1),
                                   jctrl._prior_var(), js.prior_weights)
-        prior_t = ParticleGMM(torch.from_numpy(_n(js.pol_mean)).reshape(N_POL, -1),
+        prior_t = ParticleGMM(torch.from_numpy(_n(js.pol_mean)).reshape(n_pol, -1),
                               tctrl._prior_var(),
                               torch.from_numpy(_n(js.prior_weights)))
         tq_j = torch.from_numpy(_n(jq))
         for t in range(STEPS):
             pol = data_j.trace[t]
-            score_j, _ = j_score(pol, jq, prior_j, key)
+            score_j, _ = j_score(pol, jq, prior_j, keys[t] if n_samples else key)
             phi_j, _ = j_velocity(pol, score_j, jnp.asarray(t))
             pol_t = torch.from_numpy(_n(pol))
-            score_t, _ = tctrl._score(pol_t, tq_j, prior_t)
+            score_t, _ = tctrl._score(pol_t, tq_j, prior_t, None,
+                                      torch.from_numpy(eps[t]) if n_samples else None)
             phi_t, _ = tsampler.velocity(pol_t, score_t, torch.tensor(t))
             np.testing.assert_allclose(score_t.aux["costs"].numpy(),
                                        _n(score_j.aux["costs"]), rtol=1e-5)

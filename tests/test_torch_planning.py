@@ -10,6 +10,8 @@ scaled atol 1e-4 for the cost gradient, and rtol 1e-4, atol 1e-5 for the
 chained runs (``tests/test_planning.py``'s
 resume check).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ from sigsvgd_tpu.utils import splines as jspl
 from sigsvgd_tpu.utils.math import smoothed_box_log_prob as j_box
 from sigsvgd_tpu_torch.experiments import planning as tplan
 from sigsvgd_tpu_torch.experiments.arm_mpc import (
-    Q_START, Q_TARGET, build_planning_problem,
+    Q_START, Q_TARGET, build_arm_mpc, build_planning_problem,
 )
 from sigsvgd_tpu_torch.inference.score import pathsig_score
 from sigsvgd_tpu_torch.inference.svgd import SVGD, ScoreResult
@@ -223,7 +225,10 @@ def test_unported_planner_options_raise(problems):
         tplan.run_optimisation(tp, tplan.PlannerConfig(n_iter=1), checkpoint_dir="x")
     with pytest.raises(NotImplementedError, match="M10"):
         pathsig_score(tp.batch_cost, GaussianKernel())
+    # SVGD's Adagrad is ported; the scaled samplers (M7) still raise
     with pytest.raises(NotImplementedError, match="M7"):
-        SVGD(adagrad=True)
+        dataclasses.replace(
+            build_arm_mpc(device="cpu", n_pol=2, hz_len=2, kernel_mode="policy").ctrl,
+            stein_sampler="MatrixSVGD")
     with pytest.raises(NotImplementedError, match="M10"):
         SVGD().run(torch.zeros(2, 3), lambda x, g: None, 1, value_fn=lambda x: x)

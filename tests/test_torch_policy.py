@@ -121,18 +121,24 @@ def test_dust_and_svgd_defaults_match_jax():
 
 
 def test_dust_fields_take_the_jax_defaults_and_name_their_item_otherwise():
-    """Every field of the JAX ``DuSt`` exists in the port's. Those the port
-    has not ported take their JAX default and raise naming their ROADMAP
-    item at any other value; ``init_uniform_range`` bounds the initial
+    """Every field of the JAX ``DuSt`` exists in the port's. The options
+    the port has ported are accepted at values other than their defaults;
+    the trajectory mode and the scaled samplers, not ported yet, raise
+    naming their ROADMAP item; ``init_uniform_range`` bounds the initial
     draws, as in the JAX package."""
     port = {f.name for f in dataclasses.fields(DuSt)}
     assert {f.name for f in dataclasses.fields(JDuSt)} <= port
     ctrl = build_arm_mpc(device="cpu", n_pol=4, hz_len=4, kernel_mode="policy").ctrl
     for name, value in (("pol_cov", ((2.0,) * 7,) * 7), ("params_log_space", True),
                         ("weighted_prior", True), ("roll_opt_state", True),
-                        ("n_prim", 2)):
-        with pytest.raises(NotImplementedError, match=f"{name}.*M8"):
-            dataclasses.replace(ctrl, **{name: value})
+                        ("n_prim", 2), ("n_action_samples", 10),
+                        ("n_params_samples", 3), ("roll_strategy", "resample"),
+                        ("roll_strategy", "mean")):
+        assert getattr(dataclasses.replace(ctrl, **{name: value}), name) == value
+    with pytest.raises(NotImplementedError, match="trajectory.*M8"):
+        dataclasses.replace(ctrl, kernel_mode="trajectory")
+    with pytest.raises(NotImplementedError, match="ScaledSVGD.*M7"):
+        dataclasses.replace(ctrl, stein_sampler="ScaledSVGD")
     narrow = dataclasses.replace(ctrl, init_uniform_range=0.25)
     pol = narrow.init(generator=torch.Generator().manual_seed(0)).pol_mean
     assert pol.abs().max() <= 0.25 and pol.abs().max() > 0.2
