@@ -81,7 +81,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 10. the pinned order-3 solve (bench.py's ``ctrl_sig_pinned``: calibration
    off), as phase 3, with K2's launch count;
 11. the policy-mode solve (bench.py's ``ctrl_rbf`` with
-   ``fused_velocity=True``), as phase 3, with K9's launch count;
+   ``fused_velocity=True``), as phase 3, with K9's launch count; then, as
+   phase 3 with no hand kernel launched (every wrapper's count read and
+   held at 0): ``trajectory_solve`` (``kernel_mode="trajectory"`` with
+   DuSt's default ``GaussianKernel``; the kernel terms timed apart),
+   ``scaled_solve`` and ``matrix_solve`` (policy mode, ``stein_sampler``
+   "ScaledSVGD" and "MatrixSVGD" with a ``ScaledGaussianKernel``, a
+   280 × 280 metric; one velocity timed apart) and ``default_sig_solve``
+   (the JAX ``DuSt``'s default ``SignatureKernel(dyadic_order=2)``,
+   uncalibrated: the wavefront's pair list, ``DEFAULT_SIG_SOLVES`` solves;
+   then one ``gram_and_grad`` with its chunk count and peak memory, and K
+   of 64 pairs against the fp64 CPU scan of the same increments);
 12. K8 (the order ≥ 6 hop chain on tensor cores, forward and backward)
    against its bf16 twin and against the fp32 block propagator at the
    planning shape [1048576, 2, 2] λ=6 (the increments of 1024 knot paths
@@ -156,9 +166,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 24. small solves on the card held against the same solves on the CPU, where
    the twins replace the kernels: λ=0, λ=3, λ=3 with the bf16 adjoint, λ=3
    on linear statics (K5), policy mode; λ=0 Grams with their gradient (the
-   dense ``gram``, ``gram_sym`` through K3 and through K7); and 3 planning
-   iterations at batch 8, T=50 in fp32 ("highest") and through K8
-   ("default", the bf16 twin on the CPU);
+   dense ``gram``, ``gram_sym`` through K3 and through K7);
+   ``trajectory_small_vs_cpu`` (16 policies, H = 8: the trajectory mode,
+   with and without 4 given action samples, and the ScaledSVGD and
+   MatrixSVGD samplers: costs, the trajectory K and its gradient, φ, the
+   weights' argmax); ``wavefront_small_vs_cpu`` (λ=2 and λ=0-linear
+   ``gram_and_grad``, a λ=1 dense ``gram`` with its gradient: K and the
+   gradient, no hand kernel); and 3 planning iterations at batch 8, T=50 in
+   fp32 ("highest") and through K8 ("default", the bf16 twin on the CPU);
 25. K9 (the fused RBF Stein velocity, 3xTF32 on the tensor cores) against
    its twin (rtol 2e-4, atol 5e-5) at [1024, 280], a ragged [333, 280],
    [1024, 840] and [1024, 1400], the three [1024, D] again with scores 100
@@ -190,6 +205,7 @@ import time
 import torch
 
 N_SOLVES = 3
+DEFAULT_SIG_SOLVES = 3  # the order-2 wavefront solve takes seconds; may be cut
 OPT_STEPS = 2
 MC_SAMPLES = 10  # bench.py's MC workload: n_action_samples=10
 K2_TOL = (1e-4, 4e-4)   # K atol, dX scaled atol (tests/test_pallas_block3.py)
@@ -1001,6 +1017,126 @@ def phase_policy():
     return row["launches"]["fused_rbf_velocity"]
 
 
+def no_kernel_counters() -> dict:
+    """Every hand kernel wrapper a DuSt solve could reach, each to launch 0
+    times: the trajectory mode, the scaled samplers and the order-2
+    wavefront run torch ops only."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+
+    return {f: 0 for f in (kb.block_gram_and_grad, kb3.block3_gram_and_grad,
+                           ks.small_forward, kf.fused_forward, kt.tiled_forward,
+                           kv.fused_rbf_velocity)}
+
+
+def trajectory_stage(ctrl, state, pol0) -> dict:
+    """The trajectory kernel terms: a rollout with autograd, the kernel on
+    each coordinate of τ with the ``bw_median_diff`` bandwidth, and the
+    gradient of its sum in the policies."""
+    return {"trajectory_kernel_terms": host_ms(lambda: ctrl._kernel_terms(pol0, state), 3)}
+
+
+def phase_trajectory():
+    """``kernel_mode="trajectory"`` with DuSt's default ``GaussianKernel``
+    at the flagship's width: no hand kernel launches."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="trajectory")
+    return drive_solves("trajectory_solve", prob, no_kernel_counters(), N_SOLVES,
+                        trajectory_stage)
+
+
+def scaled_velocity_stage(ctrl, state, pol0) -> dict:
+    """One scaled-sampler velocity on a unit-scale score: the D = 280
+    Gauss-Newton metric, the scaled kernel and, for MatrixSVGD, the solve
+    by the metric."""
+    from sigsvgd_tpu_torch.inference.svgd import ScoreResult
+
+    sampler = ctrl._sampler()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    score = ScoreResult(grad_log_p=torch.randn(pol0.shape, generator=g, device="cuda"))
+    return {"scaled_velocity": host_ms(lambda: sampler.velocity(pol0, score, 0), 3)}
+
+
+def phase_scaled(sampler: str):
+    """Policy mode with ``stein_sampler`` "ScaledSVGD" or "MatrixSVGD" and a
+    ``ScaledGaussianKernel``: the metric is 280 × 280 (H·a = 40·7)."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels.rbf import ScaledGaussianKernel
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="policy",
+                         stein_sampler=sampler, kernel=ScaledGaussianKernel())
+    phase = {"ScaledSVGD": "scaled_solve", "MatrixSVGD": "matrix_solve"}[sampler]
+    row = drive_solves(phase, prob, no_kernel_counters(), N_SOLVES, scaled_velocity_stage)
+    row["metric_dim"] = prob.ctrl.hz_len * prob.ctrl.dim_a
+    return row
+
+
+def default_sig_stage(ctrl, state, pol0) -> dict:
+    with torch.no_grad():
+        _c, trs = ctrl._rollout_costs(state, pol0)
+        tau = ctrl._tau(trs).contiguous()
+    return {"sig_gram_adjoint": host_ms(lambda: ctrl.sig_kernel.gram_and_grad(tau), 1)}
+
+
+def phase_default_sig():
+    """The JAX ``DuSt``'s default signature kernel, ``SignatureKernel(
+    dyadic_order=2)`` (the median bandwidth), uncalibrated at the flagship's
+    width: ``gram_and_grad`` takes the wavefront's pair list (no hand
+    kernel). Then one ``gram_and_grad`` on τ with its chunk count and peak
+    memory, and K of 64 pairs (8 × 8 paths) against the fp64 CPU
+    ``solve_goursat_pde_scan`` of the same increments, scaled by the batch
+    max to atol 1e-3 (``tests/test_sigkernel.py``'s tolerance for the
+    wavefront's fp32 rounding)."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels.sigkernel import solve_goursat_pde_scan
+    from sigsvgd_tpu_torch.kernels.sigkernel_tiled import pair_increments
+
+    prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, dyadic_order=2,
+                         bandwidth=None, calibrate=False)
+    ctrl, kern = prob.ctrl, prob.ctrl.sig_kernel
+    if kern._solver_kind(39, 39) != "wavefront":
+        raise AssertionError("order 2 does not take the wavefront")
+    row = drive_solves("default_sig_solve", prob, no_kernel_counters(), DEFAULT_SIG_SOLVES,
+                       default_sig_stage)
+    cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(13))
+    with torch.no_grad():
+        tau = ctrl._tau(ctrl._rollout_costs(prob.q_start, cs.pol_mean)[1]).contiguous()
+    n = tau.shape[0]
+    h = kern._subsampled_bandwidth(tau, tau)
+    kind, chunk, n_chunks = kern._chunk_plan(39, 39, n * (n + 1) // 2, 2, tau.device, h)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    K, dX = kern.gram_and_grad(tau)
+    torch.cuda.synchronize()
+    gg_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    # 64 pairs: the pair list's increments in fp32 on the card (scaled by
+    # 4^-2, pair-minor), solved in fp64 on the CPU
+    ix = torch.arange(8, device="cuda").repeat_interleave(8)
+    iy = torch.arange(8, device="cuda").repeat(8)
+    z = pair_increments(tau, tau, ix, iy, h, 2)
+    want = solve_goursat_pde_scan(z.permute(2, 0, 1).double().cpu() * 16.0, 2)
+    got = K[ix, iy].double().cpu()
+    k_err = ((got - want).abs().max() / want.abs().max()).item()
+    out = {"phase": "default_sig_solve", "part": "gram_and_grad", "kind": kind,
+           "pairs": n * (n + 1) // 2, "chunk": chunk, "chunks": n_chunks,
+           "ms": gg_ms, "peak_mib": peak_mib, "k_vs_fp64_scaled_64_pairs": k_err,
+           "k_range_64_pairs": [want.min().item(), want.max().item()],
+           "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all()),
+           "n_solves": DEFAULT_SIG_SOLVES}
+    emit(out)
+    if not (out["finite"] and k_err <= 1e-3):
+        raise AssertionError(f"default_sig_solve: {out}")
+    return row
+
+
 def traced_solve(ctrl, state, cs, generator=None) -> dict:
     """One more solve under ``torch.profiler``."""
     return traced(lambda: ctrl.forward(state, cs, generator=generator,
@@ -1080,7 +1216,7 @@ def phase_small_vs_cpu():
 
 def small_grams_vs_cpu():
     """λ=0 Grams on the card against the CPU, where the twins replace the
-    kernels: the dense ``gram`` with its gradient (the plain solve on both
+    kernels: the dense ``gram`` with its gradient (the wavefront on both
     devices), ``gram_sym`` on the block route (K3 on the card; values only)
     and on the pair list (K7 on the card; L·C > 128) with its gradient; K to
     rtol 3e-5 / atol 2e-5 (K reaches 23 on the 8-channel paths, where the
@@ -1112,6 +1248,121 @@ def small_grams_vs_cpu():
               "compared": "K, dK/dX" if grad else "K", **errs})
         if not (k_ok and errs.get("grad_scaled", 0.0) <= K7_TOL[1]):
             raise AssertionError(f"card and CPU Grams disagree ({name}): {errs}")
+
+
+def phase_trajectory_small_vs_cpu():
+    """A small controller (16 policies, H = 8) in the trajectory mode (with
+    the autograd likelihood, and with 4 given action samples and a
+    ``ScaledGaussianKernel``) and with the ScaledSVGD and MatrixSVGD
+    samplers in policy mode, on the card and the CPU from the same policies
+    and draws: the first step's costs rtol 1e-5, the trajectory K rtol 1e-5
+    / atol 1e-6 and its gradient scaled 1e-4 (the CPU tests' K and dK
+    tolerances), φ scaled 1e-4, and over a 2-step solve the weights' argmax
+    and finite policies."""
+    from sigsvgd_tpu_torch.controllers.dust import DuStDraws
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels.rbf import ScaledGaussianKernel
+    from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
+
+    n, H, S = 16, 8, 4
+    gen = torch.Generator().manual_seed(17)
+    pol = torch.rand((n, H, 7), generator=gen) * 4.0 - 2.0
+    eps = torch.randn((OPT_STEPS, S, n, H, 7), generator=gen)
+    cases = {
+        "trajectory": (dict(kernel_mode="trajectory"), 0),
+        "trajectory_mc_scaled": (dict(kernel_mode="trajectory",
+                                      kernel=ScaledGaussianKernel()), S),
+        "scaled_policy": (dict(kernel_mode="policy", stein_sampler="ScaledSVGD",
+                               kernel=ScaledGaussianKernel()), 0),
+        "matrix_policy": (dict(kernel_mode="policy", stein_sampler="MatrixSVGD",
+                               kernel=ScaledGaussianKernel()), 0),
+    }
+    for name, (kw, samples) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            prob = build_arm_mpc(device=dev, n_pol=n, hz_len=H, **kw)
+            ctrl = dataclasses.replace(prob.ctrl, n_action_samples=samples)
+            cs = ctrl.init(pol_mean=pol.to(dev))
+            prior = ParticleGMM(cs.pol_mean.reshape(n, -1), ctrl._prior_var(),
+                                cs.prior_weights)
+            score, _ = ctrl._score(cs.pol_mean, prob.q_start, prior, None,
+                                   eps[0].to(dev) if samples else None)
+            phi, _ = ctrl._sampler().velocity(cs.pol_mean, score, 0)
+            draws = DuStDraws(actions=eps.to(dev)) if samples else DuStDraws()
+            _a, cs2, data = ctrl.forward(prob.q_start, cs, opt_steps=OPT_STEPS, draws=draws)
+            out[dev] = {"costs": score.aux["costs"].cpu(), "phi": phi.cpu(),
+                        "k": None if score.k_xx is None else score.k_xx.cpu(),
+                        "grad_k": None if score.grad_k is None else score.grad_k.cpu(),
+                        "i_star": int(torch.argmax(data.pol_weights)),
+                        "finite": bool(torch.isfinite(cs2.pol_mean).all())}
+        g, c = out["cuda"], out["cpu"]
+        errs = {"costs_rel": ((g["costs"] - c["costs"]).abs().max()
+                              / c["costs"].abs().max()).item(),
+                "phi_scaled": scaled_err(g["phi"], c["phi"]),
+                "i_star": [g["i_star"], c["i_star"]]}
+        ok = (errs["costs_rel"] <= 1e-5 and errs["phi_scaled"] <= 1e-4
+              and g["i_star"] == c["i_star"] and g["finite"] and c["finite"])
+        if c["k"] is not None:
+            errs["k_excess"] = k_excess(g["k"], c["k"], 1e-5)
+            errs["grad_k_scaled"] = scaled_err(g["grad_k"], c["grad_k"])
+            ok &= errs["k_excess"] <= 0.0 and errs["grad_k_scaled"] <= 1e-4
+        emit({"phase": "trajectory_small_vs_cpu", "case": name, "n_pol": n, "hz_len": H,
+              "n_action_samples": samples, **errs})
+        if not ok:
+            raise AssertionError(f"card and CPU solves disagree ({name}): {errs}")
+
+
+def phase_wavefront_small_vs_cpu():
+    """``gram_and_grad`` by the wavefront on the card and the CPU with the
+    same paths: λ=2 (the median bandwidth) at [16, 40, 2], λ=0 with linear
+    statics at [24, 41, 4], and λ=1 at [16, 21, 9] through a dense ``gram``
+    with its gradient; no hand kernel launched. The gradient is held
+    scaled at 5e-5 (``tests/test_torch_wavefront.py``), K at rtol 1e-4 /
+    atol 1e-4 (the λ=3 K atol of ``tests/test_pallas_block3.py``): on
+    40-node paths each device's fp32 K is ~2.5e-4 relative from fp64 (the
+    static Gram's double differences cancel), as in the JAX package, and
+    the two devices' exp round apart; both distances from fp64 are
+    reported."""
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    gen = torch.Generator().manual_seed(19)
+
+    def paths(shape, step):
+        return torch.cumsum((torch.rand(shape, generator=gen) - 0.5) * step, dim=1)
+
+    cases = {
+        "lambda2_gram_and_grad": (SignatureKernel(2), paths((16, 40, 2), 0.2), "gg"),
+        "lambda0_linear_gram_and_grad": (SignatureKernel(0, static="linear"),
+                                         paths((24, 41, 4), 0.1), "gg"),
+        "lambda1_dense_gram": (SignatureKernel(1, 1.5), paths((16, 21, 9), 0.3), "gram"),
+    }
+    counters = no_kernel_counters()
+    for name, (kern, X, how) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            x = X.to(dev)
+            for c in counters:
+                c.launches = 0
+            if how == "gg":
+                K, dX = kern.gram_and_grad(x)
+            else:
+                xx = x.clone().requires_grad_(True)
+                K = kern.gram(xx, x[:5])
+                (dX,) = torch.autograd.grad(K.sum(), xx)
+            out[dev] = (K.detach().cpu(), dX.cpu(), sum(c.launches for c in counters))
+        (k0, g0, n0), (k1, g1, _n1) = out["cuda"], out["cpu"]
+        if how == "gg":
+            k64 = kern.gram_and_grad(X.double())[0]
+        else:
+            k64 = kern.gram(X.double(), X[:5].double())
+        errs = {"k_excess": k_excess(k0, k1, 1e-4, 1e-4), "grad_scaled": scaled_err(g0, g1),
+                "k_rel_vs_fp64": [((k.double() - k64).abs() / k64.abs()).max().item()
+                                  for k in (k0, k1)],
+                "k_range": [k1.min().item(), k1.max().item()], "kernel_launches": n0}
+        emit({"phase": "wavefront_small_vs_cpu", "case": name, "shape": list(X.shape),
+              **errs})
+        if not (errs["k_excess"] <= 0.0 and errs["grad_scaled"] <= 5e-5 and n0 == 0):
+            raise AssertionError(f"card and CPU wavefronts disagree ({name}): {errs}")
 
 
 def knot_increments(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -2507,6 +2758,10 @@ def main() -> int:
     k2 = phase_k2()
     pinned = phase_pinned()
     k9_launches = phase_policy()
+    phase_trajectory()
+    phase_scaled("ScaledSVGD")
+    phase_scaled("MatrixSVGD")
+    phase_default_sig()
     k8 = phase_k8()
     k8_launches = phase_planning_iter()
     phase_planning_run()
@@ -2529,6 +2784,8 @@ def main() -> int:
         for which in ("tiled_forward", "tiled_backward")}
     phase_small_vs_cpu()
     small_grams_vs_cpu()
+    phase_trajectory_small_vs_cpu()
+    phase_wavefront_small_vs_cpu()
     planning_small_vs_cpu()
     k9 = phase_k9(k9_times)
     emit({"kernels": [

@@ -1,5 +1,5 @@
 """DuSt — Dual Stein variational MPC (port of
-``sigsvgd_tpu/controllers/dust.py``, policy and signature-kernel modes).
+``sigsvgd_tpu/controllers/dust.py``).
 
 Each Stein particle is a policy (an action-mean sequence over the horizon).
 Every control step runs ``opt_steps`` SVGD iterations on the policies with
@@ -15,10 +15,16 @@ Every control step runs ``opt_steps`` SVGD iterations on the policies with
     ``params_log_space``), and
   * the Stein kernel either on the policies themselves (``kernel_mode=
     "policy"``, the default: the sampler's analytic ``kernel``, through the
-    fused velocity kernel K9 when ``fused_velocity``), or the signature
-    kernel on the rollout trajectories (``"signature"``, averaged over the
-    action samples), its gradient pulled back to the policies through a
-    second rollout of the same fixed sample offsets.
+    fused velocity kernel K9 when ``fused_velocity``), or on the rollout
+    trajectories τ (averaged over the action samples): ``"trajectory"``,
+    ``kernel`` on each coordinate of τ averaged over the coordinates, or
+    ``"signature"``, the signature kernel; either's gradient is pulled back
+    to the policies through a second rollout of the same fixed sample
+    offsets,
+  * the sampler ``stein_sampler``: "SVGD", or the Gauss-Newton second-order
+    "ScaledSVGD" and its preconditioned "MatrixSVGD" (which, as in the JAX
+    package, take their own kernel on the policies and do not read the
+    trajectory or signature kernel terms).
 
 The first ``n_prim`` policies are frozen action primitives. After the solve
 the horizon rolls by one step ("repeat", "mean" or "resample" from the
@@ -28,9 +34,7 @@ prior), optionally with the optimizer state (``roll_opt_state``), and
 Random draws come from the caller's ``torch.Generator``, or are given as
 :class:`DuStDraws`; a draw needed with neither raises ``ValueError``. With
 no action or parameter samples and the "repeat" or "mean" roll, ``forward``
-draws nothing. The trajectory kernel mode and the ScaledSVGD/MatrixSVGD
-samplers raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+draws nothing.
 """
 from __future__ import annotations
 
@@ -40,14 +44,16 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..inference.svgd import SVGD, Adam, ScoreResult, SVGDState, roll_opt_state
+from ..inference.svgd import (
+    SVGD, Adam, ScaledSVGD, ScoreResult, SVGDState, roll_opt_state,
+)
 from ..kernels.rbf import GaussianKernel
 from ..kernels.sigkernel import SignatureKernel
 from ..models.base import DynamicsModel
 from ..models.rollout import rollout
 from ..utils import distributions as du
 from ..utils.distributions import ParticleGMM
-from ..utils.math import grad_gmm_log_p, smoothed_box_log_prob
+from ..utils.math import bw_median_diff, grad_gmm_log_p, pw_dist_sq, smoothed_box_log_prob
 
 CostFn = Callable[..., torch.Tensor]
 
@@ -93,12 +99,12 @@ class DuSt:
     pol_hyper_prior: bool = True
     weighted_prior: bool = False
     roll_strategy: str = "repeat"  # repeat | resample | mean
-    kernel_mode: str = "policy"  # policy | signature (trajectory: M8)
+    kernel_mode: str = "policy"  # policy | trajectory | signature
     kernel: Any = dataclasses.field(default_factory=GaussianKernel)
     sig_kernel: SignatureKernel = dataclasses.field(
         default_factory=lambda: SignatureKernel(dyadic_order=2)
     )
-    stein_sampler: str = "SVGD"
+    stein_sampler: str = "SVGD"  # SVGD | ScaledSVGD | MatrixSVGD
     optimizer: Optional[Adam] = None
     lr: float = 0.1
     roll_opt_state: bool = False  # roll Adam's moments with the horizon
@@ -110,17 +116,9 @@ class DuSt:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
-        if self.kernel_mode == "trajectory":
-            raise NotImplementedError(
-                "DuSt kernel_mode='trajectory' is not ported yet (the trajectory "
-                "mode with bw_median_diff: queue 1, M8 in ROADMAP.md)")
-        if self.stein_sampler in ("ScaledSVGD", "MatrixSVGD"):
-            raise NotImplementedError(
-                f"DuSt stein_sampler={self.stein_sampler!r} is not ported yet "
-                "(ScaledSVGD/MatrixSVGD: queue 1, M7 in ROADMAP.md)")
-        if self.kernel_mode not in ("policy", "signature"):
+        if self.kernel_mode not in ("policy", "trajectory", "signature"):
             raise ValueError(f"Invalid kernel_mode: {self.kernel_mode}")
-        if self.stein_sampler != "SVGD":
+        if self.stein_sampler not in ("SVGD", "ScaledSVGD", "MatrixSVGD"):
             raise ValueError(f"Invalid stein_sampler: {self.stein_sampler}")
         if self.roll_strategy not in ("repeat", "resample", "mean"):
             raise ValueError(f"Invalid roll strategy: {self.roll_strategy}")
@@ -157,9 +155,12 @@ class DuSt:
             def log_prior(pol):  # noqa: F811
                 return smoothed_box_log_prob(pol, low, high, 0.1).sum(-1)
 
-        return SVGD(kernel=self.kernel, optimizer=self.optimizer, lr=self.lr,
-                    log_prior=log_prior, gradient_mask=mask,
-                    fused_velocity=self.fused_velocity)
+        common = dict(kernel=self.kernel, optimizer=self.optimizer, lr=self.lr,
+                      log_prior=log_prior, gradient_mask=mask,
+                      fused_velocity=self.fused_velocity)
+        if self.stein_sampler == "SVGD":
+            return SVGD(**common)
+        return ScaledSVGD(precondition=self.stein_sampler == "MatrixSVGD", **common)
 
     def init(self, pol_mean: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
@@ -270,17 +271,24 @@ class DuSt:
             costs, trajs = costs.detach(), trajs.detach()
             loss = -self._log_lik(costs)
 
-        k_xx, grad_k = self._kernel_terms(pol_mean, state, params_mat, offsets)
+        k_xx, grad_k = self._kernel_terms(pol_mean, state, params_mat, offsets, trajs)
         return ScoreResult(
             grad_log_p=grad_pri + grad_lik, k_xx=k_xx, grad_k=grad_k,
             loss=loss, aux={"costs": costs},
         ), trajs
 
-    def _kernel_terms(self, pol_mean, state, params_mat=None, offsets=None):
-        """Signature Gram and its repulsion on τ, pulled back to the
-        policies through a second rollout (the VJP of τ) of the same fixed
-        sample offsets, under the first parameter sample; in policy mode
-        none: the sampler computes its analytic kernel on the policies."""
+    def _kernel_terms(self, pol_mean, state, params_mat=None, offsets=None,
+                      trajs=None):
+        """The kernel terms on τ, pulled back to the policies through a
+        second rollout of the same fixed sample offsets, under the first
+        parameter sample; in policy mode none: the sampler computes its
+        analytic kernel on the policies. Signature mode: the Gram and its
+        repulsion from ``gram_and_grad``, pulled back by the VJP of τ.
+        Trajectory mode: ``kernel`` on each coordinate of τ against the
+        detached τ of ``trajs`` (the likelihood's rollout; this rollout's
+        when None), with the median bandwidth of :func:`bw_median_diff`
+        unless the kernel has a ``bandwidth_fn``, averaged over the
+        coordinates; the gradient of its sum by autograd."""
         if self.kernel_mode == "policy":
             return None, None
         pm = pol_mean.detach().requires_grad_(True)
@@ -288,13 +296,25 @@ class DuSt:
             acts = pm if offsets is None else pm[None] + offsets
             if params_mat is not None:
                 params = self._params_dict(params_mat[:1], acts.ndim - 2)
-                trajs = rollout(self.model, state, acts[None], params)[0]
+                rolled = rollout(self.model, state, acts[None], params)[0]
             else:
-                trajs = rollout(self.model, state, acts)
-            tau = self._tau(trajs)
-            k_xx, dtau = self.sig_kernel.gram_and_grad(tau.detach().contiguous())
-            (grad_k,) = torch.autograd.grad(tau, pm, grad_outputs=dtau)
-        return k_xx, grad_k
+                rolled = rollout(self.model, state, acts)
+            tau = self._tau(rolled)
+            if self.kernel_mode == "signature":
+                k_xx, dtau = self.sig_kernel.gram_and_grad(tau.detach().contiguous())
+                (grad_k,) = torch.autograd.grad(tau, pm, grad_outputs=dtau)
+                return k_xx, grad_k
+            ref = (tau if trajs is None else self._tau(trajs)).detach()
+            k = 0.0
+            for i in range(tau.shape[-1]):
+                h = None
+                if self.kernel.bandwidth_fn is None:
+                    h = bw_median_diff(pw_dist_sq(tau[..., i], ref[..., i]),
+                                       self.kernel.bw_scale)
+                k = k + self.kernel(tau[..., i], ref[..., i], h=h, compute_grad=False)
+            k = k / tau.shape[-1]
+            (grad_k,) = torch.autograd.grad(k.sum(), pm)
+        return k.detach(), grad_k
 
     @torch.no_grad()
     def forward(self, state: torch.Tensor, ctrl: DuStState, params_dist=None,

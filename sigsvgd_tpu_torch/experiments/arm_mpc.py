@@ -9,8 +9,10 @@ bandwidth=4.0)`` after ``calibrate_dyadic_order`` on a warm-up rollout
 (``ctrl_sig``), the same kernel pinned at order 3 (``ctrl_sig_pinned``,
 ``calibrate=False``), and the RBF kernel on the policies (``ctrl_rbf``,
 ``kernel_mode="policy"``). ``chip_smoke.py`` and the tests build them here,
-and the pinned controller with the linear static kernel
-(``static="linear"``: the λ=3 pair list through K5).
+the pinned controller with the linear static kernel (``static="linear"``:
+the λ=3 pair list through K5), the JAX ``DuSt``'s default signature kernel
+(order 2, the wavefront), the trajectory kernel mode and the ScaledSVGD and
+MatrixSVGD samplers.
 
 :func:`build_planning_problem` gives bench's second workload on the same
 arm and scene (``bench_planning_iter``): open-loop trajectory optimisation
@@ -100,25 +102,21 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
                   kernel_mode: str = "signature",
                   fused_velocity: bool = False,
                   grad_precision: str = "fp32",
-                  static: str = "rbf") -> ArmProblem:
+                  static: str = "rbf", stein_sampler: str = "SVGD",
+                  kernel=None) -> ArmProblem:
     """Build the flagship problem. In signature mode the kernel's order is
     calibrated on a warm-up rollout of policies drawn from ``seed`` (the
     bound is reported either way); ``calibrate=False`` keeps
     ``dyadic_order``, as bench's pinned controller does, and
     ``grad_precision`` is the signature kernel's adjoint precision ("bf16":
     the λ=3 pair list with K6). ``static="linear"`` takes the linear static
-    kernel (the bandwidth is then unused, as in the JAX package); it needs
-    ``calibrate=False``, because the calibration can choose order 0, where
-    the JAX package takes the linear kernel by its XLA wavefront route, not
-    ported yet (ROADMAP.md queue 1, M6). ``kernel_mode="policy"`` gives
-    bench's RBF controller, with ``fused_velocity`` selecting K9; it has no
-    signature kernel to calibrate."""
-    if kernel_mode == "signature" and static == "linear" and calibrate:
-        raise NotImplementedError(
-            "calibrating the linear-static kernel can drop it to dyadic order 0, "
-            "which the JAX package solves by its XLA wavefront route, not ported yet "
-            "(ROADMAP.md queue 1, M6); pass calibrate=False"
-        )
+    kernel (the bandwidth is then unused, as in the JAX package; calibrated
+    to order 0 it takes the wavefront). ``kernel_mode="policy"`` gives
+    bench's RBF controller, with ``fused_velocity`` selecting K9, and
+    ``"trajectory"`` the kernel on each coordinate of τ; neither has a
+    signature kernel to calibrate. ``kernel`` is the policy or trajectory
+    kernel (a ``GaussianKernel`` when None) and ``stein_sampler`` the
+    sampler ("SVGD", "ScaledSVGD" or "MatrixSVGD")."""
     device = resolve_device(device)
     robot = PandaRobot.create(device=device)
     low, high = robot.joint_limits()
@@ -129,12 +127,13 @@ def build_arm_mpc(device=None, n_pol: int = 1024, hz_len: int = 40,
     inst_cost, term_cost = arm_costs(robot, scene_tag, ee_target)
     common = dict(model=model, hz_len=hz_len, n_pol=n_pol, device=device,
                   optimizer=Adam(lr), pol_hyper_prior=True,
-                  inst_cost_fn=inst_cost, term_cost_fn=term_cost)
+                  inst_cost_fn=inst_cost, term_cost_fn=term_cost,
+                  stein_sampler=stein_sampler,
+                  kernel=GaussianKernel() if kernel is None else kernel)
     problem = dict(robot=robot, model=model, q_start=q_start,
                    ee_target=ee_target, inst_cost=inst_cost, term_cost=term_cost)
-    if kernel_mode == "policy":
-        ctrl = DuSt(kernel_mode="policy", kernel=GaussianKernel(),
-                    fused_velocity=fused_velocity, **common)
+    if kernel_mode in ("policy", "trajectory"):
+        ctrl = DuSt(kernel_mode=kernel_mode, fused_velocity=fused_velocity, **common)
         return ArmProblem(ctrl=ctrl, calibration_bound=None, **problem)
     ctrl = DuSt(
         kernel_mode="signature",

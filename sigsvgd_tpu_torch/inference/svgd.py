@@ -1,5 +1,5 @@
-"""Stein variational gradient descent (port of the part of
-``sigsvgd_tpu/inference/svgd.py`` the DuSt MPC solves and the planner run).
+"""Stein variational gradient descent (port of
+``sigsvgd_tpu/inference/svgd.py``: SVGD, ScaledSVGD and MatrixSVGD).
 
 Update rule: with score ``s_i = ∇ log p(x_i)`` and aggregated kernel
 gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
@@ -8,16 +8,17 @@ gradient ``g_i = Σ_j ∂k(x_i, x_j)/∂x_i``,
     x_i ← optimizer_update(x_i, −φ_i)        (descent on −φ)
 
 The kernel terms come with the score (``ScoreResult.k_xx``/``grad_k``,
-signature mode) or from the sampler's own analytic kernel on the particles
-(policy mode), optionally through the fused velocity kernel (K9).
-``repulsion_schedule(step)`` scales the kernel gradient and
+trajectory and signature modes) or from the sampler's own analytic kernel
+on the particles (policy mode), optionally through the fused velocity
+kernel (K9). ``repulsion_schedule(step)`` scales the kernel gradient and
 ``gradient_mask`` multiplies φ (frozen particles). The update is Adam, the
 hand-rolled Adagrad or the raw ``lr`` step; :func:`roll_opt_state` shifts
-the optimizer state with a receding horizon. :meth:`SVGD.run` is a Python
-loop over the steps (PyTorch runs eagerly, so the JAX package's
-``run_host_loop`` is the same loop and is not ported separately).
-ScaledSVGD/MatrixSVGD and LBFGS are later slices (ROADMAP.md queue 1, M7
-and M10).
+the optimizer state with a receding horizon. :meth:`SVGD.run` and
+:meth:`SVGD.run_host_loop` are the same Python loop over the steps
+(PyTorch runs eagerly); they differ in what they log, as in the JAX
+package. :class:`ScaledSVGD` is the second-order sampler with a
+Gauss-Newton metric (:func:`matrix_svgd` preconditions by it). LBFGS is a
+later slice (ROADMAP.md queue 1, M10).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..kernels.rbf import GaussianKernel
+from ..kernels.rbf import GaussianKernel, ScaledGaussianKernel
 from ..kernels.svgd_velocity import fused_rbf_velocity
 from ..utils.math import pw_dist_sq
 
@@ -203,6 +204,40 @@ class SVGD:
                                  torch.zeros(0, device=particles.device),
                                  aux=_stack_aux(auxes))
 
+    def run_host_loop(self, particles: torch.Tensor, score_fn: ScoreFn,
+                      n_steps: int, generator: Optional[torch.Generator] = None,
+                      state: Optional[SVGDState] = None, trace_every: int = 0,
+                      value_fn=None) -> Tuple[torch.Tensor, SVGDState, RunData]:
+        """:meth:`run`'s steps, with the JAX package's host-loop logging:
+        the trace holds the initial particles, every ``trace_every``-th
+        step's and always the final ones (with ``trace_every=0`` only the
+        first and the last); the loss is the score's, zero without one; no
+        aux. A ``value_fn`` raises, as in :meth:`run`."""
+        if value_fn is not None:
+            raise NotImplementedError(
+                "value_fn feeds the LBFGS line search, not ported yet "
+                "(ROADMAP.md queue 1, M10)")
+        if state is None:
+            state = self.init(particles)
+        x = particles
+        trace = [particles] if trace_every else []
+        losses = []
+        for i in range(n_steps):
+            score = score_fn(x, generator)
+            x, state = self.step_update(x, state, score)
+            losses.append(score.loss if score.loss is not None
+                          else torch.zeros((), device=particles.device))
+            if trace_every and (i + 1) % trace_every == 0:
+                trace.append(x)
+        if not trace_every:
+            trace = [particles, x]
+        elif n_steps % trace_every:
+            trace.append(x)
+        return x, state, RunData(trace=torch.stack(trace),
+                                 loss=torch.stack(losses) if losses else
+                                 torch.zeros(0, device=particles.device),
+                                 aux=None)
+
 
 def roll_opt_state(opt_state, particle_shape: Tuple[int, ...]):
     """Shift optimizer state with the receding horizon: every leaf whose
@@ -236,3 +271,53 @@ def _stack_aux(auxes):
     if not auxes or auxes[0] is None:
         return None
     return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledSVGD(SVGD):
+    """Second-order SVGD with the Gauss-Newton metric ``M = 2·mean_i(s_i
+    s_iᵀ) + eps·I``, ``eps`` the unbiased variance of the flattened
+    particles, built from the likelihood score before the prior gradient
+    joins it and handed to the kernel as ``M=``; ``precondition=True``
+    solves ``M φᵀ`` ("MatrixSVGD"). As in the JAX package, the velocity
+    always takes its own kernel on the flattened particles: a score's
+    ``k_xx``/``grad_k`` (trajectory or signature mode) are not read, and
+    ``fused_velocity`` does not apply."""
+
+    metric: str = "GaussNewton"
+    precondition: bool = True
+
+    def velocity(self, x: torch.Tensor, score: ScoreResult, step
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.metric.lower() != "gaussnewton":
+            raise NotImplementedError(
+                f"metric {self.metric!r} is not implemented; GaussNewton is the "
+                "only one, as in the JAX package")
+        n = x.shape[0]
+        s = _flat(score.grad_log_p)
+        eps = torch.var(_flat(x), correction=1)
+        m = 2.0 * torch.mean(s[:, :, None] * s[:, None, :], dim=0)
+        m = m + eps * torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+        if self.log_prior is not None:
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(True)
+                (prior_grad,) = torch.autograd.grad(self.log_prior(xx).sum(), xx)
+            s = s + _flat(prior_grad)
+        k_xx, grad_k = self.kernel(_flat(x), _flat(x), M=m)
+        if self.repulsion_schedule is not None:
+            grad_k = grad_k * self.repulsion_schedule(step)
+        phi = (k_xx @ s - grad_k) / n
+        if self.precondition:
+            phi = torch.linalg.solve(m, phi.T).T
+        phi = phi.reshape(x.shape)
+        if self.gradient_mask is not None:
+            phi = phi * self.gradient_mask
+        loss = score.loss if score.loss is not None else torch.linalg.norm(s)
+        return phi, loss
+
+
+def matrix_svgd(kernel=None, **kwargs) -> ScaledSVGD:
+    """"MatrixSVGD": :class:`ScaledSVGD` preconditioned by its metric, with a
+    :class:`ScaledGaussianKernel` unless a kernel is given."""
+    return ScaledSVGD(kernel=kernel or ScaledGaussianKernel(), precondition=True,
+                      **kwargs)

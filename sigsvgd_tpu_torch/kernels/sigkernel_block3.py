@@ -244,8 +244,8 @@ def block3_gram_and_grad(X: torch.Tensor, h):
         raise NotImplementedError(
             f"shape {(n, L, C)} is outside K2's envelope (C ≤ 3, L ≤ 64); "
             "SignatureKernel.gram_and_grad sends such shapes to the λ=3 pair "
-            "list (K4), or beyond ly1 = 48 to the wavefront (ROADMAP.md queue "
-            "1, M6)"
+            "list (K4), or beyond ly1 = 48 to the wavefront "
+            "(sigkernel.solve_goursat_pde)"
         )
     g, span = block3_lanes(L)
     tc = THREADS // g

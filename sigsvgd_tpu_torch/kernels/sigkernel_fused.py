@@ -531,7 +531,7 @@ def _check(xt: torch.Tensor, yt: torch.Tensor, what: str):
         raise ValueError(f"{what}: tiles {tuple(xt.shape)} and {tuple(yt.shape)} disagree")
     if not kernel_supported(lx1, ly1, C):
         route = ("the solve on given increments, sigkernel_tiled.pair_values"
-                 if C > MAX_C else "the wavefront route, ROADMAP.md queue 1, M6")
+                 if C > MAX_C else "the wavefront, sigkernel.solve_goursat_pde")
         raise NotImplementedError(
             f"{lx1 + 1}x{ly1 + 1}-node paths with {C} channels are outside the "
             f"fused λ=3 kernels' envelope (ly1 ≤ 48, C ≤ 8); they take {route}"

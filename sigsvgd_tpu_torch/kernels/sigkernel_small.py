@@ -394,8 +394,8 @@ def _check(xt: torch.Tensor, yt: torch.Tensor, what: str):
     if not kernel_supported(lx1, ly1, C):
         raise NotImplementedError(
             f"{lx1 + 1}x{ly1 + 1}-node paths with {C} channels are outside K7's "
-            f"envelope (ly ≤ {MAX_LY}, C ≤ {MAX_C}); the JAX package takes them "
-            "by its XLA wavefront route, ROADMAP.md queue 1, M6"
+            f"envelope (ly ≤ {MAX_LY}, C ≤ {MAX_C}); SignatureKernel takes them "
+            "by the wavefront (sigkernel.solve_goursat_pde)"
         )
     return lx1, ly1, C, P
 

@@ -367,8 +367,8 @@ def _check(z: torch.Tensor, what: str):
     if not kernel_supported(lx1, ly1):
         raise NotImplementedError(
             f"{lx1 + 1}x{ly1 + 1}-node paths are outside K5's envelope (ly1 ≤ "
-            f"{MAX_LY1}); the JAX package takes them by its XLA wavefront route, "
-            "ROADMAP.md queue 1, M6"
+            f"{MAX_LY1}); SignatureKernel takes them by the wavefront "
+            "(sigkernel.solve_goursat_pde)"
         )
     return lx1, ly1, P
 
@@ -469,12 +469,13 @@ def solve_goursat_pde_tiled(inc: torch.Tensor, dyadic_order: int = 3) -> torch.T
 
 
 def pair_increments(X: torch.Tensor, Y: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
-                    h) -> torch.Tensor:
+                    h, dyadic_order: int = 3) -> torch.Tensor:
     """Scaled increments ``z [lx1, ly1, P]`` of the pairs ``(X[ix], Y[iy])``,
-    built pair-minor in torch as ``pallas_pair_values`` builds them in XLA:
-    the cross term summed in channel order, linear statics (``h`` None) or
-    RBF in the expand form ``exp(−max(‖x‖² + ‖y‖² − 2⟨x, y⟩, 0)/h)``, the
-    double difference and ``/64``."""
+    built pair-minor in torch as ``pallas_pair_values`` builds them in XLA
+    (and the JAX package's pair-list statics for its wavefront): the cross
+    term summed in channel order, linear statics (``h`` None) or RBF in the
+    expand form ``exp(−max(‖x‖² + ‖y‖² − 2⟨x, y⟩, 0)/h)``, the double
+    difference and ``/4^dyadic_order`` (``/64`` for K5)."""
     xt = X[ix].permute(1, 2, 0).contiguous()   # [Lx, C, P]
     yt = Y[iy].permute(1, 2, 0).contiguous()
     cross = xt[:, None, 0] * yt[None, :, 0]
@@ -489,7 +490,7 @@ def pair_increments(X: torch.Tensor, Y: torch.Tensor, ix: torch.Tensor, iy: torc
             yn = yn + yt[:, c] * yt[:, c]
         d2 = torch.clamp_min((xn[:, None] + yn[None]) - 2.0 * cross, 0.0)
         g = torch.exp(-d2 / h)
-    return (((g[1:, 1:] - g[1:, :-1]) - g[:-1, 1:]) + g[:-1, :-1]) / 64.0
+    return (((g[1:, 1:] - g[1:, :-1]) - g[:-1, 1:]) + g[:-1, :-1]) / float(4 ** dyadic_order)
 
 
 def pair_values(X: torch.Tensor, Y: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,

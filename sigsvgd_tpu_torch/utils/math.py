@@ -46,14 +46,70 @@ def pw_dist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return relu(d2)
 
 
+def scaled_pw_dist_sq(x: torch.Tensor, y: torch.Tensor, metric: torch.Tensor,
+                      return_gradient: bool = False):
+    """``[n, d] × [m, d] → [n, m]`` metric-scaled squared distances
+    ``(x_i - y_j) M (x_i - y_j)ᵀ``, clamped at 0; with ``return_gradient``
+    also ``diff @ M`` (``[n, m, d]``, half the gradient in ``x_i`` for a
+    symmetric ``M``)."""
+    diff = x[:, None, :] - y[None, :, :]
+    diff_m = diff @ metric
+    d2 = relu(torch.sum(diff_m * diff, dim=-1))
+    if return_gradient:
+        return d2, diff_m
+    return d2
+
+
 def bw_median(sq_dists: torch.Tensor, bw_scale: float = 1.0,
               tol: float = 1e-8) -> torch.Tensor:
     """Median-heuristic bandwidth ``bw_scale·sqrt(median/log(n+1))``; the
-    median is the lower middle order statistic (``torch.median``'s rule)."""
-    n = sq_dists.shape[0]
-    med = torch.median(sq_dists.reshape(-1))
+    median is the lower middle order statistic (``torch.median``'s rule).
+    Under autograd its gradient goes where the JAX package's
+    ``jnp.partition`` sends it: to the element a stable ascending sort puts
+    at the median's position (the second of two tied twins when both sit
+    at or below it), not where ``torch.median``'s backward would."""
+    flat = sq_dists.reshape(-1)
+    if torch.is_grad_enabled() and flat.requires_grad:
+        k = (flat.shape[0] - 1) // 2
+        med = flat[torch.sort(flat.detach(), stable=True).indices[k]]
+    else:
+        med = torch.median(flat)
+    return bw_from_median(med, sq_dists.shape[0], bw_scale, tol)
+
+
+def bw_from_median(med: torch.Tensor, n: int, bw_scale: float = 1.0,
+                   tol: float = 1e-8) -> torch.Tensor:
+    """``bw_scale·sqrt(med/log(n+1))`` clamped to ``tol``, for a median
+    computed elsewhere."""
     h2 = med / math.log(n + 1.0)
     return torch.clamp_min(bw_scale * torch.sqrt(h2), tol)
+
+
+def bw_median_diff(sq_dists: torch.Tensor, bw_scale: float = 1.0,
+                   tol: float = 1e-8) -> torch.Tensor:
+    """:func:`bw_median`'s value with its gradient routed to the first
+    element, in row-major order, that equals the median. A symmetric
+    distance matrix holds its median twice, and ``torch.median``'s own
+    backward picks a twin by its own rule: the index is found on the
+    detached values and the differentiable values are read there."""
+    flat = sq_dists.reshape(-1)
+    fs = flat.detach()
+    idx = torch.argmax((fs == torch.median(fs)).to(torch.uint8))
+    return bw_from_median(flat[idx], sq_dists.shape[0], bw_scale, tol)
+
+
+def bw_silverman(x: torch.Tensor, bw_scale: float = 1.0) -> torch.Tensor:
+    """Silverman's rule over axis 0: ``0.9·A·n^(-1/5)`` with ``A`` the
+    per-column unbiased std, or the IQR/1.349 of the flattened array (one
+    scalar, linear interpolation) where that is positive and below the
+    smallest per-column std."""
+    n = x.shape[0]
+    flat = x.reshape(-1)
+    iqr = (torch.quantile(flat, 0.75) - torch.quantile(flat, 0.25)) / 1.349
+    std = torch.std(x, dim=0, correction=1)
+    use_iqr = (iqr > 0) & (iqr < torch.min(std))
+    a = torch.where(use_iqr, iqr.expand_as(std), std)
+    return bw_scale * 0.9 * a * n ** (-0.2)
 
 
 def grad_gmm_log_p(samples: torch.Tensor, means: torch.Tensor,

@@ -47,7 +47,9 @@ And the score-function DuSt solve (10 action samples' kind, here 4 on 16
 policies, H = 8) on the card against the same solve on the CPU with the
 same given draws: K1 launched twice, the first step's costs rtol 1e-5, K
 atol 3e-5 and the repulsion scaled 5e-5 (``tests/test_torch_dust.py``'s
-λ=0 mode), φ scaled 1e-4, the weights' argmax.
+λ=0 mode), φ scaled 1e-4, the weights' argmax. The wavefront (torch ops)
+on the card against the CPU, and the trajectory-mode and MatrixSVGD first
+steps likewise.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -123,14 +125,25 @@ def test_k1_is_bitwise_repeatable(cuda_device, n, L, C):
 
 @pytest.mark.cuda
 def test_k1_raises_outside_its_envelope(cuda_device):
+    """K1's wrapper raises outside its envelope; ``SignatureKernel`` sends
+    order 2 and order 3 beyond ly1 = 48 (outside K2) to the wavefront. Its
+    fp32 result on the card and on the CPU is each held against the fp64
+    CPU result at the fp32 route's own distance from it: K rtol 1e-3 (the
+    λ=3 fp32 K is 5.6e-4 to 7.8e-4 from fp64 on flagship-like paths, the
+    static Gram's double differences cancelling; 6.5e-4 here on the CPU)
+    and dX scaled 3e-3 (1.1e-3 on the CPU at order 3 on 65 nodes); the two
+    devices' exp round apart, so they differ by as much."""
     with pytest.raises(NotImplementedError, match="K7"):
         kb.block_gram_and_grad(torch.zeros(8, 65, 2, device=cuda_device), 4.0)
-    with pytest.raises(NotImplementedError, match="M6"):
-        SignatureKernel(dyadic_order=2, bandwidth=4.0).gram_and_grad(
-            torch.zeros(8, 40, 2, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="M6"):
-        SignatureKernel(dyadic_order=3, bandwidth=4.0).gram_and_grad(
-            torch.zeros(8, 65, 2, device=cuda_device))
+    for order, L in ((2, 40), (3, 65)):
+        kern = SignatureKernel(dyadic_order=order, bandwidth=4.0)
+        X = _paths(cuda_device, 8, L, 2)
+        K64, dX64 = kern.gram_and_grad(X.cpu().double())
+        for K, dX in (kern.gram_and_grad(X), kern.gram_and_grad(X.cpu())):
+            torch.testing.assert_close(K.cpu().double(), K64, rtol=1e-3, atol=0)
+            scale = dX64.abs().max()
+            torch.testing.assert_close(dX.cpu().double() / scale, dX64 / scale,
+                                       rtol=0, atol=3e-3)
 
 
 @pytest.mark.cuda
@@ -599,7 +612,7 @@ def test_bf16_gram_and_grad_launches_k4_forward_and_k6_once_each(cuda_device, mo
 
 @pytest.mark.cuda
 def test_fused_kernels_raise_outside_their_envelope(cuda_device):
-    with pytest.raises(NotImplementedError, match="M6"):        # ly1 = 49
+    with pytest.raises(NotImplementedError, match="wavefront"):  # ly1 = 49
         kf.fused_forward(torch.zeros(5, 2, 4, device=cuda_device),
                          torch.zeros(50, 2, 4, device=cuda_device), residuals=False)
     with pytest.raises(NotImplementedError, match="pair_values"):  # C = 9: K5's route
@@ -799,10 +812,10 @@ def test_lambda0_gram_and_grad_outside_k1_runs_k7(cuda_device, n, L, C, scale):
 
 @pytest.mark.cuda
 def test_k7_raises_outside_its_envelope(cuda_device):
-    with pytest.raises(NotImplementedError, match="M6"):        # ly = 65
+    with pytest.raises(NotImplementedError, match="wavefront"):  # ly = 65
         ks.small_forward(torch.zeros(5, 2, 4, device=cuda_device),
                          torch.zeros(65, 2, 4, device=cuda_device), residuals=False)
-    with pytest.raises(NotImplementedError, match="M6"):        # C = 9
+    with pytest.raises(NotImplementedError, match="wavefront"):  # C = 9
         ks.small_forward(torch.zeros(5, 9, 4, device=cuda_device),
                          torch.zeros(5, 9, 4, device=cuda_device), residuals=False)
     with pytest.raises(NotImplementedError, match="K7"):       # L·C = 136
@@ -870,11 +883,14 @@ def test_k5_solves_every_pass_of_its_persistent_loop(cuda_device):
 
 @pytest.mark.cuda
 def test_k5_raises_outside_its_envelope(cuda_device):
-    with pytest.raises(NotImplementedError, match="M6"):        # ly1 = 49
+    with pytest.raises(NotImplementedError, match="wavefront"):  # ly1 = 49
         kt.tiled_forward(torch.zeros(5, 49, 4, device=cuda_device), with_ck=False)
-    with pytest.raises(NotImplementedError, match="M6"):
-        SignatureKernel(3, static="linear").gram_and_grad(
-            torch.zeros(4, 50, 2, device=cuda_device))
+    # beyond ly1 = 48 the linear kernel takes the wavefront, on the card as
+    # on the CPU
+    kern = SignatureKernel(3, static="linear")
+    X = _paths(cuda_device, 4, 50, 2)
+    K, dX = kern.gram_and_grad(X)
+    _assert_k_dx(K.cpu(), dX.cpu(), *kern.gram_and_grad(X.cpu()), k_atol=1e-4)
     with pytest.raises(ValueError, match="checkpoints"):
         kt.tiled_backward(torch.zeros(5, 4, 8, device=cuda_device),
                           torch.zeros(2, 33, 8, device=cuda_device),  # the twin's layout
@@ -964,6 +980,70 @@ def test_mc_solve_matches_cpu(cuda_device):
     assert tuple(d_card.costs.shape) == (2, 4, 16)
     torch.testing.assert_close(d_card.costs[0].cpu(), d_cpu.costs[0], rtol=1e-5, atol=0)
     _assert_k_dx(s_card.k_xx.cpu(), s_card.grad_k.cpu(), s_cpu.k_xx, s_cpu.grad_k)
+    scale = phi_cpu.abs().max()
+    torch.testing.assert_close(phi_card.cpu() / scale, phi_cpu / scale, atol=1e-4, rtol=0)
+    assert int(torch.argmax(d_card.pol_weights)) == int(torch.argmax(d_cpu.pol_weights))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam,shape,chunk", [(0, (9, 5, 7), None), (1, (600, 12, 20), 256),
+                                             (2, (33, 39, 39), None)])
+def test_wavefront_matches_cpu(cuda_device, lam, shape, chunk):
+    """The wavefront (torch ops, no kernel of its own) on the card against
+    the CPU on the same increments, in chunks as asked: k rtol 1e-6 / atol
+    1e-6 (both fuse each node into one multiply-add) and the adjoint scaled
+    by its max at 1e-5 (the card's scatter-add sums in another order)."""
+    from sigsvgd_tpu_torch.kernels.sigkernel import solve_goursat_pde
+
+    g = torch.Generator().manual_seed(lam)
+    inc = torch.randn(shape, generator=g) * 0.2
+    gout = torch.randn(shape[0], generator=g)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        x = inc.to(dev).requires_grad_(True)
+        k = solve_goursat_pde(x, lam, chunk)
+        (d,) = torch.autograd.grad(k, x, gout.to(dev))
+        out.append((k.detach().cpu(), d.cpu()))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-6, atol=1e-6)
+    scale = out[1][1].abs().max()
+    torch.testing.assert_close(out[0][1] / scale, out[1][1] / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(kernel_mode="trajectory"),
+                                dict(kernel_mode="policy", stein_sampler="MatrixSVGD",
+                                     scaled=True)],
+                         ids=["trajectory", "matrix_policy"])
+def test_trajectory_and_matrix_solves_match_cpu(cuda_device, kw):
+    """The trajectory kernel mode and MatrixSVGD (``ScaledGaussianKernel``)
+    on 16 policies, H = 8, on the card and the CPU from the same policies:
+    the first step's costs rtol 1e-5, the trajectory K rtol 1e-5 and its
+    gradient scaled 1e-4, φ scaled 1e-4, the weights' argmax."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+    from sigsvgd_tpu_torch.kernels.rbf import ScaledGaussianKernel
+    from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
+
+    kw = dict(kw)
+    kernel = ScaledGaussianKernel() if kw.pop("scaled", False) else None
+    pol = torch.rand((16, 8, 7), generator=torch.Generator().manual_seed(9)) * 4.0 - 2.0
+    res = []
+    for dev in (cuda_device, "cpu"):
+        prob = build_arm_mpc(device=dev, n_pol=16, hz_len=8, kernel=kernel, **kw)
+        ctrl = prob.ctrl
+        cs = ctrl.init(pol_mean=pol.to(dev))
+        prior = ParticleGMM(cs.pol_mean.reshape(16, -1), ctrl._prior_var(), cs.prior_weights)
+        score, _ = ctrl._score(cs.pol_mean, prob.q_start, prior)
+        phi, _ = ctrl._sampler().velocity(cs.pol_mean, score, 0)
+        _a, _cs, data = ctrl.forward(prob.q_start, cs, opt_steps=2)
+        res.append((score, phi, data))
+    (s_card, phi_card, d_card), (s_cpu, phi_cpu, d_cpu) = res
+    torch.testing.assert_close(s_card.aux["costs"].cpu(), s_cpu.aux["costs"], rtol=1e-5,
+                               atol=0)
+    if kw["kernel_mode"] == "trajectory":
+        torch.testing.assert_close(s_card.k_xx.cpu(), s_cpu.k_xx, rtol=1e-5, atol=1e-6)
+        scale = s_cpu.grad_k.abs().max()
+        torch.testing.assert_close(s_card.grad_k.cpu() / scale, s_cpu.grad_k / scale,
+                                   rtol=0, atol=1e-4)
     scale = phi_cpu.abs().max()
     torch.testing.assert_close(phi_card.cpu() / scale, phi_cpu / scale, atol=1e-4, rtol=0)
     assert int(torch.argmax(d_card.pol_weights)) == int(torch.argmax(d_cpu.pol_weights))

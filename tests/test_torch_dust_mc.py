@@ -237,7 +237,9 @@ def test_roll_strategies_match_jax(rng, strategy):
 def test_generator_draws_and_the_options_that_stay_unported():
     """On the caller's generator the solve runs and repeats; a draw with
     neither generator nor given draws raises ``ValueError``; the trajectory
-    mode and the scaled samplers raise naming their ROADMAP.md items."""
+    mode and the scaled samplers, ported since, run and repeat on the
+    generator too (``tests/test_torch_dust_trajectory.py`` holds them
+    against JAX)."""
     jctrl, tctrl = _controllers(CASES["mc_cov_full_log_resample"])
     _, tdist = _params_dists(CASES["mc_cov_full_log_resample"])
     pol = torch.zeros(N_POL, HZ, A)
@@ -255,11 +257,15 @@ def test_generator_draws_and_the_options_that_stay_unported():
         tctrl.init()
     with pytest.raises(ValueError, match="action_primitives"):
         tctrl.init(pol_mean=pol)
-    with pytest.raises(NotImplementedError, match="trajectory.*M8"):
-        dataclasses.replace(tctrl, kernel_mode="trajectory")
-    for sampler in ("ScaledSVGD", "MatrixSVGD"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            dataclasses.replace(tctrl, stein_sampler=sampler)
+    for kw in (dict(kernel_mode="trajectory"), dict(stein_sampler="ScaledSVGD"),
+               dict(stein_sampler="MatrixSVGD")):
+        other = dataclasses.replace(tctrl, **kw)
+        cs2 = other.init(pol_mean=pol, action_primitives=prims)
+        runs = [other.forward(torch.tensor(X0), cs2, tdist,
+                              torch.Generator().manual_seed(3), opt_steps=STEPS)
+                for _ in range(2)]
+        torch.testing.assert_close(runs[0][1].pol_mean, runs[1][1].pol_mean, rtol=0, atol=0)
+        assert torch.isfinite(runs[0][1].pol_mean).all()
     with pytest.raises(ValueError, match="roll"):
         dataclasses.replace(tctrl, roll_strategy="shift")
     assert tctrl.n_total == jctrl.n_total == N

@@ -21,7 +21,9 @@ with the kernels' plain twins in the port:
   median, scaled atol 1e-3 (K4's twin tolerance);
 * 9 channels, beyond the fused kernels: ``gram_and_grad``'s pair list and
   the dense ``gram``, both through K5's twin, agree (K rtol 2e-5, dX scaled
-  1e-5); what stays unported raises naming M6.
+  1e-5); beyond ly1 = 48 with C = 4 (outside K2) and at λ=0 with C = 9 the
+  wavefront takes them, its pair list and its dense ``gram`` agreeing the
+  same way.
 """
 import jax
 import jax.numpy as jnp
@@ -133,11 +135,19 @@ def test_pair_list_routes_not_ported_raise(rng):
     (dXd,) = torch.autograd.grad(Kd.sum(), x)
     np.testing.assert_allclose(K.numpy(), Kd.detach().numpy(), rtol=2e-5, atol=1e-6)
     _scaled_close(dX.numpy(), dXd.numpy(), 1e-5)
-    with pytest.raises(NotImplementedError, match="M6"):          # ly1 > 48, C > 3
-        SignatureKernel(dyadic_order=3, bandwidth=1.0).gram_and_grad(torch.zeros(3, 51, 4))
-    with pytest.raises(NotImplementedError, match="M6"):          # λ=0, C > 8
-        SignatureKernel(dyadic_order=0, bandwidth=1.0)._gram_chunked_pairs(
-            torch.zeros(3, 5, 9), torch.zeros(3, 5, 9))
+    # ly1 > 48 with C > 3, and λ=0 with C > 8: the wavefront, on the pair
+    # list as on the dense route
+    for order, shape, step in ((3, (3, 51, 4), 0.03), (0, (3, 5, 9), 0.15)):
+        kern = SignatureKernel(dyadic_order=order, bandwidth=1.0)
+        X = torch.from_numpy(_paths(rng, *shape, step))
+        K, dX = kern.gram_and_grad(X)
+        x = X.clone().requires_grad_(True)
+        Kd = kern.gram(x, X)
+        (dXd,) = torch.autograd.grad(Kd.sum(), x)
+        np.testing.assert_allclose(K.numpy(), Kd.detach().numpy(), rtol=2e-5, atol=1e-6)
+        _scaled_close(dX.numpy(), dXd.numpy(), 1e-5)
+        np.testing.assert_allclose(kern._gram_chunked_pairs(X, X).numpy(), K.numpy(),
+                                   rtol=2e-5, atol=1e-6)
     # the λ=0 pair list itself (K7) now solves: its twin on the CPU
     K = SignatureKernel(dyadic_order=0, bandwidth=1.0)._gram_chunked_pairs(
         torch.zeros(3, 5, 2), torch.zeros(3, 5, 2))

@@ -130,7 +130,7 @@ def test_solver_routing_matches_jax_on_the_tpu():
     K7 pair list; JAX's "pallas_small"), λ=3 with ly1 ≤ 48 → the "pallas"
     kind (K2 or the K4/K6 pair list); MXU-eligible shapes → K8 at "default"
     inside its envelope, else the fp32 propagator ("high" runs as
-    "highest"); the rest raises naming M6."""
+    "highest"); the rest takes the wavefront, as on the TPU."""
     def kind(lam, lx1, prec="default"):
         return SignatureKernel(lam, 1.5, mxu_precision=prec)._solver_kind(lx1, lx1)
 
@@ -140,8 +140,7 @@ def test_solver_routing_matches_jax_on_the_tpu():
     assert kind(6, 2, "highest") == "mxu" and kind(6, 2, "high") == "mxu"
     assert kind(4, 4) == "mxu" and kind(6, 10) == "mxu"   # below λ=6; 100 hops
     for lam, lx1 in [(1, 4), (2, 4), (6, 17), (3, 49), (0, 64)]:
-        with pytest.raises(NotImplementedError, match="M6"):
-            kind(lam, lx1)
+        assert kind(lam, lx1) == "wavefront"
     with pytest.raises(ValueError, match="mxu_precision"):
         SignatureKernel(6, 1.5, mxu_precision="bf16")
 

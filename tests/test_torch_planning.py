@@ -196,8 +196,9 @@ def test_gram_above_the_dense_limit_raises(rng, monkeypatch):
     the λ=0 pair list (K7), which the port now has. On planning knot paths
     [n, 3, 7] under a lowered ``_DENSE_LIMIT`` the streamed Gram and its
     gradient match JAX's ``solver="pallas_small"`` (K rtol 3e-5 / atol 2e-5,
-    dX scaled 5e-5, ``tests/test_pallas_small.py``); the port raises only
-    where the pair list takes no shape (C > 8: the wavefront route, M6)."""
+    dX scaled 5e-5, ``tests/test_pallas_small.py``); where the pair list
+    takes no shape (C > 8) both packages take the wavefront, held the same
+    way."""
     for cls in (SignatureKernel, JSignatureKernel):
         monkeypatch.setattr(cls, "_DENSE_LIMIT", 100)
     X = rng.uniform(-2.0, 2.0, size=(6, 3, 7)).astype(np.float32)
@@ -212,9 +213,12 @@ def test_gram_above_the_dense_limit_raises(rng, monkeypatch):
     np.testing.assert_allclose(K.detach().numpy(), _n(Kj), rtol=3e-5, atol=2e-5)
     scale = float(np.abs(_n(dXj)).max())
     np.testing.assert_allclose(dX.numpy() / scale, _n(dXj) / scale, atol=5e-5)
-    with pytest.raises(NotImplementedError, match="M6"):
-        SignatureKernel(dyadic_order=0, bandwidth=None).gram(
-            torch.zeros(6, 3, 9), torch.zeros(5, 3, 9))
+    X9 = rng.uniform(-2.0, 2.0, size=(6, 3, 9)).astype(np.float32)
+    Y9 = rng.uniform(-2.0, 2.0, size=(5, 3, 9)).astype(np.float32)
+    Kj = jk.gram(jnp.asarray(X9), jnp.asarray(Y9))
+    K = SignatureKernel(dyadic_order=0, bandwidth=None).gram(torch.from_numpy(X9),
+                                                            torch.from_numpy(Y9))
+    np.testing.assert_allclose(K.numpy(), _n(Kj), rtol=3e-5, atol=2e-5)
 
 
 def test_unported_planner_options_raise(problems):
@@ -225,10 +229,10 @@ def test_unported_planner_options_raise(problems):
         tplan.run_optimisation(tp, tplan.PlannerConfig(n_iter=1), checkpoint_dir="x")
     with pytest.raises(NotImplementedError, match="M10"):
         pathsig_score(tp.batch_cost, GaussianKernel())
-    # SVGD's Adagrad is ported; the scaled samplers (M7) still raise
-    with pytest.raises(NotImplementedError, match="M7"):
-        dataclasses.replace(
-            build_arm_mpc(device="cpu", n_pol=2, hz_len=2, kernel_mode="policy").ctrl,
-            stein_sampler="MatrixSVGD")
+    # SVGD's Adagrad and the scaled samplers are ported
+    matrix = dataclasses.replace(
+        build_arm_mpc(device="cpu", n_pol=2, hz_len=2, kernel_mode="policy").ctrl,
+        stein_sampler="MatrixSVGD")
+    assert matrix._sampler().precondition
     with pytest.raises(NotImplementedError, match="M10"):
         SVGD().run(torch.zeros(2, 3), lambda x, g: None, 1, value_fn=lambda x: x)

@@ -21,7 +21,7 @@ from sigsvgd_tpu.kernels import GaussianKernel as JGaussianKernel
 from sigsvgd_tpu.kernels.pallas_svgd import fused_rbf_velocity_pallas, xla_rbf_velocity
 from sigsvgd_tpu_torch.controllers.dust import DuSt
 from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-from sigsvgd_tpu_torch.inference.svgd import SVGD
+from sigsvgd_tpu_torch.inference.svgd import SVGD, ScaledSVGD
 from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 from sigsvgd_tpu_torch.kernels.rbf import GaussianKernel
 from test_torch_dust import run_two_chained_solves
@@ -123,22 +123,27 @@ def test_dust_and_svgd_defaults_match_jax():
 def test_dust_fields_take_the_jax_defaults_and_name_their_item_otherwise():
     """Every field of the JAX ``DuSt`` exists in the port's. The options
     the port has ported are accepted at values other than their defaults;
-    the trajectory mode and the scaled samplers, not ported yet, raise
-    naming their ROADMAP item; ``init_uniform_range`` bounds the initial
-    draws, as in the JAX package."""
+    the trajectory mode and the scaled samplers, ported since, each run a
+    solve (``tests/test_torch_dust_trajectory.py`` holds them against JAX);
+    ``init_uniform_range`` bounds the initial draws, as in the JAX
+    package."""
     port = {f.name for f in dataclasses.fields(DuSt)}
     assert {f.name for f in dataclasses.fields(JDuSt)} <= port
-    ctrl = build_arm_mpc(device="cpu", n_pol=4, hz_len=4, kernel_mode="policy").ctrl
+    prob = build_arm_mpc(device="cpu", n_pol=4, hz_len=4, kernel_mode="policy")
+    ctrl = prob.ctrl
     for name, value in (("pol_cov", ((2.0,) * 7,) * 7), ("params_log_space", True),
                         ("weighted_prior", True), ("roll_opt_state", True),
                         ("n_prim", 2), ("n_action_samples", 10),
                         ("n_params_samples", 3), ("roll_strategy", "resample"),
                         ("roll_strategy", "mean")):
         assert getattr(dataclasses.replace(ctrl, **{name: value}), name) == value
-    with pytest.raises(NotImplementedError, match="trajectory.*M8"):
-        dataclasses.replace(ctrl, kernel_mode="trajectory")
-    with pytest.raises(NotImplementedError, match="ScaledSVGD.*M7"):
-        dataclasses.replace(ctrl, stein_sampler="ScaledSVGD")
+    for name, value in (("kernel_mode", "trajectory"), ("stein_sampler", "ScaledSVGD")):
+        other = dataclasses.replace(ctrl, **{name: value})
+        cs = other.init(generator=torch.Generator().manual_seed(0))
+        a, cs2, _ = other.forward(prob.q_start, cs, opt_steps=1)
+        assert a.shape == (4, 7) and torch.isfinite(cs2.pol_mean).all()
+    assert isinstance(dataclasses.replace(ctrl, stein_sampler="ScaledSVGD")._sampler(),
+                      ScaledSVGD)
     narrow = dataclasses.replace(ctrl, init_uniform_range=0.25)
     pol = narrow.init(generator=torch.Generator().manual_seed(0)).pol_mean
     assert pol.abs().max() <= 0.25 and pol.abs().max() > 0.2

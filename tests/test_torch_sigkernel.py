@@ -105,18 +105,30 @@ def test_calibration_bound_and_order_match(rng):
         torch.from_numpy(X)).dyadic_order == 0
 
 
-def test_unported_routes_raise():
+def test_unported_routes_raise(rng):
     # orders 1 and 2, and order 4 beyond the block propagator's 256 hops
-    # (20² at 21-node paths), take the JAX package's wavefront route (M6);
-    # order 4 at 5-node paths is a block-propagator shape
-    # (test_torch_mxu_chain.py)
+    # (20² at 21-node paths), take the JAX package's wavefront route, now
+    # ported: at orders 1 and 2 against JAX (K rtol 1e-5 / atol 3e-5, dX
+    # scaled 5e-5, tests/test_torch_wavefront.py); order 4 at 5-node paths
+    # is a block-propagator shape (test_torch_mxu_chain.py)
     for order, L in ((1, 5), (2, 5), (4, 21)):
-        with pytest.raises(NotImplementedError, match="M6"):
-            SignatureKernel(dyadic_order=order, bandwidth=1.0).gram_and_grad(
-                torch.zeros(4, L, 2))
+        kern = SignatureKernel(dyadic_order=order, bandwidth=1.0)
+        assert kern._solver_kind(L - 1, L - 1) == "wavefront"
+        if order == 4:
+            K, dX = kern.gram_and_grad(torch.zeros(4, L, 2))
+            assert torch.equal(K, torch.ones(4, 4)) and not dX.any()
+            continue
+        X = (rng.standard_normal((4, L, 2)) * 0.5).astype(np.float32)
+        K, dX = kern.gram_and_grad(torch.from_numpy(X))
+        Kj, dXj = JSignatureKernel(dyadic_order=order, bandwidth=1.0).gram_and_grad(
+            jnp.asarray(X))
+        np.testing.assert_allclose(K.numpy(), np.asarray(Kj), rtol=1e-5, atol=3e-5)
+        scale = np.abs(np.asarray(dXj)).max()
+        np.testing.assert_allclose(dX.numpy() / scale, np.asarray(dXj) / scale, atol=5e-5)
     # outside K2's envelope and beyond the pair list's ly1 ≤ 48: the
-    # wavefront (M6; checked where a card is: test_torch_cuda.py)
+    # wavefront (on the card: test_torch_cuda.py)
     assert not kb3.block3_supported(4, 65, 2, 1.0)
+    assert SignatureKernel(3, 1.0)._solver_kind(64, 64) == "wavefront"
 
 
 def test_block_supported_envelope():

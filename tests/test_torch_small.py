@@ -263,8 +263,17 @@ def test_lambda0_gram_and_grad_matches_jax(rng, shape, monkeypatch):
     _scaled_close(dX.numpy(), dXj, 5e-5)
 
 
-def test_lambda0_outside_the_pair_list_raises():
-    with pytest.raises(NotImplementedError, match="M6"):          # C > 8
-        SignatureKernel(dyadic_order=0, bandwidth=1.0).gram_and_grad(torch.zeros(3, 5, 9))
-    with pytest.raises(NotImplementedError, match="M6"):          # ly1 > 63
-        SignatureKernel(dyadic_order=0, bandwidth=1.0).gram_sym(torch.zeros(3, 65, 2))
+def test_lambda0_outside_the_pair_list_raises(rng):
+    """Outside K7's envelope (C > 8, ly1 > 63) both packages take the
+    wavefront: K against JAX's at the JAX K7 test's rtol 3e-5 / atol 2e-5,
+    dX scaled 5e-5."""
+    for shape in ((3, 5, 9), (3, 65, 2)):
+        X = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+        kern = SignatureKernel(dyadic_order=0, bandwidth=1.0)
+        jk = JSignatureKernel(dyadic_order=0, bandwidth=1.0, solver="pallas_small")
+        K, dX = kern.gram_and_grad(torch.from_numpy(X))
+        Kj, dXj = jk.gram_and_grad(jnp.asarray(X))
+        np.testing.assert_allclose(K.numpy(), np.asarray(Kj), rtol=3e-5, atol=2e-5)
+        _scaled_close(dX.numpy(), np.asarray(dXj), 5e-5)
+        np.testing.assert_allclose(kern.gram_sym(torch.from_numpy(X)).numpy(),
+                                   np.asarray(Kj), rtol=3e-5, atol=2e-5)

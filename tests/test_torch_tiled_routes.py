@@ -17,9 +17,10 @@ K5's plain twin in the port:
 * the linear ``gram`` at dyadic order 3 against the inner product of
   depth-6 truncated signatures from JAX's ``batch_signature``, rtol 2e-3 /
   atol 2e-3 (``test_matches_truncated_signature_inner_product``);
-* the ``solver`` field mapped to the port's routes, "wavefront" raising
-  naming M6; ``build_arm_mpc(static="linear")`` with a calibration raising
-  naming M6, and without one reaching K5's twin.
+* the ``solver`` field mapped to the port's routes, "wavefront" (and every
+  shape the JAX package sends to its XLA wavefront) to the wavefront;
+  ``build_arm_mpc(static="linear")`` with a calibration building (order 0
+  takes the wavefront), and without one reaching K5's twin.
 """
 import jax
 import jax.numpy as jnp
@@ -139,23 +140,22 @@ def test_solver_field_maps_to_the_port_routes():
                                      (0, 39, "auto", "linear"),
                                      (3, 39, "pallas_small", "rbf"),
                                      (6, 2, "pallas", "rbf")):
-        with pytest.raises(NotImplementedError, match="M6"):
-            kind(lam, lx1, solver, static)
-    with pytest.raises(NotImplementedError, match="M6"):
-        SignatureKernel(3, 1.0, solver="wavefront").gram(torch.zeros(2, 5, 2),
-                                                        torch.zeros(2, 5, 2))
+        assert kind(lam, lx1, solver, static) == "wavefront"
+    assert torch.equal(SignatureKernel(3, 1.0, solver="wavefront").gram(
+        torch.zeros(2, 5, 2), torch.zeros(2, 5, 2)), torch.ones(2, 2))
     for field, value in (("solver", "scan"), ("static", "poly")):
         with pytest.raises(ValueError, match=field):
             SignatureKernel(3, **{field: value})
 
 
 def test_linear_pinned_controller_reaches_k5(monkeypatch):
-    """``build_arm_mpc(static="linear")`` pins order 3 (a calibration would
-    need the wavefront: M6) and its Gram and adjoint run K5's twin: one
-    forward and one backward for the 21 upper-triangle pairs of 6 policies'
-    8-point paths."""
-    with pytest.raises(NotImplementedError, match="M6"):
-        build_arm_mpc(device="cpu", n_pol=6, hz_len=8, static="linear")
+    """``build_arm_mpc(static="linear")`` with a calibration builds (its
+    order 0 takes the wavefront); pinned at order 3 its Gram and adjoint run
+    K5's twin: one forward and one backward for the 21 upper-triangle pairs
+    of 6 policies' 8-point paths."""
+    calibrated = build_arm_mpc(device="cpu", n_pol=6, hz_len=8, static="linear")
+    assert calibrated.ctrl.sig_kernel.dyadic_order == (
+        0 if calibrated.calibration_bound <= 1e-3 else 3)
     calls = []
     for name in ("tiled_forward_plain", "tiled_backward_plain"):
         plain = getattr(kt, name)
