@@ -188,6 +188,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    each turn 200 calls; then each replayed from a CUDA graph, without the
    host's dispatch.
 
+Right after the build and ``k9_timing``, a fresh process (``chip_smoke.py
+--maze``; these paths are host-bound and a profiler session slows its
+process's dispatch) runs the particle maze's and the pendulum's phases:
+``k2_maze_shape`` (K2 at the maze's [35, 30, 2] and [36, 30, 2] on its own
+τ at h = √32 against the fp32 twin at ``K2_TOL``, with times, plan and
+bound), ``pendulum_dust`` and ``pendulum_disco`` (50-step swing-ups through
+``experiments/pendulum.py``, DISCO at its full width, no hand kernel),
+``maze_small_vs_cpu`` (a 3-step episode, MPF on, RBF and signature kernels,
+on the card and the CPU from the same draws, within ``MAZE_TOL``) and
+``maze_episode`` (``run_episode`` at ``MazeConfig()``'s width with the
+signature kernel and the MPF for up to ``MAZE_STEPS`` steps: ms a control
+step, exactly 2 K2 launches a step and no other kernel, a solve and an MPF
+update timed apart and traced, the mass posterior), then ``maze_process``
+with the process's wall time. Before the kernel table a ``smoke_total``
+line gives the smoke's wall time.
+
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -202,6 +218,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_SOLVES = 3
@@ -935,6 +952,265 @@ def k9_timing() -> None:
 
         emit({"phase": "k9_timing", "shape": [N, D], **in_turns(kernel, library),
               "kernel_graph_ms": graph_ms(kernel), "library_graph_ms": graph_ms(library)})
+
+
+MAZE_STEPS = 150  # maze_episode's cap: the goal or a crash ends it sooner
+MAZE_SETTLE = 3  # maze_episode's first steps, left out of its median
+MAZE_TOL = (2e-5, 1e-3, 1e-4)  # states, actions, MPF particles atol, card against CPU
+PENDULUM_STEPS = 50
+
+
+def phase_maze() -> dict:
+    """The particle maze and the pendulum runners, in a fresh process
+    (``chip_smoke.py --maze``, :func:`maze_phases`): these paths are
+    host-bound, and a profiler session earlier in a process slows its host
+    dispatch. Its rows, by phase (``k2_maze_shape`` by n)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--maze"], capture_output=True,
+                          text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            key = row["phase"] + (f" {row['shape'][0]}" if "shape" in row else "")
+            rows.setdefault(key, []).append(row)
+            emit(row)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"the maze process failed (exit {proc.returncode})")
+    want = {"k2_maze_shape 35", "k2_maze_shape 36", "pendulum_dust", "pendulum_disco",
+            "maze_small_vs_cpu", "maze_episode"}
+    if set(rows) != want:
+        raise AssertionError(f"the maze process gave the phases {sorted(rows)}")
+    emit({"phase": "maze_process", "wall_s": wall_s})
+    return rows
+
+
+def maze_phases() -> None:
+    """The maze process: K2 at the maze's shapes, the pendulum's DuSt and
+    DISCO runs, a short maze episode on the card against the CPU, then the
+    maze episode (its traced step last)."""
+    import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy)
+
+    phase_k2_maze_shape()
+    phase_pendulum("dust")
+    phase_pendulum("disco")
+    phase_maze_small_vs_cpu()
+    phase_maze_episode()
+
+
+def maze_tau(n: int):
+    """τ of the maze's sampled rollouts on the card: n paths of 30 XY points
+    (``MazeConfig()`` with ``n - 5`` random policies and the 5 primitives,
+    averaged over 10 action samples from the start), and the signature
+    kernel's bandwidth √32."""
+    from sigsvgd_tpu_torch.experiments import maze
+
+    cfg = maze.MazeConfig(n_policies=n - maze.N_PRIM, steps=1)
+    model = maze.make_model(cfg, "cuda")
+    ctrl = maze.build_controller(cfg, model)
+    draws = maze.sample_draws(cfg, torch.Generator(device="cuda").manual_seed(n))
+    cs = ctrl.init(pol_mean=draws.pol_mean,
+                   action_primitives=maze.action_primitives(cfg.horizon, "cuda"))
+    eps = draws.steps[0].actions[0] @ torch.linalg.cholesky(ctrl._pol_cov()).T
+    state = torch.tensor(model.init_state, device="cuda")
+    with torch.no_grad():
+        trajs = ctrl._rollout_costs(state, cs.pol_mean[None] + eps)[1]
+    return ctrl._tau(trajs).contiguous(), ctrl.sig_kernel.bandwidth
+
+
+def phase_k2_maze_shape() -> dict:
+    """K2 at the maze's [35, 30, 2] (630 pairs: a ragged last tile row and
+    diagonal tile) and [36, 30, 2], on the maze's own τ at h = √32: K
+    against the fp32 twin at ``K2_TOL`` (atol 1e-4); dX against the twin in
+    fp64, as ``k2_vs_plain`` holds it, at ``K2_TOL``'s scaled 4e-4 or, where
+    the fp32 twin is itself farther from fp64, at 1.1 times the twin's own
+    distance: on these paths (unit-size steps at h = √32) the fp32 twin's
+    dX was 9.19e-4 of its max from fp64 on the card (6.7e-4 on the CPU's τ),
+    K2's 9.19e-4, and the two 5.6e-4 apart. Times by CUDA events (the
+    wrapper's dispatch inside), the plan and the bound."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    k_tol, dx_tol = K2_TOL
+    rows = {}
+    for n in (35, 36):
+        X, h = maze_tau(n)
+        _, L, C = X.shape
+        K, dX = kb3.block3_gram_and_grad(X, h)
+        Kp, dXp = kb3.block3_gram_and_grad_plain(X, h)
+        K64, dX64 = kb3.block3_gram_and_grad_plain(X.double(), h)
+        torch.cuda.synchronize()
+        s64 = dX64.abs().max().item()
+        tiles, blocks = kb3.block3_grid(n, L, C, X.device)
+        plan = kb3.block3_plan(n, L, C, blocks)
+        row = {"phase": "k2_maze_shape", "shape": [n, L, C], "h": h,
+               "pairs": n * (n + 1) // 2, "tiles": tiles.shape[0],
+               "persistent_blocks": blocks,
+               "plan": {"lanes_a_pair": plan.g, "spans": list(plan.spans),
+                        "tile": [plan.tile_rows, plan.tile_cols], "blocks": plan.blocks,
+                        "scratch_mib": plan.scratch_mib, "smem_bytes": plan.smem_bytes,
+                        "traffic_bytes": plan.traffic_bytes},
+               "k_max_abs_err": (K - Kp).abs().max().item(),
+               "dx_scaled_err_vs_fp32_plain":
+                   ((dX - dXp).abs().max() / dXp.abs().max()).item(),
+               "dx_scaled_err_vs_fp64": ((dX.double() - dX64).abs().max() / s64).item(),
+               "plain_dx_scaled_err_vs_fp64":
+                   ((dXp.double() - dX64).abs().max() / s64).item(),
+               "k_err_vs_fp64": (K.double() - K64).abs().max().item(),
+               "symmetric": bool(torch.equal(K, K.T)),
+               "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
+        row["kernel_ms"] = event_ms(lambda: kb3.block3_gram_and_grad(X, h), 20)
+        row["plain_ms"] = event_ms(lambda: kb3.block3_gram_and_grad_plain(X, h), 3)
+        row["library_ms"] = None
+        row.update(bound(kb3.block3_flops(n, L, C), kb3.block3_bytes(n, L, C)))
+        emit(row)
+        row["dx_bound_vs_fp64"] = max(dx_tol, 1.1 * row["plain_dx_scaled_err_vs_fp64"])
+        if not (row["finite"] and row["symmetric"] and row["k_max_abs_err"] <= k_tol
+                and row["dx_scaled_err_vs_fp64"] <= row["dx_bound_vs_fp64"]):
+            raise AssertionError(f"K2 at the maze's shape disagrees with its twin: {row}")
+        rows[n] = row
+    return rows
+
+
+def phase_pendulum(which: str) -> dict:
+    """A swing-up from hanging down, ``PENDULUM_STEPS`` closed-loop steps on
+    the card after a 2-step warm-up: ``run_dust`` (1 policy, H = 20, 5 Adam
+    steps, policy mode) or ``run_disco`` at its full width (256 actions,
+    H = 30, 4 parameter samples): ms a step (the run's wall over its steps;
+    the states stay on the card until the end), no hand kernel launched."""
+    from sigsvgd_tpu_torch.experiments import pendulum
+
+    run = pendulum.run_dust if which == "dust" else pendulum.run_disco
+    run(steps=2, device="cuda")
+    counters = no_kernel_counters()
+    for c in counters:
+        c.launches = 0
+    res = run(steps=PENDULUM_STEPS, device="cuda")
+    launches = {c.__name__: c.launches for c in counters}
+    row = {"phase": f"pendulum_{which}", "steps": PENDULUM_STEPS,
+           "ms_per_step": res["wall_clock_s"] * 1e3 / PENDULUM_STEPS,
+           "wall_s": res["wall_clock_s"],
+           "final_upright_error_rad": res["final_upright_error_rad"],
+           "launches": launches, "finite": bool(np.isfinite(res["trajectory"]).all())}
+    emit(row)
+    if not row["finite"] or any(launches.values()):
+        raise AssertionError(f"the pendulum's {which} run failed: {row}")
+    return row
+
+
+def phase_maze_small_vs_cpu() -> list:
+    """A 3-step maze episode (MPF on; 11 + 5 policies, H = 30, 10 action
+    samples) with the RBF kernel and with the signature kernel, on the card
+    and on the CPU from the same given draws: states, actions and the MPF's
+    particles within ``MAZE_TOL``, the same steps and crash flags, K2 twice a
+    step on the card with the signature kernel, never on the CPU."""
+    from sigsvgd_tpu_torch.experiments import maze
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    rows = []
+    for kernel in ("rbf", "signature"):
+        cfg = maze.MazeConfig(kernel=kernel, use_mpf=True, n_policies=11, steps=3)
+        draws = maze.sample_draws(cfg, torch.Generator().manual_seed(5))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            before = kb3.block3_gram_and_grad.launches
+            t0 = time.perf_counter()
+            res = maze.run_episode(cfg, 0, device=dev, draws=draws.to(dev))
+            out[dev] = (res, kb3.block3_gram_and_grad.launches - before,
+                        time.perf_counter() - t0)
+        (g, lg, tg), (c, lc, tc) = out["cuda"], out["cpu"]
+        row = {"phase": "maze_small_vs_cpu", "kernel": kernel,
+               "n_paths": cfg.n_policies + maze.N_PRIM, "horizon": cfg.horizon,
+               "steps": [g["steps"], c["steps"]], "crashed": [g["crashed"], c["crashed"]],
+               "state_abs": float(np.abs(g["trajectory"] - c["trajectory"]).max()),
+               "action_abs": float(np.abs(g["actions"] - c["actions"]).max()),
+               "particles_abs": float(np.abs(g["dyn_particles"] - c["dyn_particles"]).max()),
+               "tol_state_action_particles": list(MAZE_TOL),
+               "k2_launches": [lg, lc], "wall_s": [tg, tc]}
+        emit(row)
+        want_k2 = 2 * g["steps"] if kernel == "signature" else 0
+        ok = (g["steps"] == c["steps"] and g["crashed"] == c["crashed"]
+              and row["state_abs"] <= MAZE_TOL[0] and row["action_abs"] <= MAZE_TOL[1]
+              and row["particles_abs"] <= MAZE_TOL[2] and lg == want_k2 and lc == 0)
+        if not ok:
+            raise AssertionError(f"the card's maze episode disagrees with the CPU's: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_maze_episode() -> dict:
+    """The port's ``run_episode`` at ``MazeConfig()``'s full width with the
+    signature kernel and the MPF (35 paths, H = 30, 10 action samples, 2
+    Adam steps; 50 particles, 20 Stein steps), its draws from a seeded
+    generator on the card, for up to ``MAZE_STEPS`` steps or to the goal
+    or a crash, after a 2-step warm-up episode: ms a control step (each
+    step's wall: the solve, the real step, the MPF update, the one fetch;
+    the median and spread after the first ``MAZE_SETTLE``), K2 launched
+    exactly twice a step and no other hand kernel; then from the start,
+    apart, one solve and real step and one MPF update (host clock, 5 each),
+    and both traced once."""
+    from sigsvgd_tpu_torch.experiments import maze
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
+
+    cfg = maze.MazeConfig(kernel="signature", use_mpf=True, steps=MAZE_STEPS)
+    t0 = time.perf_counter()
+    maze.run_episode(dataclasses.replace(cfg, steps=2), 0, device="cuda")
+    warm_s = time.perf_counter() - t0
+    counters = no_kernel_counters()
+    for c in counters:
+        c.launches = 0
+    res = maze.run_episode(cfg, 1, device="cuda")
+    launches = {c.__name__: c.launches for c in counters}
+    steps = res["steps"]
+    step_ms = [t * 1e3 for t in res["step_wall_s"]]
+    settled = step_ms[MAZE_SETTLE:] or step_ms
+    post = res["dyn_particles"][-1]
+
+    model = maze.make_model(cfg, "cuda")
+    ctrl = maze.build_controller(cfg, model)
+    mpf = maze.build_mpf(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cs = ctrl.init(generator=gen, action_primitives=maze.action_primitives(cfg.horizon, "cuda"))
+    state = torch.tensor(model.init_state, device="cuda")
+    ms = mpf.init(torch.tensor(post, device="cuda"), state)
+    prior = ParticleGMM(ms.particles, ms.prior_bw**2, torch.ones(cfg.mpf_n_particles,
+                                                                  device="cuda"))
+
+    def solve():
+        a_seq = ctrl.forward(state, cs, prior, gen, opt_steps=cfg.opt_steps)[0]
+        return a_seq[0], model.step(state[None], a_seq[0][None])[0]
+
+    action, nxt = solve()
+
+    def observe():
+        return mpf.observe(ms, action, nxt, n_steps=cfg.mpf_steps)
+
+    row = {"phase": "maze_episode", "n_paths": ctrl.n_total, "horizon": cfg.horizon,
+           "action_samples": cfg.action_samples, "opt_steps": cfg.opt_steps,
+           "mpf_particles": cfg.mpf_n_particles, "mpf_steps": cfg.mpf_steps,
+           "steps": steps, "reached_goal": res["reached_goal"], "crashed": res["crashed"],
+           "ms_per_step_median": statistics.median(settled),
+           "ms_per_step_spread": [min(settled), max(settled)],
+           "ms_first_steps": step_ms[:MAZE_SETTLE], "ms_per_step_samples": step_ms,
+           "episode_wall_s": res["wall_clock_s"], "warm_up_s": warm_s,
+           "launches": launches,
+           "k2_launches_per_step": launches["block3_gram_and_grad"] / max(steps, 1),
+           "final_state": res["trajectory"][-1].tolist(),
+           "total_cost": float(res["costs"].sum()),
+           "mass_true": model.mass,
+           "mass_posterior_mean": float(np.exp(post.mean())),
+           "mass_posterior_arith_mean": float(np.exp(post).mean()),
+           "solve_and_step_ms": host_ms(solve, 5), "mpf_observe_ms": host_ms(observe, 5),
+           "traced_step": traced(lambda: (solve(), observe()))}
+    emit(row)
+    want = {name: 2 * steps if name == "block3_gram_and_grad" else 0 for name in launches}
+    if (launches != want or steps < 1
+            or not np.isfinite(res["trajectory"]).all() or not np.isfinite(post).all()):
+        raise AssertionError(f"the maze episode failed or launched other than 2 K2 "
+                             f"a step: {row}")
+    return row
 
 
 def phase_k9(timing: dict):
@@ -2744,8 +3020,13 @@ def main() -> int:
     if sys.argv[1:] == ["--k9-timing"]:
         k9_timing()
         return 0
+    if sys.argv[1:] == ["--maze"]:
+        maze_phases()
+        return 0
+    t_start = time.perf_counter()
     phase_build()
     k9_times = phase_k9_timing()
+    maze_rows = phase_maze()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
     k1_mc_launches = phase_mc_solve()
@@ -2788,16 +3069,23 @@ def main() -> int:
     phase_wavefront_small_vs_cpu()
     planning_small_vs_cpu()
     k9 = phase_k9(k9_times)
+    maze_ep, k2m = maze_rows["maze_episode"][0], maze_rows["k2_maze_shape 35"][0]
+    emit({"phase": "smoke_total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {**kernel_entry("sigkernel_block_gram_grad (K1)",
                         "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
                         k1_launches, k1),
          "launches_by_path": {"flagship_solve": k1_launches, "mc_solve": k1_mc_launches}},
-        kernel_entry("sigkernel_block3_gram_grad (K2)",
-                     "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
-                     "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
-                     pinned[("pinned_solve", "block3_gram_and_grad")], k2),
+        {**kernel_entry("sigkernel_block3_gram_grad (K2)",
+                        "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
+                        "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
+                        pinned[("pinned_solve", "block3_gram_and_grad")], k2),
+         "launches_by_path": {"pinned_solve": pinned[("pinned_solve", "block3_gram_and_grad")],
+                              "maze_episode": maze_ep["launches"]["block3_gram_and_grad"]},
+         "maze_shape": {k: k2m[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "k_max_abs_err")}
+         | {"launches_per_maze_step": maze_ep["k2_launches_per_step"]}},
         {**kernel_entry("svgd_velocity (K9)",
                         "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
                         "sigsvgd_tpu/kernels/pallas_svgd.py:37",

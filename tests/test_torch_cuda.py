@@ -49,13 +49,18 @@ same given draws: K1 launched twice, the first step's costs rtol 1e-5, K
 atol 3e-5 and the repulsion scaled 5e-5 (``tests/test_torch_dust.py``'s
 λ=0 mode), φ scaled 1e-4, the weights' argmax. The wavefront (torch ops)
 on the card against the CPU, and the trajectory-mode and MatrixSVGD first
-steps likewise.
+steps likewise. K2 at the particle maze's [35, 30, 2] and [36, 30, 2] on
+the maze's own τ, and a 3-step maze episode (signature kernel, MPF on) on
+the card against the CPU with the same draws.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -193,6 +198,75 @@ def test_k2_is_bitwise_repeatable(cuda_device, n, L, C):
     K1, dX1 = kb3.block3_gram_and_grad(X, 4.0)
     K2, dX2 = kb3.block3_gram_and_grad(X, 4.0)
     assert torch.equal(K1, K2) and torch.equal(dX1, dX2)
+
+
+def _maze_tau(device, n):
+    """τ of the maze's sampled rollouts ([n, 30, 2] XY paths, averaged over
+    10 action samples) and the signature kernel's bandwidth √32."""
+    from sigsvgd_tpu_torch.experiments import maze
+
+    cfg = maze.MazeConfig(n_policies=n - maze.N_PRIM)
+    model = maze.make_model(cfg, device)
+    ctrl = maze.build_controller(cfg, model)
+    draws = maze.sample_draws(dataclasses.replace(cfg, steps=1),
+                              torch.Generator(device=device).manual_seed(n))
+    cs = ctrl.init(pol_mean=draws.pol_mean,
+                   action_primitives=maze.action_primitives(cfg.horizon, device))
+    eps = draws.steps[0].actions[0] @ torch.linalg.cholesky(ctrl._pol_cov()).T
+    state = torch.tensor(model.init_state, device=device)
+    with torch.no_grad():
+        trajs = ctrl._rollout_costs(state, cs.pol_mean[None] + eps)[1]
+    return ctrl._tau(trajs).contiguous(), ctrl.sig_kernel.bandwidth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [35, 36])
+def test_k2_at_the_maze_shape(cuda_device, n):
+    """K2 at the maze's [35, 30, 2] (630 pairs: a ragged last tile row and
+    diagonal tile) and [36, 30, 2] on the maze's own τ at h = √32: K atol
+    1e-4 against the fp32 twin; dX against the twin in fp64 at K2's scaled
+    4e-4 or, where the fp32 twin is itself farther from fp64, at 1.1 times
+    the twin's distance (on these paths the twin's dX was 9.19e-4 from fp64
+    on the card, K2's 9.19e-4; ``chip_smoke.py``'s ``k2_maze_shape``)."""
+    X, h = _maze_tau(cuda_device, n)
+    assert tuple(X.shape) == (n, 30, 2)
+    before = kb3.block3_gram_and_grad.launches
+    K, dX = kb3.block3_gram_and_grad(X, h)
+    assert kb3.block3_gram_and_grad.launches == before + 1
+    Kp, dXp = kb3.block3_gram_and_grad_plain(X, h)
+    torch.testing.assert_close(K, Kp, atol=1e-4, rtol=0)
+    _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), h)
+    scale = dX64.abs().max()
+    far = lambda d: ((d.double() - dX64).abs().max() / scale).item()  # noqa: E731
+    assert far(dX) <= max(4e-4, 1.1 * far(dXp))
+    torch.testing.assert_close(K, K.T, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_maze_episode_matches_cpu(cuda_device):
+    """A 3-step maze episode (signature kernel, MPF on; 11 + 5 policies,
+    H = 12) on the card and on the CPU with the same draws: 2 K2 launches a
+    step on the card, none on the CPU; states atol 2e-5 and actions atol
+    1e-3 (K2 and its twin differ within ``K2_TOL``, and Adam at lr 1 passes
+    that on to the policies at about its size), the MPF's particles atol
+    1e-4. An episode may part at a crash: a rollout point within an ulp of
+    an obstacle cell's edge (``tests/test_torch_maze.py``)."""
+    from sigsvgd_tpu_torch.experiments import maze
+
+    cfg = maze.MazeConfig(kernel="signature", use_mpf=True, n_policies=11, horizon=12,
+                          steps=3)
+    draws = maze.sample_draws(cfg, torch.Generator().manual_seed(4))
+    res = {}
+    for dev in (cuda_device, "cpu"):
+        before = kb3.block3_gram_and_grad.launches
+        res[dev] = maze.run_episode(cfg, 0, device=dev, draws=draws.to(dev))
+        res[dev]["launches"] = kb3.block3_gram_and_grad.launches - before
+    g, c = res[cuda_device], res["cpu"]
+    assert (g["launches"], c["launches"]) == (2 * cfg.steps, 0)
+    assert g["steps"] == c["steps"] == cfg.steps
+    np.testing.assert_allclose(g["trajectory"], c["trajectory"], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(g["actions"], c["actions"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(g["dyn_particles"], c["dyn_particles"], rtol=0, atol=1e-4)
 
 
 def _k9_inputs(device, N, D, scale=1.0):
