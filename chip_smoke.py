@@ -107,10 +107,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    5 timed chained SVGD iterations with K8's counters read around them
    (one forward and one backward launch per iteration), the stage split and
    one traced iteration;
-14. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()`` (20
-   particles, 500 iterations) and ``evaluate_trajectory``: wall time, the
-   mean cost at the first and last iteration (it must fall), the success
-   rate and K8's launches (500 each);
+14. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()``'s width
+   (20 particles, depth 6) for ``PLANNING_RUN_ITERS`` = 50 of its 500
+   iterations (the planning process's ``robot_planning_full`` runs all 500)
+   and ``evaluate_trajectory``: wall time, the mean cost at the first and
+   last iteration (it must fall), the success rate and K8's launches (one
+   each an iteration);
 15. K4 (the λ=3 pair-list forward and fp32 backward, each a lane group per
    pair) against its twin at the flagship upper-triangle pair list of
    [1024, 40, 2] (524,800 pairs: the first and the last 16,384 held, the
@@ -201,7 +203,24 @@ on the card and the CPU from the same draws, within ``MAZE_TOL``) and
 signature kernel and the MPF for up to ``MAZE_STEPS`` steps: ms a control
 step, exactly 2 K2 launches a step and no other kernel, a solve and an MPF
 update timed apart and traced, the mass posterior), then ``maze_process``
-with the process's wall time. Before the kernel table a ``smoke_total``
+with the process's wall time.
+
+Then a fresh process (``chip_smoke.py --planning``) runs the arm-planning
+sweep and the obstacle field: ``k4_sweep_shape``, ``k2_field_shape`` and
+``k8_sweep_shape`` (K4 at the quick sweep's knots [8, 3, 7] at depth 3, K2
+at the field's knots [16, 4, 2] at h = 3.0, K8 at the full cell's knots
+[20, 3, 7] at depth 6, each against its twin at its ``K*_TOL``, with times
+and bounds), ``robot_planning_quick`` (the README's ``--quick`` sweep of
+``pillars_4`` through ``run_experiment``: its six rows, each cell's K4
+launches, 1 + 1 an iteration in the pathsig cells and none elsewhere),
+``robot_planning_full`` (one learned cell at ``PlannerConfig()``: both
+trainings at the JAX package's sizes with their epoch losses, the models'
+accuracy and AUC, the run's wall time, cost, audit and 500 + 500 K8
+launches, ms an iteration), ``obstacle_field`` (300 pathsig iterations, 300
+K2, the best cost under 1.5 times the straight line's) and
+``planning_small_vs_cpu`` (requests, a sweep cell, the field and the IK on
+the card and the CPU within ``PLANNING_SWEEP_TOL``), then
+``planning_process`` with its wall time. Before the kernel table a ``smoke_total``
 line gives the smoke's wall time.
 
 Then the kernel table line, and as the last line
@@ -216,7 +235,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -258,6 +279,51 @@ def event_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def all_counters() -> dict:
+    """Every hand kernel wrapper's launch counter, by name."""
+    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
+    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
+    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
+
+    fns = (kb.block_gram_and_grad, kb.block_gram, kb3.block3_gram_and_grad,
+           kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16, ks.small_forward,
+           ks.small_backward, kt.tiled_forward, kt.tiled_backward, mc.mxu_chain_fwd,
+           mc.mxu_chain_bwd, kv.fused_rbf_velocity)
+    return {f.__name__: f for f in fns}
+
+
+class Launches:
+    """Every hand kernel's launches inside a ``with`` block, in
+    ``self.counts``: the counters are set to 0 on entry and read on exit
+    (with ``zero=False``, inside another such block, the counts are the
+    counters' growth)."""
+
+    def __init__(self, zero: bool = True):
+        self.zero = zero
+
+    def __enter__(self):
+        self.fns = all_counters()
+        if self.zero:
+            for f in self.fns.values():
+                f.launches = 0
+        self.start = {name: f.launches for name, f in self.fns.items()}
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {name: f.launches - self.start[name] for name, f in self.fns.items()}
+
+    def expect(self, phase: str, **want):
+        """Fail unless the named kernels launched ``want`` times and no
+        other kernel launched."""
+        full = {name: want.get(name, 0) for name in self.counts}
+        if self.counts != full:
+            raise AssertionError(f"{phase}: launches {self.counts}, expected {full}")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -512,14 +578,14 @@ def phase_k1():
     return rows["flagship"]
 
 
-def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage,
+def drive_solves(phase: str, prob, want: dict, n_solves: int, gram_stage,
                  generator=None, cost_shape=None) -> dict:
-    """A few chained MPC solves of ``prob`` after a warm-up, with the
-    launches of each wrapper in ``counters`` read around them (each must
-    launch its given number of times a solve), the stages timed apart and
-    one more solve traced. ``generator`` gives the solves' random draws
-    (action samples); ``cost_shape`` is the costs' shape, ``(OPT_STEPS,
-    n_pol)`` unless given."""
+    """A few chained MPC solves of ``prob`` after a warm-up, with every hand
+    kernel's launches counted around them (``want``: each wrapper that
+    launches, by name, and its launches a solve; no other may launch), the
+    stages timed apart and one more solve traced. ``generator`` gives the
+    solves' random draws (action samples); ``cost_shape`` is the costs'
+    shape, ``(OPT_STEPS, n_pol)`` unless given."""
     ctrl = prob.ctrl
     t0 = time.perf_counter()
     cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(1))
@@ -529,30 +595,28 @@ def drive_solves(phase: str, prob, counters: dict, n_solves: int, gram_stage,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    for counter in counters:
-        counter.launches = 0
     finite = True
     solve_ms = []
-    for _ in range(n_solves):
-        t1 = time.perf_counter()
-        a_seq, cs, data = ctrl.forward(state, cs, generator=generator, opt_steps=OPT_STEPS)
-        state = prob.model.step(state[None], a_seq[0:1])[0]
-        torch.cuda.synchronize()
-        solve_ms.append((time.perf_counter() - t1) * 1e3)
-        finite &= bool(torch.isfinite(a_seq).all()
-                       and torch.isfinite(cs.pol_mean).all()
-                       and torch.isfinite(data.costs).all())
-    launches = {c.__name__: c.launches for c in counters}
+    with Launches() as counted:
+        for _ in range(n_solves):
+            t1 = time.perf_counter()
+            a_seq, cs, data = ctrl.forward(state, cs, generator=generator,
+                                           opt_steps=OPT_STEPS)
+            state = prob.model.step(state[None], a_seq[0:1])[0]
+            torch.cuda.synchronize()
+            solve_ms.append((time.perf_counter() - t1) * 1e3)
+            finite &= bool(torch.isfinite(a_seq).all()
+                           and torch.isfinite(cs.pol_mean).all()
+                           and torch.isfinite(data.costs).all())
+    launches = counted.counts
     shapes = (tuple(a_seq.shape), tuple(cs.pol_mean.shape), tuple(data.costs.shape))
     if shapes != ((ctrl.hz_len, 7), (ctrl.n_pol, ctrl.hz_len, 7),
                   cost_shape or (OPT_STEPS, ctrl.n_pol)):
         raise AssertionError(f"{phase}: unexpected output shapes {shapes}")
     if not finite:
         raise AssertionError(f"{phase}: non-finite output")
-    want = {c.__name__: per_solve * n_solves for c, per_solve in counters.items()}
-    if launches != want:
-        raise AssertionError(f"{phase}: launches {launches} in {n_solves} solves, "
-                             f"expected {want}")
+    counted.expect(f"{phase} ({n_solves} solves)",
+                   **{name: per_solve * n_solves for name, per_solve in want.items()})
 
     # the stages bench.py separates, timed apart (launches not counted)
     pol0 = cs.pol_mean
@@ -600,12 +664,11 @@ def sig_gram_stage(ctrl, state, pol0) -> dict:
 
 def phase_flagship():
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
     if prob.ctrl.sig_kernel.dyadic_order != 0:
         raise AssertionError("calibration did not choose order 0")
-    row = drive_solves("flagship_solve", prob, {kb.block_gram_and_grad: OPT_STEPS},
+    row = drive_solves("flagship_solve", prob, {"block_gram_and_grad": OPT_STEPS},
                        N_SOLVES, sig_gram_stage)
     # τ of two rollouts of fresh policy draws, for the λ=0 pair-list phases
     ctrl, taus = prob.ctrl, []
@@ -633,14 +696,13 @@ def phase_mc_solve():
     action samples (``replace(ctrl_sig, n_action_samples=10)``), its draws
     from a seeded CUDA generator: 2 K1 launches a solve."""
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
     if prob.ctrl.sig_kernel.dyadic_order != 0:
         raise AssertionError("calibration did not choose order 0")
     ctrl = dataclasses.replace(prob.ctrl, n_action_samples=MC_SAMPLES)
     prob = dataclasses.replace(prob, ctrl=ctrl)
-    row = drive_solves("mc_solve", prob, {kb.block_gram_and_grad: OPT_STEPS}, N_SOLVES,
+    row = drive_solves("mc_solve", prob, {"block_gram_and_grad": OPT_STEPS}, N_SOLVES,
                        mc_pullback_stage,
                        generator=torch.Generator(device="cuda").manual_seed(3),
                        cost_shape=(OPT_STEPS, MC_SAMPLES, ctrl.n_pol))
@@ -656,7 +718,6 @@ def phase_mc_small_vs_cpu():
     CPU's, each step) stayed above 1e-4·max|φ|, which must be over 99%."""
     from sigsvgd_tpu_torch.controllers.dust import DuStDraws
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
     from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
 
     n, H = 64, 40
@@ -669,10 +730,10 @@ def phase_mc_small_vs_cpu():
                              calibrate=False)
         ctrl = dataclasses.replace(prob.ctrl, n_action_samples=MC_SAMPLES)
         cs = ctrl.init(pol_mean=pol.to(dev))
-        before = kb.block_gram_and_grad.launches
-        a_seq, cs2, data = ctrl.forward(prob.q_start, cs, opt_steps=OPT_STEPS,
-                                        draws=DuStDraws(actions=eps.to(dev)))
-        launches = kb.block_gram_and_grad.launches - before
+        with Launches() as counted:
+            a_seq, cs2, data = ctrl.forward(prob.q_start, cs, opt_steps=OPT_STEPS,
+                                            draws=DuStDraws(actions=eps.to(dev)))
+        launches = counted.counts["block_gram_and_grad"]
         prior = ParticleGMM(cs.pol_mean.reshape(n, -1), ctrl._prior_var(),
                             cs.prior_weights)
         score, _tr = ctrl._score(cs.pol_mean, prob.q_start, prior, None, eps[0].to(dev))
@@ -825,22 +886,17 @@ def phase_pinned():
     """The pinned order-3 solve with K2, then the same solve with the bf16
     adjoint (the pair list: K4's forward and K6), in one call."""
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
-    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 
     launches = {}
-    for phase, prec, counters in (
-            ("pinned_solve", "fp32",
-             {kb3.block3_gram_and_grad: OPT_STEPS, kf.fused_forward: 0,
-              kf.fused_backward: 0, kf.fused_backward_bf16: 0}),
+    for phase, prec, want in (
+            ("pinned_solve", "fp32", {"block3_gram_and_grad": OPT_STEPS}),
             ("bf16_pinned_solve", "bf16",
-             {kb3.block3_gram_and_grad: 0, kf.fused_forward: OPT_STEPS,
-              kf.fused_backward: 0, kf.fused_backward_bf16: OPT_STEPS})):
+             {"fused_forward": OPT_STEPS, "fused_backward_bf16": OPT_STEPS})):
         prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False,
                              grad_precision=prec)
         if prob.ctrl.sig_kernel.dyadic_order != 3:
             raise AssertionError("the pinned controller is not at order 3")
-        row = drive_solves(phase, prob, counters, N_SOLVES, sig_gram_stage)
+        row = drive_solves(phase, prob, want, N_SOLVES, sig_gram_stage)
         launches.update({(phase, k): v for k, v in row["launches"].items()})
     return launches
 
@@ -1083,19 +1139,18 @@ def phase_pendulum(which: str) -> dict:
 
     run = pendulum.run_dust if which == "dust" else pendulum.run_disco
     run(steps=2, device="cuda")
-    counters = no_kernel_counters()
-    for c in counters:
-        c.launches = 0
-    res = run(steps=PENDULUM_STEPS, device="cuda")
-    launches = {c.__name__: c.launches for c in counters}
+    with Launches() as counted:
+        res = run(steps=PENDULUM_STEPS, device="cuda")
     row = {"phase": f"pendulum_{which}", "steps": PENDULUM_STEPS,
            "ms_per_step": res["wall_clock_s"] * 1e3 / PENDULUM_STEPS,
            "wall_s": res["wall_clock_s"],
            "final_upright_error_rad": res["final_upright_error_rad"],
-           "launches": launches, "finite": bool(np.isfinite(res["trajectory"]).all())}
+           "launches": counted.counts,
+           "finite": bool(np.isfinite(res["trajectory"]).all())}
     emit(row)
-    if not row["finite"] or any(launches.values()):
+    if not row["finite"]:
         raise AssertionError(f"the pendulum's {which} run failed: {row}")
+    counted.expect(f"pendulum_{which}")
     return row
 
 
@@ -1106,7 +1161,6 @@ def phase_maze_small_vs_cpu() -> list:
     particles within ``MAZE_TOL``, the same steps and crash flags, K2 twice a
     step on the card with the signature kernel, never on the CPU."""
     from sigsvgd_tpu_torch.experiments import maze
-    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
 
     rows = []
     for kernel in ("rbf", "signature"):
@@ -1114,10 +1168,10 @@ def phase_maze_small_vs_cpu() -> list:
         draws = maze.sample_draws(cfg, torch.Generator().manual_seed(5))
         out = {}
         for dev in ("cuda", "cpu"):
-            before = kb3.block3_gram_and_grad.launches
             t0 = time.perf_counter()
-            res = maze.run_episode(cfg, 0, device=dev, draws=draws.to(dev))
-            out[dev] = (res, kb3.block3_gram_and_grad.launches - before,
+            with Launches() as counted:
+                res = maze.run_episode(cfg, 0, device=dev, draws=draws.to(dev))
+            out[dev] = (res, counted.counts["block3_gram_and_grad"],
                         time.perf_counter() - t0)
         (g, lg, tg), (c, lc, tc) = out["cuda"], out["cpu"]
         row = {"phase": "maze_small_vs_cpu", "kernel": kernel,
@@ -1151,18 +1205,15 @@ def phase_maze_episode() -> dict:
     apart, one solve and real step and one MPF update (host clock, 5 each),
     and both traced once."""
     from sigsvgd_tpu_torch.experiments import maze
-    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
     from sigsvgd_tpu_torch.utils.distributions import ParticleGMM
 
     cfg = maze.MazeConfig(kernel="signature", use_mpf=True, steps=MAZE_STEPS)
     t0 = time.perf_counter()
     maze.run_episode(dataclasses.replace(cfg, steps=2), 0, device="cuda")
     warm_s = time.perf_counter() - t0
-    counters = no_kernel_counters()
-    for c in counters:
-        c.launches = 0
-    res = maze.run_episode(cfg, 1, device="cuda")
-    launches = {c.__name__: c.launches for c in counters}
+    with Launches() as counted:
+        res = maze.run_episode(cfg, 1, device="cuda")
+    launches = counted.counts
     steps = res["steps"]
     step_ms = [t * 1e3 for t in res["step_wall_s"]]
     settled = step_ms[MAZE_SETTLE:] or step_ms
@@ -1205,11 +1256,391 @@ def phase_maze_episode() -> dict:
            "solve_and_step_ms": host_ms(solve, 5), "mpf_observe_ms": host_ms(observe, 5),
            "traced_step": traced(lambda: (solve(), observe()))}
     emit(row)
-    want = {name: 2 * steps if name == "block3_gram_and_grad" else 0 for name in launches}
-    if (launches != want or steps < 1
-            or not np.isfinite(res["trajectory"]).all() or not np.isfinite(post).all()):
-        raise AssertionError(f"the maze episode failed or launched other than 2 K2 "
-                             f"a step: {row}")
+    if (steps < 1 or not np.isfinite(res["trajectory"]).all()
+            or not np.isfinite(post).all()):
+        raise AssertionError(f"the maze episode failed: {row}")
+    counted.expect(f"maze_episode ({steps} steps, 2 K2 a step)",
+                   block3_gram_and_grad=2 * steps)
+    return row
+
+
+PLANNING_SWEEP_TOL = {
+    "sweep_knots": (1e-4, 1e-5),  # rtol, atol of the sweep cell's knots after 10 iterations
+    "field_paths": 1e-4,  # atol of the obstacle field's paths after 5 pathsig iterations
+    "ik_q": 1e-4,  # atol of the IK's configurations after 100 iterations
+}
+QUICK_CONFIG = dict(n_iter=60, batch=8, depth=3, timesteps=60)  # the README's --quick
+FULL_TIMED_ITERS = 10  # robot_planning_full's timed window, after its run
+
+
+def phase_planning() -> dict:
+    """The arm-planning sweep and the obstacle field, in a fresh process
+    (``chip_smoke.py --planning``, :func:`planning_phases`; host-bound paths,
+    kept apart from the profiler sessions of this process). Its rows, by
+    phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--planning"], capture_output=True,
+                          text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            if "phase" in row:  # the sweep's own rows are printed inside phases
+                rows.setdefault(row["phase"], []).append(row)
+                emit(row)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"the planning process failed (exit {proc.returncode})")
+    want = {"k4_sweep_shape", "k2_field_shape", "k8_sweep_shape", "robot_planning_quick",
+            "robot_planning_full", "obstacle_field", "planning_small_vs_cpu"}
+    if set(rows) != want:
+        raise AssertionError(f"the planning process gave the phases {sorted(rows)}")
+    emit({"phase": "planning_process", "wall_s": wall_s})
+    return {k: v[0] for k, v in rows.items()}
+
+
+def planning_phases() -> None:
+    """The planning process: K4, K2 and K8 at the shapes these paths give
+    them, then the quick sweep, the full-width learned sweep cell, the
+    obstacle field, and the card against the CPU."""
+    import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy)
+
+    phase_k4_sweep_shape()
+    phase_k2_field_shape()
+    phase_k8_sweep_shape()
+    phase_robot_planning_quick()
+    phase_robot_planning_full()
+    phase_obstacle_field()
+    phase_planning_sweep_small_vs_cpu()
+
+
+def uniform_knots(n: int, gen: torch.Generator) -> torch.Tensor:
+    """Knot particles ``[n, 3, 7]`` on the card, as ``run_optimisation``
+    draws them."""
+    from sigsvgd_tpu_torch.experiments import planning
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    return planning.uniform_knots(PandaRobot.create(device="cuda"), n, 3, gen)
+
+
+def shape_row(phase, shape, err, kernel_ms, plain_ms, b, **extra) -> dict:
+    row = {"phase": phase, "shape": shape, "max_abs_err": err, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None, **b, **extra}
+    emit(row)
+    return row
+
+
+def phase_k4_sweep_shape() -> dict:
+    """K4's forward and fp32 backward at the quick sweep's pathsig Gram:
+    the upper-triangle list of knots [8, 3, 7] (36 pairs, ly1 = 2) at
+    h = 1.5, against the twin: K atol 1e-4 against the fp32 twin, dX
+    (summed per path) scaled 4e-4 against the twin in fp64 (``K4_TOL``);
+    times by CUDA events, both parts' bounds."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+
+    X = uniform_knots(8, torch.Generator(device="cuda").manual_seed(40))
+    xt, yt, g, iu, ju = triu_tiles(X, 1.5)
+    P, Lx, Ly, C = xt.shape[2], xt.shape[0], yt.shape[0], xt.shape[1]
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    dx, dy = kf.fused_backward(xt, yt, ck, rc, g)
+    kp, _, _ = kf.fused_pairs_plain(xt, yt, g)
+    _, dx64, dy64 = kf.fused_pairs_plain(xt.double(), yt.double(), g.double())
+    dX = scatter(dx, iu, 8) + scatter(dy, ju, 8)
+    dX64 = scatter(dx64, iu, 8) + scatter(dy64, ju, 8)
+    k_err, dx_err = (k - kp).abs().max().item(), scaled_err(dX, dX64)
+    fwd = dict(bound(kf.fused_flops(P, Lx, Ly, C)[0], kf.fused_bytes(P, Lx, Ly, C)))
+    bwd = dict(bound(kf.fused_flops(P, Lx, Ly, C, "backward")[0],
+                     kf.fused_bytes(P, Lx, Ly, C, "backward")))
+    row = shape_row(
+        "k4_sweep_shape", [8, 3, 7], k_err,
+        event_ms(lambda: kf.fused_forward(xt, yt, residuals=True), 50),
+        event_ms(lambda: kf.fused_forward_plain(xt, yt, True), 20), fwd,
+        pairs=P, h=1.5, dX_scaled_err_vs_fp64=dx_err,
+        dX_max_abs_err_vs_fp64=(dX - dX64).abs().max().item(),
+        bwd_ms=event_ms(lambda: kf.fused_backward(xt, yt, ck, rc, g), 50),
+        plain_bwd_ms=event_ms(lambda: kf.fused_backward_plain(xt, yt, g), 20),
+        bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+        finite=bool(torch.isfinite(k).all() and torch.isfinite(dX).all()))
+    if not (row["finite"] and k_err <= K4_TOL[0] and dx_err <= K4_TOL[1]):
+        raise AssertionError(f"K4 at the sweep's shape disagrees with its twin: {row}")
+    return row
+
+
+def phase_k2_field_shape() -> dict:
+    """K2 at the obstacle field's pathsig Gram: knots [16, 4, 2] uniform in
+    [-4, 4]² (``run``'s draw) at h = 3.0, against the fp32 twin (K atol
+    1e-4) and the twin in fp64 (dX scaled 4e-4, ``K2_TOL``); times, bound."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    X = -4.0 + 8.0 * torch.rand((16, 4, 2), generator=gen, device="cuda")
+    K, dX = kb3.block3_gram_and_grad(X, 3.0)
+    Kp, _ = kb3.block3_gram_and_grad_plain(X, 3.0)
+    _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), 3.0)
+    k_err, dx_err = (K - Kp).abs().max().item(), scaled_err(dX, dX64)
+    row = shape_row(
+        "k2_field_shape", [16, 4, 2], k_err,
+        event_ms(lambda: kb3.block3_gram_and_grad(X, 3.0), 50),
+        event_ms(lambda: kb3.block3_gram_and_grad_plain(X, 3.0), 20),
+        bound(kb3.block3_flops(16, 4, 2), kb3.block3_bytes(16, 4, 2)),
+        pairs=136, h=3.0, dX_scaled_err_vs_fp64=dx_err,
+        finite=bool(torch.isfinite(K).all() and torch.isfinite(dX).all()))
+    if not (row["finite"] and k_err <= K2_TOL[0] and dx_err <= K2_TOL[1]):
+        raise AssertionError(f"K2 at the field's shape disagrees with its twin: {row}")
+    return row
+
+
+def phase_k8_sweep_shape() -> dict:
+    """K8's forward and backward at the full-width sweep cell's order-6
+    Gram: the increments of knots [20, 3, 7] at h = 1.5 (400 pairs), against
+    the bf16 twin (``K8_TOL``) and the fp32 block propagator
+    (``K8_FP32_TOL``); times by CUDA events, both parts' bounds."""
+    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+    from sigsvgd_tpu_torch.kernels.sigkernel import solve_goursat_pde_mxu
+
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    inc = knot_increments(20, gen)
+    B, lx1, ly1 = inc.shape
+    g = torch.randn(B, generator=gen, device="cuda")
+    k, d = chunked_vjp(lambda t: mc.solve_goursat_pde_mxu_chain(t, 6), inc, g, B)
+    kp, dp = chunked_vjp(lambda t: mc.solve_goursat_pde_mxu_chain_plain(t, 6), inc, g, B)
+    kr, dr = chunked_vjp(lambda t: solve_goursat_pde_mxu(t, 6), inc, g, B)
+    nbx, nby, sub = mc._geometry(lx1, ly1, 6)
+    z = (inc / float(4 ** 6)).reshape(B, lx1 * ly1).contiguous()
+    geom = (nbx, nby, sub, ly1)
+    fl, flb = mc.chain_flops(B, lx1, ly1, 6), mc.chain_flops(B, lx1, ly1, 6, backward=True)
+    bwd = bound(flb[1], mc.chain_bytes(B, lx1, ly1, backward=True), flb[0])
+    errs = {"k_scaled_err_vs_plain": scaled_err(k, kp), "dz_scaled_err_vs_plain": scaled_err(d, dp),
+            "k_scaled_err_vs_fp32": scaled_err(k, kr), "dz_scaled_err_vs_fp32": scaled_err(d, dr)}
+    row = shape_row(
+        "k8_sweep_shape", [B, lx1, ly1], (k - kp).abs().max().item(),
+        event_ms(lambda: mc.mxu_chain_fwd(z, *geom), 50),
+        event_ms(lambda: mc._plain_forward(z, *geom, 10), 10),
+        bound(fl[1], mc.chain_bytes(B, lx1, ly1), fl[0]),
+        knots=[20, 3, 7], dyadic_order=6, dz_max_abs_err=(d - dp).abs().max().item(), **errs,
+        bwd_ms=event_ms(lambda: mc.mxu_chain_bwd(z, g, *geom), 50),
+        plain_bwd_ms=event_ms(lambda: mc._plain_backward(z, g, *geom, 10), 10),
+        bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+        finite=bool(torch.isfinite(k).all() and torch.isfinite(d).all()))
+    if not (row["finite"] and errs["k_scaled_err_vs_plain"] <= K8_TOL[0]
+            and errs["dz_scaled_err_vs_plain"] <= K8_TOL[1]
+            and errs["k_scaled_err_vs_fp32"] <= K8_FP32_TOL[0]
+            and errs["dz_scaled_err_vs_fp32"] <= K8_FP32_TOL[1]):
+        raise AssertionError(f"K8 at the sweep's shape disagrees with its twin: {row}")
+    return row
+
+
+def phase_robot_planning_quick() -> dict:
+    """The README's ``robot_planning --scenes pillars_4 --quick`` through
+    ``run_experiment`` on the card: 2 requests × 1 seed × pathsig, svgd,
+    sgd at ``QUICK_CONFIG`` (pathsig at depth 3 on knots [8, 3, 7]: K4's
+    forward and backward once an iteration, no other kernel). Each row, the
+    launches of each cell (read around its ``run_optimisation``), every
+    cost finite."""
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
+
+    cfg = PlannerConfig(**QUICK_CONFIG)
+    run_opt, cells = rp.run_optimisation, []
+
+    def counted(problem, config, generator=None):
+        with Launches(zero=False) as cell:
+            x, data = run_opt(problem, config, generator=generator)
+        cells.append((config.method, cell.counts, data.loss))
+        return x, data
+
+    rp.run_optimisation = counted
+    t0 = time.perf_counter()
+    try:
+        with Launches() as total, tempfile.TemporaryDirectory() as out:
+            rows = rp.run_experiment(["pillars_4"], ["pathsig", "svgd", "sgd"], 1,
+                                     Path(out), cfg, n_requests=2)
+    finally:
+        rp.run_optimisation = run_opt
+    wall_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(loss).all()) for _, _, loss in cells)
+    row = {"phase": "robot_planning_quick", "config": QUICK_CONFIG, "rows": rows,
+           "cells": [{"method": m, "k4_launches": {"forward": c["fused_forward"],
+                                                    "backward": c["fused_backward"]},
+                      "mean_cost_first": loss[0].mean().item(),
+                      "mean_cost_last": loss[-1].mean().item()}
+                     for m, c, loss in cells],
+           "launches": total.counts, "wall_s": wall_s, "finite": finite}
+    emit(row)
+    n_pathsig = sum(m == "pathsig" for m, _, _ in cells)
+    total.expect("robot_planning_quick", fused_forward=n_pathsig * cfg.n_iter,
+                 fused_backward=n_pathsig * cfg.n_iter)
+    for m, c, _ in cells:
+        want = cfg.n_iter if m == "pathsig" else 0
+        if (c["fused_forward"], c["fused_backward"]) != (want, want):
+            raise AssertionError(f"robot_planning_quick: a {m} cell launched K4 {c}")
+    if len(rows) != 6 or not finite:
+        raise AssertionError(f"robot_planning_quick: {len(rows)} rows, finite={finite}")
+    return row
+
+
+def phase_robot_planning_full() -> dict:
+    """One full-width cell of the learned sweep: ``pillars_4``'s first
+    request, one seed, pathsig at ``PlannerConfig()`` (20 × 500, depth 6,
+    T = 200) with both models trained by ``train_scene_models`` at the JAX
+    package's sizes (200,000 samples, 15 epochs): the trainings' wall s and
+    first and last epoch losses (the last below the first), the models'
+    accuracy and AUC against the exact oracles (``verify_learned``), the
+    run's wall s, its mean cost at the start and at the end (lower), the
+    audit, K8 launched once forward and once backward an iteration and no
+    other kernel; then the median ms of ``FULL_TIMED_ITERS`` iterations
+    after the run."""
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.experiments import verify_learned as vl
+    from sigsvgd_tpu_torch.experiments.planning import (
+        PlannerConfig, evaluate_trajectory, planner_sampler, run_optimisation,
+    )
+    from sigsvgd_tpu_torch.experiments.verify_trajectory import verify_knot_trajectories
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+    from sigsvgd_tpu_torch.models.robot.scene import get_scene
+
+    cfg = PlannerConfig()
+    robot = PandaRobot.create(device="cuda")
+    occmap, self_pred = rp.train_scene_models(robot, "pillars_4")
+    trainings = {name: {"wall_s": m.train_wall_s, "epoch_loss_first": float(m.epoch_losses[0]),
+                        "epoch_loss_last": float(m.epoch_losses[-1]),
+                        "epochs": len(m.epoch_losses)}
+                 for name, m in (("occupancy", occmap), ("self_collision", self_pred))}
+    audit_models = {
+        "occupancy": vl.verify_occupancy_model(occmap, get_scene("pillars_4")),
+        "self_collision": vl.verify_self_collision_model(self_pred, robot)}
+    req = rp.default_requests(robot, "pillars_4", n=1)[0]
+    problem = rp.build_problem(robot, "pillars_4", req, True, occmap, self_pred, cfg.timesteps)
+    seed = rp.generate_seeds(1)[0]
+    with Launches() as run:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, data = run_optimisation(problem, cfg,
+                                   generator=torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ev = evaluate_trajectory(problem, x)
+    audit = verify_knot_trajectories(robot, get_scene("pillars_4"), problem.q_start,
+                                     problem.q_target, x, timesteps=cfg.timesteps)
+    svgd, score = planner_sampler(problem, cfg)
+    state, xi, iter_ms = svgd.init(x), x, []
+    for _ in range(FULL_TIMED_ITERS):
+        t1 = time.perf_counter()
+        xi, state = svgd.step_update(xi, state, score(xi, None))
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t1) * 1e3)
+    cost0, cost1 = data.loss[0].mean().item(), data.loss[-1].mean().item()
+    row = {"phase": "robot_planning_full", "scene": "pillars_4", "seed": seed,
+           "batch": cfg.batch, "n_iter": cfg.n_iter, "depth": cfg.depth,
+           "timesteps": cfg.timesteps, "mxu_precision": cfg.mxu_precision,
+           "trainings": trainings, "learned_model_audit": {
+               k: {m: v[m] for m in ("accuracy", "auc", "precision", "recall",
+                                     "positive_rate")} for k, v in audit_models.items()},
+           "wall_s": wall_s, "ms_per_iter_run": wall_s * 1e3 / cfg.n_iter,
+           "ms_per_iter_median": statistics.median(iter_ms), "ms_per_iter_samples": iter_ms,
+           "mean_cost_first": cost0, "mean_cost_last": cost1,
+           "success_rate": ev["success"].float().mean().item(),
+           "best_ee_length": ev["ee_path_length"].min().item(),
+           "audit": {"n_valid": audit["n_valid"],
+                     "env_collision_fraction_mean": float(audit["env_collision_fraction"].mean()),
+                     "self_collision_fraction_mean":
+                         float(audit["self_collision_fraction"].mean())},
+           "launches": run.counts, "finite": bool(torch.isfinite(x).all())}
+    emit(row)
+    run.expect("robot_planning_full", mxu_chain_fwd=cfg.n_iter, mxu_chain_bwd=cfg.n_iter)
+    falling = all(t["epoch_loss_last"] < t["epoch_loss_first"] for t in trainings.values())
+    if not (row["finite"] and cost1 < cost0 and falling):
+        raise AssertionError(f"robot_planning_full: a cost or a loss did not fall: {row}")
+    return row
+
+
+def phase_obstacle_field() -> dict:
+    """``obstacle_field.run(method="pathsig")`` at the JAX defaults (300
+    iterations, 16 knot particles of 4 free knots; K2 once an iteration, no
+    other kernel) after a 5-iteration warm-up: best and mean cost, ms an
+    iteration (the run's wall over its iterations), the best cost below 1.5
+    times the straight line's (``tests/test_experiments.py``)."""
+    import math
+
+    from sigsvgd_tpu_torch.experiments import obstacle_field as of
+
+    of.run(method="pathsig", n_iter=5, device="cuda")
+    with Launches() as run:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = of.run(method="pathsig", device="cuda")
+        wall_s = time.perf_counter() - t0
+    problem = of.FieldProblem(of.ObstacleField.create())
+    straight = torch.stack([torch.linspace(problem.start[i], problem.goal[i], 100)
+                            for i in range(2)], dim=-1)
+    straight_cost = (problem.w_obstacle * problem.field.density(straight).sum().item()
+                     + problem.w_length * 8 * math.sqrt(2))
+    row = {"phase": "obstacle_field", "method": "pathsig", "n_iter": 300, "batch": 16,
+           "n_free_knots": 4, "best_cost": res["best_cost"], "mean_cost": res["mean_cost"],
+           "straight_line_cost": straight_cost, "wall_s": wall_s,
+           "ms_per_iter": wall_s * 1e3 / 300, "launches": run.counts,
+           "finite": bool(np.isfinite(res["final_costs"]).all())}
+    emit(row)
+    run.expect("obstacle_field", block3_gram_and_grad=300)
+    if not (row["finite"] and res["best_cost"] < 1.5 * straight_cost):
+        raise AssertionError(f"obstacle_field: the best path is no better: {row}")
+    return row
+
+
+def phase_planning_sweep_small_vs_cpu() -> list:
+    """The same small work on the card and on the CPU within
+    ``PLANNING_SWEEP_TOL``: ``pillars_4``'s requests (equal), a sweep cell
+    (pathsig at depth 3 on knots [8, 3, 7], T = 60, 10 iterations from the
+    same knots: K4 on the card, its twin on the CPU), 5 pathsig iterations
+    of the obstacle field from the same knots (K2 and its twin) and a
+    100-iteration IK solve of 16 targets."""
+    import dataclasses as dc
+
+    from sigsvgd_tpu_torch.experiments import obstacle_field as of
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, run_optimisation
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    cfg = dc.replace(PlannerConfig(**QUICK_CONFIG), n_iter=10)
+    gen = torch.Generator().manual_seed(43)
+    x0 = torch.rand((8, 3, 7), generator=gen)
+    fx0 = -4.0 + 8.0 * torch.rand((16, 4, 2), generator=gen)
+    q_true = torch.rand((16, 7), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        robot = PandaRobot.create(device=dev)
+        lower, upper = robot.joint_limits()
+        reqs = rp.default_requests(robot, "pillars_4", n=2)
+        problem = rp.build_problem(robot, "pillars_4", reqs[0], False, None, None,
+                                   cfg.timesteps)
+        with Launches() as cell:
+            x, data = run_optimisation(problem, cfg, x0=lower + (upper - lower) * x0.to(dev))
+        field = of.run(method="pathsig", n_iter=5, device=dev, x0=fx0.to(dev))
+        targets = robot.ee_position(lower + (upper - lower) * q_true.to(dev))
+        q = robot.ee_xs_to_qs(targets)
+        ee_err = torch.linalg.norm(robot.ee_position(q) - targets, dim=-1).max().item()
+        out[dev] = ([(r.start, r.target) for r in reqs], x.cpu(), data.loss.cpu(),
+                    field["paths"], q.cpu(), ee_err, cell.counts)
+    (rg, xg, lg, fg, qg, eg, cg), (rc, xc, lc, fc, qc, ec, cc) = out["cuda"], out["cpu"]
+    rtol, atol = PLANNING_SWEEP_TOL["sweep_knots"]
+    row = {"phase": "planning_small_vs_cpu", "tol": PLANNING_SWEEP_TOL,
+           "requests_equal": rg == rc,
+           "sweep_knots_abs": (xg - xc).abs().max().item(),
+           "sweep_loss_rel": ((lg - lc).abs() / lc.abs()).max().item(),
+           "field_paths_abs": float(np.abs(fg - fc).max()),
+           "ik_q_abs": (qg - qc).abs().max().item(), "ik_ee_err": [eg, ec],
+           "k4_launches": [[cg["fused_forward"], cg["fused_backward"]],
+                           [cc["fused_forward"], cc["fused_backward"]]]}
+    emit(row)
+    ok = (row["requests_equal"] and torch.allclose(xg, xc, rtol=rtol, atol=atol)
+          and torch.allclose(lg, lc, rtol=rtol, atol=atol)
+          and row["field_paths_abs"] <= PLANNING_SWEEP_TOL["field_paths"]
+          and row["ik_q_abs"] <= PLANNING_SWEEP_TOL["ik_q"] and max(eg, ec) < 0.01
+          and row["k4_launches"] == [[cfg.n_iter, cfg.n_iter], [0, 0]])
+    if not ok:
+        raise AssertionError(f"the card's planning disagrees with the CPU's: {row}")
     return row
 
 
@@ -1284,29 +1715,12 @@ def velocity_stage(ctrl, state, pol0) -> dict:
 
 def phase_policy():
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
 
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="policy",
                          fused_velocity=True)
-    row = drive_solves("policy_solve", prob, {kv.fused_rbf_velocity: OPT_STEPS},
+    row = drive_solves("policy_solve", prob, {"fused_rbf_velocity": OPT_STEPS},
                        N_SOLVES, velocity_stage)
     return row["launches"]["fused_rbf_velocity"]
-
-
-def no_kernel_counters() -> dict:
-    """Every hand kernel wrapper a DuSt solve could reach, each to launch 0
-    times: the trajectory mode, the scaled samplers and the order-2
-    wavefront run torch ops only."""
-    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
-    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
-    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
-    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
-    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
-    from sigsvgd_tpu_torch.kernels import svgd_velocity as kv
-
-    return {f: 0 for f in (kb.block_gram_and_grad, kb3.block3_gram_and_grad,
-                           ks.small_forward, kf.fused_forward, kt.tiled_forward,
-                           kv.fused_rbf_velocity)}
 
 
 def trajectory_stage(ctrl, state, pol0) -> dict:
@@ -1322,7 +1736,7 @@ def phase_trajectory():
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
 
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="trajectory")
-    return drive_solves("trajectory_solve", prob, no_kernel_counters(), N_SOLVES,
+    return drive_solves("trajectory_solve", prob, {}, N_SOLVES,
                         trajectory_stage)
 
 
@@ -1347,7 +1761,7 @@ def phase_scaled(sampler: str):
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, kernel_mode="policy",
                          stein_sampler=sampler, kernel=ScaledGaussianKernel())
     phase = {"ScaledSVGD": "scaled_solve", "MatrixSVGD": "matrix_solve"}[sampler]
-    row = drive_solves(phase, prob, no_kernel_counters(), N_SOLVES, scaled_velocity_stage)
+    row = drive_solves(phase, prob, {}, N_SOLVES, scaled_velocity_stage)
     row["metric_dim"] = prob.ctrl.hz_len * prob.ctrl.dim_a
     return row
 
@@ -1377,7 +1791,7 @@ def phase_default_sig():
     ctrl, kern = prob.ctrl, prob.ctrl.sig_kernel
     if kern._solver_kind(39, 39) != "wavefront":
         raise AssertionError("order 2 does not take the wavefront")
-    row = drive_solves("default_sig_solve", prob, no_kernel_counters(), DEFAULT_SIG_SOLVES,
+    row = drive_solves("default_sig_solve", prob, {}, DEFAULT_SIG_SOLVES,
                        default_sig_stage)
     cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(13))
     with torch.no_grad():
@@ -1612,20 +2026,18 @@ def phase_wavefront_small_vs_cpu():
                                          paths((24, 41, 4), 0.1), "gg"),
         "lambda1_dense_gram": (SignatureKernel(1, 1.5), paths((16, 21, 9), 0.3), "gram"),
     }
-    counters = no_kernel_counters()
     for name, (kern, X, how) in cases.items():
         out = {}
         for dev in ("cuda", "cpu"):
             x = X.to(dev)
-            for c in counters:
-                c.launches = 0
-            if how == "gg":
-                K, dX = kern.gram_and_grad(x)
-            else:
-                xx = x.clone().requires_grad_(True)
-                K = kern.gram(xx, x[:5])
-                (dX,) = torch.autograd.grad(K.sum(), xx)
-            out[dev] = (K.detach().cpu(), dX.cpu(), sum(c.launches for c in counters))
+            with Launches() as counted:
+                if how == "gg":
+                    K, dX = kern.gram_and_grad(x)
+                else:
+                    xx = x.clone().requires_grad_(True)
+                    K = kern.gram(xx, x[:5])
+                    (dX,) = torch.autograd.grad(K.sum(), xx)
+            out[dev] = (K.detach().cpu(), dX.cpu(), sum(counted.counts.values()))
         (k0, g0, n0), (k1, g1, _n1) = out["cuda"], out["cpu"]
         if how == "gg":
             k64 = kern.gram_and_grad(X.double())[0]
@@ -1646,10 +2058,8 @@ def knot_increments(n: int, gen: torch.Generator) -> torch.Tensor:
     paths ``[n, 3, 7]`` drawn as ``run_optimisation`` draws them (uniform in
     the Panda's joint limits), at bench's bandwidth h = 1.5."""
     from sigsvgd_tpu_torch.kernels.sigkernel import _pair_sq_dists, gram_increments
-    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
 
-    lower, upper = PandaRobot.create(device="cuda").joint_limits()
-    X = lower + (upper - lower) * torch.rand((n, 3, 7), generator=gen, device="cuda")
+    X = uniform_knots(n, gen)
     inc = gram_increments(torch.exp(-_pair_sq_dists(X, X) / 1.5))
     return inc.reshape(n * n, 2, 2).contiguous()
 
@@ -1776,7 +2186,6 @@ def phase_planning_iter():
     """Bench's planning shape: chained SVGD iterations with K8's counters
     read around them, the stage split and one traced iteration."""
     from sigsvgd_tpu_torch.inference.score import _grad_neg_cost
-    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
     from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
 
     t0 = time.perf_counter()
@@ -1795,16 +2204,15 @@ def phase_planning_iter():
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    mc.mxu_chain_fwd.launches = mc.mxu_chain_bwd.launches = 0
     iter_ms = []
-    for _ in range(5):
-        t1 = time.perf_counter()
-        x, state = iteration(x, state)
-        torch.cuda.synchronize()
-        iter_ms.append((time.perf_counter() - t1) * 1e3)
-    launches = (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches)
-    if launches != (5, 5):
-        raise AssertionError(f"planning_iter: K8 launched {launches} times in 5 iterations")
+    with Launches() as counted:
+        for _ in range(5):
+            t1 = time.perf_counter()
+            x, state = iteration(x, state)
+            torch.cuda.synchronize()
+            iter_ms.append((time.perf_counter() - t1) * 1e3)
+    counted.expect("planning_iter (5 iterations)", mxu_chain_fwd=5, mxu_chain_bwd=5)
+    launches = (counted.counts["mxu_chain_fwd"], counted.counts["mxu_chain_bwd"])
     if not (x.shape == (1024, 3, 7) and bool(torch.isfinite(x).all())):
         raise AssertionError("planning_iter: non-finite or misshapen particles")
 
@@ -1823,24 +2231,28 @@ def phase_planning_iter():
     return launches
 
 
+PLANNING_RUN_ITERS = 50  # planning_run's cut: robot_planning_full runs all 500
+
+
 def phase_planning_run():
-    """The reference's flagship run at ``PlannerConfig()`` defaults, end to
-    end through ``run_optimisation`` and ``evaluate_trajectory``."""
+    """Bench's planning problem at ``PlannerConfig()``'s width (20 particles,
+    depth 6, T = 200) for ``PLANNING_RUN_ITERS`` of its 500 iterations, end
+    to end through ``run_optimisation`` and ``evaluate_trajectory`` (the
+    learned sweep cell ``robot_planning_full`` runs the whole 500)."""
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_planning_problem
     from sigsvgd_tpu_torch.experiments.planning import (
         PlannerConfig, create_body_points, evaluate_trajectory, run_optimisation,
     )
-    from sigsvgd_tpu_torch.kernels import mxu_chain as mc
 
-    cfg = PlannerConfig()
+    cfg = PlannerConfig(n_iter=PLANNING_RUN_ITERS)
     problem = build_planning_problem(device="cuda", timesteps=cfg.timesteps)
-    mc.mxu_chain_fwd.launches = mc.mxu_chain_bwd.launches = 0
     t0 = time.perf_counter()
-    x, data = run_optimisation(problem, cfg,
-                               generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
+    with Launches() as counted:
+        x, data = run_optimisation(problem, cfg,
+                                   generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = (mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches)
+    launches = (counted.counts["mxu_chain_fwd"], counted.counts["mxu_chain_bwd"])
     ev = evaluate_trajectory(problem, x)
     cost0, cost1 = data.loss[0].mean().item(), data.loss[-1].mean().item()
     # every trajectory passes through both end configurations, so their own
@@ -1858,8 +2270,8 @@ def phase_planning_run():
            "k8_launches": {"forward": launches[0], "backward": launches[1]},
            "finite": bool(torch.isfinite(x).all())}
     emit(row)
-    if launches != (cfg.n_iter, cfg.n_iter):
-        raise AssertionError(f"planning_run: K8 launched {launches} times")
+    counted.expect(f"planning_run ({cfg.n_iter} iterations)", mxu_chain_fwd=cfg.n_iter,
+                   mxu_chain_bwd=cfg.n_iter)
     if not (row["finite"] and x.shape == (cfg.batch, 3, 7) and cost1 < cost0):
         raise AssertionError(f"planning_run: the mean cost did not fall: {row}")
     return launches
@@ -2132,7 +2544,6 @@ def phase_streamed_gram():
     h = 4.0
     X, Y = smooth_paths(1024, 40, 2, gen), smooth_paths(1024, 40, 2, gen)
     kern = SignatureKernel(dyadic_order=3, bandwidth=h)
-    counters = (kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
 
     def run():
         x = X.clone().requires_grad_(True)
@@ -2140,18 +2551,8 @@ def phase_streamed_gram():
         (dX,) = torch.autograd.grad(K.sum(), x)
         return K.detach(), dX
 
-    run()  # warm-up
-    for c in counters:
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    K, dX = run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
-    launches = {c.__name__: c.launches for c in counters}
+    (K, dX), counted, wall_ms, peak_mib = run_counted(run)
+    launches = counted.counts
     _, chunk, nb = kern._chunk_plan(39, 39, 1024 * 1024, 2, X.device, h)
 
     bplan = kf.launch_plan(chunk, 39, 39, 2, "backward", "cuda")
@@ -2180,9 +2581,7 @@ def phase_streamed_gram():
            "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
            "k_range": [K.min().item(), K.max().item()], "finite": finite}
     emit(row)
-    want = {"fused_forward": 2 * nb, "fused_backward": nb, "fused_backward_bf16": 0}
-    if launches != want:
-        raise AssertionError(f"streamed_gram: launches {launches}, expected {want}")
+    counted.expect("streamed_gram", fused_forward=2 * nb, fused_backward=nb)
     if not (finite and K.shape == (1024, 1024) and k_err <= K4_TOL[0]
             and dx_err <= K4_TOL[1]):
         raise AssertionError(f"streamed_gram disagrees with the twin: {row}")
@@ -2389,38 +2788,20 @@ def phase_k3():
     return out
 
 
-def lambda0_counters():
-    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
-    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
-    from sigsvgd_tpu_torch.kernels import sigkernel_small as ks
-
-    return (ks.small_forward, ks.small_backward, kb.block_gram, kb.block_gram_and_grad,
-            kf.fused_forward, kf.fused_backward, kf.fused_backward_bf16)
-
-
-def run_counted(fn, counters=None):
-    """``fn()`` once after a warm-up, with every counter of ``counters``
-    (the λ=0 and pair-list kernels by default) set to 0 just before and read
-    just after: ``(out, launches, wall ms, peak allocated MiB)``."""
+def run_counted(fn):
+    """``fn()`` once after a warm-up, with every kernel's launches counted
+    around it: ``(out, Launches, wall ms, peak allocated MiB)``."""
     fn()
-    counters = counters or lambda0_counters()
-    for c in counters:
-        c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
+    with Launches() as counted:
+        out = fn()
+        torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
-    return out, {c.__name__: c.launches for c in counters}, wall_ms, peak_mib
-
-
-def expect_launches(phase, launches, counters=None, **want):
-    want = {c.__name__: want.get(c.__name__, 0) for c in counters or lambda0_counters()}
-    if launches != want:
-        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    return out, counted, wall_ms, peak_mib
 
 
 def phase_lambda0_streamed_gram(kern, X, Y):
@@ -2460,7 +2841,7 @@ def phase_lambda0_streamed_gram(kern, X, Y):
     row = {"phase": "lambda0_streamed_gram", "kernel": repr(kern),
            "dx_max_abs_err": (dX[rows] - dXp).abs().max().item(),
            "shape": [list(X.shape), list(Y.shape)], "pairs": n * m, "h": h,
-           "chunk": chunk, "chunks": nb, "wall_ms": wall_ms, "launches": launches,
+           "chunk": chunk, "chunks": nb, "wall_ms": wall_ms, "launches": launches.counts,
            "peak_allocated_mib": peak_mib, "rows_held": [[0, 63], [n - 64, n - 1]],
            "k_max_abs_err": k_err, "dx_scaled_err": dx_err,
            "vs_fp64": {"k": (K[rows].reshape(-1).double() - k64).abs().max().item(),
@@ -2468,7 +2849,7 @@ def phase_lambda0_streamed_gram(kern, X, Y):
                        "plain_dX_scaled": scaled_err(dXp, dX64)},
            "k_range": [K.min().item(), K.max().item()], "finite": finite}
     del xt, yt, kp, dxp, k64, dx64
-    expect_launches("lambda0_streamed_gram", launches, small_forward=2, small_backward=1)
+    launches.expect("lambda0_streamed_gram", small_forward=2, small_backward=1)
     if not (finite and K.shape == (n, m) and k_err <= K7_TOL[0] and dx_err <= K7_TOL[1]):
         raise AssertionError(f"lambda0_streamed_gram disagrees with the twin: {row}")
 
@@ -2476,10 +2857,8 @@ def phase_lambda0_streamed_gram(kern, X, Y):
     idx = torch.arange(n * m, device="cuda")
     xt, yt = pair_tiles(X, Y, idx // m, idx % m, h)
     del idx
-    launches_before = (ks.small_forward.launches, ks.small_backward.launches)
     k, fac = ks.small_forward(xt, yt, residuals=True)
     row["k7_at_this_list"] = time_k7(xt, yt, torch.ones(n * m, device="cuda"), fac)
-    ks.small_forward.launches, ks.small_backward.launches = launches_before
     del xt, yt, k, fac
     emit(row)
     return row
@@ -2496,11 +2875,11 @@ def phase_gram_sym(kern, X):
     K, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_sym(X))
     K1, _ = kb.block_gram_and_grad(X, kern.bandwidth)
     row = {"phase": "gram_sym", "kernel": repr(kern), "shape": list(X.shape),
-           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "wall_ms": wall_ms, "launches": launches.counts, "peak_allocated_mib": peak_mib,
            "bit_equal_k1": bool(torch.equal(K, K1)), "requires_grad": K.requires_grad,
            "finite": bool(torch.isfinite(K).all())}
     emit(row)
-    expect_launches("gram_sym", launches, block_gram=1)
+    launches.expect("gram_sym", block_gram=1)
     if not (row["finite"] and row["bit_equal_k1"]):
         raise AssertionError(f"gram_sym disagrees with K1: {row}")
     row["c8"] = gram_sym_c8()
@@ -2517,11 +2896,11 @@ def gram_sym_c8() -> dict:
     kern = SignatureKernel(0, 4.0)
     K, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_sym(X))
     row = {"phase": "gram_sym", "kernel": repr(kern), "shape": list(X.shape),
-           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "wall_ms": wall_ms, "launches": launches.counts, "peak_allocated_mib": peak_mib,
            "bit_equal_twin": bool(torch.equal(K, kb.block_gram_plain(X, 4.0))),
            "requires_grad": K.requires_grad, "finite": bool(torch.isfinite(K).all())}
     emit(row)
-    expect_launches("gram_sym c8", launches, block_gram=1)
+    launches.expect("gram_sym c8", block_gram=1)
     if not (row["finite"] and row["bit_equal_twin"]):
         raise AssertionError(f"gram_sym at C = 8 disagrees with the twin: {row}")
     return row
@@ -2551,26 +2930,17 @@ def phase_lambda0_gram_and_grad():
         k_err = (K - Kp).abs().max().item()
         dx_err = scaled_err(dX, dXp)
         row = {"phase": "lambda0_gram_and_grad", "case": name, "shape": list(X.shape),
-               "h": h, "wall_ms": wall_ms, "launches": launches,
+               "h": h, "wall_ms": wall_ms, "launches": launches.counts,
                "peak_allocated_mib": peak_mib, "k_max_abs_err": k_err,
                "dx_scaled_err": dx_err, "k_range": [K.min().item(), K.max().item()],
                "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
         emit(row)
-        expect_launches(f"lambda0_gram_and_grad {name}", launches,
+        launches.expect(f"lambda0_gram_and_grad {name}",
                         small_forward=1, small_backward=1)
         if not (row["finite"] and k_err <= K7_TOL[0] and dx_err <= K7_TOL[1]):
             raise AssertionError(f"λ=0 gram_and_grad disagrees with its twins: {row}")
         rows[name] = row
     return rows
-
-
-def k5_counters():
-    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
-    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
-    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
-
-    return (kt.tiled_forward, kt.tiled_backward, kf.fused_forward, kf.fused_backward,
-            kf.fused_backward_bf16, kb3.block3_gram_and_grad)
 
 
 class k5_twins:
@@ -2750,9 +3120,6 @@ def phase_pinned_linear():
     of each SVGD step's ``gram_and_grad`` (one chunk, asserted), K2,
     K4 and K6 never; then the peak memory of one ``gram_and_grad``."""
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
-    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
-    from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
-    from sigsvgd_tpu_torch.kernels import sigkernel_tiled as kt
 
     prob = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False,
                          static="linear")
@@ -2765,19 +3132,16 @@ def phase_pinned_linear():
         raise AssertionError(f"the {pairs}-pair linear list was cut in {nb} chunks; "
                              "a quarter of the card holds it whole")
     row = drive_solves("pinned_linear_solve", prob,
-                       {kt.tiled_forward: OPT_STEPS * nb, kt.tiled_backward: OPT_STEPS * nb,
-                        kb3.block3_gram_and_grad: 0, kf.fused_forward: 0,
-                        kf.fused_backward: 0, kf.fused_backward_bf16: 0},
+                       {"tiled_forward": OPT_STEPS * nb, "tiled_backward": OPT_STEPS * nb},
                        N_SOLVES, sig_gram_stage)
     cs = prob.ctrl.init(generator=torch.Generator(device="cuda").manual_seed(3))
     with torch.no_grad():
         tau = prob.ctrl._tau(prob.ctrl._rollout_costs(prob.q_start, cs.pol_mean)[1])
-    _, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(tau), k5_counters())
+    _, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(tau))
     emit({"phase": "pinned_linear_solve", "part": "gram_and_grad", "pairs": pairs,
-          "chunk": chunk, "chunks": nb, "wall_ms": wall_ms, "launches": launches,
+          "chunk": chunk, "chunks": nb, "wall_ms": wall_ms, "launches": launches.counts,
           "peak_allocated_mib": peak_mib})
-    expect_launches("pinned_linear gram_and_grad", launches, k5_counters(), tiled_forward=nb,
-                       tiled_backward=nb)
+    launches.expect("pinned_linear gram_and_grad", tiled_forward=nb, tiled_backward=nb)
     return row, tau
 
 
@@ -2811,7 +3175,7 @@ def phase_dense_lambda3_gram():
             (dX,) = torch.autograd.grad(K.sum(), x)
             return K.detach(), dX
 
-        (K, dX), launches, wall_ms, peak_mib = run_counted(run, k5_counters())
+        (K, dX), launches, wall_ms, peak_mib = run_counted(run)
         with k5_twins():
             Kp, _ = run()
         with k5_twins(torch.float64):
@@ -2825,7 +3189,7 @@ def phase_dense_lambda3_gram():
         finite = bool(torch.isfinite(K).all() and torch.isfinite(dX).all())
         row = {"phase": "dense_lambda3_gram", "static": static,
                "shape": [[128, 40, 2], [128, 40, 2]], "pairs": 128 * 128,
-               "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+               "wall_ms": wall_ms, "launches": launches.counts, "peak_allocated_mib": peak_mib,
                "k_max_abs_err": (K - Kp).abs().max().item(), "k_excess_over_tolerance": k_err,
                "dx_scaled_err_vs_fp64": dx_err, "vs_cpu_24x17": cpu,
                "k_range": [K.min().item(), K.max().item()], "finite": finite}
@@ -2838,15 +3202,12 @@ def phase_dense_lambda3_gram():
                 (dX4,) = torch.autograd.grad(K4.sum(), x)
                 return K4.detach(), dX4
 
-            before = (kf.fused_forward.launches, kf.fused_backward.launches)
             K4, dX4 = k4_route()
             row["k4_route"] = {"wall_ms": host_ms(k4_route, 3), "k5_route_wall_ms": host_ms(run, 3),
                                "k_max_abs_diff": (K4 - K).abs().max().item(),
                                "dx_scaled_diff": scaled_err(dX4, dX)}
-            kf.fused_forward.launches, kf.fused_backward.launches = before
         emit(row)
-        expect_launches(f"dense_lambda3_gram {static}", launches, k5_counters(), tiled_forward=1,
-                           tiled_backward=1)
+        launches.expect(f"dense_lambda3_gram {static}", tiled_forward=1, tiled_backward=1)
         if not (finite and k_err <= 0 and dx_err <= K5_TOL[1] and cpu["k_abs"] <= 5e-4
                 and cpu["dx_scaled"] <= K5_TOL[1]):
             raise AssertionError(f"dense_lambda3_gram disagrees with its twins: {row}")
@@ -2866,18 +3227,18 @@ def phase_c12_pair_list():
     gen = torch.Generator(device="cuda").manual_seed(17)
     X = smooth_paths(256, 17, 12, gen)
     kern = SignatureKernel(3, 4.0)
-    (K, dX), launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(X), k5_counters())
+    (K, dX), launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(X))
     with k5_twins(torch.float64):
         Kp, dXp = kern.gram_and_grad(X)
     k_err = (K - Kp).abs().max().item()
     dx_err = scaled_err(dX, dXp)
     row = {"phase": "c12_pair_list", "shape": [256, 17, 12], "pairs": 256 * 257 // 2,
-           "wall_ms": wall_ms, "launches": launches, "peak_allocated_mib": peak_mib,
+           "wall_ms": wall_ms, "launches": launches.counts, "peak_allocated_mib": peak_mib,
            "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
            "k_range": [K.min().item(), K.max().item()],
            "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
     emit(row)
-    expect_launches("c12_pair_list", launches, k5_counters(), tiled_forward=1, tiled_backward=1)
+    launches.expect("c12_pair_list", tiled_forward=1, tiled_backward=1)
     if not (row["finite"] and k_err <= K4_TOL[0] and dx_err <= K5_TOL[1]):
         raise AssertionError(f"c12_pair_list disagrees with its twins: {row}")
     return row
@@ -2904,7 +3265,7 @@ def phase_linear_streamed_gram(X, Y):
         (dX,) = torch.autograd.grad(K.sum(), x)
         return K.detach(), dX
 
-    (K, dX), launches, wall_ms, peak_mib = run_counted(run, k5_counters())
+    (K, dX), launches, wall_ms, peak_mib = run_counted(run)
     _, chunk, nb = kern._chunk_plan(39, 39, n * m, 2, X.device, None)
     rows = torch.cat([torch.arange(16), torch.arange(n - 16, n)]).cuda()
     x = X[rows].clone().requires_grad_(True)
@@ -2915,15 +3276,14 @@ def phase_linear_streamed_gram(X, Y):
     dx_err = scaled_err(dX[rows], dXp)
     row = {"phase": "linear_streamed_gram", "shape": [list(X.shape), list(Y.shape)],
            "pairs": n * m, "chunk": chunk, "chunks": nb, "wall_ms": wall_ms,
-           "launches": launches, "peak_allocated_mib": peak_mib,
+           "launches": launches.counts, "peak_allocated_mib": peak_mib,
            "rows_held": [[0, 15], [n - 16, n - 1]],
            "k_max_abs_err": (K[rows] - Kp.detach()).abs().max().item(),
            "k_excess_over_tolerance": k_err,
            "dx_scaled_err_vs_fp64": dx_err, "k_range": [K.min().item(), K.max().item()],
            "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
     emit(row)
-    expect_launches("linear_streamed_gram", launches, k5_counters(), tiled_forward=2 * nb,
-                       tiled_backward=nb)
+    launches.expect("linear_streamed_gram", tiled_forward=2 * nb, tiled_backward=nb)
     if not (row["finite"] and K.shape == (n, m) and k_err <= 0 and dx_err <= K5_TOL[1]):
         raise AssertionError(f"linear_streamed_gram disagrees with its twins: {row}")
     return row
@@ -2944,6 +3304,18 @@ def tiled_entry(name, replaces, k5, launches, which) -> dict:
     if which == "fwd":
         entry["values_only_ms"] = k5["fwd_values_ms"]
     return entry
+
+
+def path_shape(row, which) -> dict:
+    """A kernel's times, error and bound at the shape a planning path gives
+    it (``which``: the forward's or the backward's)."""
+    pre = "" if which == "fwd" else "bwd_"
+    err = row["max_abs_err"] if which == "fwd" else row.get(
+        "dz_max_abs_err", row.get("dX_max_abs_err_vs_fp64"))
+    return {"shape": row["shape"], "ms": row[f"{pre}ms" if pre else "kernel_ms"],
+            "plain_ms": row[f"plain_{pre}ms" if pre else "plain_ms"],
+            "bound_ms": row[f"{pre}bound_ms"], "bound_by": row[f"{pre}bound_by"],
+            "library_ms": None, "max_abs_err": err}
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
@@ -3023,10 +3395,14 @@ def main() -> int:
     if sys.argv[1:] == ["--maze"]:
         maze_phases()
         return 0
+    if sys.argv[1:] == ["--planning"]:
+        planning_phases()
+        return 0
     t_start = time.perf_counter()
     phase_build()
     k9_times = phase_k9_timing()
     maze_rows = phase_maze()
+    plan_rows = phase_planning()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
     k1_mc_launches = phase_mc_solve()
@@ -3082,28 +3458,45 @@ def main() -> int:
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
                         pinned[("pinned_solve", "block3_gram_and_grad")], k2),
          "launches_by_path": {"pinned_solve": pinned[("pinned_solve", "block3_gram_and_grad")],
-                              "maze_episode": maze_ep["launches"]["block3_gram_and_grad"]},
+                              "maze_episode": maze_ep["launches"]["block3_gram_and_grad"],
+                              "obstacle_field":
+                                  plan_rows["obstacle_field"]["launches"]["block3_gram_and_grad"]},
          "maze_shape": {k: k2m[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
                                             "bound_by", "k_max_abs_err")}
-         | {"launches_per_maze_step": maze_ep["k2_launches_per_step"]}},
+         | {"launches_per_maze_step": maze_ep["k2_launches_per_step"]},
+         "field_shape": path_shape(plan_rows["k2_field_shape"], "fwd")},
         {**kernel_entry("svgd_velocity (K9)",
                         "sigsvgd_tpu_torch/csrc/svgd_velocity.cu",
                         "sigsvgd_tpu/kernels/pallas_svgd.py:37",
                         k9_launches, k9),
          **{k: k9[k] for k in ("kernel_graph_ms", "library_graph_ms", "fp32_bound_ms",
                                "by_shape")}},
-        k8_entry("mxu_chain_fwd (K8 forward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:107",
-                 k8_launches[0], k8, "fwd"),
-        k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",
-                 k8_launches[1], k8, "bwd"),
-        fused_entry("fused_forward (K4 forward)", "sigsvgd_tpu/kernels/pallas_sigkernel.py:242",
-                    pinned[("bf16_pinned_solve", "fused_forward")], k4, "fwd",
-                    {"bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_forward")],
-                     "streamed_gram": streamed["launches"]["fused_forward"]}),
-        fused_entry("fused_backward (K4 backward)", "sigsvgd_tpu/kernels/pallas_sigkernel.py:735",
-                    streamed["launches"]["fused_backward"], k4, "bwd",
-                    {"streamed_gram": streamed["launches"]["fused_backward"],
-                     "bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_backward")]}),
+        {**k8_entry("mxu_chain_fwd (K8 forward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:107",
+                    k8_launches[0], k8, "fwd"),
+         "launches_by_path": {"planning_iter": k8_launches[0], "robot_planning_full":
+                              plan_rows["robot_planning_full"]["launches"]["mxu_chain_fwd"]},
+         "sweep_shape": path_shape(plan_rows["k8_sweep_shape"], "fwd")},
+        {**k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",
+                    k8_launches[1], k8, "bwd"),
+         "launches_by_path": {"planning_iter": k8_launches[1], "robot_planning_full":
+                              plan_rows["robot_planning_full"]["launches"]["mxu_chain_bwd"]},
+         "sweep_shape": path_shape(plan_rows["k8_sweep_shape"], "bwd")},
+        {**fused_entry("fused_forward (K4 forward)",
+                       "sigsvgd_tpu/kernels/pallas_sigkernel.py:242",
+                       pinned[("bf16_pinned_solve", "fused_forward")], k4, "fwd",
+                       {"bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_forward")],
+                        "streamed_gram": streamed["launches"]["fused_forward"],
+                        "robot_planning_quick":
+                            plan_rows["robot_planning_quick"]["launches"]["fused_forward"]}),
+         "sweep_shape": path_shape(plan_rows["k4_sweep_shape"], "fwd")},
+        {**fused_entry("fused_backward (K4 backward)",
+                       "sigsvgd_tpu/kernels/pallas_sigkernel.py:735",
+                       streamed["launches"]["fused_backward"], k4, "bwd",
+                       {"streamed_gram": streamed["launches"]["fused_backward"],
+                        "bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_backward")],
+                        "robot_planning_quick":
+                            plan_rows["robot_planning_quick"]["launches"]["fused_backward"]}),
+         "sweep_shape": path_shape(plan_rows["k4_sweep_shape"], "bwd")},
         {**kernel_entry("sigkernel_block_gram (K3)",
                         "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:291",

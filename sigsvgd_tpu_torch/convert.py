@@ -1,8 +1,10 @@
-"""Carry controller state across from the JAX package.
+"""Carry state and weights across from the JAX package.
 
 The flagship path has no learned weights: the robot comes from the URDF, the
-scene from its tables and the occupancy is the exact SDF. What crosses is the
-DuSt controller state, taken out of a JAX ``DuStState`` as numpy arrays.
+scene from its tables and the occupancy is the exact SDF. What crosses there
+is the DuSt controller state, taken out of a JAX ``DuStState`` as numpy
+arrays. The arm-planning sweep's learned occupancy and self-collision models
+cross as a flax ``ProbMLP``'s params, as numpy arrays.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from ._device import resolve_device
 from .controllers.dust import DuStState
 from .inference.svgd import AdamState, SVGDState
+from .models.learning.mlp import ProbMLP, ProbModel
 
 
 def dust_state_from_numpy(pol_mean, prior_weights, adam_count, adam_mu,
@@ -36,3 +39,13 @@ def dust_state_from_numpy(pol_mean, prior_weights, adam_count, adam_mu,
             step=i32(step),
         ),
     )
+
+
+def prob_model_from_numpy(params, features, device=None) -> ProbModel:
+    """Port a flax ``ProbMLP``'s params (``{"Dense_i": {"kernel": [in, out],
+    "bias": [out]}}``, numpy) of widths ``features``: each kernel becomes the
+    transposed ``nn.Linear`` weight, each bias is copied."""
+    in_dim = np.asarray(params["Dense_0"]["kernel"]).shape[0]
+    module = ProbMLP(in_dim, features, device=resolve_device(device))
+    module.load_flax_params(params)
+    return ProbModel(module=module)

@@ -10,8 +10,9 @@ repulsion is the signature kernel on the knot paths (``pathsig``) or an RBF
 kernel on the flattened knots (``svgd``/``svgd_med``).
 
 Ported as the JAX package has it, quirks included: the curvature term is the
-mean over the whole batch, the same for every particle. LBFGS
-(``optimizer="lbfgs"``) and checkpointing raise (ROADMAP M10, M14).
+mean over the whole batch, the same for every particle. Two options still
+raise: LBFGS (``optimizer="lbfgs"``, ROADMAP.md queue 1, item 10) and
+checkpointed runs (``checkpoint_dir``, item 14's ``utils/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -148,7 +149,7 @@ def planner_sampler(problem: PlanningProblem, config: PlannerConfig):
     if config.optimizer != "raw":
         raise NotImplementedError(
             f"optimizer={config.optimizer!r}: LBFGS with the zoom line search is "
-            "not ported yet (ROADMAP.md queue 1, M10)")
+            "not ported yet (ROADMAP.md queue 1, item 10: M10's LBFGS)")
     lower, upper = problem.robot.joint_limits()
     schedule = schedulers.cosine(1.0, 0.0, 3 * config.n_iter // 4, config.n_iter // 4)
 
@@ -174,6 +175,15 @@ def planner_sampler(problem: PlanningProblem, config: PlannerConfig):
     return svgd, score
 
 
+def uniform_knots(robot, n: int, n_free: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Knot particles ``[n, n_free, dof]`` uniform within the robot's joint
+    limits, drawn with ``generator`` on the robot's device."""
+    lower, upper = robot.joint_limits()
+    u = torch.rand((n, n_free, robot.dof), generator=generator, device=lower.device)
+    return lower + (upper - lower) * u
+
+
 def run_optimisation(problem: PlanningProblem, config: PlannerConfig,
                      generator: Optional[torch.Generator] = None,
                      x0: Optional[torch.Tensor] = None,
@@ -184,13 +194,11 @@ def run_optimisation(problem: PlanningProblem, config: PlannerConfig,
     SGD RunData))`` for ``ps_sgd``."""
     if checkpoint_dir is not None:
         raise NotImplementedError(
-            "checkpointed planning runs are not ported yet (ROADMAP.md queue 1, M14)")
+            "checkpointed planning runs are not ported yet (ROADMAP.md queue 1, "
+            "item 14: M14's utils/checkpoint.py)")
     svgd, score = planner_sampler(problem, config)
     if x0 is None:
-        lower, upper = problem.robot.joint_limits()
-        u = torch.rand((config.batch, config.length - 2, problem.robot.dof),
-                       generator=generator, device=problem.q_start.device)
-        x0 = lower + (upper - lower) * u
+        x0 = uniform_knots(problem.robot, config.batch, config.length - 2, generator)
     if config.method == "ps_sgd":
         # signature-kernel warm-up, then plain SGD refinement
         n_warm = config.n_iter - config.n_iter // 4

@@ -4,16 +4,16 @@
 The target density is ``p(x) ∝ exp(-cost(x))``, so ``∇log p = -∇cost`` by
 autograd; the kernel terms come with the score per kernel family (the
 identity kernel is plain SGD). A score function is called as
-``score(x, generator)``; none of these draws. The truncated-signature
-``PathSigKernel`` (``kernels/signature.py``) is not ported: ROADMAP M10.
+``score(x, generator)``; none of these draws.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Tuple, Union
 
 import torch
 
 from ..kernels.sigkernel import SignatureKernel
+from ..kernels.signature import PathSigKernel
 from .svgd import ScoreFn, ScoreResult
 
 CostFn = Callable[[torch.Tensor], Tuple[torch.Tensor, Any]]  # x -> (cost [n], aux)
@@ -62,19 +62,19 @@ def svgd_score(cost_fn: CostFn, kernel) -> ScoreFn:
     return score
 
 
-def pathsig_score(cost_fn: CostFn, kernel: SignatureKernel) -> ScoreFn:
+def pathsig_score(cost_fn: CostFn,
+                  kernel: Union[SignatureKernel, PathSigKernel]) -> ScoreFn:
     """Signature-kernel score for path particles ``[n, L, C]``: the Gram on
     the paths and its repulsion gradient with the second argument detached
-    (``SignatureKernel.gram_and_grad``)."""
-    if not isinstance(kernel, SignatureKernel):
-        raise NotImplementedError(
-            f"pathsig_score with {type(kernel).__name__}: only the PDE "
-            "SignatureKernel is ported; PathSigKernel (kernels/signature.py) "
-            "is ROADMAP.md queue 1, M10")
+    (``SignatureKernel.gram_and_grad``, or ``PathSigKernel`` by autograd
+    through the truncated signature)."""
 
     def score(x, generator=None):
         cost, aux, grad_log_p = _grad_neg_cost(cost_fn, x)
-        k_xx, grad_k = kernel.gram_and_grad(x.detach().contiguous())
+        if isinstance(kernel, SignatureKernel):
+            k_xx, grad_k = kernel.gram_and_grad(x.detach().contiguous())
+        else:
+            k_xx, grad_k = kernel(x.detach(), x.detach())
         return ScoreResult(grad_log_p=grad_log_p, k_xx=k_xx, grad_k=grad_k,
                            loss=cost, aux=aux)
 

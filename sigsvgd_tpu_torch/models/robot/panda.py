@@ -1,7 +1,11 @@
 """Franka Panda binding (port of ``sigsvgd_tpu/models/robot/panda.py``):
 7 actuated joints, 9 tracked links. Reads the repository's vendored
 ``robot_resources/panda/urdf/panda.urdf`` unless given another path.
-Damped-least-squares IK waits for ROADMAP queue 1, M3."""
+
+The end-effector Jacobian is exact, from autograd: three reverse passes
+through the batched FK, one a coordinate (the JAX package takes
+``vmap(jacfwd)``; the batch rows are independent, so either gives the same
+matrix). The damped-least-squares IK is a Python loop where JAX scans."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +15,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..._device import resolve_device
-from .kinematics import fk_positions
+from ...utils.math import clip
+from .kinematics import fk_poses, fk_positions
 from .urdf import KinematicChain, parse_urdf
 
 _VENDORED_URDF = (
@@ -68,6 +73,12 @@ class PandaRobot:
                          device=self.device),
         )
 
+    def velocity_limits(self) -> torch.Tensor:
+        """Per-joint speed limits from the URDF (the published MoveIt
+        ``joint_limits.yaml`` plus the URDF's 10% margin)."""
+        return torch.tensor(self.chain.velocity[:7], dtype=torch.float32,
+                            device=self.device)
+
     def _pad_q(self, qs: torch.Tensor) -> torch.Tensor:
         """Pad a 7-dof configuration with zeros for the finger joints."""
         extra = self.chain.dof - qs.shape[-1]
@@ -83,3 +94,38 @@ class PandaRobot:
 
     def ee_position(self, qs: torch.Tensor) -> torch.Tensor:
         return self.qs_to_joints_xs(qs)[..., -1, :]
+
+    def ee_pose(self, qs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """End-effector position ``[..., 3]`` and rotation ``[..., 3, 3]``."""
+        pos, rot = fk_poses(self.chain, self._pad_q(qs))
+        i = self.target_link_indices[-1]
+        return pos[..., i, :], rot[..., i, :, :]
+
+    def jacobian(self, q: torch.Tensor) -> torch.Tensor:
+        """Positional Jacobian of the end effector, ``[..., 3, 7]`` (exact)."""
+        with torch.enable_grad():
+            qq = q.detach().requires_grad_(True)
+            ee = self.ee_position(qq)
+            rows = [torch.autograd.grad(ee[..., i].sum(), qq, retain_graph=i < 2)[0]
+                    for i in range(3)]
+        return torch.stack(rows, dim=-2)
+
+    def ee_xs_to_qs(self, xs: torch.Tensor, q_init: Optional[torch.Tensor] = None,
+                    iters: int = 100, lr: float = 0.5) -> torch.Tensor:
+        """Batched damped-least-squares IK: ``[..., 3]`` targets → ``[..., 7]``
+        configurations. Each iteration solves ``(J Jᵀ + 1e-4 I) y = err``,
+        steps ``q += lr·Jᵀy`` and clips ``q`` to the joint limits; the start
+        is the middle of the limits unless ``q_init`` is given."""
+        xs = torch.atleast_2d(xs)
+        lower, upper = (t.to(xs.device) for t in self.joint_limits())
+        shape = xs.shape[:-1] + (7,)
+        q = (0.5 * (lower + upper) if q_init is None else q_init).expand(shape)
+        eye = 1e-4 * torch.eye(3, dtype=xs.dtype, device=xs.device)
+        for _ in range(iters):
+            err = xs - self.ee_position(q)
+            jac = self.jacobian(q)
+            jjt = jac @ jac.transpose(-1, -2) + eye
+            y = torch.linalg.solve(jjt, err[..., None])[..., 0]
+            dq = torch.einsum("...ij,...i->...j", jac, y)
+            q = clip(q + lr * dq, lower, upper).detach()
+        return q

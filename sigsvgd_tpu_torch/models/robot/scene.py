@@ -4,12 +4,16 @@ queue 1, M13).
 
 The SDF keeps JAX's gradients at ties (``utils.math.clip/relu/jabs``,
 ``torch.amin`` over primitives) and the ``+1e-12`` inside every square root,
-which keeps gradients finite on a surface.
+which keeps gradients finite on a surface. The hard occupancy labels the
+learned occupancy model's data and audits trajectories; scenes and path
+requests round-trip through dicts and YAML files (PyYAML is imported when a
+file is read or written).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +41,8 @@ class Primitive:
 class Scene:
     name: str
     primitives: Tuple[Primitive, ...]
+    workspace_low: Tuple[float, float, float] = (-1.0, -1.0, 0.0)
+    workspace_high: Tuple[float, float, float] = (1.0, 1.0, 1.5)
     device: torch.device = torch.device("cpu")  # where its queries run
 
 
@@ -98,6 +104,99 @@ def scene_sdf(scene: Scene, x: torch.Tensor) -> torch.Tensor:
                           device=x.device)
     ds = [_primitive_sdf(p, x) for p in scene.primitives]
     return torch.amin(torch.stack(ds, dim=0), dim=0)
+
+
+def scene_occupancy(scene: Scene, x: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    """Hard {0, 1} occupancy at points ``x [..., 3]``: ``sdf <= margin``."""
+    return (scene_sdf(scene, x) <= margin).to(torch.float32)
+
+
+def sample_occupancy_dataset(scene: Scene, n: int, margin: float = 0.0,
+                             generator: Optional[torch.Generator] = None,
+                             pts: Optional[torch.Tensor] = None):
+    """Points uniform in the scene's workspace, drawn with ``generator`` on
+    the scene's device (or the given ``pts``), and their exact occupancy
+    labels, as numpy arrays ``([n, 3], [n])``."""
+    if pts is None:
+        if generator is None:
+            raise ValueError("sample_occupancy_dataset draws: pass a generator or pts")
+        low = torch.tensor(scene.workspace_low, dtype=torch.float32, device=scene.device)
+        high = torch.tensor(scene.workspace_high, dtype=torch.float32, device=scene.device)
+        u = torch.rand((n, 3), generator=generator, device=scene.device)
+        pts = low + (high - low) * u
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=scene.device)
+    labels = scene_occupancy(scene, pts, margin)
+    return pts.cpu().numpy(), labels.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Dict and YAML round trips (the JAX package's layout; ``meshes`` is always
+# empty here, and a dict that lists mesh obstacles raises).
+# ---------------------------------------------------------------------------
+
+
+def _yaml():
+    import yaml
+
+    return yaml
+
+
+def scene_to_dict(scene: Scene) -> dict:
+    return {
+        "name": scene.name,
+        "workspace": {"low": list(scene.workspace_low),
+                      "high": list(scene.workspace_high)},
+        "primitives": [
+            {"kind": p.kind, "position": list(p.position), "size": list(p.size),
+             "rot": list(p.rot)}
+            for p in scene.primitives
+        ],
+        "meshes": [],
+    }
+
+
+def scene_from_dict(d: dict, device=None) -> Scene:
+    if d.get("meshes"):
+        raise NotImplementedError(
+            "mesh obstacles are not ported yet (ROADMAP.md queue 1, M13: mesh_scene.py)")
+    ws = d.get("workspace", {})
+    return Scene(
+        name=d.get("name", "scene"),
+        primitives=tuple(
+            Primitive(kind=p["kind"], position=tuple(p["position"]),
+                      size=tuple(p["size"]),
+                      rot=tuple(p.get("rot", (1, 0, 0, 0, 1, 0, 0, 0, 1))))
+            for p in d.get("primitives", [])
+        ),
+        workspace_low=tuple(ws.get("low", (-1, -1, 0))),
+        workspace_high=tuple(ws.get("high", (1, 1, 1.5))),
+        device=resolve_device(device),
+    )
+
+
+def save_scene(scene: Scene, path) -> None:
+    Path(path).write_text(_yaml().safe_dump(scene_to_dict(scene)))
+
+
+def load_scene(path, device=None) -> Scene:
+    return scene_from_dict(_yaml().safe_load(Path(path).read_text()), device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PathRequest:
+    """Start and goal joint configurations."""
+
+    start: Tuple[float, ...]
+    target: Tuple[float, ...]
+
+    @staticmethod
+    def from_yaml(path) -> "PathRequest":
+        d = _yaml().safe_load(Path(path).read_text())
+        return PathRequest(start=tuple(d["start"]), target=tuple(d["target"]))
+
+    def to_yaml(self, path) -> None:
+        Path(path).write_text(_yaml().safe_dump({"start": list(self.start),
+                                                 "target": list(self.target)}))
 
 
 # ---------------------------------------------------------------------------

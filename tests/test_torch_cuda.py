@@ -1121,3 +1121,154 @@ def test_trajectory_and_matrix_solves_match_cpu(cuda_device, kw):
     scale = phi_cpu.abs().max()
     torch.testing.assert_close(phi_card.cpu() / scale, phi_cpu / scale, atol=1e-4, rtol=0)
     assert int(torch.argmax(d_card.pol_weights)) == int(torch.argmax(d_cpu.pol_weights))
+
+
+def _uniform_knots(device, n, seed):
+    """Knots ``[n, 3, 7]`` as ``run_optimisation`` draws them."""
+    from sigsvgd_tpu_torch.experiments.planning import uniform_knots
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return uniform_knots(PandaRobot.create(device=device), n, 3, g)
+
+
+@pytest.mark.cuda
+def test_k4_at_the_sweep_shape(cuda_device):
+    """K4 at the quick sweep's pathsig Gram, the triangle of knots [8, 3, 7]
+    at h = 1.5: k atol 1e-4 against the fp32 twin, both tiles' gradients
+    scaled 4e-4 against the twin in fp64 (K4's tolerances)."""
+    iu, ju = torch.triu_indices(8, 8, device=cuda_device)
+    xt, yt = kb3._pair_tiles(_uniform_knots(cuda_device, 8, 1), 1.5, iu, ju)
+    g = torch.where(iu == ju, 1.0, 2.0)
+    k, ck, rc = kf.fused_forward(xt, yt, residuals=True)
+    dx, dy = kf.fused_backward(xt, yt, ck, rc, g)
+    kp, _, _ = kf.fused_pairs_plain(xt, yt, g)
+    _, dx64, dy64 = kf.fused_pairs_plain(xt.double(), yt.double(), g.double())
+    torch.testing.assert_close(k, kp, atol=1e-4, rtol=0)
+    for got, want in ((dx, dx64), (dy, dy64)):
+        scale = want.abs().max()
+        torch.testing.assert_close(got.double() / scale, want / scale, atol=4e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k2_at_the_field_shape(cuda_device):
+    """K2 at the obstacle field's pathsig Gram, knots [16, 4, 2] uniform in
+    [-4, 4]² at h = 3.0: K atol 1e-4 against the fp32 twin, dX scaled 4e-4
+    against the twin in fp64 (K2's tolerances)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    X = -4.0 + 8.0 * torch.rand((16, 4, 2), generator=g, device=cuda_device)
+    K, dX = kb3.block3_gram_and_grad(X, 3.0)
+    Kp, _ = kb3.block3_gram_and_grad_plain(X, 3.0)
+    _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), 3.0)
+    torch.testing.assert_close(K, Kp, atol=1e-4, rtol=0)
+    scale = dX64.abs().max()
+    torch.testing.assert_close(dX.double() / scale, dX64 / scale, atol=4e-4, rtol=0)
+
+
+def _planning_launches():
+    fns = (kf.fused_forward, kf.fused_backward, kb3.block3_gram_and_grad, mc.mxu_chain_fwd,
+           mc.mxu_chain_bwd)
+    return {f.__name__: f.launches for f in fns}
+
+
+def _grown(before):
+    return {k: v - before[k] for k, v in _planning_launches().items()}
+
+
+@pytest.mark.cuda
+def test_sweep_cell_matches_cpu(cuda_device):
+    """A quick sweep cell (``pillars_4``'s first request, pathsig at depth 3
+    on knots [4, 3, 7], T = 20, 3 iterations) on the card and on the CPU
+    from the same knots: the requests equal, the knots and losses rtol 1e-4,
+    atol 1e-5 (the chained planning runs' tolerance); K4 forward and
+    backward once an iteration on the card, no other kernel."""
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, run_optimisation
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    cfg = PlannerConfig(n_iter=3, batch=4, depth=3, timesteps=20)
+    u = torch.rand((4, 3, 7), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        robot = PandaRobot.create(device=dev)
+        lower, upper = robot.joint_limits()
+        reqs = rp.default_requests(robot, "pillars_4", n=1)
+        problem = rp.build_problem(robot, "pillars_4", reqs[0], False, None, None,
+                                   cfg.timesteps)
+        before = _planning_launches()
+        x, data = run_optimisation(problem, cfg, x0=lower + (upper - lower) * u.to(dev))
+        out[dev] = ([(r.start, r.target) for r in reqs], x.cpu(), data.loss.cpu(),
+                    _grown(before))
+    (rg, xg, lg, cg), (rc, xc, lc, cc) = out[cuda_device], out["cpu"]
+    assert rg == rc
+    torch.testing.assert_close(xg, xc, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+    assert cg == dict.fromkeys(cg, 0) | {"fused_forward": 3, "fused_backward": 3}
+    assert cc == dict.fromkeys(cc, 0)
+
+
+@pytest.mark.cuda
+def test_learned_cost_gradient_matches_cpu(cuda_device):
+    """The planning cost with a learned occupancy and self-collision model
+    (random numpy weights in flax's layout through
+    ``prob_model_from_numpy``) and its gradient in the knots, on the card
+    and on the CPU: the cost rtol 1e-5, the gradient scaled atol 1e-4 (the
+    planning cost's gradient tolerance, ``tests/test_torch_planning.py``)."""
+    from sigsvgd_tpu_torch.convert import prob_model_from_numpy
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.inference.score import _grad_neg_cost
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+    from sigsvgd_tpu_torch.models.robot.scene import PathRequest
+
+    rng = np.random.default_rng(5)
+
+    def params(in_dim, feats):
+        widths = (in_dim,) + feats + (1,)
+        return {f"Dense_{i}": {"kernel": rng.standard_normal((a, b)).astype(np.float32)
+                               / np.sqrt(a), "bias": 0.1 * rng.standard_normal(b).astype(
+                                   np.float32)}
+                for i, (a, b) in enumerate(zip(widths[:-1], widths[1:]))}
+
+    occ_p, self_p = params(3, (64, 64)), params(7, (64, 64))
+    req = PathRequest((0.0, -0.6, 0.0, -2.0, 0.0, 1.5, 0.0), (1.2, -0.3, 0.3, -1.5, 0.2, 1.8, 0.5))
+    x = _uniform_knots("cpu", 6, 6)
+    res = []
+    for dev in (cuda_device, "cpu"):
+        robot = PandaRobot.create(device=dev)
+        problem = rp.build_problem(robot, "pillars_4", req, True,
+                                   prob_model_from_numpy(occ_p, (64, 64), device=dev),
+                                   prob_model_from_numpy(self_p, (64, 64), device=dev), 50)
+        cost, _, g = _grad_neg_cost(problem.batch_cost, x.to(dev))
+        res.append((cost.cpu(), g.cpu()))
+    (cg, gg), (cc, gc) = res
+    torch.testing.assert_close(cg, cc, rtol=1e-5, atol=0)
+    scale = gc.abs().max()
+    torch.testing.assert_close(gg / scale, gc / scale, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_planning_paths_launch_their_kernels(cuda_device):
+    """The launch counts of the new paths: a quick sweep's pathsig cell
+    (``run_experiment`` at depth 3, 2 iterations: 2 K4 forward and 2
+    backward), the obstacle field's pathsig run (3 iterations: 3 K2) and a
+    ``PlannerConfig()``-depth cell (order 6, ``mxu_precision="default"``, 2
+    iterations: 2 K8 forward and 2 backward); no other kernel."""
+    from sigsvgd_tpu_torch.experiments import obstacle_field as of
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
+
+    zero = dict.fromkeys(_planning_launches(), 0)
+    before = _planning_launches()
+    rows = rp.run_experiment(["pillars_4"], ["pathsig"], 1, None,
+                             PlannerConfig(n_iter=2, batch=8, depth=3, timesteps=20),
+                             n_requests=1)
+    assert len(rows) == 1 and np.isfinite(rows[0]["best_ee_length"])
+    assert _grown(before) == zero | {"fused_forward": 2, "fused_backward": 2}
+    before = _planning_launches()
+    res = of.run(method="pathsig", n_iter=3)
+    assert np.isfinite(res["final_costs"]).all()
+    assert _grown(before) == zero | {"block3_gram_and_grad": 3}
+    before = _planning_launches()
+    rp.run_experiment(["pillars_4"], ["pathsig"], 1, None,
+                      PlannerConfig(n_iter=2, timesteps=20), n_requests=1)
+    assert _grown(before) == zero | {"mxu_chain_fwd": 2, "mxu_chain_bwd": 2}

@@ -33,8 +33,8 @@ from sigsvgd_tpu_torch.experiments.arm_mpc import (
 )
 from sigsvgd_tpu_torch.inference.score import pathsig_score
 from sigsvgd_tpu_torch.inference.svgd import SVGD, ScoreResult
-from sigsvgd_tpu_torch.kernels.rbf import GaussianKernel
 from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+from sigsvgd_tpu_torch.kernels.signature import PathSigKernel
 from sigsvgd_tpu_torch.utils import schedulers, splines
 from sigsvgd_tpu_torch.utils.math import smoothed_box_log_prob
 
@@ -227,8 +227,8 @@ def test_unported_planner_options_raise(problems):
         tplan.run_optimisation(tp, tplan.PlannerConfig(optimizer="lbfgs", n_iter=1))
     with pytest.raises(NotImplementedError, match="M14"):
         tplan.run_optimisation(tp, tplan.PlannerConfig(n_iter=1), checkpoint_dir="x")
-    with pytest.raises(NotImplementedError, match="M10"):
-        pathsig_score(tp.batch_cost, GaussianKernel())
+    # the truncated-signature kernel is ported: pathsig_score takes it
+    assert callable(pathsig_score(tp.batch_cost, PathSigKernel(depth=2)))
     # SVGD's Adagrad and the scaled samplers are ported
     matrix = dataclasses.replace(
         build_arm_mpc(device="cpu", n_pol=2, hz_len=2, kernel_mode="policy").ctrl,
