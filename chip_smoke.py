@@ -220,8 +220,29 @@ launches, ms an iteration), ``obstacle_field`` (300 pathsig iterations, 300
 K2, the best cost under 1.5 times the straight line's) and
 ``planning_small_vs_cpu`` (requests, a sweep cell, the field and the IK on
 the card and the CPU within ``PLANNING_SWEEP_TOL``), then
-``planning_process`` with its wall time. Before the kernel table a ``smoke_total``
-line gives the smoke's wall time.
+``planning_process`` with its wall time.
+
+Then a fresh process (``chip_smoke.py --lbfgs-mesh``) runs L-BFGS, the
+checkpointed runs and the mesh scene: ``planning_lbfgs``
+(``run_optimisation`` with ``PlannerConfig(method="pathsig",
+optimizer="lbfgs")`` at full width on ``pillars_4``'s first request for
+``LBFGS_ITERS`` of its 500 iterations: ms an iteration and line-search
+probes an iteration from the cost's calls, the mean cost falling, exactly
+one K8 forward and backward an iteration), ``planning_lbfgs_resume`` (the
+same config for 20 iterations twice uninterrupted, once interrupted right
+after its first checkpoint, once resumed, once on the finished directory:
+the two uninterrupted runs and the resumed one bit-equal),
+``maze_resume`` (``MazeConfig()``'s width, signature kernel and MPF: 6
+steps against 4 with checkpoints every 2 and a resume, bit-equal, 2 K2 a
+step), ``dust_lbfgs`` (the pendulum's DuSt with ``lbfgs(memory_size=4)``
+and ``roll_opt_state``: 20 steps, zero rolled tails, 3 steps on the card
+against the CPU within ``DUST_LBFGS_TOL``) and ``mesh_scene`` (a box STL
+in ``pillars_4`` at resolution 48: the native build and the host's grid
+build timed, ``grid_sdf`` on the card against the CPU within ``MESH_TOL``
+at ``MESH_POINTS`` points, a ``MESH_RUN_ITERS``-iteration pathsig run with
+K8 once forward and backward an iteration, the mesh audit of the best
+particle timed), then ``lbfgs_mesh_process`` with its wall time. Before
+the kernel table a ``smoke_total`` line gives the smoke's wall time.
 
 Then the kernel table line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -231,6 +252,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1641,6 +1663,398 @@ def phase_planning_sweep_small_vs_cpu() -> list:
           and row["k4_launches"] == [[cfg.n_iter, cfg.n_iter], [0, 0]])
     if not ok:
         raise AssertionError(f"the card's planning disagrees with the CPU's: {row}")
+    return row
+
+
+LBFGS_ITERS = 100  # planning_lbfgs's cut of PlannerConfig()'s 500 iterations
+LBFGS_RESUME_ITERS = (20, 10)  # planning_lbfgs_resume: the run, its checkpoint interval
+MAZE_RESUME_STEPS = (6, 4, 2)  # maze_resume: the episode, the stop, the interval
+DUST_LBFGS_STEPS = 20
+DUST_LBFGS_TOL = (1e-3, 1e-4)  # rtol, atol of 3 chained card-vs-CPU L-BFGS solves
+MESH_RUN_ITERS = 50
+MESH_POINTS = 100_000
+MESH_TOL = 1e-6  # grid_sdf's values and gradients, card against CPU
+
+
+def phase_lbfgs_mesh() -> dict:
+    """L-BFGS, the checkpointed runs and the mesh scene, in a fresh process
+    (``chip_smoke.py --lbfgs-mesh``, :func:`lbfgs_mesh_phases`; host-bound
+    paths, kept apart from this process's profiler sessions). Its rows, by
+    phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--lbfgs-mesh"], capture_output=True,
+                          text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            rows.setdefault(row["phase"], row)
+            emit(row)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"the L-BFGS and mesh process failed (exit {proc.returncode})")
+    want = {"planning_lbfgs", "planning_lbfgs_resume", "maze_resume", "dust_lbfgs",
+            "mesh_scene"}
+    if set(rows) != want:
+        raise AssertionError(f"the L-BFGS and mesh process gave the phases {sorted(rows)}")
+    emit({"phase": "lbfgs_mesh_process", "wall_s": wall_s})
+    return rows
+
+
+def lbfgs_mesh_phases() -> None:
+    import sigsvgd_tpu_torch  # noqa: F401  (the fp32 matmul policy)
+
+    phase_planning_lbfgs()
+    phase_planning_lbfgs_resume()
+    phase_maze_resume()
+    phase_dust_lbfgs()
+    phase_mesh_scene()
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def probed_problem(problem, calls: list, stop_when=None):
+    """``problem`` with its cost logging each call (host time, whether
+    autograd was on) into ``calls``; ``stop_when()`` true interrupts the run
+    at its next cost."""
+    from sigsvgd_tpu_torch.experiments.planning import PlanningProblem
+
+    class Probed(PlanningProblem):
+        def batch_cost(self, x):
+            if stop_when is not None and stop_when():
+                raise _Interrupted
+            calls.append((time.perf_counter(), torch.is_grad_enabled()))
+            return super().batch_cost(x)
+
+    return Probed(**{f.name: getattr(problem, f.name) for f in dataclasses.fields(problem)})
+
+
+def lbfgs_iterations(calls: list, t_end: float):
+    """Per iteration, from the cost calls of an L-BFGS planning run (the
+    score's, with autograd; the value's, without; then one a probe): its
+    host ms and its line-search probes."""
+    starts = [i for i, (_, g) in enumerate(calls) if g and (i + 1 < len(calls))
+              and not calls[i + 1][1]]
+    ms, probes = [], []
+    for k, i in enumerate(starts):
+        j = starts[k + 1] if k + 1 < len(starts) else len(calls)
+        t_next = calls[j][0] if j < len(calls) else t_end
+        ms.append((t_next - calls[i][0]) * 1e3)
+        probes.append(j - i - 2)
+    return ms, probes
+
+
+def lbfgs_planning_problem(scene_tag: str = "pillars_4"):
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    robot = PandaRobot.create(device="cuda")
+    req = rp.default_requests(robot, scene_tag, n=1)[0]
+    return rp.build_problem(robot, scene_tag, req, False, None, None, 200)
+
+
+def phase_planning_lbfgs() -> dict:
+    """``run_optimisation`` with ``PlannerConfig(method="pathsig",
+    optimizer="lbfgs")`` at its full width (20 particles, 5 knots, depth 6,
+    T = 200) on ``pillars_4``'s first default request, for ``LBFGS_ITERS``
+    of its 500 iterations: ms an iteration, line-search probes an iteration
+    (from the cost's calls), the mean cost at the first and the last
+    iteration (lower), exactly one K8 forward and backward an iteration and
+    no other kernel (the probes run the cost alone)."""
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, run_optimisation
+
+    cfg = PlannerConfig(method="pathsig", optimizer="lbfgs", n_iter=LBFGS_ITERS)
+    calls = []
+    problem = probed_problem(lbfgs_planning_problem(), calls)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with Launches() as run:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, data = run_optimisation(problem, cfg, generator=gen)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    ms, probes = lbfgs_iterations(calls, t_end)
+    cost0, cost1 = data.loss[0].mean().item(), data.loss[-1].mean().item()
+    row = {"phase": "planning_lbfgs", "scene": "pillars_4", "batch": cfg.batch,
+           "n_iter": cfg.n_iter, "n_iter_cut_from": 500, "depth": cfg.depth,
+           "timesteps": cfg.timesteps, "memory_size": 10, "max_linesearch_steps": 15,
+           "wall_s": t_end - t0, "ms_per_iter_median": statistics.median(ms),
+           "ms_per_iter_spread": [min(ms), max(ms)],
+           "probes_per_iter_mean": float(np.mean(probes)), "probes_per_iter_max": max(probes),
+           "iterations_seen": len(ms), "mean_cost_first": cost0, "mean_cost_last": cost1,
+           "launches": run.counts, "finite": bool(torch.isfinite(x).all())}
+    emit(row)
+    run.expect("planning_lbfgs", mxu_chain_fwd=cfg.n_iter, mxu_chain_bwd=cfg.n_iter)
+    if not (row["finite"] and len(ms) == cfg.n_iter and cost1 < cost0):
+        raise AssertionError(f"planning_lbfgs: the mean cost did not fall: {row}")
+    return row
+
+
+def phase_planning_lbfgs_resume() -> dict:
+    """The L-BFGS planning config at ``LBFGS_RESUME_ITERS[0]`` iterations:
+    twice uninterrupted; once with checkpoints every
+    ``LBFGS_RESUME_ITERS[1]`` interrupted right after its first; once
+    resumed from it; then once more on the finished directory. The two
+    uninterrupted runs equal each other and the resumed run bit for bit; the
+    finished directory gives the same knots and an empty loss; K8 once
+    forward and backward an iteration run."""
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, run_optimisation
+
+    n_iter, every = LBFGS_RESUME_ITERS
+    cfg = PlannerConfig(method="pathsig", optimizer="lbfgs", n_iter=n_iter)
+    base = lbfgs_planning_problem()
+    x0 = planning_x0(base, cfg)
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        ck = Path(d) / "ck"
+        for stage in ("uninterrupted", "again", "interrupted", "resumed", "finished"):
+            calls = []
+            stop = (lambda: (ck / f"step_{every}").exists()) if stage == "interrupted" else None
+            problem = probed_problem(base, calls, stop)
+            kw = {} if stage in ("uninterrupted", "again") else dict(
+                checkpoint_dir=str(ck), checkpoint_every=every)
+            t0 = time.perf_counter()
+            with Launches() as counted:
+                try:
+                    x, data = run_optimisation(problem, cfg, x0=x0, **kw)
+                except _Interrupted:
+                    x = data = None
+                torch.cuda.synchronize()
+            runs.append((stage, x, data, counted.counts, time.perf_counter() - t0))
+            steps = sorted(p.name for p in ck.iterdir()) if ck.exists() else []
+            if stage == "interrupted" and steps != [f"step_{every}"]:
+                raise AssertionError(f"planning_lbfgs_resume: checkpoints {steps}")
+    res = {stage: (x, data, counts, wall) for stage, x, data, counts, wall in runs}
+    x_full, x_again = res["uninterrupted"][0], res["again"][0]
+    x_res, d_res = res["resumed"][:2]
+    x_fin, d_fin = res["finished"][:2]
+    deterministic = bool(torch.equal(x_full, x_again))
+    row = {"phase": "planning_lbfgs_resume", "n_iter": n_iter, "checkpoint_every": every,
+           "deterministic": deterministic, "resumed_bit_equal": bool(torch.equal(x_res, x_full)),
+           "resumed_abs": (x_res - x_full).abs().max().item(),
+           "finished_bit_equal": bool(torch.equal(x_fin, x_res)),
+           "finished_loss_len": int(d_fin.loss.shape[0]),
+           "resumed_loss_len": int(d_res.loss.shape[0]),
+           "launches": {stage: {k: v for k, v in r[2].items() if v} for stage, r in res.items()},
+           "wall_s": {stage: r[3] for stage, r in res.items()}}
+    emit(row)
+    k8 = {stage: (r[2]["mxu_chain_fwd"], r[2]["mxu_chain_bwd"]) for stage, r in res.items()}
+    want = {"uninterrupted": (n_iter,) * 2, "again": (n_iter,) * 2,
+            "interrupted": (every,) * 2, "resumed": (n_iter - every,) * 2, "finished": (0, 0)}
+    others = sum(v for r in res.values() for k, v in r[2].items() if not k.startswith("mxu"))
+    ok = (deterministic and row["resumed_bit_equal"] and row["finished_bit_equal"]
+          and row["finished_loss_len"] == 0 and row["resumed_loss_len"] == n_iter - every
+          and k8 == want and others == 0)
+    if not ok:
+        raise AssertionError(f"planning_lbfgs_resume: {row}")
+    return row
+
+
+def planning_x0(problem, cfg):
+    from sigsvgd_tpu_torch.experiments.planning import uniform_knots
+
+    return uniform_knots(problem.robot, cfg.batch, cfg.length - 2,
+                         torch.Generator(device="cuda").manual_seed(1))
+
+
+def phase_maze_resume() -> dict:
+    """``MazeConfig()``'s width with the signature kernel and the MPF: a
+    ``MAZE_RESUME_STEPS[0]``-step episode against one stopped at
+    ``MAZE_RESUME_STEPS[1]`` with checkpoints every
+    ``MAZE_RESUME_STEPS[2]`` steps and resumed to the end, its draws from
+    the episode's CUDA generator (its state is in the checkpoint): the
+    trajectories, actions and MPF particles bit-equal, K2 twice a step."""
+    from sigsvgd_tpu_torch.experiments import maze
+
+    n, stop, every = MAZE_RESUME_STEPS
+    cfg = maze.MazeConfig(kernel="signature", use_mpf=True, steps=n)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for stage, c in (("full", cfg),
+                         ("stopped", dataclasses.replace(cfg, steps=stop, checkpoint_dir=d,
+                                                         checkpoint_every=every)),
+                         ("resumed", dataclasses.replace(cfg, checkpoint_dir=d,
+                                                         checkpoint_every=every))):
+            t0 = time.perf_counter()
+            with Launches() as counted:
+                res = maze.run_episode(c, 3, device="cuda")
+            out[stage] = (res, counted.counts, time.perf_counter() - t0)
+    full, stopped, resumed = (out[s][0] for s in ("full", "stopped", "resumed"))
+    equal = {k: bool(np.array_equal(resumed[k], full[k]))
+             for k in ("trajectory", "actions", "costs", "dyn_particles")}
+    row = {"phase": "maze_resume", "n_paths": cfg.n_policies + maze.N_PRIM,
+           "horizon": cfg.horizon, "steps": [full["steps"], stopped["steps"],
+                                             resumed["steps"]],
+           "bit_equal": equal,
+           "trajectory_abs": float(np.abs(resumed["trajectory"] - full["trajectory"]).max()),
+           "k2_launches": {s: out[s][1]["block3_gram_and_grad"] for s in out},
+           "wall_s": {s: out[s][2] for s in out}}
+    emit(row)
+    want = {"full": 2 * n, "stopped": 2 * stop, "resumed": 2 * (n - stop)}
+    others = sum(v for s in out for k, v in out[s][1].items() if k != "block3_gram_and_grad")
+    if not (all(equal.values()) and row["k2_launches"] == want and others == 0
+            and row["steps"] == [n, stop, n]):
+        raise AssertionError(f"maze_resume: the resumed episode differs: {row}")
+    return row
+
+
+def phase_dust_lbfgs() -> dict:
+    """The pendulum's DuSt (policy mode, 4 policies, H = 20, 2 Stein steps a
+    solve) with ``lbfgs(memory_size=4)`` and ``roll_opt_state=True``:
+    ``DUST_LBFGS_STEPS`` swing-up steps, all finite, every policy-shaped
+    optimizer leaf with a zero last slot after each solve; then its first 3
+    steps on the card and the CPU from the same initial policies (no other
+    draws) within ``DUST_LBFGS_TOL``."""
+    from sigsvgd_tpu_torch.controllers.dust import DuSt
+    from sigsvgd_tpu_torch.inference.svgd import lbfgs
+    from sigsvgd_tpu_torch.kernels.rbf import ScaledGaussianKernel
+    from sigsvgd_tpu_torch.models.pendulum import PendulumModel
+
+    model = PendulumModel(dt=0.05)
+    pol0 = -2.0 + 4.0 * torch.rand((4, 20, 1), generator=torch.Generator().manual_seed(6))
+
+    def episode(dev, steps):
+        ctrl = DuSt(model=model, hz_len=20, n_pol=4, device=dev, kernel_mode="policy",
+                    kernel=ScaledGaussianKernel(), optimizer=lbfgs(memory_size=4),
+                    roll_opt_state=True, inst_cost_fn=model.swingup_inst_cost,
+                    term_cost_fn=model.swingup_term_cost)
+        cs = ctrl.init(pol_mean=pol0.to(dev))
+        state = torch.tensor([math.pi, 0.0], device=dev)
+        pol_shape = (ctrl.n_total, ctrl.hz_len, ctrl.dim_a)
+        states, actions, zero_tails, probes, step_ms = [state], [], True, [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            a_seq, cs, _ = ctrl.forward(state, cs, None, opt_steps=2)
+            state = model.step(state[None], a_seq[0:1])[0]
+            states.append(state)
+            actions.append(a_seq[0])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            zero_tails &= all(bool((lf[..., -1, :] == 0).all()) for lf in leaves_of(
+                cs.svgd_state.opt_state) if lf.ndim >= 3 and tuple(lf.shape[-3:]) == pol_shape)
+            probes.append(int(cs.svgd_state.opt_state[2].info.num_linesearch_steps))
+        return torch.stack(states).cpu(), torch.stack(actions).cpu(), zero_tails, probes, step_ms
+
+    with Launches() as counted:
+        states, actions, zero_tails, probes, step_ms = episode("cuda", DUST_LBFGS_STEPS)
+    sg, ag = episode("cuda", 3)[:2]
+    sc, ac = episode("cpu", 3)[:2]
+    rtol, atol = DUST_LBFGS_TOL
+    theta = states[:, 0].numpy()
+    row = {"phase": "dust_lbfgs", "steps": DUST_LBFGS_STEPS, "n_pol": 4, "horizon": 20,
+           "memory_size": 4, "finite": bool(torch.isfinite(states).all()
+                                           and torch.isfinite(actions).all()),
+           "rolled_tails_zero": zero_tails, "last_solve_probes": probes,
+           "ms_per_step_median": statistics.median(step_ms),
+           "upright_err_min": float(np.abs((theta + np.pi) % (2 * np.pi) - np.pi).min()),
+           "vs_cpu_state_abs": (sg - sc).abs().max().item(),
+           "vs_cpu_action_abs": (ag - ac).abs().max().item(), "tol": list(DUST_LBFGS_TOL),
+           "launches": counted.counts}
+    emit(row)
+    counted.expect("dust_lbfgs")
+    if not (row["finite"] and zero_tails and torch.allclose(sg, sc, rtol=rtol, atol=atol)
+            and torch.allclose(ag, ac, rtol=rtol, atol=atol)):
+        raise AssertionError(f"dust_lbfgs: {row}")
+    return row
+
+
+def leaves_of(tree) -> list:
+    if isinstance(tree, tuple):
+        return [lf for node in tree for lf in leaves_of(node)]
+    return [tree]
+
+
+def phase_mesh_scene() -> dict:
+    """``pillars_4`` with a closed box mesh (``write_stl(box_mesh(...))``)
+    at resolution 48: the native library's build and the host's grid build
+    timed; ``grid_sdf`` on the card against the CPU at ``MESH_POINTS``
+    points across the workspace (values and gradients within
+    ``MESH_TOL``); a ``MESH_RUN_ITERS``-iteration raw-lr pathsig run in the
+    scene through ``run_optimisation`` (the cost falls; K8 once forward and
+    backward an iteration); ``PandaMeshVerifier.audit_trajectory`` on the
+    best particle's T = 200 trajectory, timed."""
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.experiments.planning import (
+        PlannerConfig, PlanningProblem, run_optimisation, sdf_occupancy,
+    )
+    from sigsvgd_tpu_torch.experiments.verify_mesh import PandaMeshVerifier
+    from sigsvgd_tpu_torch.models.robot import mesh_scene as ms
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+    from sigsvgd_tpu_torch.models.robot.scene import get_scene
+    from sigsvgd_tpu_torch.native import collision
+    from sigsvgd_tpu_torch.utils.splines import spline_trajectory
+
+    t0 = time.perf_counter()
+    lib = collision.build_native_library()
+    lib_s = time.perf_counter() - t0
+    robot = PandaRobot.create(device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        stl = Path(d) / "box.stl"
+        ms.write_stl(stl, ms.box_mesh((0.2, 0.3, 0.25)))
+        obstacle = ms.MeshObstacle(str(stl), position=(0.45, -0.2, 0.9), resolution=48)
+        scene = dataclasses.replace(get_scene("pillars_4", device="cuda"), meshes=(obstacle,))
+        t0 = time.perf_counter()
+        grid = ms.mesh_sdf_grid(obstacle, scene.workspace_low, scene.workspace_high)
+        grid_ms = (time.perf_counter() - t0) * 1e3
+
+        low = torch.tensor(scene.workspace_low)
+        high = torch.tensor(scene.workspace_high)
+        pts = low + (high - low) * torch.rand((MESH_POINTS, 3),
+                                              generator=torch.Generator().manual_seed(8))
+        res = []
+        for dev in ("cuda", "cpu"):
+            x = pts.to(dev).requires_grad_(True)
+            v = ms.grid_sdf(grid, x)
+            (g,) = torch.autograd.grad(v.sum(), x)
+            res.append((v.detach().cpu(), g.cpu()))
+        x = pts.cuda()
+        lookup_ms = event_ms(lambda: ms.grid_sdf(grid, x), 20)
+
+        req = rp.default_requests(robot, "pillars_4", n=1)[0]
+        problem = PlanningProblem(
+            robot=robot, q_start=torch.tensor(req.start, device="cuda"),
+            q_target=torch.tensor(req.target, device="cuda"),
+            occupancy_fn=sdf_occupancy(scene), timesteps=200)
+        cfg = PlannerConfig(n_iter=MESH_RUN_ITERS)
+        with Launches() as run:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            knots, data = run_optimisation(problem, cfg,
+                                           generator=torch.Generator(device="cuda").manual_seed(2))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        best = int(torch.argmin(problem.batch_cost(knots)[0]))
+        full = torch.cat([problem.q_start[None], knots[best], problem.q_target[None]])
+        qs = spline_trajectory(full, cfg.timesteps).cpu().numpy()
+        t0 = time.perf_counter()
+        verifier = PandaMeshVerifier(robot)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audit = verifier.audit_trajectory(qs, scene)
+        audit_s = time.perf_counter() - t0
+    (vg, gg), (vc, gc) = res
+    cost0, cost1 = data.loss[0].mean().item(), data.loss[-1].mean().item()
+    row = {"phase": "mesh_scene", "resolution": 48, "grid_shape": list(grid.values.shape),
+           "native_library": lib.name, "native_build_s": lib_s, "grid_build_ms": grid_ms,
+           "interior_cells": int((grid.values < -obstacle.margin).sum()),
+           "points": MESH_POINTS, "value_abs": (vg - vc).abs().max().item(),
+           "grad_abs": (gg - gc).abs().max().item(), "tol": MESH_TOL,
+           "lookup_ms": lookup_ms, "run_n_iter": cfg.n_iter, "run_wall_s": run_s,
+           "ms_per_iter": run_s * 1e3 / cfg.n_iter,
+           "mean_cost_first": cost0, "mean_cost_last": cost1, "launches": run.counts,
+           "audit_waypoints": len(qs), "verifier_setup_s": setup_s, "audit_s": audit_s,
+           "audit_fraction_colliding": audit["fraction_colliding"],
+           "audit_collision_free": audit["collision_free"]}
+    emit(row)
+    run.expect("mesh_scene", mxu_chain_fwd=cfg.n_iter, mxu_chain_bwd=cfg.n_iter)
+    ok = (row["value_abs"] <= MESH_TOL and row["grad_abs"] <= MESH_TOL and cost1 < cost0
+          and row["interior_cells"] > 0 and bool(torch.isfinite(knots).all()))
+    if not ok:
+        raise AssertionError(f"mesh_scene: {row}")
     return row
 
 
@@ -3318,6 +3732,14 @@ def path_shape(row, which) -> dict:
             "library_ms": None, "max_abs_err": err}
 
 
+def lbfgs_k8(rows: dict, which: str) -> dict:
+    """K8's launches on the L-BFGS and mesh process's paths."""
+    return {"planning_lbfgs": rows["planning_lbfgs"]["launches"][which],
+            "planning_lbfgs_resume": {stage: counts.get(which, 0) for stage, counts in
+                                      rows["planning_lbfgs_resume"]["launches"].items()},
+            "mesh_scene": rows["mesh_scene"]["launches"][which]}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel's entry; its times, error and bound are all at ``shape``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3398,11 +3820,15 @@ def main() -> int:
     if sys.argv[1:] == ["--planning"]:
         planning_phases()
         return 0
+    if sys.argv[1:] == ["--lbfgs-mesh"]:
+        lbfgs_mesh_phases()
+        return 0
     t_start = time.perf_counter()
     phase_build()
     k9_times = phase_k9_timing()
     maze_rows = phase_maze()
     plan_rows = phase_planning()
+    lbfgs_rows = phase_lbfgs_mesh()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
     k1_mc_launches = phase_mc_solve()
@@ -3459,6 +3885,7 @@ def main() -> int:
                         pinned[("pinned_solve", "block3_gram_and_grad")], k2),
          "launches_by_path": {"pinned_solve": pinned[("pinned_solve", "block3_gram_and_grad")],
                               "maze_episode": maze_ep["launches"]["block3_gram_and_grad"],
+                              "maze_resume": lbfgs_rows["maze_resume"]["k2_launches"],
                               "obstacle_field":
                                   plan_rows["obstacle_field"]["launches"]["block3_gram_and_grad"]},
          "maze_shape": {k: k2m[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
@@ -3474,12 +3901,14 @@ def main() -> int:
         {**k8_entry("mxu_chain_fwd (K8 forward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:107",
                     k8_launches[0], k8, "fwd"),
          "launches_by_path": {"planning_iter": k8_launches[0], "robot_planning_full":
-                              plan_rows["robot_planning_full"]["launches"]["mxu_chain_fwd"]},
+                              plan_rows["robot_planning_full"]["launches"]["mxu_chain_fwd"],
+                              **lbfgs_k8(lbfgs_rows, "mxu_chain_fwd")},
          "sweep_shape": path_shape(plan_rows["k8_sweep_shape"], "fwd")},
         {**k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",
                     k8_launches[1], k8, "bwd"),
          "launches_by_path": {"planning_iter": k8_launches[1], "robot_planning_full":
-                              plan_rows["robot_planning_full"]["launches"]["mxu_chain_bwd"]},
+                              plan_rows["robot_planning_full"]["launches"]["mxu_chain_bwd"],
+                              **lbfgs_k8(lbfgs_rows, "mxu_chain_bwd")},
          "sweep_shape": path_shape(plan_rows["k8_sweep_shape"], "bwd")},
         {**fused_entry("fused_forward (K4 forward)",
                        "sigsvgd_tpu/kernels/pallas_sigkernel.py:242",

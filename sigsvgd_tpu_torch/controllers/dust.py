@@ -45,7 +45,7 @@ import torch
 
 from .._device import resolve_device
 from ..inference.svgd import (
-    SVGD, Adam, ScaledSVGD, ScoreResult, SVGDState, roll_opt_state,
+    LBFGS, SVGD, ScaledSVGD, ScoreResult, SVGDState, roll_opt_state,
 )
 from ..kernels.rbf import GaussianKernel
 from ..kernels.sigkernel import SignatureKernel
@@ -105,9 +105,9 @@ class DuSt:
         default_factory=lambda: SignatureKernel(dyadic_order=2)
     )
     stein_sampler: str = "SVGD"  # SVGD | ScaledSVGD | MatrixSVGD
-    optimizer: Optional[Adam] = None
+    optimizer: Optional[Any] = None  # Adam | LBFGS (its value: the rollout cost)
     lr: float = 0.1
-    roll_opt_state: bool = False  # roll Adam's moments with the horizon
+    roll_opt_state: bool = False  # roll the optimizer's policy-shaped state
     fused_velocity: bool = False  # K9 for the policy-mode RBF velocity
     n_prim: int = 0  # leading policies that are frozen action primitives
     init_uniform_range: float = 10.0  # init draws stay within ± this
@@ -332,6 +332,14 @@ class DuSt:
             weights=ctrl.prior_weights,
         )
         params_mat = self._sample_params(params_dist, generator, draws)
+        value_fn = None
+        if isinstance(sampler.optimizer, LBFGS):
+            # the line search's objective: the policies' total rollout cost
+            # under the same parameter draws as the solve
+
+            def value_fn(pm):  # noqa: F811
+                return torch.sum(self._rollout_costs(state, pm, params_mat)[0]) / self.temperature
+
         pol, svgd_state = ctrl.pol_mean, ctrl.svgd_state
         s_shape = (self.n_action_samples,) + tuple(pol.shape)
         costs_seq, loss_seq, trace, trajs = [], [], [pol], None
@@ -342,7 +350,7 @@ class DuSt:
                     s_shape, pol, generator,
                     None if draws.actions is None else draws.actions[t])
             score, trajs = self._score(pol, state, prior, params_mat, eps)
-            pol, svgd_state = sampler.step_update(pol, svgd_state, score)
+            pol, svgd_state = sampler.step_update(pol, svgd_state, score, value_fn=value_fn)
             costs_seq.append(score.aux["costs"])
             loss_seq.append(score.loss)
             trace.append(pol)

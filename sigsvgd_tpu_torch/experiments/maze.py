@@ -5,7 +5,9 @@ A DuSt controller (the RBF kernel on the policies, or the signature kernel
 on the rollouts' XY paths) drives a point mass through an obstacle grid,
 optionally inferring the particle's mass online with the MPF after every
 real step. Each step's solve, the real step and the termination flags run
-on the device; the host fetches one packed tensor a step.
+on the device; the host fetches one packed tensor a step. With
+``checkpoint_dir`` the episode saves its state every ``checkpoint_every``
+steps and a restarted episode resumes from the newest checkpoint.
 
 Run: ``python -m sigsvgd_tpu_torch.experiments.maze --kernel signature --steps 300``
 (``--device cpu`` for the CPU; the card by default).
@@ -16,6 +18,7 @@ import argparse
 import dataclasses
 import json
 import time
+from pathlib import Path
 from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -30,6 +33,7 @@ from ..kernels.rbf import GaussianKernel, ScaledGaussianKernel
 from ..kernels.sigkernel import SignatureKernel
 from ..models.particle import ParticleModel
 from ..utils import distributions as du
+from ..utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from ..utils.helper import generate_seeds, save_progress
 from ..utils.obstacle_map import get_collisions
 
@@ -56,16 +60,18 @@ class MazeConfig:
     mpf_learning_rate: float = 0.01
     mpf_bandwidth: float = 0.5
     mpf_obs_std: float = 0.1
-    # the MPF sharded over a mesh of this many devices: not ported (M15)
+    # the MPF sharded over a mesh of this many devices: not ported
+    # (ROADMAP.md queue 1, item 15)
     mpf_mesh_devices: int = 0
     dyn_prior_mean: float = 2.0
     dyn_prior_std: float = 0.1
     dt: float = 0.015
     warm_up: int = 0
-    # checkpoint and resume: not ported (M14)
+    # save the episode's state every checkpoint_every steps; an episode
+    # restarted with the same checkpoint_dir resumes from the newest
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
-    # per-step cost streamed to a PNG: not ported (M14)
+    # per-step cost streamed to a PNG: not ported (ROADMAP.md queue 1, item 14)
     live_plot: Optional[str] = None
 
 
@@ -196,15 +202,12 @@ def sample_draws(cfg: MazeConfig, generator: torch.Generator) -> MazeDraws:
 
 
 def _check_ported(cfg: MazeConfig) -> None:
-    if cfg.checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir: checkpointed episodes need "
-                                  "utils/checkpoint.py, not ported yet (ROADMAP.md M14)")
     if cfg.live_plot is not None:
         raise NotImplementedError("live_plot: utils/live_plot.py is not ported yet "
-                                  "(ROADMAP.md M14)")
+                                  "(ROADMAP.md queue 1, item 14: M14)")
     if cfg.mpf_mesh_devices:
         raise NotImplementedError("mpf_mesh_devices: the sharded MPF is not ported "
-                                  "yet (ROADMAP.md M15)")
+                                  "yet (ROADMAP.md queue 1, item 15: M15)")
 
 
 def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
@@ -213,7 +216,9 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
     the trajectory, actions, costs and, with the MPF, its particles after
     each step. Draws come from a generator on the device seeded with
     ``seed`` (the initial policies, the MPF's initial particles, then each
-    step's), or from ``draws``."""
+    step's), or from ``draws``. A checkpoint holds the state, the
+    controller's and the MPF's states, the generator's state and the history
+    so far, so a resumed episode repeats the uninterrupted one."""
     _check_ported(cfg)
     device = resolve_device(device)
     model = make_model(cfg, device)
@@ -253,10 +258,38 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
 
     gmm_weights = torch.ones(cfg.mpf_n_particles, device=device)
     states, actions, costs, dyn_particles = [state.cpu().numpy()], [], [], []
+
+    def saved():
+        return {"state": state, "cstate": cstate,
+                "mpf_state": mpf_state if mpf else torch.zeros(()),
+                "generator": gen.get_state()}
+
+    start_step = 0
+    latest = latest_checkpoint(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    if latest is not None:
+        restored = restore_checkpoint(latest, saved())
+        state, cstate = restored["state"], restored["cstate"]
+        if mpf:
+            mpf_state = restored["mpf_state"]
+        gen.set_state(restored["generator"])
+        start_step = int(latest.name.split("_")[1])
+        hist = np.load(latest / "history.npz")
+        states, actions, costs = (list(hist[k]) for k in ("states", "actions", "costs"))
+        if hist["dyn_particles"].size:
+            dyn_particles = list(hist["dyn_particles"])
+
+    def save(step: int):
+        path = Path(cfg.checkpoint_dir) / f"step_{step}"
+        save_checkpoint(path, saved())
+        np.savez(path / "history.npz", states=np.stack(states),
+                 actions=np.stack(actions) if actions else np.zeros((0, 2)),
+                 costs=np.asarray(costs),
+                 dyn_particles=np.stack(dyn_particles) if dyn_particles else np.zeros(0))
+
     reached_goal = crashed = False
     t0 = time.perf_counter()
     step_ends = [t0]
-    for step in range(cfg.steps):
+    for step in range(start_step, cfg.steps):
         step_draws = NO_DRAWS
         if draws.steps:
             if step >= len(draws.steps):
@@ -295,6 +328,8 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
             if verbose:
                 print(f"Reached goal at step {step}")
             break
+        if cfg.checkpoint_dir and cfg.checkpoint_every and (step + 1) % cfg.checkpoint_every == 0:
+            save(step + 1)
     wall = time.perf_counter() - t0
 
     return {
@@ -319,10 +354,10 @@ def main(argv=None):
     parser.add_argument("--episodes", type=int, default=1)
     parser.add_argument("--use-mpf", action="store_true")
     parser.add_argument("--mpf-mesh-devices", type=int, default=0,
-                        help="not ported yet (M15): must stay 0")
+                        help="not ported yet (ROADMAP.md queue 1, item 15): must stay 0")
     parser.add_argument("--out", default=None)
     parser.add_argument("--live-plot", default=None, metavar="PNG",
-                        help="not ported yet (M14)")
+                        help="not ported yet (ROADMAP.md queue 1, item 14)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 

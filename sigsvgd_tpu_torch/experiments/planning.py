@@ -10,24 +10,27 @@ repulsion is the signature kernel on the knot paths (``pathsig``) or an RBF
 kernel on the flattened knots (``svgd``/``svgd_med``).
 
 Ported as the JAX package has it, quirks included: the curvature term is the
-mean over the whole batch, the same for every particle. Two options still
-raise: LBFGS (``optimizer="lbfgs"``, ROADMAP.md queue 1, item 10) and
-checkpointed runs (``checkpoint_dir``, item 14's ``utils/checkpoint.py``).
+mean over the whole batch, the same for every particle. ``optimizer="lbfgs"``
+takes L-BFGS with the zoom line search on the batch's total cost, and
+``run_optimisation(checkpoint_dir=...)`` saves the knots and the sampler's
+state every ``checkpoint_every`` iterations and resumes from the newest.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..inference.score import pathsig_score, sgd_score, svgd_score
-from ..inference.svgd import SVGD
+from ..inference.svgd import SVGD, RunData, SVGDState, lbfgs
 from ..kernels.rbf import GaussianKernel
 from ..kernels.sigkernel import SignatureKernel
 from ..models.robot.panda import PandaRobot
 from ..models.robot.scene import Scene, scene_sdf
 from ..utils import schedulers
+from ..utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from ..utils.math import safe_norm, smoothed_box_log_prob
 from ..utils.splines import (
     natural_cubic_spline_coeffs,
@@ -134,7 +137,7 @@ class PlannerConfig:
     batch: int = 20
     length: int = 5  # total knots incl. endpoints
     lr: float = 1e-3
-    optimizer: str = "raw"  # raw (lr update) | lbfgs (not ported: M10)
+    optimizer: str = "raw"  # raw (lr update) | lbfgs (L-BFGS, zoom line search)
     pathsig_bw: float = 1.5
     svgd_bw: float = 1.5
     depth: int = 6  # dyadic order of the PDE signature kernel
@@ -144,12 +147,11 @@ class PlannerConfig:
 
 def planner_sampler(problem: PlanningProblem, config: PlannerConfig):
     """``(SVGD sampler, score function)`` of a planning run: the raw-lr
-    update with the joint-limit box prior and the cosine repulsion schedule
-    (``ρ`` 1 → 0 from a quarter to three quarters of ``n_iter``)."""
-    if config.optimizer != "raw":
-        raise NotImplementedError(
-            f"optimizer={config.optimizer!r}: LBFGS with the zoom line search is "
-            "not ported yet (ROADMAP.md queue 1, item 10: M10's LBFGS)")
+    update (or L-BFGS, ``optimizer="lbfgs"``) with the joint-limit box prior
+    and the cosine repulsion schedule (``ρ`` 1 → 0 from a quarter to three
+    quarters of ``n_iter``)."""
+    if config.optimizer not in ("raw", "lbfgs"):
+        raise ValueError(f"unknown optimizer {config.optimizer!r}")
     lower, upper = problem.robot.joint_limits()
     schedule = schedulers.cosine(1.0, 0.0, 3 * config.n_iter // 4, config.n_iter // 4)
 
@@ -171,8 +173,21 @@ def planner_sampler(problem: PlanningProblem, config: PlannerConfig):
         score = pathsig_score(problem.batch_cost, kernel)
     else:
         raise ValueError(f"unknown method {config.method!r}")
-    svgd = SVGD(lr=config.lr, log_prior=log_prior, repulsion_schedule=schedule)
+    svgd = SVGD(optimizer=lbfgs() if config.optimizer == "lbfgs" else None, lr=config.lr,
+                log_prior=log_prior, repulsion_schedule=schedule)
     return svgd, score
+
+
+def planning_value_fn(problem: PlanningProblem, config: PlannerConfig):
+    """The L-BFGS line search's objective, the batch's total cost (None
+    under the raw update)."""
+    if config.optimizer != "lbfgs":
+        return None
+
+    def value_fn(x):
+        return torch.sum(problem.batch_cost(x)[0])
+
+    return value_fn
 
 
 def uniform_knots(robot, n: int, n_free: int,
@@ -187,28 +202,62 @@ def uniform_knots(robot, n: int, n_free: int,
 def run_optimisation(problem: PlanningProblem, config: PlannerConfig,
                      generator: Optional[torch.Generator] = None,
                      x0: Optional[torch.Tensor] = None,
-                     checkpoint_dir: Optional[str] = None):
+                     checkpoint_dir: Optional[str] = None,
+                     checkpoint_every: int = 100):
     """SVGD trajectory optimisation on the problem's device. ``x0`` defaults
     to knots uniform within the joint limits, drawn with ``generator``.
     Returns ``(final knots, RunData)``, or ``(final knots, (warm-up RunData,
-    SGD RunData))`` for ``ps_sgd``."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed planning runs are not ported yet (ROADMAP.md queue 1, "
-            "item 14: M14's utils/checkpoint.py)")
+    SGD RunData))`` for ``ps_sgd``.
+
+    With ``checkpoint_dir`` (not for ``ps_sgd``, which ignores it) the run
+    goes in segments of ``checkpoint_every`` iterations, saving the knots
+    and the sampler's state after each as ``step_<n>``, and a call resumes
+    from the newest: ``x0`` is drawn all the same, then replaced. Its trace
+    is ``[x0, final knots]`` and its loss that of the iterations it ran
+    (empty for a run already complete)."""
     svgd, score = planner_sampler(problem, config)
+    value_fn = planning_value_fn(problem, config)
     if x0 is None:
         x0 = uniform_knots(problem.robot, config.batch, config.length - 2, generator)
     if config.method == "ps_sgd":
         # signature-kernel warm-up, then plain SGD refinement
         n_warm = config.n_iter - config.n_iter // 4
-        x_mid, state, data1 = svgd.run(x0, score, n_warm, generator=generator)
+        x_mid, state, data1 = svgd.run(x0, score, n_warm, generator=generator,
+                                       value_fn=value_fn)
         x_final, _, data2 = svgd.run(x_mid, sgd_score(problem.batch_cost),
                                      config.n_iter // 4, generator=generator,
-                                     state=state)
+                                     state=state, value_fn=value_fn)
         return x_final, (data1, data2)
-    x_final, _, data = svgd.run(x0, score, config.n_iter, generator=generator)
+    if checkpoint_dir is not None:
+        return _run_checkpointed(svgd, score, value_fn, x0, config.n_iter, generator,
+                                 Path(checkpoint_dir), checkpoint_every)
+    x_final, _, data = svgd.run(x0, score, config.n_iter, generator=generator,
+                                value_fn=value_fn)
     return x_final, data
+
+
+def _run_checkpointed(svgd: SVGD, score, value_fn, x0: torch.Tensor, n_iter: int,
+                      generator, root: Path, every: int):
+    state = svgd.init(x0)
+    x, done = x0, 0
+    latest = latest_checkpoint(root)
+    if latest is not None:
+        restored = restore_checkpoint(
+            latest, {"x": x, "opt_state": state.opt_state, "step": state.step})
+        x = restored["x"]
+        state = SVGDState(opt_state=restored["opt_state"], step=restored["step"])
+        done = int(latest.name.split("_")[1])
+    losses = []
+    while done < n_iter:
+        seg = min(every, n_iter - done)
+        x, state, data = svgd.run_host_loop(x, score, seg, generator=generator,
+                                            state=state, value_fn=value_fn)
+        losses.append(data.loss)
+        done += seg
+        save_checkpoint(root / f"step_{done}",
+                        {"x": x, "opt_state": state.opt_state, "step": state.step})
+    loss = torch.cat(losses) if losses else torch.zeros((0,), device=x0.device)
+    return x, RunData(trace=torch.stack([x0, x]), loss=loss, aux=None)
 
 
 def evaluate_trajectory(problem: PlanningProblem, x: torch.Tensor,

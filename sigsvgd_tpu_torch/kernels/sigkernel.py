@@ -41,7 +41,8 @@ and :func:`solve_goursat_pde`, an anti-diagonal sweep of torch ops with a
 chunked, checkpointed adjoint (no kernel of its own: the JAX package
 computes it in XLA, outside any Pallas kernel); the dense λ=0 ``gram``
 solves by it too. Only a pair list of the block propagator (λ ≥ 4 above
-the dense route's memory guard) raises, naming ROADMAP M6.
+the dense route's memory guard) raises, naming ROADMAP.md queue 1, item 8
+(M6).
 """
 from __future__ import annotations
 
@@ -543,7 +544,7 @@ class SignatureKernel:
             raise NotImplementedError(
                 f"a dyadic_order={self.dyadic_order} Gram by pair list takes the "
                 "JAX package's streamed block-propagator route, not ported yet "
-                "(ROADMAP.md queue 1, M6)"
+                "(ROADMAP.md queue 1, item 8: M6's block-propagator pair lists)"
             )
         budget = _budget_bytes(device)
         if kind == "small":
@@ -770,7 +771,7 @@ class SignatureKernel:
                 f"gram_and_grad of {n} paths at dyadic_order={lam} "
                 "is above the dense route's memory guard; the gathered pair-list "
                 "route of the block propagator is not ported yet (ROADMAP.md "
-                "queue 1, M6)"
+                "queue 1, item 8: M6's block-propagator pair lists)"
             )
         with torch.enable_grad():
             x = X.detach().requires_grad_(True)

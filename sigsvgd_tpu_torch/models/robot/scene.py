@@ -1,13 +1,13 @@
-"""Primitive obstacle scenes with exact signed-distance fields (port of
-``sigsvgd_tpu/models/robot/scene.py``; mesh obstacles wait for ROADMAP
-queue 1, M13).
+"""Obstacle scenes with signed-distance fields (port of
+``sigsvgd_tpu/models/robot/scene.py``): posed primitives with exact SDFs,
+and mesh obstacles through their distance grids (``mesh_scene.py``).
 
 The SDF keeps JAX's gradients at ties (``utils.math.clip/relu/jabs``,
 ``torch.amin`` over primitives) and the ``+1e-12`` inside every square root,
 which keeps gradients finite on a surface. The hard occupancy labels the
-learned occupancy model's data and audits trajectories; scenes and path
-requests round-trip through dicts and YAML files (PyYAML is imported when a
-file is read or written).
+learned occupancy model's data and audits trajectories; scenes (their
+meshes too) and path requests round-trip through dicts and YAML files
+(PyYAML is imported when a file is read or written).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 from ..._device import resolve_device
 from ...utils.math import clip, jabs, relu
 from .kinematics import _add, _mul
+from .mesh_scene import MeshObstacle, grid_sdf, mesh_sdf_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +40,14 @@ class Primitive:
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
+    """Obstacles: analytic primitives and posed triangle meshes."""
+
     name: str
     primitives: Tuple[Primitive, ...]
     workspace_low: Tuple[float, float, float] = (-1.0, -1.0, 0.0)
     workspace_high: Tuple[float, float, float] = (1.0, 1.0, 1.5)
     device: torch.device = torch.device("cpu")  # where its queries run
+    meshes: Tuple[MeshObstacle, ...] = ()
 
 
 def _safe_sqrt(s):
@@ -98,11 +102,13 @@ def _primitive_sdf(p: Primitive, x: torch.Tensor) -> torch.Tensor:
 
 
 def scene_sdf(scene: Scene, x: torch.Tensor) -> torch.Tensor:
-    """Scene SDF, the minimum over primitives: ``x [..., 3] → [...]``."""
-    if not scene.primitives:
-        return torch.full(x.shape[:-1], float("inf"), dtype=x.dtype,
-                          device=x.device)
+    """Scene SDF, the minimum over the primitives (exact) and the mesh
+    obstacles (their grids, trilinear): ``x [..., 3] → [...]``."""
     ds = [_primitive_sdf(p, x) for p in scene.primitives]
+    for m in scene.meshes:
+        ds.append(grid_sdf(mesh_sdf_grid(m, scene.workspace_low, scene.workspace_high), x))
+    if not ds:
+        return torch.full(x.shape[:-1], float("inf"), dtype=x.dtype, device=x.device)
     return torch.amin(torch.stack(ds, dim=0), dim=0)
 
 
@@ -130,8 +136,7 @@ def sample_occupancy_dataset(scene: Scene, n: int, margin: float = 0.0,
 
 
 # ---------------------------------------------------------------------------
-# Dict and YAML round trips (the JAX package's layout; ``meshes`` is always
-# empty here, and a dict that lists mesh obstacles raises).
+# Dict and YAML round trips (the JAX package's layout).
 # ---------------------------------------------------------------------------
 
 
@@ -151,14 +156,15 @@ def scene_to_dict(scene: Scene) -> dict:
              "rot": list(p.rot)}
             for p in scene.primitives
         ],
-        "meshes": [],
+        "meshes": [
+            {"path": m.path, "position": list(m.position), "rot": list(m.rot),
+             "margin": m.margin, "resolution": m.resolution}
+            for m in scene.meshes
+        ],
     }
 
 
 def scene_from_dict(d: dict, device=None) -> Scene:
-    if d.get("meshes"):
-        raise NotImplementedError(
-            "mesh obstacles are not ported yet (ROADMAP.md queue 1, M13: mesh_scene.py)")
     ws = d.get("workspace", {})
     return Scene(
         name=d.get("name", "scene"),
@@ -171,6 +177,13 @@ def scene_from_dict(d: dict, device=None) -> Scene:
         workspace_low=tuple(ws.get("low", (-1, -1, 0))),
         workspace_high=tuple(ws.get("high", (1, 1, 1.5))),
         device=resolve_device(device),
+        meshes=tuple(
+            MeshObstacle(path=m["path"], position=tuple(m.get("position", (0, 0, 0))),
+                         rot=tuple(m.get("rot", (1, 0, 0, 0, 1, 0, 0, 0, 1))),
+                         margin=float(m.get("margin", 0.02)),
+                         resolution=int(m.get("resolution", 48)))
+            for m in d.get("meshes", [])
+        ),
     )
 
 

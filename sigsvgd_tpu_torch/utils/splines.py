@@ -2,8 +2,12 @@
 
 Coefficients come from the tridiagonal system for the knot second
 derivatives, solved by the Thomas algorithm (a Python loop over the knots,
-differentiable by autograd); evaluation is a gather and a cubic. Leading
-batch dimensions of the knot values are carried through every function.
+differentiable by autograd); evaluation is a gather and a cubic. The
+gather is a product with the queries' one-hot segment matrix: exact
+forward, and a backward without atomic adds, so the gradient on the card
+is the same run to run (``index_select``'s backward, an ``index_add_``,
+sums in the order its atomics land). Leading batch dimensions of the knot
+values are carried through every function.
 """
 from __future__ import annotations
 
@@ -73,30 +77,34 @@ def natural_cubic_spline_coeffs(t: torch.Tensor, y: torch.Tensor) -> CubicSpline
 
 
 def _locate(t: torch.Tensor, tq: torch.Tensor):
+    """Each query's segment as a one-hot ``[m, n-1]`` matrix, and its
+    offset into the segment."""
     idx = torch.searchsorted(t, tq, right=True) - 1
     idx = torch.clamp(idx, 0, t.shape[0] - 2)
-    return idx, tq - t[idx]
+    segments = torch.arange(t.shape[0] - 1, device=t.device)
+    onehot = (idx[:, None] == segments).to(tq.dtype)
+    return onehot, tq - t[idx]
 
 
 def spline_evaluate(spline: CubicSpline, tq: torch.Tensor) -> torch.Tensor:
     """Values at query times ``tq [m]`` → ``[..., m, ch]``."""
-    idx, dt = _locate(spline.t, tq)
+    onehot, dt = _locate(spline.t, tq)
     dt = dt[:, None]
-    y = spline.y.index_select(-2, idx)
-    b = spline.b.index_select(-2, idx)
-    c = spline.c.index_select(-2, idx)
-    d = spline.d.index_select(-2, idx)
+    y = onehot @ spline.y[..., :-1, :]
+    b = onehot @ spline.b
+    c = onehot @ spline.c
+    d = onehot @ spline.d
     return y + dt * (b + dt * (c + dt * d))
 
 
 def spline_derivative(spline: CubicSpline, tq: torch.Tensor,
                       order: int = 1) -> torch.Tensor:
     """First or second derivative at ``tq [m]`` → ``[..., m, ch]``."""
-    idx, dt = _locate(spline.t, tq)
+    onehot, dt = _locate(spline.t, tq)
     dt = dt[:, None]
-    b = spline.b.index_select(-2, idx)
-    c = spline.c.index_select(-2, idx)
-    d = spline.d.index_select(-2, idx)
+    b = onehot @ spline.b
+    c = onehot @ spline.c
+    d = onehot @ spline.d
     if order == 1:
         return b + dt * (2.0 * c + 3.0 * dt * d)
     if order == 2:

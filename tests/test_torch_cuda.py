@@ -51,7 +51,13 @@ atol 3e-5 and the repulsion scaled 5e-5 (``tests/test_torch_dust.py``'s
 on the card against the CPU, and the trajectory-mode and MatrixSVGD first
 steps likewise. K2 at the particle maze's [35, 30, 2] and [36, 30, 2] on
 the maze's own τ, and a 3-step maze episode (signature kernel, MPF on) on
-the card against the CPU with the same draws.
+the card against the CPU with the same draws. L-BFGS with the zoom line
+search one update at a time on the card against the CPU (every state leaf
+within rtol 1e-5 / atol 1e-6, the probe counts equal); checkpoints of card
+tensors and of a CUDA generator's state; a mesh obstacle's grid lookup
+(values and gradients within 1e-6) and the toy targets on the card against
+the CPU; the MoveIt importer and a gymnasium swing-up with the controller on
+the card, which skip where PyYAML or gymnasium is missing.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so it runs on a machine without it:
@@ -1272,3 +1278,208 @@ def test_planning_paths_launch_their_kernels(cuda_device):
     rp.run_experiment(["pillars_4"], ["pathsig"], 1, None,
                       PlannerConfig(n_iter=2, timesteps=20), n_requests=1)
     assert _grown(before) == zero | {"mxu_chain_fwd": 2, "mxu_chain_bwd": 2}
+
+
+def _lbfgs_case(device, seed=0):
+    """A badly scaled target whose line searches grow and zoom, with a
+    direction off its gradient (as the Stein velocity is)."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn((6, 6), generator=g)
+    A = ((A @ A.T / 6 + torch.eye(6)) * 8.0).to(device)
+
+    def f(x):
+        v = x.reshape(-1)
+        return 0.5 * v @ A @ v + 3.0 * torch.cos(2.0 * x).sum()
+
+    def direction(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            (gr,) = torch.autograd.grad(f(xx), xx)
+        return gr * 1.3 + 0.1
+
+    return f, direction, (torch.randn((3, 2), generator=g) * 2.0).to(device)
+
+
+@pytest.mark.cuda
+def test_lbfgs_updates_match_cpu(cuda_device):
+    """L-BFGS with the zoom line search on the card against the CPU, one
+    update at a time from the same state: every leaf within rtol 1e-5 /
+    atol 1e-6 (``tests/test_torch_lbfgs.py``'s tolerance against optax), the
+    probe counts equal."""
+    from sigsvgd_tpu_torch.inference.svgd import lbfgs
+
+    opt = lbfgs(memory_size=4)
+    f_c, dir_c, x = _lbfgs_case("cpu")
+    f_g, dir_g, _ = _lbfgs_case(cuda_device)
+    state = opt.init(x)
+    probes = []
+    for _ in range(8):
+        u_c, s_c = opt.update(dir_c(x), state, x, value=f_c(x), value_fn=f_c)
+        moved = [t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+                 for t in (x, *_leaves(state))]
+        s_g_in = _unflatten(state, moved[1:])
+        xg = moved[0]
+        u_g, s_g = opt.update(dir_g(xg), s_g_in, xg, value=f_g(xg), value_fn=f_g)
+        assert int(s_g[2].info.num_linesearch_steps) == int(s_c[2].info.num_linesearch_steps)
+        for a, b in zip(_leaves(s_g), _leaves(s_c)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(u_g.cpu(), u_c, rtol=1e-5, atol=1e-6)
+        probes.append(int(s_c[2].info.num_linesearch_steps))
+        x, state = x + u_c, s_c
+    assert max(probes) > 1, probes
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [leaf for node in tree for leaf in _leaves(node)]
+    return [tree]
+
+
+def _unflatten(template, leaves):
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(fill(c) for c in node))
+        if isinstance(node, tuple):
+            return tuple(fill(c) for c in node)
+        return next(it)
+
+    return fill(template)
+
+
+@pytest.mark.cuda
+def test_checkpoints_round_trip_card_tensors_and_generator(cuda_device, tmp_path):
+    """CUDA tensors come back on the card with their dtypes; a CUDA
+    generator's restored state repeats its draws."""
+    from sigsvgd_tpu_torch.inference.svgd import lbfgs
+    from sigsvgd_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    torch.rand(5, generator=gen, device=cuda_device)
+    x = torch.randn((4, 3, 2), generator=gen, device=cuda_device)
+    tree = {"x": x, "opt": lbfgs(memory_size=3).init(x), "gen": gen.get_state()}
+    save_checkpoint(tmp_path / "step_1", tree)
+    want = torch.rand(7, generator=gen, device=cuda_device)
+    back = restore_checkpoint(tmp_path / "step_1", tree)
+    assert back["x"].device.type == "cuda" and torch.equal(back["x"], x)
+    assert back["opt"][0].count.dtype == torch.int32 and back["opt"][0].count.is_cuda
+    gen2 = torch.Generator(device=cuda_device)
+    gen2.set_state(back["gen"])
+    assert torch.equal(torch.rand(7, generator=gen2, device=cuda_device), want)
+
+
+@pytest.mark.cuda
+def test_grid_sdf_matches_cpu(cuda_device, tmp_path):
+    """A closed box mesh's grid lookup on the card against the CPU: values
+    and gradients within 1e-6, inside, outside and beyond the lattice."""
+    from sigsvgd_tpu_torch.models.robot import mesh_scene as ms
+
+    stl = tmp_path / "box.stl"
+    ms.write_stl(stl, ms.box_mesh((0.3, 0.2, 0.4)))
+    grid = ms.mesh_sdf_grid(ms.MeshObstacle(str(stl), position=(0.1, 0.0, 0.5)),
+                            (-0.6, -0.6, 0.0), (0.6, 0.6, 1.2))
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand((20000, 3), generator=g) * torch.tensor([1.6, 1.6, 1.6]) - torch.tensor(
+        [0.8, 0.8, 0.2])
+    res = []
+    for dev in (cuda_device, "cpu"):
+        x = pts.to(dev).requires_grad_(True)
+        v = ms.grid_sdf(grid, x)
+        (dx,) = torch.autograd.grad(v.sum(), x)
+        res.append((v.detach().cpu(), dx.cpu()))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(res[0][1], res[1][1], rtol=1e-6, atol=1e-6)
+    assert (res[1][0] < 0).any() and len(grid._on_device) == 2
+
+
+@pytest.mark.cuda
+def test_toy_targets_match_cpu(cuda_device):
+    """The toy targets on the card against the CPU in fp64 (the star's
+    1/100 variance amplifies fp32 rounding to ~3e-4 in its score): ``logp``,
+    the score and the banana's Hessian within rtol 1e-6 / atol 1e-6, the
+    fp32 star built on the card equal to the CPU's within 1e-6."""
+    from sigsvgd_tpu_torch.models import toy
+
+    x = torch.rand((256, 2), generator=torch.Generator().manual_seed(1),
+                   dtype=torch.float64) * 4.0 - 2.0
+    star32_c, star32_g = toy.star_gaussian(device="cpu"), toy.star_gaussian()
+    torch.testing.assert_close(star32_g.sigmas.cpu(), star32_c.sigmas, rtol=1e-6, atol=1e-6)
+    star_c = toy.StarGaussian(star32_c.mus.double(), star32_c.sigmas.double())
+    star_g = toy.StarGaussian(star_c.mus.to(cuda_device), star_c.sigmas.to(cuda_device))
+    for tgt_c, tgt_g in ((toy.DoubleBanana(),) * 2, (toy.Sine(),) * 2, (star_c, star_g)):
+        for fn in ("logp", "grad_log_p", "hessian_log_p"):
+            if not hasattr(tgt_c, fn):
+                continue
+            got = getattr(tgt_g, fn)(x.to(cuda_device)).cpu()
+            torch.testing.assert_close(got, getattr(tgt_c, fn)(x), rtol=1e-6, atol=1e-6)
+    s = star32_g.sample(1000, torch.Generator(device=cuda_device).manual_seed(0))
+    assert s.is_cuda and s.shape == (1000, 2)
+
+
+@pytest.mark.cuda
+def test_moveit_scene_loads_onto_the_card(cuda_device, tmp_path):
+    """The MoveIt importer onto the card; PyYAML is not on every machine
+    with a card, and the test skips without it."""
+    yaml = pytest.importorskip("yaml")
+    from sigsvgd_tpu_torch.models.robot import robodata
+    from sigsvgd_tpu_torch.models.robot.scene import scene_sdf
+
+    doc = {"world": {"collision_objects": [{
+        "id": "ball", "pose": {"position": [0.0, 0.0, 0.0], "orientation": [0, 0, 0, 1]},
+        "primitives": [{"type": "sphere", "dimensions": [0.1]}],
+        "primitive_poses": [{"position": [-0.4, 0.2, 0.5], "orientation": [0, 0, 0, 1]}]}]}}
+    path = tmp_path / "s.yaml"
+    path.write_text(yaml.safe_dump(doc))
+    scene = robodata.load_moveit_scene(path)
+    d = scene_sdf(scene, torch.tensor([[-0.4, 0.2, 0.5]], device=scene.device))
+    assert scene.device.type == "cuda" and float(d[0]) < 0
+
+
+@pytest.mark.cuda
+def test_gym_pendulum_runs_on_the_card(cuda_device):
+    """A short DuSt swing-up against gymnasium with the controller on the
+    card; gymnasium is not on every machine with a card, and the test skips
+    without it."""
+    pytest.importorskip("gymnasium")
+    from sigsvgd_tpu_torch.controllers.dust import DuSt
+    from sigsvgd_tpu_torch.experiments import gym_sim
+    from sigsvgd_tpu_torch.inference.svgd import Adam
+
+    model = gym_sim.gym_pendulum_model()
+    ctrl = DuSt(model=model, hz_len=20, n_pol=16, kernel_mode="policy", optimizer=Adam(0.3),
+                inst_cost_fn=model.swingup_inst_cost, term_cost_fn=model.swingup_term_cost)
+    cstate = ctrl.init(generator=torch.Generator(device=cuda_device).manual_seed(0))
+    out = gym_sim.run_gym_pendulum(ctrl, cstate, n_steps=10, opt_steps=3)
+    assert np.isfinite(out["states"]).all() and out["actions"].shape == (10, 1)
+
+
+@pytest.mark.cuda
+def test_planning_cost_gradient_is_bitwise_repeatable(cuda_device):
+    """The planning cost, its gradient and the order-6 signature kernel's
+    gradient (K8) repeat bit for bit on the card at ``PlannerConfig()``'s
+    width on ``pillars_4`` (the splines gather by a one-hot product, whose
+    backward has no atomics), so an L-BFGS planning run resumed from a
+    checkpoint repeats the uninterrupted one. A failure names the check and
+    its largest difference."""
+    from sigsvgd_tpu_torch.experiments import robot_planning as rp
+    from sigsvgd_tpu_torch.inference.score import _grad_neg_cost
+    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
+
+    robot = PandaRobot.create(device=cuda_device)
+    req = rp.default_requests(robot, "pillars_4", n=1)[0]
+    problem = rp.build_problem(robot, "pillars_4", req, False, None, None, 200)
+    x = _uniform_knots(cuda_device, 20, 3)
+    kern = SignatureKernel(6, 1.5, mxu_precision="default")
+
+    def checks():
+        with torch.no_grad():
+            cost = problem.batch_cost(x)[0]
+        return {"cost": cost, "cost gradient": _grad_neg_cost(problem.batch_cost, x)[2],
+                "K8 gradient": kern.gram_and_grad(x)[1]}
+
+    first = checks()
+    for _ in range(3):
+        for name, got in checks().items():
+            diff = (got - first[name]).abs().max().item()
+            assert torch.equal(got, first[name]), f"{name}: max |diff| {diff}"

@@ -295,8 +295,7 @@ def test_episode_draws_from_its_generator_and_repeats():
 
 
 @pytest.mark.parametrize("field,value,name", [
-    ("checkpoint_dir", "ckpt", "M14"), ("live_plot", "cost.png", "M14"),
-    ("mpf_mesh_devices", 2, "M15")])
+    ("live_plot", "cost.png", "M14"), ("mpf_mesh_devices", 2, "M15")])
 def test_unported_options_raise(field, value, name):
     cfg = dataclasses.replace(maze.MazeConfig(steps=1), **{field: value})
     with pytest.raises(NotImplementedError, match=name):

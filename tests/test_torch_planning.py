@@ -223,10 +223,12 @@ def test_gram_above_the_dense_limit_raises(rng, monkeypatch):
 
 def test_unported_planner_options_raise(problems):
     _, tp = problems
-    with pytest.raises(NotImplementedError, match="M10"):
-        tplan.run_optimisation(tp, tplan.PlannerConfig(optimizer="lbfgs", n_iter=1))
-    with pytest.raises(NotImplementedError, match="M14"):
-        tplan.run_optimisation(tp, tplan.PlannerConfig(n_iter=1), checkpoint_dir="x")
+    # every planner option is ported now; an unknown optimizer raises
+    with pytest.raises(ValueError, match="optimizer"):
+        tplan.run_optimisation(tp, tplan.PlannerConfig(optimizer="bfgs", n_iter=1))
+    svgd, _ = tplan.planner_sampler(tp, tplan.PlannerConfig(optimizer="lbfgs"))
+    assert svgd.optimizer is not None
+    assert tplan.planning_value_fn(tp, tplan.PlannerConfig()) is None
     # the truncated-signature kernel is ported: pathsig_score takes it
     assert callable(pathsig_score(tp.batch_cost, PathSigKernel(depth=2)))
     # SVGD's Adagrad and the scaled samplers are ported
@@ -234,5 +236,8 @@ def test_unported_planner_options_raise(problems):
         build_arm_mpc(device="cpu", n_pol=2, hz_len=2, kernel_mode="policy").ctrl,
         stein_sampler="MatrixSVGD")
     assert matrix._sampler().precondition
-    with pytest.raises(NotImplementedError, match="M10"):
-        SVGD().run(torch.zeros(2, 3), lambda x, g: None, 1, value_fn=lambda x: x)
+    # a value_fn feeds only the LBFGS line search; the raw update ignores it
+    score = lambda x, g: ScoreResult(grad_log_p=-x)  # noqa: E731
+    x0 = torch.ones(2, 3)
+    assert torch.equal(SVGD().run(x0, score, 1, value_fn=lambda x: x)[0],
+                       SVGD().run(x0, score, 1)[0])
