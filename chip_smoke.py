@@ -287,7 +287,14 @@ PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's row gains ``process_s``, the seconds since
+    the process that emitted it started (a child's rows keep their own)."""
+    if "phase" in obj and "process_s" not in obj:
+        obj = {**obj, "process_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2250,11 +2257,14 @@ def traced_solve(ctrl, state, cs, generator=None) -> dict:
 def traced(fn) -> dict:
     """``fn`` once under ``torch.profiler``: device busy time summed over
     kernels, the traced wall time and idle share, kernel launches, and the
-    kernels that take the most device time."""
+    kernels that take the most device time. Device activity only: recording
+    the host's operators too slows the traced run and makes ``key_averages``
+    take ~110 s on an H100 host for the order-2 solve's 99,500 launches
+    (~28 s without), for the same busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3740,6 +3750,23 @@ def lbfgs_k8(rows: dict, which: str) -> dict:
             "mesh_scene": rows["mesh_scene"]["launches"][which]}
 
 
+def shard_launches(row) -> dict:
+    """A sharded solve's launches of its block kernel, rank by rank."""
+    return {f"{row['phase']} {tag} rank {r}": rr["launches"]
+            for tag in (k for k in row if k.startswith(("nccl", "gloo")))
+            for r, rr in enumerate(row[tag]["per_rank"])}
+
+
+def parallel_k8(rows: dict, which: str) -> dict:
+    """K8's launches on the parallel process's paths."""
+    return {"mxu_pair_gram_and_grad": rows["mxu_pair_gram_and_grad"]["launches"][which],
+            "planning_iter_4096":
+                rows["mxu_pair_gram_and_grad"]["planning_iter_4096"]["launches"][which],
+            "streamed_mxu_gram": rows["streamed_mxu_gram"]["launches"][which],
+            **{f"sharded_planning rank {r}": c[which]
+               for r, c in enumerate(rows["sharded_planning"]["launches_per_rank"])}}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel's entry; its times, error and bound are all at ``shape``."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3778,7 +3805,7 @@ def fused_entry(name, replaces, launches, row, which, by_path) -> dict:
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
-def small_entry(name, replaces, streamed, k7, gg0, counter) -> dict:
+def small_entry(name, replaces, streamed, k7, gg0, counter, par=None) -> dict:
     """A K7 entry at the streamed λ=0 Gram's pair list (1,048,576 pairs of
     [40, 2] τ paths), the main path that launches it: its launches there, and
     by path; its times, the twin's and the bound at that list (the forward
@@ -3793,7 +3820,11 @@ def small_entry(name, replaces, streamed, k7, gg0, counter) -> dict:
              "launches": streamed["launches"][counter],
              "launches_by_path": {"lambda0_streamed_gram": streamed["launches"][counter],
                                   **{f"lambda0_gram_and_grad {c}": r["launches"][counter]
-                                     for c, r in gg0.items()}},
+                                     for c, r in gg0.items()},
+                                  **({f"sharded_modes {m} rank {r}": c[counter]
+                                      for m in ("gather", "ring")
+                                      for r, c in enumerate(par[m]["launches_per_rank"])}
+                                     if par else {})},
              "max_abs_err": streamed["k_max_abs_err" if which == "fwd_res"
                                      else "dx_max_abs_err"],
              "ms": t[f"{which}_ms"], "plain_ms": t[f"plain_{which}_ms"],
@@ -3803,6 +3834,585 @@ def small_entry(name, replaces, streamed, k7, gg0, counter) -> dict:
     if which == "fwd_res":
         entry["values_only_ms"] = t["fwd_ms"]
     return entry
+
+
+# ---------------------------------------------------------------------------
+# The parallel process (``chip_smoke.py --parallel``): the block
+# propagator's pair lists, K1 and K2 on tile subsets, and the sharded
+# solvers on torch.distributed, on 1 rank with NCCL and on 2 ranks sharing
+# the card with gloo (``chip_smoke.py --parallel-rank``).
+# ---------------------------------------------------------------------------
+
+SHARD_TOL = (2e-3, 2e-4)  # rtol, atol, sharded against one rank (tests/test_parallel_dust.py)
+MODES_TOL = (1e-4, 1e-5)  # the gather and ring modes against triangle (the same test file)
+SVGD_TOL = (1e-3, 1e-4)   # the sharded planning run against SVGD.run (tests/test_parallel.py)
+MPF_TOL = (1e-4, 1e-5)    # the sharded MPF against MPF.observe (tests/test_parallel_mpf.py)
+SHARD_RANKS = 2
+SHARD_SOLVES = 3          # timed solves a sharded phase, after the compared first one
+ADAM_BEYOND_SHARE = 1e-4  # of the λ=3 Adam solve's policy coordinates, each within 2·lr
+PLAN_SHARD_STEPS = 5      # sharded_planning's SVGD steps
+MXU_PAIRS_N = 4096        # mxu_pair_gram_and_grad's knots: 8,390,656 triangle pairs
+MXU_STREAM_N = 8192       # streamed_mxu_gram's knots on both sides: n·m·L² = 6.0e8
+MXU_SAMPLE = 4096         # pairs held against the fp32 propagator
+_CARD = []
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    return _CARD[0]
+
+
+def phase_parallel() -> dict:
+    """The pair lists and the sharded solvers, in a fresh process
+    (``chip_smoke.py --parallel``, :func:`parallel_phases`), which starts the
+    ranks. Its rows, by phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--parallel"], capture_output=True,
+                          text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            rows.setdefault(row["phase"], row)
+            emit(row)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-6000:])
+        raise AssertionError(f"the parallel process failed (exit {proc.returncode})")
+    want = {"mxu_pair_gram_and_grad", "streamed_mxu_gram", "tile_subsets_vs_plain",
+            "sharded_flagship_solve", "sharded_pinned_solve", "sharded_modes",
+            "sharded_planning", "sharded_mpf", "collectives"}
+    if set(rows) != want:
+        raise AssertionError(f"the parallel process gave the phases {sorted(rows)}")
+    emit({"phase": "parallel_process", "wall_s": wall_s, "card": card()})
+    return rows
+
+
+def scaled(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def sampled_pairs(n: int, m: int, count: int, gen: torch.Generator, triangle: bool):
+    """``count`` random pairs (a ≤ b with ``triangle``) on the card."""
+    a = torch.randint(0, n, (count,), generator=gen, device="cuda")
+    b = torch.randint(0, m, (count,), generator=gen, device="cuda")
+    if triangle:
+        a, b = torch.minimum(a, b), torch.maximum(a, b)
+    return a, b
+
+
+def k8_chunk_vs_twin(kern, X, a, b, h) -> dict:
+    """One pair-list chunk's values and their gradient by K8 on the card and
+    by its twin on the CPU (``SignatureKernel._block_values``)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = X.to(dev).detach().requires_grad_(True)
+        with torch.enable_grad():
+            k = kern._block_values(x, x, a.to(dev), b.to(dev), h, "mxu_chain")
+            (d,) = torch.autograd.grad(k.sum(), x)
+        out[dev] = (k.detach().cpu(), d.cpu())
+    return {"chunk_pairs": int(a.shape[0]),
+            "chunk_k_scaled_err": scaled(out["cuda"][0], out["cpu"][0]),
+            "chunk_dx_scaled_err": scaled(out["cuda"][1], out["cpu"][1])}
+
+
+def phase_mxu_pair_gram_and_grad() -> None:
+    """``gram_and_grad`` on [4096, 3, 7] knots at λ=6 with K8
+    (``mxu_precision="default"``), above the dense route's memory guard: the
+    triangle pair list, K8's forward and backward once a chunk. K on sampled
+    pairs against the fp32 propagator's pair list (K8's tolerance against
+    it), one chunk of pairs against K8's twin, then one planning iteration
+    at 4,096 knots (``PlannerConfig()`` otherwise) on the same route."""
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    cfg = PlannerConfig()
+    h = cfg.pathsig_bw
+    kern = SignatureKernel(dyadic_order=cfg.depth, bandwidth=h, mxu_precision="default")
+    n = MXU_PAIRS_N
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    X = uniform_knots(n, gen)
+    if kern._dense_grad_ok(n, 2) or kern._solver_kind(2, 2) != "mxu_chain":
+        raise AssertionError("mxu_pair_gram_and_grad: not the K8 pair-list route")
+    pairs = n * (n + 1) // 2
+    kind, chunk, nb = kern._chunk_plan(2, 2, pairs, 7, X.device, h)
+    kern.gram_and_grad(X)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with Launches() as counted:
+        t0 = time.perf_counter()
+        K, dX = kern.gram_and_grad(X)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counted.expect("mxu_pair_gram_and_grad", mxu_chain_fwd=nb, mxu_chain_bwd=nb)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    a, b = sampled_pairs(n, n, MXU_SAMPLE, gen, True)
+    fp32 = SignatureKernel(dyadic_order=cfg.depth, bandwidth=h, solver="mxu")
+    with torch.no_grad():
+        ref = fp32._pair_values(X, X, a, b, h)
+    k_err = scaled(K[a, b], ref)
+    if not (k_err <= K8_FP32_TOL[0] and bool(torch.isfinite(dX).all())
+            and torch.equal(K, K.T)):
+        raise AssertionError(f"mxu_pair_gram_and_grad: K {k_err} from the fp32 propagator")
+    twin = k8_chunk_vs_twin(kern, X, a[:1024], b[:1024], h)
+    if twin["chunk_k_scaled_err"] > K8_TOL[0] or twin["chunk_dx_scaled_err"] > K8_TOL[1]:
+        raise AssertionError(f"mxu_pair_gram_and_grad: the chunk against K8's twin {twin}")
+    del K, dX
+
+    problem, pcfg, svgd, score = planning_setup(n)
+    x = uniform_knots(n, torch.Generator(device="cuda").manual_seed(2))
+    st = svgd.init(x)
+    x, st = svgd.step_update(x, st, score(x, None))  # warm-up
+    torch.cuda.synchronize()
+    with Launches() as it:
+        t0 = time.perf_counter()
+        x, st = svgd.step_update(x, st, score(x, None))
+        torch.cuda.synchronize()
+        iter_ms = (time.perf_counter() - t0) * 1e3
+    it.expect("planning iteration at 4096 knots", mxu_chain_fwd=nb, mxu_chain_bwd=nb)
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("mxu_pair_gram_and_grad: the planning iteration is not finite")
+    emit({"phase": "mxu_pair_gram_and_grad", "card": card(), "shape": [n, 3, 7],
+          "dyadic_order": cfg.depth, "pairs": pairs, "kind": kind, "chunk": chunk,
+          "chunks": nb, "ms": ms, "peak_mib_above_inputs": peak_mib,
+          "launches": counted.counts, "k_scaled_err_vs_fp32_propagator": k_err,
+          "sampled_pairs": MXU_SAMPLE, **twin,
+          "planning_iter_4096": {"ms": iter_ms, "launches": it.counts,
+                                 "batch": n, "timesteps": pcfg.timesteps}})
+
+
+def phase_streamed_mxu_gram() -> None:
+    """``gram(X, Y)`` on [8192, 3, 7] × [8192, 3, 7] (n·m·L² = 6.0e8 >
+    2e8: streamed pair chunks through K8) with its gradient in X: each
+    chunk's K8 forward twice (the checkpointed chunk reruns it) and its
+    backward once. K on sampled pairs against the fp32 propagator."""
+    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+
+    cfg = PlannerConfig()
+    h = cfg.pathsig_bw
+    kern = SignatureKernel(dyadic_order=cfg.depth, bandwidth=h, mxu_precision="default")
+    n = MXU_STREAM_N
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    X, Y = uniform_knots(n, gen), uniform_knots(n, gen)
+    if n * n * 9 <= kern._DENSE_LIMIT:
+        raise AssertionError("streamed_mxu_gram: below the dense limit")
+    kind, chunk, nb = kern._chunk_plan(2, 2, n * n, 7, X.device, h)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with Launches() as counted:
+        t0 = time.perf_counter()
+        x = X.detach().requires_grad_(True)
+        K = kern.gram(x, Y)
+        (dX,) = torch.autograd.grad(K.sum(), x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counted.expect("streamed_mxu_gram", mxu_chain_fwd=2 * nb, mxu_chain_bwd=nb)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    a, b = sampled_pairs(n, n, MXU_SAMPLE, gen, False)
+    fp32 = SignatureKernel(dyadic_order=cfg.depth, bandwidth=h, solver="mxu")
+    with torch.no_grad():
+        ref = fp32._pair_values(X, Y, a, b, h)
+    k_err = scaled(K.detach()[a, b], ref)
+    if not (k_err <= K8_FP32_TOL[0] and bool(torch.isfinite(dX).all())):
+        raise AssertionError(f"streamed_mxu_gram: K {k_err} from the fp32 propagator")
+    emit({"phase": "streamed_mxu_gram", "card": card(), "shape": [n, 3, 7],
+          "pairs": n * n, "kind": kind, "chunk": chunk, "chunks": nb, "ms_fwd_bwd": ms,
+          "peak_mib_above_inputs": peak_mib, "launches": counted.counts,
+          "k_scaled_err_vs_fp32_propagator": k_err, "sampled_pairs": MXU_SAMPLE})
+
+
+def phase_tile_subsets_vs_plain() -> None:
+    """K1 at [1024, 40, 2] and K2 at [128, 40, 2] over each of 2 ranks' tile
+    subsets against their twins on the subsets' pairs (K1's K bit for bit,
+    dX scaled 5e-5; K2's K atol 1e-4, dX scaled 4e-4 against the fp64
+    twin); the subsets summed against the whole launch; times of a subset
+    launch beside the whole."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    row = {"phase": "tile_subsets_vs_plain", "card": card(), "ranks": SHARD_RANKS}
+    for name, fn, n in (("k1", kb.block_gram_and_grad, 1024),
+                        ("k2", kb3.block3_gram_and_grad, 128)):
+        X = smooth_paths(n, 40, 2, gen)
+        tc = kb.THREADS // kb.block_lanes(40)[0]
+        tiles = kb._tile_list(n, tc, X.device)
+        K_all, dX_all = fn(X, 4.0)
+        K_sum, dX_sum, per_rank = torch.zeros_like(K_all), torch.zeros_like(dX_all), []
+        for r in range(SHARD_RANKS):
+            K, dX = fn(X, 4.0, shard=(SHARD_RANKS, r))
+            pairs = kb.tile_pairs(kb.tile_shard(tiles, SHARD_RANKS, r), n, tc)
+            if name == "k1":
+                Kp, dXp = kb.block_gram_and_grad_plain(X, 4.0, pairs=pairs)
+                ok = torch.equal(K, Kp) and scaled(dX, dXp) <= 5e-5
+                k_err, dx_err = (K - Kp).abs().max().item(), scaled(dX, dXp)
+            else:
+                Kp, _ = kb3.block3_gram_and_grad_plain(X, 4.0, pairs_per_chunk=2048,
+                                                       pairs=pairs)
+                _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), 4.0,
+                                                         pairs_per_chunk=2048, pairs=pairs)
+                k_err, dx_err = (K - Kp).abs().max().item(), scaled(dX.double(), dX64)
+                ok = k_err <= K2_TOL[0] and dx_err <= K2_TOL[1]
+            if not ok:
+                raise AssertionError(f"tile_subsets_vs_plain: {name} rank {r}: K {k_err}, "
+                                     f"dX {dx_err}")
+            K_sum += K
+            dX_sum += dX
+            per_rank.append({"tiles": int(kb.tile_shard(tiles, SHARD_RANKS, r).shape[0]),
+                             "pairs": int(pairs[0].numel()), "k_max_abs_err": k_err,
+                             "dx_scaled_err": dx_err,
+                             "ms": event_ms(lambda r=r: fn(X, 4.0, shard=(SHARD_RANKS, r)),
+                                            3)})
+        sum_err = (torch.equal(K_sum, K_all), scaled(dX_sum, dX_all))
+        if not sum_err[0] or sum_err[1] > 1e-6:
+            raise AssertionError(f"tile_subsets_vs_plain: {name}: the subsets' sum {sum_err}")
+        row[name] = {"shape": [n, 40, 2], "tiles": int(tiles.shape[0]), "per_rank": per_rank,
+                     "whole_ms": event_ms(lambda: fn(X, 4.0), 3),
+                     "dx_sum_scaled_err": sum_err[1]}
+    emit(row)
+
+
+def local_state(cs, n_total: int, mesh):
+    """The rows of a DuSt state this rank holds."""
+    from sigsvgd_tpu_torch.parallel.mesh import local_rows
+
+    def rows(t):
+        return local_rows(t, mesh) if (isinstance(t, torch.Tensor) and t.ndim >= 1
+                                       and t.shape[0] == n_total) else t
+
+    def walk(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(c) for c in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(c) for c in node)
+        return rows(node)
+
+    return walk(cs)
+
+
+def raw_lr(ctrl):
+    """The controller with the raw lr update (0.05): Adam's first steps move
+    each coordinate by ±lr whatever its gradient's size, so a gradient that
+    fp summation order moves across zero moves its coordinate by up to 2·lr;
+    the JAX package's sharded identity tests compare raw-lr solves for this
+    reason (``tests/test_parallel_dust.py``)."""
+    return dataclasses.replace(ctrl, optimizer=None, lr=0.05)
+
+
+def sharded_solves(phase: str, prob, mesh, gram_mode: str = "triangle",
+                   timed: int = SHARD_SOLVES) -> dict:
+    """The first sharded solve from the seeded initial policies with the
+    raw lr update and with Adam (their actions and gathered policies kept),
+    then ``timed`` chained Adam solves with every hand kernel's launches
+    counted on this rank."""
+    import torch.distributed as dist
+    from sigsvgd_tpu_torch.parallel import comm
+    from sigsvgd_tpu_torch.parallel.dust import sharded_dust_forward
+
+    state = prob.q_start
+    out = {}
+    for tag, ctrl in (("raw", raw_lr(prob.ctrl)), ("adam", prob.ctrl)):
+        cs = local_state(ctrl.init(generator=torch.Generator(device="cuda").manual_seed(1)),
+                         ctrl.n_total, mesh)
+        a, cs = sharded_dust_forward(ctrl, state, cs, None, OPT_STEPS, mesh,
+                                     gram_mode=gram_mode)
+        out[tag] = {"a_seq": a.cpu(), "pol_mean": comm.all_gather(cs.pol_mean).cpu()}
+    ms = []
+    with Launches() as counted:
+        for _ in range(timed):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, cs = sharded_dust_forward(ctrl, state, cs, None, OPT_STEPS, mesh,
+                                         gram_mode=gram_mode)
+            state = prob.model.step(state[None], a[0:1])[0]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(ms=ms, launches=counted.counts,
+               finite=bool(torch.isfinite(a).all() and torch.isfinite(cs.pol_mean).all()))
+    return out
+
+
+def single_solves(prob, timed: int = SHARD_SOLVES) -> dict:
+    """The same first solves and timed chained solves on one device, no
+    process group."""
+    state = prob.q_start
+    out = {}
+    for tag, ctrl in (("raw", raw_lr(prob.ctrl)), ("adam", prob.ctrl)):
+        cs = ctrl.init(generator=torch.Generator(device="cuda").manual_seed(1))
+        a, cs, _ = ctrl.forward(state, cs, opt_steps=OPT_STEPS)
+        out[tag] = {"a_seq": a.cpu(), "pol_mean": cs.pol_mean.cpu()}
+    out["adam_lr"] = float(prob.ctrl.optimizer.lr)
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, cs, _ = ctrl.forward(state, cs, opt_steps=OPT_STEPS)
+        state = prob.model.step(state[None], a[0:1])[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = ms
+    return out
+
+
+def shard_problems():
+    """The flagship (calibrated λ=0: K1) and pinned (λ=3 fp32: K2) problems."""
+    from sigsvgd_tpu_torch.experiments.arm_mpc import build_arm_mpc
+
+    flag = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40)
+    pinned = build_arm_mpc(device="cuda", n_pol=1024, hz_len=40, calibrate=False)
+    if (flag.ctrl.sig_kernel.dyadic_order, pinned.ctrl.sig_kernel.dyadic_order) != (0, 3):
+        raise AssertionError("the sharded phases' problems are not at orders 0 and 3")
+    return {"flagship": flag, "pinned": pinned}
+
+
+def planning_start():
+    problem, cfg, svgd, score = planning_setup(1024)
+    x0 = uniform_knots(1024, torch.Generator(device="cuda").manual_seed(2))
+    return problem, cfg, svgd, score, x0
+
+
+def mpf_start():
+    """The maze's MPF (``MazeConfig()``: 50 particles in log space) before
+    one observe-update, and the transition it observes."""
+    from sigsvgd_tpu_torch.experiments import maze
+
+    cfg = maze.MazeConfig()
+    model = maze.make_model(cfg, "cuda")
+    mpf = maze.build_mpf(cfg, model)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    masses = cfg.dyn_prior_mean + cfg.dyn_prior_std * torch.randn(
+        (cfg.mpf_n_particles, 1), generator=g, device="cuda")
+    state = torch.tensor(model.init_state, dtype=torch.float32, device="cuda")
+    action = torch.tensor([1.0, -0.5], device="cuda")
+    nxt = model.step(state[None], action[None])[0]
+    return cfg, mpf, mpf.init(torch.log(masses), state), action, nxt
+
+
+def pendulum_policy_ctrl():
+    """``tests/test_parallel_scaling.py``'s policy-mode controller on the card."""
+    from sigsvgd_tpu_torch.controllers.dust import DuSt
+    from sigsvgd_tpu_torch.inference.svgd import Adam
+    from sigsvgd_tpu_torch.kernels.rbf import GaussianKernel
+    from sigsvgd_tpu_torch.models.pendulum import PendulumModel
+
+    model = PendulumModel(dt=0.05)
+    ctrl = DuSt(model=model, hz_len=10, n_pol=16, device="cuda", kernel_mode="policy",
+                kernel=GaussianKernel(), optimizer=Adam(0.1),
+                inst_cost_fn=model.swingup_inst_cost, term_cost_fn=model.swingup_term_cost)
+    return ctrl, torch.tensor([math.pi, 0.0], device="cuda")
+
+
+def rank_phases(world: int, results: dict, probs: dict) -> None:
+    """Every sharded phase on this rank of an initialised group of
+    ``world`` (the mesh on the card)."""
+    import torch.distributed as dist
+    from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
+    from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
+    from sigsvgd_tpu_torch.parallel import comm
+    from sigsvgd_tpu_torch.parallel.dust import sharded_dust_forward
+    from sigsvgd_tpu_torch.parallel.mesh import local_rows, make_mesh
+    from sigsvgd_tpu_torch.parallel.mpf import sharded_mpf_observe
+    from sigsvgd_tpu_torch.parallel.scaling import collective_stats
+    from sigsvgd_tpu_torch.parallel.svgd import sharded_pathsig_score, sharded_svgd_run
+
+    rank = dist.get_rank()
+    mesh = make_mesh([world], ("dp",))
+    tc = kb.THREADS // kb.block_lanes(40)[0]
+    tiles = int(kb.tile_shard(kb._tile_list(1024, tc, "cuda"), world, rank).shape[0])
+    for name, prob in probs.items():
+        results[name] = dict(sharded_solves(name, prob, mesh), tiles=tiles)
+    if world > 1:
+        results["modes"] = {m: sharded_solves("modes", probs["flagship"], mesh, m, timed=1)
+                            for m in ("gather", "ring")}
+        problem, cfg, svgd, _, x0 = planning_start()
+        kern = SignatureKernel(dyadic_order=cfg.depth, bandwidth=cfg.pathsig_bw,
+                               mxu_precision=cfg.mxu_precision)
+        score = sharded_pathsig_score(problem.batch_cost, kern, mesh)
+        dist.barrier()
+        with Launches() as counted:
+            t0 = time.perf_counter()
+            x, losses = sharded_svgd_run(svgd, local_rows(x0, mesh), score, PLAN_SHARD_STEPS,
+                                         mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / PLAN_SHARD_STEPS
+        results["planning"] = {"x": comm.all_gather(x).cpu(), "ms_per_iter": ms,
+                               "launches": counted.counts}
+        cfg_m, mpf, mstate, action, nxt = mpf_start()
+        local = mstate._replace(particles=local_rows(mstate.particles, mesh))
+        new, grads = sharded_mpf_observe(mpf, local, action, nxt, mesh, n_steps=cfg_m.mpf_steps)
+        results["mpf"] = {"particles": comm.all_gather(new.particles).cpu(),
+                          "grads": grads.cpu()}
+        ctrl, state = pendulum_policy_ctrl()
+        cs = local_state(ctrl.init(generator=torch.Generator(device="cuda").manual_seed(0)),
+                         ctrl.n_total, mesh)
+        results["collectives"] = collective_stats(sharded_dust_forward, ctrl, state, cs,
+                                                  None, 2, mesh)
+        results["transport"] = comm.transport_report()
+
+
+def parallel_rank() -> None:
+    """``chip_smoke.py --parallel-rank RANK WORLD DIR``: one rank of the
+    gloo group of ``WORLD`` ranks sharing the card (rendezvous through a
+    ``FileStore`` in ``DIR``); its results go to ``DIR/rank{RANK}.pt``."""
+    import torch.distributed as dist
+
+    rank, world, d = int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"), world),
+                            rank=rank, world_size=world)
+    results = {}
+    rank_phases(world, results, shard_problems())
+    torch.save(results, d / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def close(got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    """The largest excess of ``|got - want|`` over ``atol + rtol·|want|``
+    (≤ 0 when within the tolerance)."""
+    return ((got - want).abs() - (tol[1] + tol[0] * want.abs())).max().item()
+
+
+def parallel_phases() -> None:
+    """The parallel process: the pair lists, the tile subsets, the
+    single-device references, the sharded solves on 1 rank with NCCL (in
+    this process), then on 2 ranks sharing the card with gloo (two fresh
+    processes), each held against the references."""
+    import torch.distributed as dist
+
+    phase_mxu_pair_gram_and_grad()
+    phase_streamed_mxu_gram()
+    phase_tile_subsets_vs_plain()
+
+    probs = shard_problems()
+    single = {name: single_solves(prob) for name, prob in probs.items()}
+    problem, cfg, svgd, score, x0 = planning_start()
+    t0 = time.perf_counter()
+    x_single = svgd.run(x0, score, PLAN_SHARD_STEPS)[0]
+    torch.cuda.synchronize()
+    plan_single_ms = (time.perf_counter() - t0) * 1e3 / PLAN_SHARD_STEPS
+    cfg_m, mpf, mstate, action, nxt = mpf_start()
+    mpf_single, grads_single = mpf.observe(mstate, action, nxt, n_steps=cfg_m.mpf_steps)
+    del problem, svgd, score
+
+    tmp = Path(tempfile.mkdtemp(prefix="shard_"))
+    one = {}
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        rank_phases(1, one, probs)
+    finally:
+        dist.destroy_process_group()
+    del probs
+    torch.cuda.empty_cache()
+
+    env = dict(__import__("os").environ)
+    procs = [subprocess.Popen([sys.executable, __file__, "--parallel-rank", str(r),
+                               str(SHARD_RANKS), str(tmp)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(SHARD_RANKS)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        sys.stderr.write("\n".join(e[-3000:] for e in errs))
+        raise AssertionError(f"the ranks failed (exit {[p.returncode for p in procs]})")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(SHARD_RANKS)]
+
+    kb_counter = {"flagship": "block_gram_and_grad", "pinned": "block3_gram_and_grad"}
+    for name, phase in (("flagship", "sharded_flagship_solve"),
+                        ("pinned", "sharded_pinned_solve")):
+        ref = single[name]
+        row = {"phase": phase, "card": card(), "n_pol": 1024, "hz_len": 40,
+               "opt_steps": OPT_STEPS, "gram_mode": "triangle",
+               "unsharded_ms_median": statistics.median(ref["ms"])}
+        for tag, res in [("nccl_1_rank", [one[name]])] + [
+                (f"gloo_{SHARD_RANKS}_ranks", [r[name] for r in ranks])]:
+            errs_ = [close(res[0]["raw"][k], ref["raw"][k], SHARD_TOL)
+                     for k in ("a_seq", "pol_mean")]
+            adam = [close(res[0]["adam"][k], ref["adam"][k], SHARD_TOL)
+                    for k in ("a_seq", "pol_mean")]
+            pol_got, pol_want = res[0]["adam"]["pol_mean"], ref["adam"]["pol_mean"]
+            beyond = int(((pol_got - pol_want).abs()
+                          > SHARD_TOL[1] + SHARD_TOL[0] * pol_want.abs()).sum())
+            for r, rr in enumerate(res):
+                want = {k: 0 for k in rr["launches"]}
+                want[kb_counter[name]] = OPT_STEPS * SHARD_SOLVES
+                if rr["launches"] != want or not rr["finite"]:
+                    raise AssertionError(f"{phase} {tag} rank {r}: launches {rr['launches']}")
+            # the raw-lr solve and the Adam solve's actions are held at the
+            # tolerance, and so are the Adam policies at λ=0; at λ=3 at most
+            # ADAM_BEYOND_SHARE of their coordinates may pass it (a gradient
+            # near zero that summation order flips), each by at most 2·lr
+            adam_ok = (max(adam) <= 0 if name == "flagship" else
+                       adam[0] <= 0 and beyond <= ADAM_BEYOND_SHARE * pol_want.numel()
+                       and adam[1] <= 2 * ref["adam_lr"])
+            if max(errs_) > 0 or not adam_ok:
+                raise AssertionError(f"{phase} {tag}: raw lr {errs_}, Adam {adam} "
+                                     f"beyond {SHARD_TOL} ({beyond} policy coordinates)")
+            row[tag] = {"ms_median": statistics.median(res[0]["ms"]),
+                        "ms_samples": res[0]["ms"],
+                        "excess_over_tol": errs_, "adam_excess_over_tol": adam,
+                        "adam_pol_coords_beyond_tol": beyond,
+                        "per_rank": [{"launches": rr["launches"][kb_counter[name]],
+                                      "tiles": rr["tiles"]} for rr in res]}
+        emit(row)
+
+    row = {"phase": "sharded_modes", "card": card(), "ranks": SHARD_RANKS}
+    tri = ranks[0]["flagship"]
+    for mode in ("gather", "ring"):
+        res = ranks[0]["modes"][mode]
+        errs_ = [close(res["raw"][k], tri["raw"][k], MODES_TOL) for k in ("a_seq", "pol_mean")]
+        if max(errs_) > 0 or any(r["modes"][mode]["launches"]["block_gram_and_grad"]
+                                 for r in ranks):
+            raise AssertionError(f"sharded_modes {mode}: {errs_} beyond {MODES_TOL}")
+        row[mode] = {"ms": res["ms"], "launches_per_rank": [r["modes"][mode]["launches"]
+                                                            for r in ranks],
+                     "excess_over_tol": errs_}
+    emit(row)
+
+    err = close(ranks[0]["planning"]["x"], x_single.cpu(), SVGD_TOL)
+    for r in ranks:
+        if (r["planning"]["launches"]["mxu_chain_fwd"], r["planning"]["launches"][
+                "mxu_chain_bwd"]) != (PLAN_SHARD_STEPS, PLAN_SHARD_STEPS):
+            raise AssertionError(f"sharded_planning: launches {r['planning']['launches']}")
+    if err > 0:
+        raise AssertionError(f"sharded_planning: {err} beyond {SVGD_TOL}")
+    emit({"phase": "sharded_planning", "card": card(), "shape": [1024, 3, 7],
+          "depth": cfg.depth, "steps": PLAN_SHARD_STEPS, "ranks": SHARD_RANKS,
+          "excess_over_tol": err, "unsharded_ms_per_iter": plan_single_ms,
+          "ms_per_iter": [r["planning"]["ms_per_iter"] for r in ranks],
+          "launches_per_rank": [r["planning"]["launches"] for r in ranks]})
+
+    errs_ = [close(ranks[0]["mpf"]["particles"], mpf_single.particles.cpu(), MPF_TOL),
+             close(ranks[0]["mpf"]["grads"], grads_single.cpu(), (1e-4, 1e-6))]
+    if max(errs_) > 0:
+        raise AssertionError(f"sharded_mpf: {errs_}")
+    emit({"phase": "sharded_mpf", "card": card(), "particles": cfg_m.mpf_n_particles,
+          "steps": cfg_m.mpf_steps, "ranks": SHARD_RANKS, "excess_over_tol": errs_})
+
+    stats = ranks[0]["collectives"]
+    ag = stats.get("all-gather", {"count": 0, "bytes": 0})
+    ar = stats.get("all-reduce", {"count": 0, "bytes": 0})
+    if not (1 <= ag["count"] <= 5 and ar["count"] <= 2 * 45 + 10
+            and (ag["bytes"] + ar["bytes"]) / 1e6 < 2.0):
+        raise AssertionError(f"collectives: {stats} beyond the budget")
+    emit({"phase": "collectives", "card": card(), "solve": "pendulum policy mode, 16 "
+          "policies, 2 Adam steps", "ranks": SHARD_RANKS, "stats": stats,
+          "nccl_1_rank": one.get("collectives"), "transport": ranks[0]["transport"]})
 
 
 def main() -> int:
@@ -3823,12 +4433,19 @@ def main() -> int:
     if sys.argv[1:] == ["--lbfgs-mesh"]:
         lbfgs_mesh_phases()
         return 0
+    if sys.argv[1:] == ["--parallel"]:
+        parallel_phases()
+        return 0
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank()
+        return 0
     t_start = time.perf_counter()
     phase_build()
     k9_times = phase_k9_timing()
     maze_rows = phase_maze()
     plan_rows = phase_planning()
     lbfgs_rows = phase_lbfgs_mesh()
+    par_rows = phase_parallel()
     k1 = phase_k1()
     k1_launches, kern0, taus = phase_flagship()
     k1_mc_launches = phase_mc_solve()
@@ -3878,7 +4495,8 @@ def main() -> int:
                         "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
                         k1_launches, k1),
-         "launches_by_path": {"flagship_solve": k1_launches, "mc_solve": k1_mc_launches}},
+         "launches_by_path": {"flagship_solve": k1_launches, "mc_solve": k1_mc_launches,
+                              **shard_launches(par_rows["sharded_flagship_solve"])}},
         {**kernel_entry("sigkernel_block3_gram_grad (K2)",
                         "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
@@ -3887,7 +4505,8 @@ def main() -> int:
                               "maze_episode": maze_ep["launches"]["block3_gram_and_grad"],
                               "maze_resume": lbfgs_rows["maze_resume"]["k2_launches"],
                               "obstacle_field":
-                                  plan_rows["obstacle_field"]["launches"]["block3_gram_and_grad"]},
+                                  plan_rows["obstacle_field"]["launches"]["block3_gram_and_grad"],
+                              **shard_launches(par_rows["sharded_pinned_solve"])},
          "maze_shape": {k: k2m[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
                                             "bound_by", "k_max_abs_err")}
          | {"launches_per_maze_step": maze_ep["k2_launches_per_step"]},
@@ -3902,13 +4521,15 @@ def main() -> int:
                     k8_launches[0], k8, "fwd"),
          "launches_by_path": {"planning_iter": k8_launches[0], "robot_planning_full":
                               plan_rows["robot_planning_full"]["launches"]["mxu_chain_fwd"],
-                              **lbfgs_k8(lbfgs_rows, "mxu_chain_fwd")},
+                              **lbfgs_k8(lbfgs_rows, "mxu_chain_fwd"),
+                              **parallel_k8(par_rows, "mxu_chain_fwd")},
          "sweep_shape": path_shape(plan_rows["k8_sweep_shape"], "fwd")},
         {**k8_entry("mxu_chain_bwd (K8 backward)", "sigsvgd_tpu/kernels/pallas_mxu_chain.py:132",
                     k8_launches[1], k8, "bwd"),
          "launches_by_path": {"planning_iter": k8_launches[1], "robot_planning_full":
                               plan_rows["robot_planning_full"]["launches"]["mxu_chain_bwd"],
-                              **lbfgs_k8(lbfgs_rows, "mxu_chain_bwd")},
+                              **lbfgs_k8(lbfgs_rows, "mxu_chain_bwd"),
+                              **parallel_k8(par_rows, "mxu_chain_bwd")},
          "sweep_shape": path_shape(plan_rows["k8_sweep_shape"], "bwd")},
         {**fused_entry("fused_forward (K4 forward)",
                        "sigsvgd_tpu/kernels/pallas_sigkernel.py:242",
@@ -3936,10 +4557,10 @@ def main() -> int:
                                    "issue_floor_ms")}},
         small_entry("small_forward (K7 forward)",
                     "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:88", streamed0, k7, gg0,
-                    "small_forward"),
+                    "small_forward", par_rows["sharded_modes"]),
         small_entry("small_backward (K7 backward)",
                     "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:174", streamed0, k7, gg0,
-                    "small_backward"),
+                    "small_backward", par_rows["sharded_modes"]),
         {"name": "fused_backward_bf16 (K6)", "route": "cuda",
          "source": "sigsvgd_tpu_torch/csrc/sigkernel_fused.cu",
          "replaces": "sigsvgd_tpu/kernels/pallas_sigkernel.py:823", "shape": k6["shape"],

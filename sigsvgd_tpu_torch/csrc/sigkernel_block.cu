@@ -742,18 +742,22 @@ block_lanes_kernel(const float* __restrict__ X, const float* __restrict__ hptr,
 __global__ void reduce_partials_kernel(const float* __restrict__ rowpart,
                                        const float* __restrict__ colpart,
                                        const float* __restrict__ hptr,
+                                       const unsigned char* __restrict__ present,
                                        float* __restrict__ dX, int n, int LC,
                                        int nI, int nJ, int tc) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * LC) return;
   const int a = idx / LC, k = idx % LC;
   float s = 0.f;
-  // row tiles (a/TR, J) are active for J >= (a/TR)·TR / tc
-  for (int J = ((a / TR) * TR) / tc; J < nJ; ++J)
-    s += rowpart[((size_t)J * n + a) * LC + k];
+  // row tiles (a/TR, J) are active for J >= (a/TR)·TR / tc; with a tile
+  // subset (present != null, [nI, nJ]) only the launched tiles wrote a slot
+  const int ia = a / TR, ja = a / tc;
+  for (int J = (ia * TR) / tc; J < nJ; ++J)
+    if (!present || present[ia * nJ + J]) s += rowpart[((size_t)J * n + a) * LC + k];
   // column tiles (I, a/tc) are active for I·TR <= (a/tc)·tc + tc - 1
-  const int imax = min(nI - 1, ((a / tc) * tc + tc - 1) / TR);
-  for (int I = 0; I <= imax; ++I) s += colpart[((size_t)I * n + a) * LC + k];
+  const int imax = min(nI - 1, (ja * tc + tc - 1) / TR);
+  for (int I = 0; I <= imax; ++I)
+    if (!present || present[I * nJ + ja]) s += colpart[((size_t)I * n + a) * LC + k];
   dX[idx] = 0.5f * sqrtf(2.0f / hptr[0]) * s;
 }
 
@@ -846,12 +850,15 @@ int sigkernel_block_grid(int L, int C, int g, int span, int n_tiles, int* blocks
 // K1: X [n, L, C], h [1], tiles [n_tiles, 2] int32 (I, J) with I·8 <= J·tc +
 // tc - 1 (tc = 128/g), K [n, n], dX [n, L, C], rowpart [ceil(n/tc), n, L·C],
 // colpart [ceil(n/8), n, L·C], scratch [blocks·4·(8·ceil((L-1)/8) + g-1)·
-// 32·4·slot_f4] floats; fp32, contiguous, on the stream's device. Returns
-// cudaGetLastError() after both launches (0 on success).
+// 32·4·slot_f4] floats; fp32, contiguous, on the stream's device. present:
+// null for the whole tile list, else [ceil(n/8), ceil(n/tc)] bytes, 1 for each
+// tile of a subset list (the reduction sums only the slots those tiles wrote;
+// K holds only their pairs). Returns cudaGetLastError() after both launches
+// (0 on success).
 int sigkernel_block_gram_grad(const float* X, const float* h, const int* tiles, float* K,
                               float* dX, float* rowpart, float* colpart, float* scratch,
-                              int n_tiles, int blocks, int n, int L, int C, int g, int span,
-                              void* stream) {
+                              const unsigned char* present, int n_tiles, int blocks, int n,
+                              int L, int C, int g, int span, void* stream) {
   if (!lanes_valid(L, C, g, span)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -862,7 +869,7 @@ int sigkernel_block_gram_grad(const float* X, const float* h, const int* tiles, 
   const int total = n * LC;
   const int tc = NT / g;
   reduce_partials_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      rowpart, colpart, h, dX, n, LC, (n + TR - 1) / TR, (n + tc - 1) / tc, tc);
+      rowpart, colpart, h, present, dX, n, LC, (n + TR - 1) / TR, (n + tc - 1) / tc, tc);
   return (int)cudaGetLastError();
 }
 

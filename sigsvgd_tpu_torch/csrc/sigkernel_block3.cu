@@ -483,18 +483,22 @@ block3_kernel(const float* __restrict__ X, const float* __restrict__ sptr,
 __global__ void reduce_partials_kernel(const float* __restrict__ rowpart,
                                        const float* __restrict__ colpart,
                                        const float* __restrict__ sptr,
+                                       const unsigned char* __restrict__ present,
                                        float* __restrict__ dX, int n, int LC,
                                        int nI, int nJ, int tc) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * LC) return;
   const int a = idx / LC, k = idx % LC;
   float s = 0.f;
-  // row tiles (a/TR, J) are active for J >= (a/TR)·TR / tc
-  for (int J = ((a / TR) * TR) / tc; J < nJ; ++J)
-    s += rowpart[((size_t)J * n + a) * LC + k];
+  // row tiles (a/TR, J) are active for J >= (a/TR)·TR / tc; with a tile
+  // subset (present != null, [nI, nJ]) only the launched tiles wrote a slot
+  const int ia = a / TR, ja = a / tc;
+  for (int J = (ia * TR) / tc; J < nJ; ++J)
+    if (!present || present[ia * nJ + J]) s += rowpart[((size_t)J * n + a) * LC + k];
   // column tiles (I, a/tc) are active for I·TR <= (a/tc)·tc + tc - 1
-  const int imax = min(nI - 1, ((a / tc) * tc + tc - 1) / TR);
-  for (int I = 0; I <= imax; ++I) s += colpart[((size_t)I * n + a) * LC + k];
+  const int imax = min(nI - 1, (ja * tc + tc - 1) / TR);
+  for (int I = 0; I <= imax; ++I)
+    if (!present || present[I * nJ + ja]) s += colpart[((size_t)I * n + a) * LC + k];
   dX[idx] = (0.5f * sptr[0]) * s;
 }
 
@@ -566,11 +570,15 @@ int sigkernel_block3_grid(int L, int C, int g, int span, int n_tiles, int* block
 // I·8 <= J·tc + tc - 1 (tc = 128/g), K [n, n], dX [n, L, C], rowpart
 // [ceil(n/tc), n, L·C], colpart [ceil(n/8), n, L·C], scratch [blocks·4·
 // (8(L-1)+g-1)·(256·span + 256/g)]; fp32, contiguous, on the stream's
-// device. Returns cudaGetLastError() after both launches (0 on success).
+// device. present: null for the whole tile list, else [ceil(n/8), ceil(n/tc)]
+// bytes, 1 for each tile of a subset list (the reduction sums only the slots
+// those tiles wrote; K holds only their pairs). Returns cudaGetLastError()
+// after both launches (0 on success).
 int sigkernel_block3_gram_grad(const float* X, const float* s, const int* tiles,
                                float* K, float* dX, float* rowpart, float* colpart,
-                               float* scratch, int n_tiles, int blocks, int n,
-                               int L, int C, int g, int span, void* stream) {
+                               float* scratch, const unsigned char* present,
+                               int n_tiles, int blocks, int n, int L, int C, int g,
+                               int span, void* stream) {
   if (!valid(L, C, g, span)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -581,7 +589,7 @@ int sigkernel_block3_gram_grad(const float* X, const float* s, const int* tiles,
   const int total = n * LC;
   const int tc = NT / g;
   reduce_partials_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      rowpart, colpart, s, dX, n, LC, (n + TR - 1) / TR, (n + tc - 1) / tc, tc);
+      rowpart, colpart, s, present, dX, n, LC, (n + TR - 1) / TR, (n + tc - 1) / tc, tc);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,10 @@ optionally inferring the particle's mass online with the MPF after every
 real step. Each step's solve, the real step and the termination flags run
 on the device; the host fetches one packed tensor a step. With
 ``checkpoint_dir`` the episode saves its state every ``checkpoint_every``
-steps and a restarted episode resumes from the newest checkpoint.
+steps and a restarted episode resumes from the newest checkpoint. With
+``mpf_mesh_devices=k`` every rank of a process group of k runs the episode
+and the MPF update is sharded over them; ``live_plot`` rewrites a PNG of the
+costs while the episode runs.
 
 Run: ``python -m sigsvgd_tpu_torch.experiments.maze --kernel signature --steps 300``
 (``--device cpu`` for the CPU; the card by default).
@@ -23,6 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..controllers.dust import NO_DRAWS, DuSt, DuStDraws
@@ -60,8 +64,8 @@ class MazeConfig:
     mpf_learning_rate: float = 0.01
     mpf_bandwidth: float = 0.5
     mpf_obs_std: float = 0.1
-    # the MPF sharded over a mesh of this many devices: not ported
-    # (ROADMAP.md queue 1, item 15)
+    # the MPF update sharded over a process group of this many ranks, each
+    # running the episode (parallel.mpf.sharded_mpf_observe)
     mpf_mesh_devices: int = 0
     dyn_prior_mean: float = 2.0
     dyn_prior_std: float = 0.1
@@ -71,7 +75,8 @@ class MazeConfig:
     # restarted with the same checkpoint_dir resumes from the newest
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
-    # per-step cost streamed to a PNG: not ported (ROADMAP.md queue 1, item 14)
+    # per-step cost (and the MPF's mass estimate) streamed to this PNG
+    # (utils.live_plot.LiveFigure; needs matplotlib)
     live_plot: Optional[str] = None
 
 
@@ -201,13 +206,18 @@ def sample_draws(cfg: MazeConfig, generator: torch.Generator) -> MazeDraws:
     return MazeDraws(pol_mean=pol[N_PRIM:], mpf_init=mpf_init, steps=steps)
 
 
-def _check_ported(cfg: MazeConfig) -> None:
-    if cfg.live_plot is not None:
-        raise NotImplementedError("live_plot: utils/live_plot.py is not ported yet "
-                                  "(ROADMAP.md queue 1, item 14: M14)")
-    if cfg.mpf_mesh_devices:
-        raise NotImplementedError("mpf_mesh_devices: the sharded MPF is not ported "
-                                  "yet (ROADMAP.md queue 1, item 15: M15)")
+def _mpf_mesh(k: int, device: torch.device):
+    """The 1-D 'dp' mesh of the sharded MPF update: the process group of
+    ``k`` ranks this episode runs on, one episode on each rank."""
+    if not dist.is_initialized() or dist.get_world_size() != k:
+        raise RuntimeError(
+            f"mpf_mesh_devices={k} runs the MPF update sharded over an initialised "
+            f"process group of {k} ranks, each running this episode "
+            "(torch.distributed.init_process_group, or parallel.init_distributed "
+            "under torchrun)")
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh([k], ("dp",), device_type=device.type)
 
 
 def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
@@ -219,7 +229,6 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
     step's), or from ``draws``. A checkpoint holds the state, the
     controller's and the MPF's states, the generator's state and the history
     so far, so a resumed episode repeats the uninterrupted one."""
-    _check_ported(cfg)
     device = resolve_device(device)
     model = make_model(cfg, device)
     ctrl = build_controller(cfg, model)
@@ -243,6 +252,19 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
         if cfg.mpf_log_space:
             init_particles = torch.log(init_particles)
         mpf_state = mpf.init(init_particles, state)
+    mpf_mesh = _mpf_mesh(cfg.mpf_mesh_devices, device) if mpf and cfg.mpf_mesh_devices else None
+
+    def observe(mpf_state, action, obs):
+        if mpf_mesh is None:
+            return mpf.observe(mpf_state, action, obs, n_steps=cfg.mpf_steps)[0]
+        # each rank moves its rows; every rank keeps all the moved particles
+        from ..parallel.mesh import local_rows
+        from ..parallel.mpf import sharded_mpf_observe
+
+        local = mpf_state._replace(particles=local_rows(mpf_state.particles, mpf_mesh))
+        new, _ = sharded_mpf_observe(mpf, local, action, obs, mpf_mesh,
+                                     n_steps=cfg.mpf_steps)
+        return new._replace(particles=new.prior_means)
 
     @torch.no_grad()
     def mpc_step(state, cstate, params_dist, step_draws):
@@ -286,6 +308,12 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
                  costs=np.asarray(costs),
                  dyn_particles=np.stack(dyn_particles) if dyn_particles else np.zeros(0))
 
+    live = None
+    if cfg.live_plot:
+        from ..utils.live_plot import LiveFigure
+
+        live = LiveFigure(nrows=2 if mpf else 1, out_path=cfg.live_plot, redraw_every=10)
+
     reached_goal = crashed = False
     t0 = time.perf_counter()
     step_ends = [t0]
@@ -305,7 +333,7 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
             state, cstate, params_dist, step_draws)
         observed = mpf is not None and step >= cfg.warm_up
         if observed:
-            mpf_state, _ = mpf.observe(mpf_state, action, state, n_steps=cfg.mpf_steps)
+            mpf_state = observe(mpf_state, action, state)
         # one host transfer a step (the MPF's particles folded in)
         packed = [action, state, inst_cost[None], hit[None].float(),
                   arrived[None].float()]
@@ -318,6 +346,12 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
         costs.append(float(fetched[6]))
         if observed:
             dyn_particles.append(fetched[9:].reshape(mpf_state.particles.shape))
+        if live:
+            live.append("inst_cost", fetched[6])
+            if observed:
+                mean = float(np.mean(fetched[9:]))
+                live.append("mass posterior mean",
+                            np.exp(mean) if cfg.mpf_log_space else mean, panel=1)
         reached_goal = bool(fetched[8])
         if fetched[7]:
             crashed = True
@@ -331,6 +365,9 @@ def run_episode(cfg: MazeConfig, seed: int, verbose: bool = False, device=None,
         if cfg.checkpoint_dir and cfg.checkpoint_every and (step + 1) % cfg.checkpoint_every == 0:
             save(step + 1)
     wall = time.perf_counter() - t0
+    if live:
+        live.redraw()
+        live.close()
 
     return {
         "trajectory": np.stack(states),
@@ -354,12 +391,18 @@ def main(argv=None):
     parser.add_argument("--episodes", type=int, default=1)
     parser.add_argument("--use-mpf", action="store_true")
     parser.add_argument("--mpf-mesh-devices", type=int, default=0,
-                        help="not ported yet (ROADMAP.md queue 1, item 15): must stay 0")
+                        help="shard the MPF update over this many ranks (run under "
+                             "torchrun with as many processes)")
     parser.add_argument("--out", default=None)
     parser.add_argument("--live-plot", default=None, metavar="PNG",
-                        help="not ported yet (ROADMAP.md queue 1, item 14)")
+                        help="rewrite this PNG with the costs while the episode runs "
+                             "(needs matplotlib)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if args.mpf_mesh_devices:
+        from ..parallel.distributed import init_distributed
+
+        init_distributed(device_type="cpu" if args.device == "cpu" else None)
 
     cfg = MazeConfig(
         kernel=args.kernel, steps=args.steps, use_mpf=args.use_mpf,

@@ -40,9 +40,13 @@ block hops; ``solver="wavefront"``): the statics and increments in torch
 and :func:`solve_goursat_pde`, an anti-diagonal sweep of torch ops with a
 chunked, checkpointed adjoint (no kernel of its own: the JAX package
 computes it in XLA, outside any Pallas kernel); the dense λ=0 ``gram``
-solves by it too. Only a pair list of the block propagator (λ ≥ 4 above
-the dense route's memory guard) raises, naming ROADMAP.md queue 1, item 8
-(M6).
+solves by it too. The block-propagator kinds take a pair list where the
+dense route does not fit: ``gram`` above ``_DENSE_LIMIT`` streams pair
+chunks and ``gram_and_grad`` above :meth:`SignatureKernel._dense_grad_ok`
+takes the gathered upper-triangle pair list; each chunk's statics and
+increments are built in torch and solved by K8 (``"mxu_chain"``) or the
+fp32 block propagator (``"mxu"``), the chunk under
+``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -434,6 +438,28 @@ def solve_goursat_pde_mxu(inc: torch.Tensor, dyadic_order: int,
     return rows[-1][:, m]
 
 
+def mxu_pair_bytes(kind: str, lx1: int, ly1: int, dyadic_order: int, n_channels: int,
+                   degree: int = 10) -> int:
+    """Memory one pair of a block-propagator chunk holds: the gathered paths
+    and their gradients (``4(lx1+ly1+2)·C`` floats), the static Gram, its
+    distances and their gradients (``4(lx1+1)(ly1+1)``), the increments,
+    and the solve's own state. K8 (``"mxu_chain"``) keeps z and dz, two
+    ``lx1·ly1`` floats (the JAX package counts ``2·(128 + 2·lx1·ly1)``
+    floats for its lane-padded relayouts, ``sigkernel.py:671-675``); the
+    fp32 propagator (``"mxu"``) keeps each hop's checkpointed input, the
+    live rows and one hop's ``[D+1, 2m+1]`` temporary, twice for headroom,
+    as the JAX package counts it (``:676-686``)."""
+    floats = 4 * (lx1 + ly1 + 2) * n_channels + 4 * (lx1 + 1) * (ly1 + 1) + lx1 * ly1
+    if kind == "mxu_chain":
+        floats += 2 * lx1 * ly1
+    else:
+        m = min(64, 1 << dyadic_order)
+        sub = (1 << dyadic_order) // m
+        nbx, nby = lx1 * sub, ly1 * sub
+        floats += 2 * (nbx * nby * (2 * m + 1) + nbx * (m + 1) + (degree + 1) * (2 * m + 1))
+    return 4 * floats
+
+
 def _mxu_eligible(lx1: int, ly1: int, dyadic_order: int) -> bool:
     if dyadic_order < 4:
         return False
@@ -535,22 +561,19 @@ class SignatureKernel:
         adjoint working set and statics), or 2e9 bytes over the twins'
         stored grids on the CPU, in equal chunks. Never pads a short list up
         to the budget. As the JAX package validates here, a λ=0 shape
-        outside the pair list's envelope (K7) takes the wavefront kind, and
-        a pair list that would need the block propagator raises."""
+        outside the pair list's envelope (K7) takes the wavefront kind. The
+        block-propagator kinds are sized by :func:`mxu_pair_bytes`."""
         kind = self._solver_kind(lx1, ly1)
         if kind == "small" and not small_supported(lx1, ly1, 0, n_channels, "rbf", h):
             kind = "wavefront"
-        if kind not in ("small", "pallas", "wavefront"):
-            raise NotImplementedError(
-                f"a dyadic_order={self.dyadic_order} Gram by pair list takes the "
-                "JAX package's streamed block-propagator route, not ported yet "
-                "(ROADMAP.md queue 1, item 8: M6's block-propagator pair lists)"
-            )
         budget = _budget_bytes(device)
         if kind == "small":
             per_pair = sigkernel_small.chunk_pair_bytes(lx1, ly1, n_channels)
         elif kind == "wavefront":
             per_pair = wavefront_pair_bytes(lx1, ly1, self.dyadic_order, n_channels)
+        elif kind in ("mxu_chain", "mxu"):
+            per_pair = mxu_pair_bytes(kind, lx1, ly1, self.dyadic_order, n_channels,
+                                      self.mxu_degree)
         elif self._fused(lx1, ly1, n_channels, h):
             per_pair = sigkernel_fused.chunk_pair_bytes(lx1, ly1, n_channels, device.type)
         else:
@@ -579,12 +602,19 @@ class SignatureKernel:
         inside the fused envelope, else K5 on the increments built in torch
         (linear statics, C > 8); ``"wavefront"``: the increments of the
         gathered paths built in torch as for K5 (``pair_increments``), then
-        the wavefront in one chunk."""
+        the wavefront in one chunk; ``"mxu_chain"`` and ``"mxu"``: the same
+        increments unscaled, pair-major, then K8 or the fp32 block
+        propagator."""
         if kind == "small":
             return pair_gram_small(X, Y, ixc, iyc, h, remat=remat)
         if kind == "wavefront":
             return _Wavefront.apply(
                 pair_increments(X, Y, ixc, iyc, h, self.dyadic_order), self.dyadic_order)
+        if kind in ("mxu_chain", "mxu"):
+            inc = pair_increments(X, Y, ixc, iyc, h, 0).permute(2, 0, 1).contiguous()
+            if kind == "mxu_chain":
+                return solve_goursat_pde_mxu_chain(inc, self.dyadic_order, self.mxu_degree)
+            return solve_goursat_pde_mxu(inc, self.dyadic_order, self.mxu_degree)
         lx1, ly1, C = X.shape[1] - 1, Y.shape[1] - 1, X.shape[2]
         for prec in (self.grad_precision, "fp32"):
             if self._fused(lx1, ly1, C, h, prec):
@@ -701,7 +731,7 @@ class SignatureKernel:
     def gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """Full Gram ``K [n, m]``, differentiable. Above ``_DENSE_LIMIT``
         floats of static Gram it streams pair chunks (K7 at λ=0; K4 or K5 at
-        λ=3), with a bandwidth from the first 256×256 path block. Below it,
+        λ=3; K8 or the fp32 block propagator at λ ≥ 4), with a bandwidth from the first 256×256 path block. Below it,
         as the JAX package: the static Gram (the bandwidth the median over
         the whole dense distance tensor), its increments and :meth:`_solve`
         (K5 at λ=3; K8 or the fp32 propagator on block-propagator shapes;
@@ -744,40 +774,44 @@ class SignatureKernel:
         ``solver="wavefront"``) takes the pair list with the wavefront's
         adjoint. Block-propagator shapes take the dense route,
         ``gram(X, X.detach())`` under autograd (K8's two kernels on the card
-        at ``mxu_precision="default"``)."""
+        at ``mxu_precision="default"``), within :meth:`_dense_grad_ok`'s
+        memory guard, else the pair list (K8 or the fp32 block propagator
+        a chunk)."""
         n, L, C = X.shape
-        lam = self.dyadic_order
-        if lam == 3 and self.solver in ("auto", "pallas") and not pallas_supported(
-                L - 1, L - 1, 3):
-            # beyond JAX's λ=3 envelope (ly1 > 48) K2 still takes what fits it
-            h = self._subsampled_bandwidth(X, X)
-            if block3_supported(n, L, C, h):
-                return block3_gram_and_grad(X, h)
+        if (self._solver_kind(L - 1, L - 1) in ("mxu", "mxu_chain")
+                and self._dense_grad_ok(n, L - 1)):
+            with torch.enable_grad():
+                x = X.detach().requires_grad_(True)
+                K = self.gram(x, X.detach())
+                (dX,) = torch.autograd.grad(K.sum(), x)
+            return K.detach(), dX
+        h = self._subsampled_bandwidth(X, X)
+        route = self._block_route(n, L, C, h)
+        if route == "k1":
+            return block_gram_and_grad(X, h)
+        if route == "k2":
+            return block3_gram_and_grad(X, h)
+        return self._pair_gram_and_grad(X, h)
+
+    def _block_route(self, n: int, L: int, C: int, h) -> Optional[str]:
+        """The block kernel :meth:`gram_and_grad` takes for ``[n, L, C]``
+        paths at bandwidth ``h``: ``"k1"`` (λ=0, the ``"small"`` kind, inside
+        both K1's block envelope and the JAX package's), ``"k2"`` (λ=3 at
+        ``grad_precision="fp32"`` inside K2's envelope: the ``"pallas"``
+        kind, or beyond JAX's ly1 ≤ 48 under the λ=3 solvers), or None (a
+        pair list or the dense route). The sharded triangle solve runs the
+        same kernel on its tile subsets (``parallel.dust``)."""
         kind = self._solver_kind(L - 1, L - 1)
-        if kind == "small":
-            h = self._subsampled_bandwidth(X, X)
-            if block_supported(n, L, C, h) and jax_block_supported(n, L, C, h):
-                return block_gram_and_grad(X, h)
-            return self._pair_gram_and_grad(X, h)
-        if kind == "pallas":
-            h = self._subsampled_bandwidth(X, X)
-            if self.grad_precision == "fp32" and block3_supported(n, L, C, h):
-                return block3_gram_and_grad(X, h)
-            return self._pair_gram_and_grad(X, h)
-        if kind == "wavefront":
-            return self._pair_gram_and_grad(X, self._subsampled_bandwidth(X, X))
-        if not self._dense_grad_ok(n, L - 1):
-            raise NotImplementedError(
-                f"gram_and_grad of {n} paths at dyadic_order={lam} "
-                "is above the dense route's memory guard; the gathered pair-list "
-                "route of the block propagator is not ported yet (ROADMAP.md "
-                "queue 1, item 8: M6's block-propagator pair lists)"
-            )
-        with torch.enable_grad():
-            x = X.detach().requires_grad_(True)
-            K = self.gram(x, X.detach())
-            (dX,) = torch.autograd.grad(K.sum(), x)
-        return K.detach(), dX
+        if (self.dyadic_order == 3 and self.solver in ("auto", "pallas")
+                and not pallas_supported(L - 1, L - 1, 3)):
+            return "k2" if block3_supported(n, L, C, h) else None
+        if (kind == "small" and block_supported(n, L, C, h)
+                and jax_block_supported(n, L, C, h)):
+            return "k1"
+        if (kind == "pallas" and self.grad_precision == "fp32"
+                and block3_supported(n, L, C, h)):
+            return "k2"
+        return None
 
     def calibrate_dyadic_order(self, X: torch.Tensor, tol: float = 1e-3,
                                n_sample: int = 32) -> "SignatureKernel":

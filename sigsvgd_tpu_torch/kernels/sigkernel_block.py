@@ -139,16 +139,16 @@ def _channel_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _forward_plain(X: torch.Tensor, h, keep_fac: bool):
+def _forward_plain(X: torch.Tensor, h, keep_fac: bool, pairs=None):
     """The forward half both twins share, vectorised over the upper-triangle
-    pairs (a ≤ b) and sequential over the grid: the pre-scaled tiles, the
-    static-row function, the values and, with ``keep_fac``, the per-cell
-    adjoint factors; ``gdn`` is static row L-1. Channel sums run in channel
-    order, as the kernels take them."""
+    pairs (a ≤ b; only ``pairs = (iu, ju)`` when given) and sequential over
+    the grid: the pre-scaled tiles, the static-row function, the values and,
+    with ``keep_fac``, the per-cell adjoint factors; ``gdn`` is static row
+    L-1. Channel sums run in channel order, as the kernels take them."""
     n, L, C = X.shape
     scale = torch.sqrt(2.0 / torch.as_tensor(h, dtype=X.dtype, device=X.device))
     Xs = X * scale
-    iu, ju = torch.triu_indices(n, n, device=X.device)
+    iu, ju = pairs if pairs is not None else torch.triu_indices(n, n, device=X.device)
     x = Xs[iu].permute(1, 2, 0).contiguous()  # [L, C, P]
     y = Xs[ju].permute(1, 2, 0).contiguous()
     ynh = -0.5 * _channel_dot(y, y)            # [L, P]
@@ -178,7 +178,8 @@ def _forward_plain(X: torch.Tensor, h, keep_fac: bool):
 
 
 def _assemble_k(kval, iu, ju, n: int) -> torch.Tensor:
-    K = torch.empty(n, n, dtype=kval.dtype, device=kval.device)
+    """Both halves of K from the pairs' values; zero where no pair wrote."""
+    K = torch.zeros(n, n, dtype=kval.dtype, device=kval.device)
     K[iu, ju] = kval
     K[ju, iu] = kval
     return K
@@ -191,11 +192,15 @@ def block_gram_plain(X: torch.Tensor, h) -> torch.Tensor:
     return _assemble_k(f["kval"], f["iu"], f["ju"], X.shape[0])
 
 
-def block_gram_and_grad_plain(X: torch.Tensor, h):
+def block_gram_and_grad_plain(X: torch.Tensor, h, pairs=None):
     """The K1 contract in plain PyTorch, vectorised over the upper-triangle
-    pairs (a ≤ b) and sequential over the grid, with an explicit adjoint."""
+    pairs (a ≤ b) and sequential over the grid, with an explicit adjoint.
+    With ``pairs = (iu, ju)``, a subset of those pairs (:func:`tile_pairs`
+    of a tile subset), K holds only theirs (zero elsewhere) and dX only
+    their terms: the sums over a partition of the pairs give the whole
+    result."""
     n, L, C = X.shape
-    f = _forward_plain(X, h, keep_fac=True)
+    f = _forward_plain(X, h, keep_fac=True, pairs=pairs)
     iu, ju, x, y, g_row, fac = f["iu"], f["ju"], f["x"], f["y"], f["g_row"], f["fac"]
     P = iu.shape[0]
     seed = torch.where(iu == ju, 1.0, 2.0).to(X.dtype)
@@ -375,6 +380,35 @@ def _tile_list(n: int, tc: int, device) -> torch.Tensor:
     return _tiles_cache[key]
 
 
+def tile_shard(tiles: torch.Tensor, ndev: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s tiles of ``ndev``: every ``ndev``-th tile of the list
+    from position ``rank`` on, the JAX package's round-robin
+    (``block_tile_shard``) without its zero-weight padding: ranks may hold
+    different tile counts."""
+    return tiles[rank::ndev].contiguous()
+
+
+def tile_pairs(tiles: torch.Tensor, n: int, tc: int):
+    """``(iu, ju)``: the pairs a ≤ b < n that the tiles of 8 rows × ``tc``
+    columns hold, tile after tile, row-major within a tile."""
+    t = tiles.to(device="cpu", dtype=torch.int64)
+    r = torch.arange(TILE_ROWS)
+    c = torch.arange(tc)
+    a = (t[:, 0, None, None] * TILE_ROWS + r[None, :, None]).expand(-1, -1, tc)
+    b = (t[:, 1, None, None] * tc + c[None, None, :]).expand(-1, TILE_ROWS, -1)
+    keep = (a <= b) & (b < n)
+    return a[keep].to(tiles.device), b[keep].to(tiles.device)
+
+
+def tile_mask(tiles: torch.Tensor, n: int, tc: int) -> torch.Tensor:
+    """``[ceil(n/8), ceil(n/tc)]`` uint8, 1 for each tile of the list: the
+    subset K1's and K2's reductions read (``present`` in their sources)."""
+    mask = torch.zeros(_cdiv(n, TILE_ROWS), _cdiv(n, tc), dtype=torch.uint8,
+                       device=tiles.device)
+    mask[tiles[:, 0].long(), tiles[:, 1].long()] = 1
+    return mask
+
+
 # ---------------------------------------------------------------------------
 # K3's plan: one thread a pair, bands of cell rows as a skewed wavefront.
 # ---------------------------------------------------------------------------
@@ -450,7 +484,7 @@ def _lib():
     lib = load("sigkernel_block")
     lib.sigkernel_block_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.sigkernel_block_gram_grad.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sigkernel_block_gram.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -486,17 +520,34 @@ def block_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
     return tiles, blocks.value
 
 
-def block_gram_and_grad(X: torch.Tensor, h):
+def block_gram_and_grad(X: torch.Tensor, h, shard=None):
     """``(K, dX)`` for paths ``X [n, L, C]`` and RBF bandwidth ``h`` (float or
     0-d tensor). CPU tensors take the plain twin; CUDA tensors launch K1 and
-    add one to ``block_gram_and_grad.launches``."""
+    add one to ``block_gram_and_grad.launches``. ``shard = (ndev, rank)``
+    takes rank's tiles of :func:`tile_shard` only: K holds their pairs
+    (zero elsewhere) and dX their terms, so the sums over the ranks are the
+    whole result; K1 walks the subset list and its reduction reads only the
+    subset's slots (:func:`tile_mask`)."""
     if X.device.type == "cpu":
-        return block_gram_and_grad_plain(X, h)
+        if shard is None:
+            return block_gram_and_grad_plain(X, h)
+        n, L = X.shape[:2]
+        tc = THREADS // block_lanes(L)[0]
+        tiles = tile_shard(_tile_list(n, tc, X.device), *shard)
+        return block_gram_and_grad_plain(X, h, pairs=tile_pairs(tiles, n, tc))
     n, L, C, h_t = _check(X, h, "K1", block_supported, f"L ≤ {MAX_L}, C ≤ {MAX_C}")
     g, span = block_lanes(L)
     tc = THREADS // g
     tiles, blocks = block_grid(n, L, C, X.device)
-    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    present = None
+    if shard is not None:
+        tiles = tile_shard(tiles, *shard)
+        blocks = min(blocks, tiles.shape[0])
+        present = tile_mask(tiles, n, tc)
+    if tiles.shape[0] == 0:
+        return torch.zeros(n, n, dtype=X.dtype, device=X.device), torch.zeros_like(X)
+    K = (torch.empty if present is None else torch.zeros)(
+        n, n, dtype=X.dtype, device=X.device)
     dX = torch.empty_like(X)
     rowpart = torch.empty(_cdiv(n, tc), n, L * C, dtype=X.dtype, device=X.device)
     colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype, device=X.device)
@@ -504,7 +555,8 @@ def block_gram_and_grad(X: torch.Tensor, h):
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = _lib().sigkernel_block_gram_grad(
         X.data_ptr(), h_t.data_ptr(), tiles.data_ptr(), K.data_ptr(), dX.data_ptr(),
-        rowpart.data_ptr(), colpart.data_ptr(), scratch.data_ptr(), tiles.shape[0],
+        rowpart.data_ptr(), colpart.data_ptr(), scratch.data_ptr(),
+        None if present is None else present.data_ptr(), tiles.shape[0],
         blocks, n, L, C, g, span, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
@@ -533,3 +585,15 @@ def block_gram(X: torch.Tensor, h) -> torch.Tensor:
 
 block_gram_and_grad.launches = 0
 block_gram.launches = 0
+
+
+def block_tiles_ks_partial(X: torch.Tensor, h, s: torch.Tensor, ndev: int, rank: int):
+    """Rank ``rank``'s partial ``(K@s [n, d], dX [n, L, C])`` over its tiles
+    of ``ndev`` (K1 on the card, one launch; the twin on the CPU): the sums
+    over the ranks are ``(K@s, dX)`` of :func:`block_gram_and_grad`. Port of
+    the JAX package's ``block_tiles_ks_partial`` on this kernel's own tile
+    list (its dX already halved). K holds the subset's pairs in both halves
+    and zero elsewhere, so ``K@s`` counts a pair a < b once in row a and once
+    in row b, and a diagonal pair once."""
+    K, dX = block_gram_and_grad(X, h, shard=(ndev, rank))
+    return K @ s, dX

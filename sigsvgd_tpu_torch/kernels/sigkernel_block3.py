@@ -35,7 +35,7 @@ import torch
 from ._build import load
 from .sigkernel_block import (
     SPAN_CAP, SPAN_TEMPLATES, THREADS, _cdiv, _tile_list, _tile_list_len, block_lanes,
-    block_spans,
+    block_spans, tile_mask, tile_pairs, tile_shard,
 )
 from .sigkernel_fused import _M, fused_pairs_plain, grid_forward, pair_statics
 
@@ -91,16 +91,18 @@ def _pair_tiles(X: torch.Tensor, h, iu: torch.Tensor, ju: torch.Tensor):
     return Xs[iu].permute(1, 2, 0).contiguous(), Xs[ju].permute(1, 2, 0).contiguous()
 
 
-def block3_gram_and_grad_plain(X: torch.Tensor, h, pairs_per_chunk: int | None = None):
+def block3_gram_and_grad_plain(X: torch.Tensor, h, pairs_per_chunk: int | None = None,
+                               pairs=None):
     """The K2 contract in plain PyTorch. Stores the fine grid, its adjoint
     and their products (about ``6·(8L)²`` values per pair), so it suits
     small shapes; ``pairs_per_chunk`` bounds that memory by solving the
     pairs that many at a time. :func:`block3_gram_plain` gives K alone
-    without the grid."""
+    without the grid. With ``pairs = (iu, ju)``, a subset of the pairs
+    a ≤ b, K holds only theirs (zero elsewhere) and dX only their terms."""
     n = X.shape[0]
-    iu, ju = torch.triu_indices(n, n, device=X.device)
-    step = pairs_per_chunk or iu.shape[0]
-    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    iu, ju = pairs if pairs is not None else torch.triu_indices(n, n, device=X.device)
+    step = max(1, pairs_per_chunk or iu.shape[0])
+    K = torch.zeros(n, n, dtype=X.dtype, device=X.device)
     dX = torch.zeros_like(X)
     for p0 in range(0, iu.shape[0], step):
         i, j = iu[p0:p0 + step], ju[p0:p0 + step]
@@ -211,7 +213,7 @@ def _lib():
     lib.sigkernel_block3_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.sigkernel_block3_grid.restype = ctypes.c_int
     lib.sigkernel_block3_gram_grad.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sigkernel_block3_gram_grad.restype = ctypes.c_int
     return lib
 
@@ -229,12 +231,20 @@ def block3_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
     return tiles, blocks.value
 
 
-def block3_gram_and_grad(X: torch.Tensor, h):
+def block3_gram_and_grad(X: torch.Tensor, h, shard=None):
     """``(K, dX)`` for paths ``X [n, L, C]`` and RBF bandwidth ``h`` (float or
     0-d tensor). CPU tensors take the plain twin; CUDA tensors launch K2 and
-    add one to ``block3_gram_and_grad.launches``."""
+    add one to ``block3_gram_and_grad.launches``. ``shard = (ndev, rank)``
+    takes rank's tiles of ``tile_shard`` only, as K1's wrapper does: K holds
+    their pairs (zero elsewhere) and dX their terms, and K2's reduction reads
+    only the subset's slots."""
     if X.device.type == "cpu":
-        return block3_gram_and_grad_plain(X, h)
+        if shard is None:
+            return block3_gram_and_grad_plain(X, h)
+        n, L = X.shape[:2]
+        tc = THREADS // block3_lanes(L)[0]
+        tiles = tile_shard(_tile_list(n, tc, X.device), *shard)
+        return block3_gram_and_grad_plain(X, h, pairs=tile_pairs(tiles, n, tc))
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     if X.dtype != torch.float32 or X.dim() != 3 or not X.is_contiguous():
@@ -250,10 +260,18 @@ def block3_gram_and_grad(X: torch.Tensor, h):
     g, span = block3_lanes(L)
     tc = THREADS // g
     tiles, blocks = block3_grid(n, L, C, X.device)
+    present = None
+    if shard is not None:
+        tiles = tile_shard(tiles, *shard)
+        blocks = min(blocks, tiles.shape[0])
+        present = tile_mask(tiles, n, tc)
     n_tiles = tiles.shape[0]
+    if n_tiles == 0:
+        return torch.zeros(n, n, dtype=X.dtype, device=X.device), torch.zeros_like(X)
     # the path scale rsqrt(h), formed as the twin forms it
     s_t = torch.rsqrt(torch.as_tensor(h, dtype=torch.float32, device=X.device)).reshape(1)
-    K = torch.empty(n, n, dtype=X.dtype, device=X.device)
+    K = (torch.empty if present is None else torch.zeros)(
+        n, n, dtype=X.dtype, device=X.device)
     dX = torch.empty_like(X)
     rowpart = torch.empty(_cdiv(n, tc), n, L * C, dtype=X.dtype, device=X.device)
     colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype, device=X.device)
@@ -262,7 +280,8 @@ def block3_gram_and_grad(X: torch.Tensor, h):
     rc = _lib().sigkernel_block3_gram_grad(
         X.data_ptr(), s_t.data_ptr(), tiles.data_ptr(), K.data_ptr(),
         dX.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
-        scratch.data_ptr(), n_tiles, blocks, n, L, C, g, span, stream)
+        scratch.data_ptr(), None if present is None else present.data_ptr(), n_tiles,
+        blocks, n, L, C, g, span, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     block3_gram_and_grad.launches += 1
@@ -270,3 +289,13 @@ def block3_gram_and_grad(X: torch.Tensor, h):
 
 
 block3_gram_and_grad.launches = 0
+
+
+def block3_tiles_ks_partial(X: torch.Tensor, h, s: torch.Tensor, ndev: int, rank: int):
+    """Rank ``rank``'s partial ``(K@s [n, d], dX [n, L, C])`` over its tiles
+    of ``ndev`` (K2 on the card, one launch; the twin on the CPU): the sums
+    over the ranks are ``(K@s, dX)`` of :func:`block3_gram_and_grad`. Port of
+    the JAX package's ``block3_tiles_ks_partial`` on this kernel's own tile
+    list (its dX already halved; ``K@s`` as K1's partial forms it)."""
+    K, dX = block3_gram_and_grad(X, h, shard=(ndev, rank))
+    return K @ s, dX

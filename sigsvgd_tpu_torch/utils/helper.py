@@ -1,6 +1,10 @@
-"""Experiment helpers the runners use (port of part of
-``sigsvgd_tpu/utils/helper.py``): seeds, artifact saving and loading, and a
-finiteness check over nested results."""
+"""Experiment helpers the runners use (port of
+``sigsvgd_tpu/utils/helper.py``): seeds and seeded generators, the project
+root, artifact saving and loading with an optional snapshot of the caller's
+session, and a finiteness check over nested results. The JAX package's
+``enable_compile_cache`` (XLA's persistent compilation cache) has no
+counterpart: PyTorch runs eagerly, and the port's kernels are built once
+into ``build/kernels/`` and reused (``kernels/_build.py``)."""
 from __future__ import annotations
 
 import json
@@ -16,6 +20,16 @@ def generate_seeds(n: int, root_seed: int = 42) -> List[int]:
     """Deterministic list of experiment seeds."""
     rng = np.random.default_rng(root_seed)
     return [int(s) for s in rng.integers(0, 2**31 - 1, size=n)]
+
+
+def seed_key(seed: int, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``, the port's
+    counterpart of ``jax.random.PRNGKey(seed)``."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def get_project_root() -> Path:
+    return Path(__file__).resolve().parents[2]
 
 
 def _to_numpy(x):
@@ -35,9 +49,10 @@ def _to_numpy(x):
 
 
 def save_progress(folder_name: Path, data: Optional[Dict[str, Any]] = None,
-                  config: Optional[Dict[str, Any]] = None) -> Path:
+                  config: Optional[Dict[str, Any]] = None, session: bool = False) -> Path:
     """Write ``data.pkl`` (tensors as numpy arrays) and ``config.json`` into
-    ``folder_name``."""
+    ``folder_name``, and with ``session`` a ``session.pkl`` snapshot of the
+    caller's globals and locals (:func:`_dump_session`)."""
     folder = Path(folder_name)
     folder.mkdir(parents=True, exist_ok=True)
     if data is not None:
@@ -46,7 +61,44 @@ def save_progress(folder_name: Path, data: Optional[Dict[str, Any]] = None,
     if config is not None:
         with open(folder / "config.json", "w") as f:
             json.dump(config, f, indent=2, default=str)
+    if session:
+        _dump_session(folder / "session.pkl")
     return folder
+
+
+def _dump_session(path: Path) -> None:
+    """Snapshot of the ``save_progress`` caller's globals and locals, name by
+    name (tensors as numpy arrays); what does not pickle (modules, open
+    handles, closures) is skipped and its name listed under
+    ``__skipped__``."""
+    import inspect
+
+    frame = inspect.currentframe()
+    g: Dict[str, Any] = {}
+    try:
+        caller = frame.f_back.f_back  # the save_progress caller
+        g = dict(caller.f_globals)
+        g.update(caller.f_locals)
+    finally:
+        del frame
+    snap: Dict[str, Any] = {}
+    skipped: List[str] = []
+    for k, v in g.items():
+        if k.startswith("__"):
+            continue
+        try:
+            snap[k] = pickle.loads(pickle.dumps(_to_numpy(v)))
+        except Exception:
+            skipped.append(k)
+    with open(path, "wb") as f:
+        pickle.dump({"vars": snap, "__skipped__": sorted(skipped)}, f)
+
+
+def load_session(folder_name: Path) -> Dict[str, Any]:
+    """A ``save_progress(..., session=True)`` snapshot: ``{"vars": {...},
+    "__skipped__": [...]}``."""
+    with open(Path(folder_name) / "session.pkl", "rb") as f:
+        return pickle.load(f)
 
 
 def load_progress(folder_name: Path) -> Dict[str, Any]:

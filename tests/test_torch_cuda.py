@@ -1483,3 +1483,84 @@ def test_planning_cost_gradient_is_bitwise_repeatable(cuda_device):
         for name, got in checks().items():
             diff = (got - first[name]).abs().max().item()
             assert torch.equal(got, first[name]), f"{name}: max |diff| {diff}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [2, 3])
+@pytest.mark.parametrize("which,n", [("k1", 333), ("k1", 1024), ("k2", 77), ("k2", 130)])
+def test_tile_subsets_match_their_subset_twins(cuda_device, which, n, ndev):
+    """K1 and K2 over one rank's tiles of ``tile_shard`` against their twins
+    on that rank's pairs (``tile_pairs``): K1's K bit for bit and K2's at
+    atol 1e-4, zero off the subset's pairs (the kernels write no other slot
+    of K, which starts at zero); dX at each kernel's tolerance (K2's against
+    the twin in fp64). Summed over the ranks, K and dX are the whole
+    launch's; the reduction reads only the subset's partial slots, so slots
+    left over from an earlier launch change nothing (each launch's partials
+    are fresh ``torch.empty`` memory)."""
+    L, C = (40, 2)
+    X = _paths(cuda_device, n, L, C, seed=ndev)
+    fn = kb.block_gram_and_grad if which == "k1" else kb3.block3_gram_and_grad
+    tc = kb.THREADS // kb.block_lanes(L)[0]
+    tiles = kb._tile_list(n, tc, cuda_device)
+    K_all, dX_all = fn(X, 4.0)
+    K_sum, dX_sum = torch.zeros_like(K_all), torch.zeros_like(dX_all)
+    for r in range(ndev):
+        before = fn.launches
+        K, dX = fn(X, 4.0, shard=(ndev, r))
+        assert fn.launches == before + 1
+        pairs = kb.tile_pairs(kb.tile_shard(tiles, ndev, r), n, tc)
+        if which == "k1":
+            Kp, dXp = kb.block_gram_and_grad_plain(X, 4.0, pairs=pairs)
+            assert torch.equal(K, Kp)
+            _assert_k_dx(K.cpu(), dX.cpu(), Kp.cpu(), dXp.cpu())
+        else:
+            Kp, _ = kb3.block3_gram_and_grad_plain(X, 4.0, pairs_per_chunk=4096, pairs=pairs)
+            _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), 4.0, pairs_per_chunk=4096,
+                                                     pairs=pairs)
+            _assert_k_dx(K.cpu(), dX.double().cpu(), Kp.cpu(), dX64.cpu(), 1e-4, 4e-4)
+        off = torch.ones_like(K, dtype=torch.bool)
+        off[pairs[0], pairs[1]] = False
+        off[pairs[1], pairs[0]] = False
+        assert not K[off].any()
+        K_sum += K
+        dX_sum += dX
+    torch.testing.assert_close(K_sum, K_all, atol=0, rtol=0)
+    scale = dX_all.abs().max()
+    torch.testing.assert_close(dX_sum / scale, dX_all / scale, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k8_on_a_pair_list_chunk_matches_the_twin(cuda_device, monkeypatch):
+    """Above the dense guard ``gram_and_grad`` takes the triangle pair list;
+    here one chunk of it, with one K8 forward and one backward, against the
+    same route on the CPU (K8's twin): K scaled 1e-3, dX scaled 2e-3."""
+    monkeypatch.setattr(SignatureKernel, "_DENSE_LIMIT", 100)
+    g = torch.Generator().manual_seed(3)
+    X = (torch.rand((96, 3, 7), generator=g) * 2.0 - 1.0)
+    kern = SignatureKernel(dyadic_order=6, bandwidth=2.0, mxu_precision="default")
+    assert kern._chunk_plan(2, 2, 96 * 97 // 2, 7, cuda_device, 2.0)[2] == 1
+    f0, b0 = mc.mxu_chain_fwd.launches, mc.mxu_chain_bwd.launches
+    K, dX = kern.gram_and_grad(X.to(cuda_device))
+    assert (mc.mxu_chain_fwd.launches - f0, mc.mxu_chain_bwd.launches - b0) == (1, 1)
+    Kp, dXp = kern.gram_and_grad(X)
+    sk, sg = Kp.abs().max(), dXp.abs().max()
+    torch.testing.assert_close(K.cpu() / sk, Kp / sk, atol=1e-3, rtol=0)
+    torch.testing.assert_close(dX.cpu() / sg, dXp / sg, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sharded_lambda0_solve_on_two_ranks_sharing_the_card(cuda_device, tmp_path):
+    """The sharded triangle solve at λ=0 on a gloo group of 2 ranks sharing
+    the card: each rank launches K1 once a step over its tiles, and the
+    actions, the policies and Adam's moments match the single-device solve
+    on the card at ``tests/test_parallel_dust.py``'s 2e-3 / 2e-4."""
+    from _torch_dist_ranks import result, start_ranks
+
+    pol = np.random.default_rng(11).uniform(-2.0, 2.0, (48, 12, 1)).astype(np.float32)
+    spec = dict(device="cuda", ctrl=dict(hz_len=12, n_pol=48, kernel_mode="signature",
+                                         adam=0.1, sig=dict(dyadic_order=0, bandwidth=4.0)),
+                opt_steps=2, modes=["triangle"], state=[float(np.pi), 0.0], pol0=pol)
+    out = result(start_ranks(2, [("lambda0", "case_dust", spec)], tmp_path).join(), "lambda0")
+    assert out["launches"]["triangle"] == (2, 0)
+    for g, w in zip(out["triangle"][0], out["single"][0]):
+        np.testing.assert_allclose(g, w, rtol=2e-3, atol=2e-4)

@@ -29,7 +29,9 @@ point-mass model and the closed-loop episode.
   for the rest of its horizon and adds 1e6 to its cost.
 * ``params_samples > 0``: the controller plans under draws from the MPF's
   ``ParticleGMM`` (components and normals handed over), 2 steps.
-* Each option that is not ported raises ``NotImplementedError``.
+* The live plot writes its PNG, and the MPF sharded over a gloo group of 2
+  CPU ranks gives the unsharded episode (``test_unported_options_raise``,
+  named for the raises those options had until they were ported).
 """
 import dataclasses
 
@@ -296,10 +298,29 @@ def test_episode_draws_from_its_generator_and_repeats():
 
 @pytest.mark.parametrize("field,value,name", [
     ("live_plot", "cost.png", "M14"), ("mpf_mesh_devices", 2, "M15")])
-def test_unported_options_raise(field, value, name):
-    cfg = dataclasses.replace(maze.MazeConfig(steps=1), **{field: value})
-    with pytest.raises(NotImplementedError, match=name):
-        maze.run_episode(cfg, 0, device="cpu")
+def test_unported_options_raise(field, value, name, tmp_path):
+    """The two options that raised until their modules were ported (M14's
+    live plot, M15's sharded MPF) now run. ``live_plot`` writes its PNG;
+    ``mpf_mesh_devices=2`` raises without a process group of 2 ranks and,
+    on a gloo group of 2 CPU ranks (``tests/_torch_dist_ranks.py``), gives
+    the unsharded episode (trajectory and particles at the sharded MPF's
+    1e-4 / 1e-5, ``tests/test_parallel_mpf.py``)."""
+    cfg = maze.MazeConfig(kernel="rbf_fixed_bw", use_mpf=True, n_policies=4, horizon=6,
+                          steps=3, mpf_steps=3)
+    if field == "live_plot":
+        png = tmp_path / value
+        out = maze.run_episode(dataclasses.replace(cfg, live_plot=str(png)), 5, device="cpu")
+        assert png.stat().st_size > 0 and out["steps"] == 3
+        return
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
+        maze.run_episode(dataclasses.replace(cfg, mpf_mesh_devices=value), 5, device="cpu")
+    from _torch_dist_ranks import result, start_ranks
+
+    out = result(start_ranks(value, [(name, "case_maze", dict(
+        cfg=dataclasses.asdict(cfg), seed=5))], tmp_path).join(), name)
+    assert out["sharded"]["dyn_particles"].shape == (3, 50, 1)
+    for k in ("trajectory", "dyn_particles", "actions"):
+        np.testing.assert_allclose(out["sharded"][k], out["single"][k], rtol=1e-4, atol=1e-5)
 
 
 def test_config_defaults_match_jax():
