@@ -10,20 +10,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CUDA kernel from ``sigsvgd_tpu_torch/csrc`` with nvcc for sm_90a, one
    process per source, with the registers, spills and stack frame of each
    function of each source from ptxas (its report kept beside the library,
-   so a cached library reports too); a K1, K2, K5 or K8 function, or an
-   instantiation of K3 (length bucket × C inside L·C ≤ 128), K4 (span
-   template × C = 1..8), K6 (× C = 1..4) or K7 (span 3 × C = 1..8, span 5 ×
-   C = 1..4; the forward values only and with the residual), that spills or
+   so a cached library reports too); a K1 or K2 instantiation (span
+   templates 3 and 5 × C = 1..3, template 3 × C = 4..8), a K5 or K8
+   function, or an instantiation of K3 (length bucket × C inside L·C ≤
+   128), K4 (span template × C = 1..8), K6 (× C = 1..4) or K7 (span 3 × C =
+   1..8, span 5 × C = 1..4; the forward values only and with the residual),
+   that spills or
    is missing from the report, or a K1, K8, K3, K4, K6 or K7 function with a
    stack frame, fails the smoke;
 2. K1 (the λ=0 signature-kernel Gram + adjoint; a lane group per pair)
    against its plain PyTorch twin on the card, at the flagship shape
-   [1024, 40, 2], a ragged [333, 40, 2] and [40, 64, 3] (16 lanes a pair):
-   K bit for bit, dX scaled by max|dX| to atol 5e-5; also K and dX of both
-   against the twin in fp64, the device memory each instantiation's first
-   launch takes, the plan (lanes, spans, bands, tiles, resident blocks,
-   shared memory, scratch, traffic), and at the flagship shape K and dX bit
-   for bit across two calls;
+   [1024, 40, 2], a ragged [333, 40, 2], [40, 64, 3] (16 lanes a pair) and
+   ``WIDE_SHAPES`` (C = 4..8: the planner's knots [1024, 3, 7] at h = 1.5,
+   [1024, 16, 8], [1024, 32, 4] and a ragged [333, 18, 7]): K bit for bit,
+   dX scaled by max|dX| to atol 5e-5; also K and dX of both against the
+   twin in fp64, the device memory each instantiation's first launch takes,
+   the plan (lanes, spans, bands, tiles, resident blocks, shared memory,
+   scratch, traffic), and at n = 1024 K and dX bit for bit across two
+   calls and the times of K1 and its twin with the bound;
 3. the flagship DuSt solve (7-DoF Panda, bookshelf_small, 1024 policies,
    H=40, 2 Adam SVGD steps, calibrated order 0) for a few chained MPC
    solves, with K1's launch count read around them, then the two stages of
@@ -39,11 +43,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    first step's costs, K and the repulsion, the weights' argmax and the
    new policies, as ``phase_mc_small_vs_cpu`` says);
 4. K3 (the λ=0 values-only block Gram, one thread a pair swept in bands
-   as a wavefront) against its twin (bit for bit) at [1024, 40, 2],
-   [333, 40, 2] and [40, 64, 2] (L·C = 128, the 64-node bucket), where it
-   must also give K1's K bit for bit, and at C = 8 ([1024, 16, 8]
-   and [300, 16, 8]), with its time beside K1's at [1024, 40, 2], its
-   plan, its registers and the issue floor its SASS implies;
+   as a wavefront) against its twin and against K1's K (both bit for bit)
+   at [1024, 40, 2], [333, 40, 2], [40, 64, 2] (L·C = 128, the 64-node
+   bucket) and at C = 8 ([1024, 16, 8] and [300, 16, 8]), with its time
+   beside K1's at n = 1024, its plan, its registers and the issue floor
+   its SASS implies;
 5. K7 (the λ=0 pair-list forward, values only and with its residual, and
    its backward; a lane group per pair) against its twin at the flagship
    upper-triangle list of [1024, 40, 2] (524,800 pairs: the first and the
@@ -65,12 +69,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    no other kernel, K equal to K1's bit for bit; and at τ-like knots
    [1024, 16, 8] (C = 8, inside the JAX package's block envelope): 1 K3
    launch, no K7, K the twin's bit for bit;
-8. λ=0 ``gram_and_grad`` outside K1's envelope, at bench's planning knots
-   [1024, 3, 7] and at [64, 41, 4]: one K7 forward and one backward each,
-   no K1, K and dX against the same route with the twins;
+8. ``gram_and_grad`` at bench's planning knots [1024, 3, 7] (h = 1.5): at
+   λ=0 one K1 launch, at λ=3 one K2 launch, nothing else, with the parent's
+   route (the pair list: K7's forward and backward at λ=0, K4's at λ=3) run
+   and timed beside it in turns; and beyond the block envelope (L·C >
+   128): at λ=0 [64, 41, 4] one K7 forward and backward, at λ=3
+   [64, 33, 4] one K4 forward and backward; each against the same route on
+   the CPU (the twins);
 9. K2 (the λ=3 Gram + adjoint) against its twin at [128, 40, 2], a ragged
-   [77, 40, 2], [40, 49, 3] and the flagship [1024, 40, 2], where each of
-   K2's persistent blocks takes several tiles: K against the twin to atol
+   [77, 40, 2], [40, 49, 3], the flagship [1024, 40, 2], where each of
+   K2's persistent blocks takes several tiles, and ``WIDE_SHAPES`` (C =
+   4..8, bit for bit across two calls at n = 1024): K against the twin to atol
    1e-4 (the values-only twin at the flagship shape), dX scaled against the
    twin in fp64 to atol 4e-4 (the fp32 twin's own dX is as far from it);
    at the flagship shape K and dX bit for bit across two calls and the
@@ -106,7 +115,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``mxu_precision="default"``, T=200, ``bookshelf_small``), 3 warm-up and
    5 timed chained SVGD iterations with K8's counters read around them
    (one forward and one backward launch per iteration), the stage split and
-   one traced iteration;
+   one traced iteration; then ``planning_iter_depth3`` and
+   ``planning_iter_depth0``, the same at depth 3 (one K2 launch an
+   iteration) and 0 (one K1), no other kernel; each with the mean cost
+   falling from the first knots to the last;
 14. ``planning_run``: ``run_optimisation`` at ``PlannerConfig()``'s width
    (20 particles, depth 6) for ``PLANNING_RUN_ITERS`` = 50 of its 500
    iterations (the planning process's ``robot_planning_full`` runs all 500)
@@ -210,9 +222,10 @@ sweep and the obstacle field: ``k4_sweep_shape``, ``k2_field_shape`` and
 ``k8_sweep_shape`` (K4 at the quick sweep's knots [8, 3, 7] at depth 3, K2
 at the field's knots [16, 4, 2] at h = 3.0, K8 at the full cell's knots
 [20, 3, 7] at depth 6, each against its twin at its ``K*_TOL``, with times
-and bounds), ``robot_planning_quick`` (the README's ``--quick`` sweep of
-``pillars_4`` through ``run_experiment``: its six rows, each cell's K4
-launches, 1 + 1 an iteration in the pathsig cells and none elsewhere),
+and bounds; K4 called directly: the sweep runs K2), ``robot_planning_quick``
+(the README's ``--quick`` sweep of ``pillars_4`` through
+``run_experiment``: its six rows, each cell's K2 launches, 1 an iteration
+in the pathsig cells and none elsewhere),
 ``robot_planning_full`` (one learned cell at ``PlannerConfig()``: both
 trainings at the JAX package's sizes with their epoch losses, the models'
 accuracy and AUC, the run's wall time, cost, audit and 500 + 500 K8
@@ -399,20 +412,21 @@ def phase_build():
     reports = _build.build_all()
     ptxas = {stem: ptxas_functions(text) for stem, text in reports.items()}
     emit({"phase": "build", "build_s": time.perf_counter() - t0, "ptxas": ptxas})
-    # every K1 and K2 instantiation (span template × C = 1..3) and every K5
-    # kernel (forward and backward × span template) is in the report and
-    # spills nothing, and K1 keeps no stack frame (no per-cell value in local
+    # every K1 and K2 instantiation (span templates 3 and 5 × C = 1..3,
+    # template 3 × C = 4..8: kb.lanes_instantiations) and every K5 kernel
+    # (forward and backward × span template) is in the report and spills
+    # nothing, and K1 keeps no stack frame (no per-cell value in local
     # memory); K8's two kernels and every instantiation of K4, K6 and K7 as
     # K1's; the other sources' spills are reported, not gated
     spills = lambda fns: any(  # noqa: E731
         r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in fns.values())
     k1 = {f: r for f, r in ptxas["sigkernel_block"].items() if "block_lanes_kernel" in f}
-    if (len(k1) != 3 * len(kb.SPAN_TEMPLATES) or spills(k1)
+    if (len(k1) != len(kb.lanes_instantiations()) or spills(k1)
             or any(r.get("stack_frame", 1) for r in k1.values())):
         raise AssertionError(f"K1's instantiations not all reported spill-free with "
                              f"no stack frame: {k1}")
     k2 = {f: r for f, r in ptxas["sigkernel_block3"].items() if "block3_kernel" in f}
-    if len(k2) != 3 * len(kb3.SPAN_TEMPLATES) or spills(k2):
+    if len(k2) != len(kb3.lanes_instantiations()) or spills(k2):
         raise AssertionError(f"K2's instantiations not all reported spill-free: {k2}")
     k5 = {f: r for f, r in ptxas["sigkernel_tiled"].items() if "tiled_" in f}
     if len(k5) != 2 * len(kt.SPAN_TEMPLATES) or spills(k5):
@@ -542,20 +556,43 @@ def device_mib_outside_allocator(fn) -> float:
     return ((free0 - free1) - (res1 - res0)) / 2**20
 
 
+# K1's and K2's shapes beyond the flagship's: the planner's 7-joint knots at
+# depth 0 and 3 (uniform in the joint limits, its bandwidth 1.5), the block
+# envelope's edges at C = 8 and C = 4 (L·C = 128), and a ragged C = 7
+WIDE_SHAPES = ((1024, 3, 7), (1024, 16, 8), (1024, 32, 4), (333, 18, 7))
+KNOT_BW = 1.5  # PlannerConfig().pathsig_bw
+
+
+def block_inputs(n: int, L: int, C: int, gen: torch.Generator):
+    """``(X, h)`` of a K1 or K2 case: the planner's knots at its bandwidth
+    for [n, 3, 7], else smooth paths at h = 4."""
+    if (L, C) == (3, 7):
+        return uniform_knots(n, gen), KNOT_BW
+    return smooth_paths(n, L, C, gen), 4.0
+
+
+def shape_summary(row) -> dict:
+    """A kernel's time, the twin's and the bound at one shape, for the
+    kernel table."""
+    return {k: row.get(k) for k in ("shape", "h", "kernel_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "k_max_abs_err", "dx_scaled_err_vs_fp64",
+                                    "library_ms")}
+
+
 def phase_k1():
-    """K1 against its plain twin at the flagship shape, a ragged n, and the
-    L ≤ 64 instantiation (16 lanes a pair); both also against the twin in
-    fp64. K must be the twin's bit for bit (the statics and the forward
-    round as the twin does, and a schedule does not change a cell's
-    arithmetic); at the flagship shape K and dX bit for bit across two
-    calls, the plan and the time."""
+    """K1 against its plain twin at the flagship shape, a ragged n, the
+    L ≤ 64 instantiation (16 lanes a pair) and ``WIDE_SHAPES`` (C = 4..8);
+    each also against the twin in fp64. K must be the twin's bit for bit
+    (the statics and the forward round as the twin does, and a schedule does
+    not change a cell's arithmetic); at n = 1024 K and dX bit for bit across
+    two calls, the plan and the times (K1's, the twin's, the bound). Returns
+    the flagship row, with the C > 3 rows' times under ``"by_shape"``."""
     from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    h = 4.0
     rows = {}
-    for n, L, C in ((1024, 40, 2), (333, 40, 2), (40, 64, 3)):
-        X = smooth_paths(n, L, C, gen)
+    for n, L, C in ((1024, 40, 2), (333, 40, 2), (40, 64, 3)) + WIDE_SHAPES:
+        X, h = block_inputs(n, L, C, gen)
         out = []
         # the first launch of each instantiation: its device-memory footprint
         mib = device_mib_outside_allocator(
@@ -600,11 +637,13 @@ def phase_k1():
             plain_ms = event_ms(lambda: kb.block_gram_and_grad_plain(X, h), 1)
             row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
                        **bound(kb.block_flops(n, L, C), kb.block_bytes(n, L, C)))
-            rows["flagship"] = row
+        rows[(n, L, C)] = row
         emit(row)
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain twin or itself: {row}")
-    return rows["flagship"]
+    return {**rows[(1024, 40, 2)], "by_shape": [
+        {**shape_summary(rows[s]), "dx_scaled_err_vs_fp64":
+         rows[s]["dx_scaled_err_vs_fp64"]["kernel"]} for s in WIDE_SHAPES if s[0] == 1024]}
 
 
 def drive_solves(phase: str, prob, want: dict, n_solves: int, gram_stage,
@@ -881,12 +920,7 @@ def phase_k2():
     pairs = n * (n + 1) // 2
     row = {"phase": "k2_vs_plain", "shape": [n, L, C], "h": h,
            "tiles": n_tiles, "persistent_blocks": blocks,
-           "plan": {"lanes_a_pair": plan.g, "span_template": plan.span,
-                    "spans": list(plan.spans), "tile": [plan.tile_rows, plan.tile_cols],
-                    "pipeline_steps": plan.steps, "blocks": plan.blocks,
-                    "scratch_mib": plan.scratch_mib, "smem_bytes": plan.smem_bytes,
-                    "traffic_bytes": plan.traffic_bytes,
-                    "traffic_bytes_a_pair": plan.traffic_bytes / pairs},
+           "plan": k2_plan_row(plan, pairs),
            "bitwise_repeatable": repeatable,
            "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
            "compared": "K against the values-only twin, dX against the twin in fp64",
@@ -908,7 +942,66 @@ def phase_k2():
     if not (finite and k_err <= k_tol and dx_err <= dx_tol and repeatable):
         raise AssertionError(f"K2 disagrees with its values-only twin (K) or the "
                              f"twin in fp64 (dX), or with itself: {row}")
-    return row
+    return {**row, "by_shape": [shape_summary(r) for r in phase_k2_wide(gen)
+                                if r["shape"][0] == 1024]}
+
+
+def k2_plan_row(plan, pairs: int) -> dict:
+    """K2's plan (``block3_plan``) as a phase row records it."""
+    return {"lanes_a_pair": plan.g, "span_template": plan.span, "spans": list(plan.spans),
+            "tile": [plan.tile_rows, plan.tile_cols], "pipeline_steps": plan.steps,
+            "tiles": plan.tiles, "blocks": plan.blocks, "scratch_mib": plan.scratch_mib,
+            "smem_bytes": plan.smem_bytes, "traffic_bytes": plan.traffic_bytes,
+            "traffic_bytes_a_pair": plan.traffic_bytes / pairs}
+
+
+def phase_k2_wide(gen: torch.Generator) -> list:
+    """K2 at ``WIDE_SHAPES`` (C = 4..8, span template 3): K against the fp32
+    twin at atol 1e-4 and dX against the twin in fp64 at scaled 4e-4
+    (``K2_TOL``); at n = 1024 K and dX bit for bit across two calls, the
+    plan, K2's time, the fp32 twin's (by chunks of pairs) and the bound."""
+    from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+
+    k_tol, dx_tol = K2_TOL
+    rows = []
+    for n, L, C in WIDE_SHAPES:
+        X, h = block_inputs(n, L, C, gen)
+        K, dX = kb3.block3_gram_and_grad(X, h)
+        chunk = 4096 if L > 8 else 65536  # the twin stores ~6·(8L)² floats a pair
+        plain = []
+        plain_ms = event_ms(lambda: plain.extend(
+            kb3.block3_gram_and_grad_plain(X, h, pairs_per_chunk=chunk)), 1)
+        Kp, dXp = plain
+        _, dX64 = kb3.block3_gram_and_grad_plain(X.double(), h, pairs_per_chunk=chunk)
+        torch.cuda.synchronize()
+        k_err = (K - Kp).abs().max().item()
+        s64 = dX64.abs().max().item()
+        dx_err = ((dX.double() - dX64).abs().max() / s64).item()
+        tiles, blocks = kb3.block3_grid(n, L, C, X.device)
+        plan = kb3.block3_plan(n, L, C, blocks)
+        row = {"phase": "k2_vs_plain", "shape": [n, L, C], "h": h,
+               "k_max_abs_err": k_err, "dx_scaled_err_vs_fp64": dx_err,
+               "dx_scaled_err_vs_fp32_plain":
+                   ((dX - dXp).abs().max() / dXp.abs().max()).item(),
+               "plain_dx_scaled_err_vs_fp64": ((dXp.double() - dX64).abs().max() / s64).item(),
+               "plan": k2_plan_row(plan, n * (n + 1) // 2),
+               "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
+        del dX64, Kp, dXp, plain
+        ok = row["finite"] and k_err <= k_tol and dx_err <= dx_tol and plan.tiles == tiles.shape[0]
+        if n == 1024:
+            Kb, dXb = kb3.block3_gram_and_grad(X, h)
+            row["bitwise_repeatable"] = bool(torch.equal(K, Kb) and torch.equal(dX, dXb))
+            ok = ok and row["bitwise_repeatable"]
+            del Kb, dXb
+            row.update(kernel_ms=event_ms(lambda: kb3.block3_gram_and_grad(X, h), 3),
+                       plain_ms=plain_ms, library_ms=None,
+                       **bound(kb3.block3_flops(n, L, C), kb3.block3_bytes(n, L, C)))
+        emit(row)
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its twin (K), the twin in fp64 (dX) "
+                                 f"or itself: {row}")
+        rows.append(row)
+    return rows
 
 
 def phase_pinned():
@@ -1361,11 +1454,13 @@ def shape_row(phase, shape, err, kernel_ms, plain_ms, b, **extra) -> dict:
 
 
 def phase_k4_sweep_shape() -> dict:
-    """K4's forward and fp32 backward at the quick sweep's pathsig Gram:
-    the upper-triangle list of knots [8, 3, 7] (36 pairs, ly1 = 2) at
-    h = 1.5, against the twin: K atol 1e-4 against the fp32 twin, dX
-    (summed per path) scaled 4e-4 against the twin in fp64 (``K4_TOL``);
-    times by CUDA events, both parts' bounds."""
+    """K4's forward and fp32 backward, called directly, on the quick sweep's
+    pathsig Gram: the upper-triangle list of knots [8, 3, 7] (36 pairs,
+    ly1 = 2) at h = 1.5, against the twin: K atol 1e-4 against the fp32
+    twin, dX (summed per path) scaled 4e-4 against the twin in fp64
+    (``K4_TOL``); times by CUDA events, both parts' bounds. The sweep itself
+    runs K2 on these knots (``robot_planning_quick``); this is K4 at the
+    pair list the sweep took before K2 covered the block3 envelope."""
     from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
 
     X = uniform_knots(8, torch.Generator(device="cuda").manual_seed(40))
@@ -1463,10 +1558,10 @@ def phase_k8_sweep_shape() -> dict:
 def phase_robot_planning_quick() -> dict:
     """The README's ``robot_planning --scenes pillars_4 --quick`` through
     ``run_experiment`` on the card: 2 requests × 1 seed × pathsig, svgd,
-    sgd at ``QUICK_CONFIG`` (pathsig at depth 3 on knots [8, 3, 7]: K4's
-    forward and backward once an iteration, no other kernel). Each row, the
-    launches of each cell (read around its ``run_optimisation``), every
-    cost finite."""
+    sgd at ``QUICK_CONFIG`` (pathsig at depth 3 on knots [8, 3, 7], inside
+    the block3 envelope: K2 once an iteration, no other kernel, as the JAX
+    package runs its block3 kernel there). Each row, the launches of each
+    cell (read around its ``run_optimisation``), every cost finite."""
     from sigsvgd_tpu_torch.experiments import robot_planning as rp
     from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
 
@@ -1490,20 +1585,18 @@ def phase_robot_planning_quick() -> dict:
     wall_s = time.perf_counter() - t0
     finite = all(bool(torch.isfinite(loss).all()) for _, _, loss in cells)
     row = {"phase": "robot_planning_quick", "config": QUICK_CONFIG, "rows": rows,
-           "cells": [{"method": m, "k4_launches": {"forward": c["fused_forward"],
-                                                    "backward": c["fused_backward"]},
+           "cells": [{"method": m, "k2_launches": c["block3_gram_and_grad"],
                       "mean_cost_first": loss[0].mean().item(),
                       "mean_cost_last": loss[-1].mean().item()}
                      for m, c, loss in cells],
            "launches": total.counts, "wall_s": wall_s, "finite": finite}
     emit(row)
     n_pathsig = sum(m == "pathsig" for m, _, _ in cells)
-    total.expect("robot_planning_quick", fused_forward=n_pathsig * cfg.n_iter,
-                 fused_backward=n_pathsig * cfg.n_iter)
+    total.expect("robot_planning_quick", block3_gram_and_grad=n_pathsig * cfg.n_iter)
     for m, c, _ in cells:
         want = cfg.n_iter if m == "pathsig" else 0
-        if (c["fused_forward"], c["fused_backward"]) != (want, want):
-            raise AssertionError(f"robot_planning_quick: a {m} cell launched K4 {c}")
+        if c["block3_gram_and_grad"] != want:
+            raise AssertionError(f"robot_planning_quick: a {m} cell launched K2 {c}")
     if len(rows) != 6 or not finite:
         raise AssertionError(f"robot_planning_quick: {len(rows)} rows, finite={finite}")
     return row
@@ -1622,7 +1715,7 @@ def phase_planning_sweep_small_vs_cpu() -> list:
     """The same small work on the card and on the CPU within
     ``PLANNING_SWEEP_TOL``: ``pillars_4``'s requests (equal), a sweep cell
     (pathsig at depth 3 on knots [8, 3, 7], T = 60, 10 iterations from the
-    same knots: K4 on the card, its twin on the CPU), 5 pathsig iterations
+    same knots: K2 on the card, its twin on the CPU), 5 pathsig iterations
     of the obstacle field from the same knots (K2 and its twin) and a
     100-iteration IK solve of 16 targets."""
     import dataclasses as dc
@@ -1660,14 +1753,13 @@ def phase_planning_sweep_small_vs_cpu() -> list:
            "sweep_loss_rel": ((lg - lc).abs() / lc.abs()).max().item(),
            "field_paths_abs": float(np.abs(fg - fc).max()),
            "ik_q_abs": (qg - qc).abs().max().item(), "ik_ee_err": [eg, ec],
-           "k4_launches": [[cg["fused_forward"], cg["fused_backward"]],
-                           [cc["fused_forward"], cc["fused_backward"]]]}
+           "k2_launches": [cg["block3_gram_and_grad"], cc["block3_gram_and_grad"]]}
     emit(row)
     ok = (row["requests_equal"] and torch.allclose(xg, xc, rtol=rtol, atol=atol)
           and torch.allclose(lg, lc, rtol=rtol, atol=atol)
           and row["field_paths_abs"] <= PLANNING_SWEEP_TOL["field_paths"]
           and row["ik_q_abs"] <= PLANNING_SWEEP_TOL["ik_q"] and max(eg, ec) < 0.01
-          and row["k4_launches"] == [[cfg.n_iter, cfg.n_iter], [0, 0]])
+          and row["k2_launches"] == [cfg.n_iter, 0])
     if not ok:
         raise AssertionError(f"the card's planning disagrees with the CPU's: {row}")
     return row
@@ -2596,63 +2688,85 @@ def phase_k8():
 
 
 def planning_setup(batch: int, timesteps: int = 200, precision: str = "default",
-                   device: str = "cuda"):
+                   device: str = "cuda", depth: int = 6):
     from sigsvgd_tpu_torch.experiments.arm_mpc import build_planning_problem
     from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, planner_sampler
 
     problem = build_planning_problem(device=device, timesteps=timesteps)
-    cfg = PlannerConfig(batch=batch, timesteps=timesteps, mxu_precision=precision)
+    cfg = PlannerConfig(batch=batch, timesteps=timesteps, mxu_precision=precision,
+                        depth=depth)
     svgd, score = planner_sampler(problem, cfg)
     return problem, cfg, svgd, score
 
 
-def phase_planning_iter():
-    """Bench's planning shape: chained SVGD iterations with K8's counters
-    read around them, the stage split and one traced iteration."""
+# the kernel launches of one planning iteration at 1024 knots, by depth: K8's
+# hop chain at bench's depth 6, K2 at 3 and K1 at 0 (the block kernels the
+# JAX package runs on [1024, 3, 7] knots)
+PLANNING_ITER_KERNELS = {6: {"mxu_chain_fwd": 1, "mxu_chain_bwd": 1},
+                         3: {"block3_gram_and_grad": 1}, 0: {"block_gram_and_grad": 1}}
+PLANNING_ITERS = (3, 5)  # warm-up, timed
+
+
+def phase_planning_iter(depth: int = 6) -> dict:
+    """The planner at ``run_optimisation``'s full width (1024 knot particles
+    [1024, 3, 7], ``bookshelf_small``, T = 200) at dyadic order ``depth``:
+    3 warm-up and 5 timed chained SVGD iterations with every kernel's
+    counters read around them (``PLANNING_ITER_KERNELS``: one launch of each
+    an iteration, no other kernel), the stage split, one traced iteration,
+    and the mean cost, which must fall from the first knots to the last.
+    ``planning_iter`` at bench's depth 6, ``planning_iter_depth3`` and
+    ``planning_iter_depth0`` at the orders the README's ``--quick`` sweep
+    and a calibrated planner run. Returns the timed window's launches."""
     from sigsvgd_tpu_torch.inference.score import _grad_neg_cost
     from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
 
+    name = "planning_iter" if depth == 6 else f"planning_iter_depth{depth}"
+    warm, timed = PLANNING_ITERS
     t0 = time.perf_counter()
-    problem, cfg, svgd, score = planning_setup(1024)
+    problem, cfg, svgd, score = planning_setup(1024, depth=depth)
     lower, upper = problem.robot.joint_limits()
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = lower + (upper - lower) * torch.rand((cfg.batch, cfg.length - 2, 7),
                                              generator=gen, device="cuda")
     state = svgd.init(x)
+    cost_first = problem.batch_cost(x)[0].mean().item()
 
     def iteration(x, state):
         return svgd.step_update(x, state, score(x, None))
 
-    for _ in range(3):  # warm-up: first-call allocations and the build
+    for _ in range(warm):  # first-call allocations and the build
         x, state = iteration(x, state)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     iter_ms = []
     with Launches() as counted:
-        for _ in range(5):
+        for _ in range(timed):
             t1 = time.perf_counter()
             x, state = iteration(x, state)
             torch.cuda.synchronize()
             iter_ms.append((time.perf_counter() - t1) * 1e3)
-    counted.expect("planning_iter (5 iterations)", mxu_chain_fwd=5, mxu_chain_bwd=5)
-    launches = (counted.counts["mxu_chain_fwd"], counted.counts["mxu_chain_bwd"])
+    want = {k: timed * v for k, v in PLANNING_ITER_KERNELS[depth].items()}
+    counted.expect(f"{name} ({timed} iterations)", **want)
     if not (x.shape == (1024, 3, 7) and bool(torch.isfinite(x).all())):
-        raise AssertionError("planning_iter: non-finite or misshapen particles")
+        raise AssertionError(f"{name}: non-finite or misshapen particles")
 
     sc = score(x, None)
     sig = SignatureKernel(cfg.depth, cfg.pathsig_bw, mxu_precision=cfg.mxu_precision)
     stages = {"cost_and_gradient": host_ms(lambda: _grad_neg_cost(problem.batch_cost, x), 3),
               "gram_and_grad": host_ms(lambda: sig.gram_and_grad(x), 3),
               "update": host_ms(lambda: svgd.step_update(x, state, sc), 3)}
-    row = {"phase": "planning_iter", "batch": cfg.batch, "depth": cfg.depth,
+    row = {"phase": name, "batch": cfg.batch, "depth": cfg.depth,
            "timesteps": cfg.timesteps, "mxu_precision": cfg.mxu_precision,
            "ms_per_iter_median": statistics.median(iter_ms), "ms_per_iter_samples": iter_ms,
-           "k8_launches": {"forward": launches[0], "backward": launches[1]},
+           "launches": {k: counted.counts[k] for k in want},
            "stages_ms": stages, "traced_iteration": traced(lambda: iteration(x, state)),
-           "setup_s": setup_s, "mean_cost": sc.loss.mean().item()}
+           "setup_s": setup_s, "mean_cost_first": cost_first,
+           "mean_cost": sc.loss.mean().item(), "iterations": warm + timed}
     emit(row)
-    return launches
+    if not row["mean_cost"] < cost_first:
+        raise AssertionError(f"{name}: the mean cost did not fall: {row}")
+    return row["launches"]
 
 
 PLANNING_RUN_ITERS = 50  # planning_run's cut: robot_planning_full runs all 500
@@ -3163,10 +3277,10 @@ def phase_k7():
 
 
 def phase_k3():
-    """K3 against its twin (bit for bit: the statics and the forward sweep
-    round as the twin does) and against K1's K (bit for bit) at [1024, 40,
-    2], [333, 40, 2] and [40, 64, 2], and against the twin at C = 8 ([1024, 16, 8], τ-like knots, and
-    [300, 16, 8]); at [1024, 40, 2] its time beside K1's and the twin's,
+    """K3 against its twin and against K1's K (both bit for bit: the statics
+    and the forward sweep round as the twin does) at [1024, 40, 2],
+    [333, 40, 2], [40, 64, 2], and at C = 8 ([1024, 16, 8], τ-like knots, and
+    [300, 16, 8]); at n = 1024 its time beside K1's and the twin's,
     its plan (band rows, tiles, length bucket), the registers of its
     instantiation and the issue floor its SASS implies; at [1024, 16, 8] its
     time and the twin's."""
@@ -3194,20 +3308,19 @@ def phase_k3():
                "finite": bool(torch.isfinite(K).all()),
                "band_rows": plan.band_rows, "bucket": plan.bucket, "tiles": plan.tiles,
                "registers": next((r["registers"] for f, r in regs.items() if tag in f), None)}
-        if C <= kb.MAX_C:
-            row["bit_equal_k1"] = bool(torch.equal(K, kb.block_gram_and_grad(X, h)[0]))
+        row["bit_equal_k1"] = bool(torch.equal(K, kb.block_gram_and_grad(X, h)[0]))
         if n == 1024:
             row.update(kernel_ms=event_ms(lambda: kb.block_gram(X, h), 5),
                        plain_ms=event_ms(lambda: kb.block_gram_plain(X, h), 1),
                        library_ms=None,
                        **bound(kb.block_values_flops(n, L, C),
                                kb.block_values_bytes(n, L, C)),
-                       **k3_issue_floor(n, sass_counts(lib, tag), plan.bands))
-            if C <= kb.MAX_C:
-                row["k1_ms"] = event_ms(lambda: kb.block_gram_and_grad(X, h), 3)
+                       **k3_issue_floor(n, sass_counts(lib, tag), plan.bands),
+                       k1_ms=event_ms(lambda: kb.block_gram_and_grad(X, h), 3))
+            if (L, C) == (40, 2):
                 out = row
         emit(row)
-        if not (row["finite"] and row["bit_equal_twin"] and row.get("bit_equal_k1", True)):
+        if not (row["finite"] and row["bit_equal_twin"] and row["bit_equal_k1"]):
             raise AssertionError(f"K3 disagrees with K1 or its twin: {row}")
     return out
 
@@ -3292,8 +3405,8 @@ def phase_gram_sym(kern, X):
     """``gram_sym`` of the calibrated flagship kernel on τ [1024, 40, 2]:
     exactly 1 K3 launch and no other kernel, K equal to K1's K bit for bit;
     then at τ-like knots [1024, 16, 8] (C = 8, inside the JAX package's block
-    envelope, outside K1's): 1 K3 launch and no K7, K the twin's bit for
-    bit. Returns the τ row with the knots' row under ``"c8"``."""
+    envelope and K1's): 1 K3 launch and no K7, K the twin's bit for bit.
+    Returns the τ row with the knots' row under ``"c8"``."""
     from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 
     K, launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_sym(X))
@@ -3330,40 +3443,101 @@ def gram_sym_c8() -> dict:
     return row
 
 
-def phase_lambda0_gram_and_grad():
-    """λ=0 ``gram_and_grad`` outside K1's envelope: bench's planning knots
-    ([1024, 3, 7], uniform in the Panda's joint limits, the planner's
-    bandwidth 1.5; inside the JAX package's block envelope, outside K1's) and
-    [64, 41, 4] (L·C > 128). Each launches K7's forward and backward once
-    and nothing else, and K and dX match the same route on the CPU, where
-    the twins take the kernels' place (K atol 3e-5, dX scaled 5e-5)."""
-    from sigsvgd_tpu_torch.experiments.planning import PlannerConfig
+class lambda3_twins:
+    """Within the block, the λ=3 ``gram_and_grad`` routes' kernels (K2, K4's
+    forward and fp32 backward) run their plain twins on the card, uncounted,
+    in the inputs' precision: the same route with the twins in the
+    kernels' place."""
+
+    def __enter__(self):
+        from sigsvgd_tpu_torch.kernels import sigkernel as sk
+        from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
+        from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+
+        self.saved = sk.block3_gram_and_grad, kf.fused_forward, kf.fused_backward
+        sk.block3_gram_and_grad = kb3.block3_gram_and_grad_plain
+        kf.fused_forward = kf.fused_forward_plain
+        kf.fused_backward = lambda xt, yt, ck, rc, g: kf.fused_backward_plain(xt, yt, g)
+
+    def __exit__(self, *exc):
+        from sigsvgd_tpu_torch.kernels import sigkernel as sk
+        from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
+
+        sk.block3_gram_and_grad, kf.fused_forward, kf.fused_backward = self.saved
+
+
+def phase_gram_and_grad_routes() -> dict:
+    """``gram_and_grad`` at λ=0 and λ=3 on bench's planning knots ([1024,
+    3, 7], uniform in the Panda's joint limits, the planner's bandwidth 1.5:
+    inside the JAX package's block envelopes) and beyond the block envelope
+    (L·C > 128: [64, 41, 4] at λ=0, [64, 33, 4] at λ=3). The knots launch
+    K1 (K2) once and nothing else, the others K7's (K4's) forward and
+    backward once each. K and dX match the same route with the twins in the
+    kernels' place (λ=0: on the CPU, K atol 3e-5, dX scaled 5e-5; λ=3: on
+    the card, ``lambda3_twins``, K atol 1e-4 against the fp32 route, dX
+    scaled 4e-4 against it in fp64: the λ=3 sweeps carry the CPU's and the
+    card's ``exp`` roundings apart by ~1e-4 at L = 33).
+    On the knots the parent's route, the pair list
+    (``SignatureKernel._pair_gram_and_grad``: K7 at λ=0, K4 at λ=3), runs
+    beside the block kernel: its launches, its distance from the block
+    route, and both timed in turns (block, pair, pair, block; wall ms a call
+    over 10 calls). Rows by order, then case."""
     from sigsvgd_tpu_torch.kernels.sigkernel import SignatureKernel
-    from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    lower, upper = PandaRobot.create(device="cuda").joint_limits()
-    knots = lower + (upper - lower) * torch.rand((1024, 3, 7), generator=gen, device="cuda")
-    cases = (("planning_knots_c7", knots, PlannerConfig().pathsig_bw),
-             ("lc164", smooth_paths(64, 41, 4, gen), 4.0))
-    rows = {}
-    for name, X, h in cases:
-        kern = SignatureKernel(0, bandwidth=h)
+    knots = uniform_knots(1024, gen)
+    pair_k7 = {"small_forward": 1, "small_backward": 1}
+    pair_k4 = {"fused_forward": 1, "fused_backward": 1}
+    cases = (
+        (0, "planning_knots_c7", knots, KNOT_BW, {"block_gram_and_grad": 1}, pair_k7),
+        (0, "lc164", smooth_paths(64, 41, 4, gen), 4.0, pair_k7, None),
+        (3, "planning_knots_c7", knots, KNOT_BW, {"block3_gram_and_grad": 1}, pair_k4),
+        (3, "lc132", smooth_paths(64, 33, 4, gen), 4.0, pair_k4, None))
+    rows = {0: {}, 3: {}}
+    for order, name, X, h, want, pair_want in cases:
+        phase = f"lambda{order}_gram_and_grad"
+        kern = SignatureKernel(order, bandwidth=h)
         (K, dX), launches, wall_ms, peak_mib = run_counted(lambda: kern.gram_and_grad(X))
-        Kp, dXp = (t.cuda() for t in kern.gram_and_grad(X.cpu()))
-        k_err = (K - Kp).abs().max().item()
-        dx_err = scaled_err(dX, dXp)
-        row = {"phase": "lambda0_gram_and_grad", "case": name, "shape": list(X.shape),
-               "h": h, "wall_ms": wall_ms, "launches": launches.counts,
+        if order == 0:
+            k_tol, dx_tol = K7_TOL
+            Kc, ref = (t.cuda() for t in kern.gram_and_grad(X.cpu()))
+        else:
+            k_tol, dx_tol = K2_TOL
+            with lambda3_twins():
+                Kc = kern.gram_and_grad(X)[0]
+                ref = kern.gram_and_grad(X.double())[1]
+        k_err = (K - Kc).abs().max().item()
+        dx_err = scaled_err(dX.double(), ref.double())
+        row = {"phase": phase, "case": name, "shape": list(X.shape), "h": h,
+               "wall_ms": wall_ms, "launches": launches.counts,
                "peak_allocated_mib": peak_mib, "k_max_abs_err": k_err,
-               "dx_scaled_err": dx_err, "k_range": [K.min().item(), K.max().item()],
+               "dx_scaled_err": dx_err,
+               "compared": "K and dX against the CPU route" if order == 0 else
+                           "K against the route with the twins on the card, dX against "
+                           "it in fp64",
+               "k_range": [K.min().item(), K.max().item()],
                "finite": bool(torch.isfinite(K).all() and torch.isfinite(dX).all())}
+        if pair_want:
+            (Kq, dXq), pair_launches, _, pair_peak = run_counted(
+                lambda: kern._pair_gram_and_grad(X, h))
+            block = lambda: kern.gram_and_grad(X)  # noqa: E731
+            pair = lambda: kern._pair_gram_and_grad(X, h)  # noqa: E731
+            turns = [host_ms(fn, 10) for fn in (block, pair, pair, block)]
+            row["pair_route"] = {
+                "launches": pair_launches.counts, "peak_allocated_mib": pair_peak,
+                "k_max_abs_diff": (K - Kq).abs().max().item(),
+                "dx_scaled_diff": scaled_err(dX, dXq),
+                "ms_in_turns": {"block": [turns[0], turns[3]], "pair": turns[1:3]}}
+            row["block_route_ms"] = statistics.mean([turns[0], turns[3]])
+            row["pair_route_ms"] = statistics.mean(turns[1:3])
+            del Kq, dXq
         emit(row)
-        launches.expect(f"lambda0_gram_and_grad {name}",
-                        small_forward=1, small_backward=1)
-        if not (row["finite"] and k_err <= K7_TOL[0] and dx_err <= K7_TOL[1]):
-            raise AssertionError(f"λ=0 gram_and_grad disagrees with its twins: {row}")
-        rows[name] = row
+        launches.expect(f"{phase} {name}", **want)
+        if pair_want:
+            pair_launches.expect(f"{phase} {name} (pair list)", **pair_want)
+        if not (row["finite"] and k_err <= k_tol and dx_err <= dx_tol):
+            raise AssertionError(f"{phase} disagrees with its twins' route: {row}")
+        rows[order][name] = row
     return rows
 
 
@@ -4454,7 +4628,7 @@ def main() -> int:
     k7 = phase_k7()
     streamed0 = phase_lambda0_streamed_gram(kern0, *taus)
     sym = phase_gram_sym(kern0, taus[0])
-    gg0 = phase_lambda0_gram_and_grad()
+    gg = phase_gram_and_grad_routes()
     k2 = phase_k2()
     pinned = phase_pinned()
     k9_launches = phase_policy()
@@ -4464,6 +4638,9 @@ def main() -> int:
     phase_default_sig()
     k8 = phase_k8()
     k8_launches = phase_planning_iter()
+    k8_launches = (k8_launches["mxu_chain_fwd"], k8_launches["mxu_chain_bwd"])
+    plan3 = phase_planning_iter(3)["block3_gram_and_grad"]
+    plan0 = phase_planning_iter(0)["block_gram_and_grad"]
     phase_planning_run()
     k4 = phase_k4()
     k6 = phase_k6(k4)
@@ -4496,7 +4673,13 @@ def main() -> int:
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block.py:199",
                         k1_launches, k1),
          "launches_by_path": {"flagship_solve": k1_launches, "mc_solve": k1_mc_launches,
-                              **shard_launches(par_rows["sharded_flagship_solve"])}},
+                              "lambda0_gram_and_grad planning_knots_c7":
+                                  gg[0]["planning_knots_c7"]["launches"]["block_gram_and_grad"],
+                              "planning_iter_depth0": plan0,
+                              **shard_launches(par_rows["sharded_flagship_solve"])},
+         "by_shape": k1["by_shape"],
+         "planning_knots_route_ms": {k: gg[0]["planning_knots_c7"][k]
+                                     for k in ("block_route_ms", "pair_route_ms")}},
         {**kernel_entry("sigkernel_block3_gram_grad (K2)",
                         "sigsvgd_tpu_torch/csrc/sigkernel_block3.cu",
                         "sigsvgd_tpu/kernels/pallas_sigkernel_block3.py:113",
@@ -4506,7 +4689,15 @@ def main() -> int:
                               "maze_resume": lbfgs_rows["maze_resume"]["k2_launches"],
                               "obstacle_field":
                                   plan_rows["obstacle_field"]["launches"]["block3_gram_and_grad"],
+                              "robot_planning_quick": plan_rows["robot_planning_quick"]
+                                  ["launches"]["block3_gram_and_grad"],
+                              "lambda3_gram_and_grad planning_knots_c7":
+                                  gg[3]["planning_knots_c7"]["launches"]["block3_gram_and_grad"],
+                              "planning_iter_depth3": plan3,
                               **shard_launches(par_rows["sharded_pinned_solve"])},
+         "by_shape": k2["by_shape"],
+         "planning_knots_route_ms": {k: gg[3]["planning_knots_c7"][k]
+                                     for k in ("block_route_ms", "pair_route_ms")},
          "maze_shape": {k: k2m[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
                                             "bound_by", "k_max_abs_err")}
          | {"launches_per_maze_step": maze_ep["k2_launches_per_step"]},
@@ -4536,16 +4727,16 @@ def main() -> int:
                        pinned[("bf16_pinned_solve", "fused_forward")], k4, "fwd",
                        {"bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_forward")],
                         "streamed_gram": streamed["launches"]["fused_forward"],
-                        "robot_planning_quick":
-                            plan_rows["robot_planning_quick"]["launches"]["fused_forward"]}),
+                        "lambda3_gram_and_grad lc132":
+                            gg[3]["lc132"]["launches"]["fused_forward"]}),
          "sweep_shape": path_shape(plan_rows["k4_sweep_shape"], "fwd")},
         {**fused_entry("fused_backward (K4 backward)",
                        "sigsvgd_tpu/kernels/pallas_sigkernel.py:735",
                        streamed["launches"]["fused_backward"], k4, "bwd",
                        {"streamed_gram": streamed["launches"]["fused_backward"],
                         "bf16_pinned_solve": pinned[("bf16_pinned_solve", "fused_backward")],
-                        "robot_planning_quick":
-                            plan_rows["robot_planning_quick"]["launches"]["fused_backward"]}),
+                        "lambda3_gram_and_grad lc132":
+                            gg[3]["lc132"]["launches"]["fused_backward"]}),
          "sweep_shape": path_shape(plan_rows["k4_sweep_shape"], "bwd")},
         {**kernel_entry("sigkernel_block_gram (K3)",
                         "sigsvgd_tpu_torch/csrc/sigkernel_block.cu",
@@ -4556,10 +4747,10 @@ def main() -> int:
          **{k: k3.get(k) for k in ("registers", "band_rows", "tiles", "sass_per_pair",
                                    "issue_floor_ms")}},
         small_entry("small_forward (K7 forward)",
-                    "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:88", streamed0, k7, gg0,
+                    "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:88", streamed0, k7, gg[0],
                     "small_forward", par_rows["sharded_modes"]),
         small_entry("small_backward (K7 backward)",
-                    "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:174", streamed0, k7, gg0,
+                    "sigsvgd_tpu/kernels/pallas_sigkernel_small.py:174", streamed0, k7, gg[0],
                     "small_backward", par_rows["sharded_modes"]),
         {"name": "fused_backward_bf16 (K6)", "route": "cuda",
          "source": "sigsvgd_tpu_torch/csrc/sigkernel_fused.cu",

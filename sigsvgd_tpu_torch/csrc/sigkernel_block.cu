@@ -69,8 +69,17 @@
 // sum on its own in the twin's order (so K is the twin's bit for bit); the
 // adjoint contracts freely (dX is compared at a scaled 5e-5). 12 warps an
 // SM (at most 151 registers, no stack frame).
+// Channels: K1 takes C ≤ 3 up to L = 64 and the JAX package's block
+// envelope beyond it, C = 4..8 with L·C ≤ 128. What grows with C is per
+// lane: the row point of the statics (C+1 floats in registers), the span of
+// the column path and its column-path sums ((SPAN+1)(C+1) floats each in
+// shared memory), and the band's column-path sums cx[SPAN+1][C] in
+// registers through the adjoint. At C ≥ 4 a lane holds at most 3 cell
+// columns (span template 3, up to twice the lanes of the C ≤ 3 rule at
+// the same L): cx stays within 32 registers and a block's shared memory
+// within 72.5 KiB, so three blocks (12 warps) still fit an SM.
 // K3, values only at λ=0, takes the JAX package's block envelope (C ≤ 8,
-// L·C ≤ 128, L ≤ 64; K1 stops at C ≤ 3). Its work is the forward alone: per
+// L·C ≤ 128, L ≤ 64), as K1 does. Its work is the forward alone: per
 // pair L² static nodes (~13 instructions each at C = 2, the IEEE expf ~8 of
 // them) and (L-1)² cells (14, each product and sum rounded on its own, so
 // no FMA), ~42k instructions a pair at L = 40; issued at one an instruction
@@ -99,7 +108,7 @@
 //     0) and are not read, the last band's rows past L-2 run on node row L-1
 //     and copy the row below, so the band's top hands on node row L-1;
 //   * statics and sweep round as K1's forward and the twin, so K is the
-//     twin's bit for bit (and K1's at C ≤ 3).
+//     twin's bit for bit (and K1's).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -793,9 +802,11 @@ cudaError_t lanes_launch(const float* X, const float* h, const int* tiles, int n
 }
 
 // The plan (kernels/sigkernel_block.py::block_plan) picks g and the span
-// template; these are the shapes K1 takes.
+// template; these are the shapes K1 takes: C ≤ 3 at L ≤ 64 (span template 3
+// or 5), C = 4..8 at L·C ≤ 128 (span template 3).
 bool lanes_valid(int L, int C, int g, int span) {
-  if (L < 2 || L > 64 || C < 1 || C > 3) return false;
+  if (L < 2 || L > 64 || C < 1 || C > 8 || (C > 3 && (L * C > 128 || span != 3)))
+    return false;
   if (g < 1 || g > 16 || g > L - 1 || (g & (g - 1)) != 0) return false;
   if (span != 3 && span != 5) return false;
   return (L - 1 + g - 1) / g <= span;
@@ -820,21 +831,27 @@ bool values_valid(int n, int L, int C) {
 
 }  // namespace
 
+// one instantiation per (span template, C) of lanes_valid
 #define K1_DISPATCH(RET, FN, ...)                                   \
-  switch (span * 4 + C) {                                           \
-    case 13: RET FN<3, 1>(__VA_ARGS__); break;                      \
-    case 14: RET FN<3, 2>(__VA_ARGS__); break;                      \
-    case 15: RET FN<3, 3>(__VA_ARGS__); break;                      \
-    case 21: RET FN<5, 1>(__VA_ARGS__); break;                      \
-    case 22: RET FN<5, 2>(__VA_ARGS__); break;                      \
-    case 23: RET FN<5, 3>(__VA_ARGS__); break;                      \
+  switch (span * 16 + C) {                                          \
+    case 49: RET FN<3, 1>(__VA_ARGS__); break;                      \
+    case 50: RET FN<3, 2>(__VA_ARGS__); break;                      \
+    case 51: RET FN<3, 3>(__VA_ARGS__); break;                      \
+    case 52: RET FN<3, 4>(__VA_ARGS__); break;                      \
+    case 53: RET FN<3, 5>(__VA_ARGS__); break;                      \
+    case 54: RET FN<3, 6>(__VA_ARGS__); break;                      \
+    case 55: RET FN<3, 7>(__VA_ARGS__); break;                      \
+    case 56: RET FN<3, 8>(__VA_ARGS__); break;                      \
+    case 81: RET FN<5, 1>(__VA_ARGS__); break;                      \
+    case 82: RET FN<5, 2>(__VA_ARGS__); break;                      \
+    case 83: RET FN<5, 3>(__VA_ARGS__); break;                      \
     default: return (int)cudaErrorInvalidValue;                     \
   }
 
 extern "C" {
 
 // Shape envelope of the kernels (checked again by the Python wrapper): L ≤
-// 64 for both, C ≤ 8 with L·C ≤ 128 for K3, C ≤ 3 for K1.
+// 64 and C ≤ 8 for both, L·C ≤ 128 for K3 and, at C ≥ 4, for K1.
 int sigkernel_block_max_l() { return 64; }
 int sigkernel_block_max_c() { return 8; }
 

@@ -63,6 +63,14 @@
 // At 128 registers the backward spills, so the kernel takes 168 (3 blocks,
 // 12 warps an SM): at [1024, 40, 2] more warps measured no faster, and the
 // arithmetic, not the ~52 GB of checkpoint traffic, takes most of the time.
+// Channels: C ≤ 3 up to L = 64, and the JAX package's block envelope beyond
+// it, C = 4..8 with L·C ≤ 128 (ly1 ≤ 31). What grows with C is a lane's row
+// points and its pull-back sums (sxu, sxd, carry: C floats each) in
+// registers and its column-path sums ((SPAN+1)·C floats) in shared memory;
+// the fine and adjoint rows (8·SPAN floats each) do not. At C ≥ 4 a lane
+// holds at most 3 coarse columns (span template 3), which frees 16 floats of
+// each row for the C-sized arrays: every instantiation fits 168 registers
+// with no spill (164-168 at C = 4..8), 3 blocks an SM.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -534,9 +542,11 @@ cudaError_t launch(const float* X, const float* s, const int* tiles, int n_tiles
 }
 
 // The plan (kernels/sigkernel_block3.py::block3_plan) picks g and the span
-// template; these are the shapes the kernel takes.
+// template; these are the shapes the kernel takes: C ≤ 3 at L ≤ 64 (span
+// template 3 or 5), C = 4..8 at L·C ≤ 128 (span template 3).
 bool valid(int L, int C, int g, int span) {
-  if (L < 2 || L > 64 || C < 1 || C > 3) return false;
+  if (L < 2 || L > 64 || C < 1 || C > 8 || (C > 3 && (L * C > 128 || span != 3)))
+    return false;
   if (g < 1 || g > 16 || g > L - 1 || (g & (g - 1)) != 0) return false;
   if (span != 3 && span != 5) return false;
   return (L - 1 + g - 1) / g <= span;
@@ -544,14 +554,20 @@ bool valid(int L, int C, int g, int span) {
 
 }  // namespace
 
+// one instantiation per (span template, C) of valid
 #define K2_DISPATCH(RET, FN, ...)                                   \
-  switch (span * 4 + C) {                                           \
-    case 13: RET FN<3, 1>(__VA_ARGS__); break;                      \
-    case 14: RET FN<3, 2>(__VA_ARGS__); break;                      \
-    case 15: RET FN<3, 3>(__VA_ARGS__); break;                      \
-    case 21: RET FN<5, 1>(__VA_ARGS__); break;                      \
-    case 22: RET FN<5, 2>(__VA_ARGS__); break;                      \
-    case 23: RET FN<5, 3>(__VA_ARGS__); break;                      \
+  switch (span * 16 + C) {                                          \
+    case 49: RET FN<3, 1>(__VA_ARGS__); break;                      \
+    case 50: RET FN<3, 2>(__VA_ARGS__); break;                      \
+    case 51: RET FN<3, 3>(__VA_ARGS__); break;                      \
+    case 52: RET FN<3, 4>(__VA_ARGS__); break;                      \
+    case 53: RET FN<3, 5>(__VA_ARGS__); break;                      \
+    case 54: RET FN<3, 6>(__VA_ARGS__); break;                      \
+    case 55: RET FN<3, 7>(__VA_ARGS__); break;                      \
+    case 56: RET FN<3, 8>(__VA_ARGS__); break;                      \
+    case 81: RET FN<5, 1>(__VA_ARGS__); break;                      \
+    case 82: RET FN<5, 2>(__VA_ARGS__); break;                      \
+    case 83: RET FN<5, 3>(__VA_ARGS__); break;                      \
     default: return (int)cudaErrorInvalidValue;                     \
   }
 

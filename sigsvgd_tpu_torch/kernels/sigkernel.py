@@ -12,18 +12,20 @@ Routing (``SignatureKernel._solver_kind``), as the JAX package routes on the
 TPU (``solver="auto"``; the explicit solvers as the JAX package maps them):
 λ=0 with ly1 ≤ 63 and RBF statics → the ``"small"`` kind:
 ``gram_and_grad`` takes ``sigkernel_block.block_gram_and_grad`` (K1) inside
-both K1's block envelope and the JAX package's, else the gathered
-upper-triangle pair list through ``sigkernel_small`` (K7's forward and
-backward), and ``gram`` above ``_DENSE_LIMIT`` streams pair chunks through
-K7; ``gram_sym`` takes ``sigkernel_block.block_gram`` (K3) inside K3's
-envelope and the JAX package's block envelope (C ≤ 8, L·C ≤ 128), where the
-JAX package takes its block values kernel, else the upper-triangle pair
-list. λ=3 with ly1 ≤ 48 → the
-``"pallas"`` kind: ``gram_and_grad`` takes
-``sigkernel_block3.block3_gram_and_grad`` (K2) at ``grad_precision="fp32"``
-inside K2's envelope (RBF statics), else the gathered upper-triangle pair
-list; a pair list takes ``sigkernel_fused`` inside the fused envelope (RBF
-statics, C ≤ 8: K4's forward, then K4's fp32 backward or, at
+the JAX package's block envelope (C ≤ 8, L·C ≤ 128 and its VMEM bound),
+which K1's holds, as the JAX package takes its block kernel there (the
+planner's ``[n, 3, 7]`` knots included), else the gathered upper-triangle
+pair list through ``sigkernel_small`` (K7's forward and backward: L·C >
+128 or C > 8), and ``gram`` above ``_DENSE_LIMIT`` streams pair chunks
+through K7; ``gram_sym`` takes ``sigkernel_block.block_gram`` (K3) inside
+the same envelope, where the JAX package takes its block values kernel,
+else the upper-triangle pair list. λ=3 with ly1 ≤ 48 → the ``"pallas"``
+kind: ``gram_and_grad`` takes ``sigkernel_block3.block3_gram_and_grad``
+(K2) at ``grad_precision="fp32"`` inside K2's envelope (RBF statics; C ≤ 3
+at L ≤ 64, or C ≤ 8 with L·C ≤ 128, which holds the JAX package's block3
+envelope), else the gathered upper-triangle pair list (L·C > 128 at C > 3,
+or the bf16 adjoint); a pair list takes ``sigkernel_fused`` inside the
+fused envelope (RBF statics, C ≤ 8: K4's forward, then K4's fp32 backward or, at
 ``grad_precision="bf16"`` inside JAX's bf16 envelope, K6), else
 ``sigkernel_tiled.pair_values`` (linear statics or C > 8: the increments in
 torch, K5's forward and backward); ``gram`` above ``_DENSE_LIMIT`` streams

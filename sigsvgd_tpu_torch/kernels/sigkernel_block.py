@@ -14,11 +14,12 @@ twins share one arithmetic, written out in the twins below: the
 static Gram in expand form on paths pre-scaled by √(2/h), the order-0 row
 sweep, the per-cell adjoint factor ``fac``, the λ rows top-down and the
 pull-back of the row differences ``D[i][q] = dz[i][q-1] - dz[i][q]``.
-K1 spreads each pair over a group of lanes (:func:`block_lanes`,
+K1 spreads each pair over a group of lanes (:func:`kernel_lanes`,
 :func:`block_plan`); K3 solves a pair in one thread, in bands of
 :data:`VALUES_BAND_ROWS` cell rows swept as a skewed wavefront
-(:func:`block_values_plan`), inside the JAX package's block envelope
-(:func:`block_values_supported`).
+(:func:`block_values_plan`). Both take the JAX package's block envelope
+(C ≤ 8, L·C ≤ 128; :func:`block_values_supported`), K1 also C ≤ 3 up to
+L = 64 (:func:`block_supported`).
 """
 from __future__ import annotations
 
@@ -32,11 +33,12 @@ from ._build import load
 _I6 = 1.0 / 6.0
 _I12 = 1.0 / 12.0
 
-# kernel envelopes (csrc/sigkernel_block.cu): K1 C ≤ 3, K3 C ≤ 8 with L·C ≤ 128
+# kernel envelopes (csrc/sigkernel_block.cu): L ≤ 64 and C ≤ 8 with L·C ≤ 128
+# for both; K1 also C ≤ NARROW_C at any L ≤ 64
 MAX_L = 64
-MAX_C = 3
-VALUES_MAX_C = 8
-VALUES_MAX_LC = 128
+MAX_C = 8
+MAX_LC = 128
+NARROW_C = 3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -44,11 +46,15 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def block_supported(n: int, L: int, C: int, h) -> bool:
-    """Shapes K1 takes on the card: a bandwidth, n ≥ 2, L ≤ 64 and C ≤ 3
-    (one instantiation per channel count; a pair's cell row spreads over at
-    most 16 lanes, :func:`block_lanes`, and a block's shared memory,
-    :func:`block_plan`, fits Hopper's 227 KB at every such shape)."""
-    return h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+    """Shapes K1 takes on the card: a bandwidth, n ≥ 2, 2 ≤ L ≤ 64 and
+    either C ≤ 3 or C ≤ 8 with L·C ≤ 128, the JAX package's block envelope
+    (one instantiation per span template and channel count,
+    :func:`lanes_instantiations`; a pair's cell row spreads over at most 16
+    lanes, :func:`kernel_lanes`, and a block's shared memory,
+    :func:`block_plan`, fits Hopper's 227 KB three times at every such
+    shape)."""
+    return (h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+            and (C <= NARROW_C or L * C <= MAX_LC))
 
 
 def block_values_supported(n: int, L: int, C: int, h) -> bool:
@@ -56,8 +62,8 @@ def block_values_supported(n: int, L: int, C: int, h) -> bool:
     1 ≤ C ≤ 8 and L·C ≤ 128, the JAX package's block envelope without its
     VMEM bound (one instantiation per length bucket and channel count the
     envelope reaches, :func:`values_bucket`)."""
-    return (h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= VALUES_MAX_C
-            and L * C <= VALUES_MAX_LC)
+    return (h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+            and L * C <= MAX_LC)
 
 
 # the JAX package's block envelope (pallas_sigkernel_block.py), copied: the
@@ -250,19 +256,41 @@ TILE_ROWS = 8       # row particles a tile: the pairs a lane group walks
 BAND_ROWS = 4       # cell rows a band, one pipeline step (a band's factors stay in
                     # registers; 4-8 rows measured within 7%, 4 the fastest)
 SPAN_CAP = 5        # columns a lane holds at most
+SPAN_CAP_WIDE = 3   # K1's and K2's cap at C > NARROW_C
 SPAN_TEMPLATES = (3, 5)
 
 
-def block_lanes(L: int) -> tuple[int, int]:
+def block_lanes(L: int, cap: int = SPAN_CAP) -> tuple[int, int]:
     """``(g, span)``: the fewest lanes a pair (a power of two) that leave no
-    lane more than :data:`SPAN_CAP` of the ``L - 1`` cell columns, and the
-    span template (3 or 5) that holds the widest span."""
+    lane more than ``cap`` of the ``L - 1`` cell columns, and the span
+    template (3 or 5) that holds the widest span."""
     l1 = L - 1
     g = 1
-    while _cdiv(l1, g) > SPAN_CAP:
+    while _cdiv(l1, g) > cap:
         g *= 2
     widest = _cdiv(l1, g)
     return g, next(t for t in SPAN_TEMPLATES if widest <= t)
+
+
+def span_cap(C: int) -> int:
+    """Columns a K1 or K2 lane holds at most for ``C`` channels: 5 up to
+    C = 3, else 3, so the per-lane arrays that grow with C (K1's column-path
+    sums, K2's pull-back sums) fit the register budget the C ≤ 3
+    instantiations run at."""
+    return SPAN_CAP if C <= NARROW_C else SPAN_CAP_WIDE
+
+
+def kernel_lanes(L: int, C: int) -> tuple[int, int]:
+    """``(g, span)`` of K1 and K2 for ``[n, L, C]`` paths: :func:`block_lanes`
+    under :func:`span_cap`."""
+    return block_lanes(L, span_cap(C))
+
+
+def lanes_instantiations() -> list[tuple[int, int]]:
+    """``(span template, C)`` of every K1 instantiation (and K2's): both
+    templates up to C = 3, template 3 beyond."""
+    return [(t, C) for C in range(1, MAX_C + 1) for t in SPAN_TEMPLATES
+            if t <= span_cap(C)]
 
 
 def block_spans(L: int, g: int) -> list[int]:
@@ -318,10 +346,10 @@ def _pipeline_steps(L: int, g: int) -> int:
     return TILE_ROWS * _bands(L) + g - 1
 
 
-def block_scratch_floats(L: int) -> int:
+def block_scratch_floats(L: int, C: int) -> int:
     """Device scratch per persistent block, in floats: for each of its 4
     warps and each pipeline step, the 32 lanes' slots."""
-    g, span = block_lanes(L)
+    g, span = kernel_lanes(L, C)
     return THREADS // 32 * _pipeline_steps(L, g) * 32 * _slot_floats(span)
 
 
@@ -338,7 +366,7 @@ def block_plan(n: int, L: int, C: int, blocks: int) -> BlockPlan:
     band and reads it back once; X is read once (it stays in L2), K and dX
     written once, the per-tile partials written and read once. No per-cell
     value goes to device or local memory."""
-    g, span = block_lanes(L)
+    g, span = kernel_lanes(L, C)
     tc = THREADS // g
     tiles = _tile_list_len(n, tc)
     smem = 4 * ((_slot_floats(span) + 2 * (span + 1) * (C + 1)) * THREADS
@@ -351,7 +379,7 @@ def block_plan(n: int, L: int, C: int, blocks: int) -> BlockPlan:
         g=g, span=span, spans=tuple(block_spans(L, g)), band_rows=BAND_ROWS,
         bands=_bands(L), tile_rows=TILE_ROWS, tile_cols=tc,
         pairs_per_block=TILE_ROWS * tc, steps=_pipeline_steps(L, g), tiles=tiles,
-        blocks=blocks, scratch_floats=blocks * block_scratch_floats(L), smem_bytes=smem,
+        blocks=blocks, scratch_floats=blocks * block_scratch_floats(L, C), smem_bytes=smem,
         traffic_bytes=4.0 * (checkpoints + partials + n * L * C + n * n + n * L * C))
 
 
@@ -432,7 +460,7 @@ def values_instantiations() -> list[tuple[int, int]]:
     length bucket's shortest path reaches inside ``L·C ≤ 128``."""
     out, lo = [], 2
     for b in VALUES_BUCKETS:
-        out += [(b, C) for C in range(1, min(VALUES_MAX_C, VALUES_MAX_LC // lo) + 1)]
+        out += [(b, C) for C in range(1, min(MAX_C, MAX_LC // lo) + 1)]
         lo = b + 1
     return out
 
@@ -503,7 +531,8 @@ def _check(X: torch.Tensor, h, what: str, supported, envelope: str):
     if not supported(n, L, C, h):
         raise NotImplementedError(
             f"shape {(n, L, C)} is outside {what}'s envelope ({envelope}); "
-            "SignatureKernel sends such λ=0 shapes to the pair-list kernel K7"
+            "SignatureKernel sends such λ=0 shapes to the pair-list kernel K7 "
+            "(beyond C = 8 or ly1 = 63, to the wavefront)"
         )
     return n, L, C, torch.as_tensor(h, dtype=torch.float32, device=X.device).reshape(1)
 
@@ -511,7 +540,7 @@ def _check(X: torch.Tensor, h, what: str, supported, envelope: str):
 def block_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
     """The tile list of a K1 launch on ``device`` and its number of
     persistent blocks (those resident on the card, at most one per tile)."""
-    g, span = block_lanes(L)
+    g, span = kernel_lanes(L, C)
     tiles = _tile_list(n, THREADS // g, device)
     blocks = ctypes.c_int(0)
     rc = _lib().sigkernel_block_grid(L, C, g, span, tiles.shape[0], ctypes.byref(blocks))
@@ -531,12 +560,13 @@ def block_gram_and_grad(X: torch.Tensor, h, shard=None):
     if X.device.type == "cpu":
         if shard is None:
             return block_gram_and_grad_plain(X, h)
-        n, L = X.shape[:2]
-        tc = THREADS // block_lanes(L)[0]
+        n, L, C = X.shape
+        tc = THREADS // kernel_lanes(L, C)[0]
         tiles = tile_shard(_tile_list(n, tc, X.device), *shard)
         return block_gram_and_grad_plain(X, h, pairs=tile_pairs(tiles, n, tc))
-    n, L, C, h_t = _check(X, h, "K1", block_supported, f"L ≤ {MAX_L}, C ≤ {MAX_C}")
-    g, span = block_lanes(L)
+    n, L, C, h_t = _check(X, h, "K1", block_supported,
+                          f"L ≤ {MAX_L}, C ≤ {NARROW_C} or C ≤ {MAX_C} with L·C ≤ {MAX_LC}")
+    g, span = kernel_lanes(L, C)
     tc = THREADS // g
     tiles, blocks = block_grid(n, L, C, X.device)
     present = None
@@ -551,7 +581,7 @@ def block_gram_and_grad(X: torch.Tensor, h, shard=None):
     dX = torch.empty_like(X)
     rowpart = torch.empty(_cdiv(n, tc), n, L * C, dtype=X.dtype, device=X.device)
     colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype, device=X.device)
-    scratch = torch.empty(blocks * block_scratch_floats(L), dtype=X.dtype, device=X.device)
+    scratch = torch.empty(blocks * block_scratch_floats(L, C), dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = _lib().sigkernel_block_gram_grad(
         X.data_ptr(), h_t.data_ptr(), tiles.data_ptr(), K.data_ptr(), dX.data_ptr(),
@@ -571,7 +601,7 @@ def block_gram(X: torch.Tensor, h) -> torch.Tensor:
     if X.device.type == "cpu":
         return block_gram_plain(X, h)
     n, L, C, h_t = _check(X, h, "K3", block_values_supported,
-                          f"L ≤ {MAX_L}, C ≤ {VALUES_MAX_C}, L·C ≤ {VALUES_MAX_LC}")
+                          f"L ≤ {MAX_L}, C ≤ {MAX_C}, L·C ≤ {MAX_LC}")
     tiles = _tile_list(n, VALUES_TILE_COLS, X.device)
     K = torch.empty(n, n, dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream

@@ -34,26 +34,30 @@ import torch
 
 from ._build import load
 from .sigkernel_block import (
-    SPAN_CAP, SPAN_TEMPLATES, THREADS, _cdiv, _tile_list, _tile_list_len, block_lanes,
-    block_spans, tile_mask, tile_pairs, tile_shard,
+    MAX_C, MAX_L, MAX_LC, NARROW_C, SPAN_CAP, SPAN_TEMPLATES, THREADS, _cdiv, _tile_list,
+    _tile_list_len, block_lanes, block_spans, kernel_lanes, lanes_instantiations, span_cap,
+    tile_mask, tile_pairs, tile_shard,
 )
 from .sigkernel_fused import _M, fused_pairs_plain, grid_forward, pair_statics
 
-# kernel envelope and tile rows (csrc/sigkernel_block3.cu)
-MAX_L = 64
-MAX_C = 3
+# tile rows (csrc/sigkernel_block3.cu); the envelope is K1's (MAX_L, MAX_C,
+# MAX_LC, NARROW_C)
 TILE_ROWS = 8
 
 
 def block3_supported(n: int, L: int, C: int, h) -> bool:
-    """Shapes K2 takes on the card: a bandwidth, n ≥ 2, L ≤ 64, C ≤ 3 (one
-    kernel instantiation per channel count and span template). Within these
-    bounds a pair's fine row spreads over at most 16 lanes of at most 5
-    coarse columns each (:func:`block3_lanes`), a block's shared memory
-    (:func:`block3_plan`, at most 46 KB) fits Hopper's 227 KB, and
-    only the band-top checkpoints go to device memory, so L is not bound by
-    on-chip memory as it is on the TPU (ly1 ≤ 48)."""
-    return h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+    """Shapes K2 takes on the card: a bandwidth, n ≥ 2, 2 ≤ L ≤ 64 and
+    either C ≤ 3 or C ≤ 8 with L·C ≤ 128 (one kernel instantiation per span
+    template and channel count, ``lanes_instantiations``). This holds the
+    JAX package's block3 envelope (C ≤ 8, L·C ≤ 128, ly1 ≤ 48). Within
+    these bounds a pair's fine row spreads over at most 16 lanes of at most
+    5 coarse columns each (3 at C > 3, :func:`block3_lanes`), a block's
+    shared memory (:func:`block3_plan`, at most 46 KB) fits Hopper's
+    227 KB, and only the band-top checkpoints go to device memory, so at
+    C ≤ 3 L is not bound by on-chip memory as it is on the TPU
+    (ly1 ≤ 48)."""
+    return (h is not None and n >= 2 and 2 <= L <= MAX_L and 1 <= C <= MAX_C
+            and (C <= NARROW_C or L * C <= MAX_LC))
 
 
 def block3_flops(n: int, L: int, C: int) -> float:
@@ -160,7 +164,8 @@ class Block3Plan:
 
 
 # K2's lanes and spans over the L - 1 coarse columns: K1's rule
-# (sigkernel_block.py), with the tile list
+# (sigkernel_block.py), with the tile list. ``block3_lanes(L)`` is the rule
+# at C ≤ 3 (K5's too); K2 takes ``kernel_lanes(L, C)``.
 block3_lanes = block_lanes
 block3_spans = block_spans
 
@@ -171,11 +176,11 @@ def _pipeline_steps(L: int, g: int) -> int:
     return TILE_ROWS * (L - 1) + g - 1
 
 
-def block3_scratch_floats(L: int) -> int:
+def block3_scratch_floats(L: int, C: int) -> int:
     """Device scratch per persistent block, in floats: for each of its 4
     warps and each pipeline step, the 32 lanes' span of a band top row
     (8·span floats each) and each group's right-edge column (8 floats)."""
-    g, span = block3_lanes(L)
+    g, span = kernel_lanes(L, C)
     return THREADS // 32 * _pipeline_steps(L, g) * (32 * _M * span + 32 // g * _M)
 
 
@@ -191,7 +196,7 @@ def block3_plan(n: int, L: int, C: int, blocks: int) -> Block3Plan:
     is read once (it stays in L2), K and dX written once, the per-tile
     partials written and read once. No fine row or adjoint row goes to
     device memory."""
-    g, span = block3_lanes(L)
+    g, span = kernel_lanes(L, C)
     tc = THREADS // g
     l1 = L - 1
     tiles = _tile_list_len(n, tc)
@@ -203,7 +208,7 @@ def block3_plan(n: int, L: int, C: int, blocks: int) -> Block3Plan:
     return Block3Plan(
         g=g, span=span, spans=tuple(block3_spans(L, g)), tile_rows=TILE_ROWS,
         tile_cols=tc, pairs_per_block=TILE_ROWS * tc, steps=_pipeline_steps(L, g),
-        tiles=tiles, blocks=blocks, scratch_floats=blocks * block3_scratch_floats(L),
+        tiles=tiles, blocks=blocks, scratch_floats=blocks * block3_scratch_floats(L, C),
         smem_bytes=smem,
         traffic_bytes=4.0 * (checkpoints + partials + n * L * C + n * n + n * L * C))
 
@@ -222,7 +227,7 @@ def block3_grid(n: int, L: int, C: int, device) -> tuple[torch.Tensor, int]:
     """The tile list of a K2 launch on ``device`` and its number of
     persistent blocks (those resident on the card, at most one per tile):
     each block walks the list, taking about ``tiles / blocks`` tiles."""
-    g, span = block3_lanes(L)
+    g, span = kernel_lanes(L, C)
     tiles = _tile_list(n, THREADS // g, device)
     blocks = ctypes.c_int(0)
     rc = _lib().sigkernel_block3_grid(L, C, g, span, tiles.shape[0], ctypes.byref(blocks))
@@ -241,8 +246,8 @@ def block3_gram_and_grad(X: torch.Tensor, h, shard=None):
     if X.device.type == "cpu":
         if shard is None:
             return block3_gram_and_grad_plain(X, h)
-        n, L = X.shape[:2]
-        tc = THREADS // block3_lanes(L)[0]
+        n, L, C = X.shape
+        tc = THREADS // kernel_lanes(L, C)[0]
         tiles = tile_shard(_tile_list(n, tc, X.device), *shard)
         return block3_gram_and_grad_plain(X, h, pairs=tile_pairs(tiles, n, tc))
     if X.device.type != "cuda":
@@ -252,12 +257,13 @@ def block3_gram_and_grad(X: torch.Tensor, h, shard=None):
     n, L, C = X.shape
     if not block3_supported(n, L, C, h):
         raise NotImplementedError(
-            f"shape {(n, L, C)} is outside K2's envelope (C ≤ 3, L ≤ 64); "
+            f"shape {(n, L, C)} is outside K2's envelope (L ≤ {MAX_L}, C ≤ "
+            f"{NARROW_C} or C ≤ {MAX_C} with L·C ≤ {MAX_LC}); "
             "SignatureKernel.gram_and_grad sends such shapes to the λ=3 pair "
-            "list (K4), or beyond ly1 = 48 to the wavefront "
-            "(sigkernel.solve_goursat_pde)"
+            "list (K4, or K5 beyond C = 8), or beyond ly1 = 48 to the "
+            "wavefront (sigkernel.solve_goursat_pde)"
         )
-    g, span = block3_lanes(L)
+    g, span = kernel_lanes(L, C)
     tc = THREADS // g
     tiles, blocks = block3_grid(n, L, C, X.device)
     present = None
@@ -275,7 +281,7 @@ def block3_gram_and_grad(X: torch.Tensor, h, shard=None):
     dX = torch.empty_like(X)
     rowpart = torch.empty(_cdiv(n, tc), n, L * C, dtype=X.dtype, device=X.device)
     colpart = torch.empty(_cdiv(n, TILE_ROWS), n, L * C, dtype=X.dtype, device=X.device)
-    scratch = torch.empty(blocks * block3_scratch_floats(L), dtype=X.dtype, device=X.device)
+    scratch = torch.empty(blocks * block3_scratch_floats(L, C), dtype=X.dtype, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = _lib().sigkernel_block3_gram_grad(
         X.data_ptr(), s_t.data_ptr(), tiles.data_ptr(), K.data_ptr(),

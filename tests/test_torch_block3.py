@@ -3,8 +3,10 @@
 The twin is held against JAX ``block3_gram_and_grad`` (the Pallas kernels in
 interpret mode, as ``tests/test_pallas_block3.py`` runs them) and against
 ``SignatureKernel(dyadic_order=3, solver="wavefront")`` at that file's three
-shapes and tolerances: K atol 1e-4, dX scaled by max|dX| atol 4e-4. K2 itself
-is held against the twin on the card in ``test_torch_cuda.py``.
+shapes and at three of the block3 envelope's C = 4..8 (the planner's knots
+[9, 3, 7] at h = 1.5, and its edges L = 16 at C = 8 and L = 32 at C = 4),
+with that file's tolerances: K atol 1e-4, dX scaled by max|dX| atol 4e-4.
+K2 itself is held against the twin on the card in ``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,9 @@ SHAPES = [
     (20, 9, 2, 4.0),     # multi-tile row dimension
     (7, 5, 3, 2.0),      # n < one row block
     (12, 13, 2, 3.0),    # longer paths
+    (9, 3, 7, 1.5),      # the planner's 7-joint knots at its bandwidth
+    (3, 16, 8, 8.0),     # C = 8 at the envelope's L·C = 128
+    (3, 32, 4, 8.0),     # C = 4 at L·C = 128 (16 lanes a pair)
 ]
 
 
@@ -78,9 +83,14 @@ def test_block3_supported_envelope():
     assert kb3.block3_supported(2, 49, 3, 1.0)          # L ≤ 49 with C ≤ 3, n = 2
     assert kb3.block3_supported(4096, 64, 3, 1.0)       # any n; L up to 64
     assert not kb3.block3_supported(64, 40, 2, None)    # bandwidth
-    assert not kb3.block3_supported(64, 40, 4, 4.0)     # channels
+    assert not kb3.block3_supported(64, 5, 9, 4.0)      # channels
     assert not kb3.block3_supported(64, 65, 2, 4.0)     # path length
     assert not kb3.block3_supported(1, 40, 2, 4.0)      # one particle
+    # C = 4..8 up to L·C = 128 (ly1 ≤ 31), and not one node further
+    for C, L in ((4, 32), (5, 25), (6, 21), (7, 18), (8, 16)):
+        assert kb3.block3_supported(1024, L, C, 4.0) and kb3.block3_supported(2, 2, C, 4.0)
+        assert not kb3.block3_supported(1024, L + 1, C, 4.0), (L + 1, C)
+    assert kb3.block3_supported(1024, 3, 7, 1.5)        # the planner's knots
 
 
 def test_kernel_bound_counts():
@@ -92,4 +102,4 @@ def test_kernel_bound_counts():
     assert kb3.block3_bytes(1024, 40, 2) == 4.0 * (1024 * 80 * 2 + 1024 ** 2)
     # per persistent block: 4 warps × 319 pipeline steps × (32 lanes' band
     # tops of 5 coarse columns + 4 groups' right-edge columns)
-    assert kb3.block3_scratch_floats(40) == 4 * 319 * (32 * 40 + 4 * 8)
+    assert kb3.block3_scratch_floats(40, 2) == 4 * 319 * (32 * 40 + 4 * 8)

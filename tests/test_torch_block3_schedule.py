@@ -32,7 +32,7 @@ def schedule_model(X: torch.Tensor, h: float):
     ``p % R``; padding pairs have seed 0)."""
     n, L, C = X.shape
     l1, G = L - 1, M * (L - 1)
-    g, _ = kb3.block3_lanes(L)
+    g, _ = kb3.kernel_lanes(L, C)
     widths = kb3.block3_spans(L, g)
     c0s = [t * l1 // g for t in range(g)]
     TR = kb3.TILE_ROWS
@@ -190,10 +190,12 @@ def schedule_model(X: torch.Tensor, h: float):
     return K, 0.5 * kb3._scale(X, h) * dX
 
 
-@pytest.mark.parametrize("n,L,C,h", [(6, 9, 2, 4.0), (5, 13, 3, 2.0), (4, 40, 2, 4.0)])
+@pytest.mark.parametrize("n,L,C,h", [(6, 9, 2, 4.0), (5, 13, 3, 2.0), (4, 40, 2, 4.0),
+                                     (3, 7, 6, 6.0)])
 def test_lane_schedule_matches_the_twin(rng, n, L, C, h):
     """[6, 9, 2] runs 2 lanes a pair, [5, 13, 3] 4, [4, 40, 2] (the flagship
-    width) 8 over spans of 4-5 coarse columns. The paths are those of
+    width) 8 over spans of 4-5 coarse columns, [3, 7, 6] 2 of 3 (the span
+    cap at C > 3). The paths are those of
     ``test_torch_block3.py`` and the JAX package's block3 test, the inputs
     K2's tolerance was set on. The model's backward rounds each operation
     on its own, as the fp32 twin does, and sits as near it as two orders of
@@ -208,16 +210,22 @@ def test_lane_schedule_matches_the_twin(rng, n, L, C, h):
     assert ((dX - dXp).abs().max() / scale).item() <= 1e-4
 
 
-@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("C", range(1, 9))
 def test_plan_spans_cover_every_coarse_column_once(C):
+    """Every L of K2's envelope at C (L ≤ 64 up to C = 3, L·C ≤ 128 beyond)."""
+    cap = kb3.span_cap(C)
     for L in range(2, kb3.MAX_L + 1):
-        g, span = kb3.block3_lanes(L)
+        if not kb3.block3_supported(64, L, C, 1.0):
+            assert C > kb3.NARROW_C and L * C > kb3.MAX_LC
+            continue
+        g, span = kb3.kernel_lanes(L, C)
         widths = kb3.block3_spans(L, g)
         assert g & (g - 1) == 0 and g <= 16 and len(widths) == g
         assert sum(widths) == L - 1 and min(widths) >= 1
-        assert max(widths) <= span <= kb3.SPAN_CAP and span in kb3.SPAN_TEMPLATES
+        assert max(widths) <= span <= cap and span in kb3.SPAN_TEMPLATES
+        assert (span, C) in kb3.lanes_instantiations()
         # the fewest lanes that keep every span within the cap
-        assert g == 1 or -(-(L - 1) // (g // 2)) > kb3.SPAN_CAP
+        assert g == 1 or -(-(L - 1) // (g // 2)) > cap
         plan = kb3.block3_plan(64, L, C, blocks=132 * 3)
         assert plan.tile_cols * g == kb3.THREADS and plan.spans == tuple(widths)
         # a block's shared memory fits Hopper's 227 KB three times over
@@ -234,7 +242,7 @@ def test_plan_at_the_flagship_shape():
     assert plan.pairs_per_block == 128 and plan.steps == 8 * 39 + 7
     assert plan.tiles == 4160 and plan.blocks == 132 * 3
     # per block: 4 warps × 319 steps × (32 lanes × 40 tops + 4 groups × 8 edge)
-    assert kb3.block3_scratch_floats(40) == 4 * 319 * (32 * 40 + 4 * 8)
+    assert kb3.block3_scratch_floats(40, 2) == 4 * 319 * (32 * 40 + 4 * 8)
     assert plan.scratch_floats == 396 * 4 * 319 * 1312
     pairs = 1024 * 1025 // 2
     checkpoints = 2 * pairs * 39 * (312 + 8) * 4         # written once, read once

@@ -236,6 +236,7 @@ def schedule_model(X: torch.Tensor, h: float):
     (3, 30, 1, 4.0),    # 8 lanes of 3-4 columns, eight bands (a ragged last)
     (4, 40, 2, 4.0),    # the flagship width: 8 lanes of 4-5 columns, ten bands
     (3, 45, 2, 1.0),    # 16 lanes of 2-3 columns, eleven bands
+    (3, 13, 6, 6.0),    # C = 6: 4 lanes of 3 columns (the span cap at C > 3)
 ])
 def test_lane_schedule_matches_the_twin(rng, n, L, C, h):
     """K and every cell's ``fac`` bit for bit; dX within K1's tolerance of the
@@ -243,8 +244,8 @@ def test_lane_schedule_matches_the_twin(rng, n, L, C, h):
     here, so every case has padding pairs beside its diagonal pairs."""
     X = torch.from_numpy((rng.normal(size=(n, L, C)) * 0.3).astype(np.float32))
     K, dX, facs, (R, P) = schedule_model(X, h)
-    assert P % TR and kb.block_lanes(L)[0] == {2: 1, 5: 1, 9: 2, 13: 4, 30: 8,
-                                                40: 8, 45: 16}[L]
+    assert P % TR and kb.kernel_lanes(L, C)[0] == {2: 1, 5: 1, 9: 2, 13: 4, 30: 8,
+                                                    40: 8, 45: 16}[L]
     Kp, dXp = kb.block_gram_and_grad_plain(X, h)
     assert torch.equal(K, Kp) and torch.equal(K, kb.block_gram_plain(X, h))
     fac = kb._forward_plain(X, h, keep_fac=True)["fac"]           # [L-1, L-1, P]
@@ -258,16 +259,23 @@ def test_lane_schedule_matches_the_twin(rng, n, L, C, h):
     assert ((dX.double() - dX64).abs().max() / dX64.abs().max()).item() <= 5e-5
 
 
-@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("C", range(1, 9))
 def test_plan_spans_cover_every_cell_column_once(C):
+    """Every L of K1's envelope at C (L ≤ 64 up to C = 3, L·C ≤ 128 beyond):
+    the spans, their instantiation, the bands and the shared memory."""
+    cap = kb.span_cap(C)
     for L in range(2, kb.MAX_L + 1):
-        g, span = kb.block_lanes(L)
+        if not kb.block_supported(64, L, C, 1.0):
+            assert C > kb.NARROW_C and L * C > kb.MAX_LC
+            continue
+        g, span = kb.kernel_lanes(L, C)
         widths = kb.block_spans(L, g)
         assert g & (g - 1) == 0 and g <= 16 and len(widths) == g
         assert sum(widths) == L - 1 and min(widths) >= 1
-        assert max(widths) <= span <= kb.SPAN_CAP and span in kb.SPAN_TEMPLATES
+        assert max(widths) <= span <= cap and span in kb.SPAN_TEMPLATES
+        assert (span, C) in kb.lanes_instantiations()
         # the fewest lanes that keep every span within the cap
-        assert g == 1 or -(-(L - 1) // (g // 2)) > kb.SPAN_CAP
+        assert g == 1 or -(-(L - 1) // (g // 2)) > cap
         plan = kb.block_plan(64, L, C, blocks=132 * 3)
         assert plan.tile_cols * g == kb.THREADS and plan.spans == tuple(widths)
         assert plan.bands * plan.band_rows >= L - 1 > (plan.bands - 1) * plan.band_rows
@@ -287,7 +295,7 @@ def test_plan_at_the_flagship_shape():
     assert plan.tiles == 4160 and plan.blocks == 132 * 3
     # per block: 4 warps × 87 steps × 32 lanes × a 12-float slot (a bottom row
     # of 6 nodes and a left column of 4, in float4s)
-    assert kb.block_scratch_floats(40) == 4 * 87 * 32 * 12
+    assert kb.block_scratch_floats(40, 2) == 4 * 87 * 32 * 12
     assert plan.scratch_floats == 396 * 4 * 87 * 32 * 12
     pairs = 1024 * 1025 // 2
     checkpoints = 2 * pairs * 10 * 8 * 12 * 4          # written once, read once

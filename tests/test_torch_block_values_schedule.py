@@ -171,5 +171,8 @@ def test_block_values_envelope():
     assert not kb.block_values_supported(8, 65, 1, 4.0)    # L = 65
     assert not kb.block_values_supported(1, 5, 2, 4.0)     # one particle
     assert not kb.block_values_supported(8, 5, 2, None)    # bandwidth
-    # K1's envelope does not move
-    assert not kb.block_supported(8, 5, 4, 4.0)
+    # K1's envelope is K3's at C = 4..8 (C ≤ 3 it also takes L ≤ 64)
+    for C, L in ((4, 32), (5, 25), (6, 21), (7, 18), (8, 16)):
+        assert kb.block_supported(8, L, C, 4.0) and kb.block_values_supported(8, L, C, 4.0)
+        assert not kb.block_supported(8, L + 1, C, 4.0)
+    assert kb.block_supported(8, 64, 3, 4.0) and not kb.block_values_supported(8, 64, 3, 4.0)

@@ -2,9 +2,13 @@
 
 * K1 (λ=0 Gram + adjoint; a lane group per pair): K bit for bit (within
   ``tests/test_pallas_block.py``'s atol 3e-5), dX scaled by max|dX| atol
-  5e-5, its tolerance; dX bit for bit across two calls;
+  5e-5, its tolerance, at every instantiation (C = 1..3 up to L = 64, C =
+  4..8 up to L·C = 128); dX bit for bit across two calls;
 * K2 (λ=3 Gram + adjoint): K atol 1e-4, dX scaled atol 4e-4 (against the
-  twin in fp64), those of ``tests/test_pallas_block3.py``;
+  twin in fp64), those of ``tests/test_pallas_block3.py``, at every
+  instantiation as K1; both raise just past their envelope, and
+  ``gram_and_grad`` takes them on the planner's [1024, 3, 7] knots (λ=0 and
+  λ=3) and the pair lists (K7, K4) beyond L·C = 128;
 * K9 (fused RBF Stein velocity): rtol 2e-4, atol 5e-5, those of
   ``tests/test_pallas_svgd.py``, with scores of unit size and 100 times
   larger, over row and column chunks of K; φ bit for bit across calls;
@@ -33,9 +37,8 @@
   k, fac, dx and dy bit for bit across calls;
 * K3 (the λ=0 values-only block Gram; one thread a pair, bands swept as a
   wavefront): K the twin's bit for bit at every instantiation's shapes
-  (C = 1..8, L·C ≤ 128, more tiles than resident blocks) and K1's where K1
-  takes the shape (C ≤ 3; all three round as the twin does); K bit for bit
-  across calls;
+  (C = 1..8, L·C ≤ 128, more tiles than resident blocks) and K1's (all
+  three round as the twin does); K bit for bit across calls;
 * K5 (the λ=3 solve on given increments, forward and stable backward): k
   rtol 2e-5 / atol 1e-6 and dz scaled by max|dz| atol 5e-4 against the fp32
   twin, those of ``tests/test_pallas_sigkernel.py`` (at its MPC shape 1e-4
@@ -71,6 +74,7 @@ import pytest
 import torch
 
 from sigsvgd_tpu_torch.kernels import mxu_chain as mc
+from sigsvgd_tpu_torch.kernels import sigkernel as sk
 from sigsvgd_tpu_torch.kernels import sigkernel_block as kb
 from sigsvgd_tpu_torch.kernels import sigkernel_block3 as kb3
 from sigsvgd_tpu_torch.kernels import sigkernel_fused as kf
@@ -106,12 +110,18 @@ def _paths(device, n, L, C, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (333, 40, 2), (33, 21, 3), (7, 5, 3),
                                    (40, 64, 3), (5, 2, 1), (2, 2, 3), (19, 30, 1),
-                                   (130, 45, 2)])
+                                   (130, 45, 2),
+                                   # C = 4..8 (span template 3): the planner's
+                                   # knots, each C at L·C = 128, ragged n, n = 2
+                                   (1024, 3, 7), (1024, 16, 8), (1024, 32, 4),
+                                   (333, 18, 7), (50, 25, 5), (64, 21, 6), (2, 2, 8),
+                                   (77, 9, 4)])
 def test_k1_matches_plain_twin_on_the_card(cuda_device, n, L, C):
     """1, 2, 4, 8 and 16 lanes a pair (L = 2 and 5, 21, 30 and 40, 45 and
-    64), ragged n, one pair (n = 2), and at [1024, 40, 2] more tiles than
-    resident blocks. K is the twin's bit for bit: the statics and the
-    forward sweep round as the twin does, whatever the lanes."""
+    64; at C > 3: 1 at L = 3, 4 at 9, 8 at 16 and 18, 16 at 21-32), ragged
+    n, one pair (n = 2), and at n = 1024 more tiles than resident blocks.
+    K is the twin's bit for bit: the statics and the forward sweep round as
+    the twin does, whatever the lanes and channels."""
     X = _paths(cuda_device, n, L, C)
     before = kb.block_gram_and_grad.launches
     K, dX = kb.block_gram_and_grad(X, 4.0)
@@ -125,7 +135,7 @@ def test_k1_matches_plain_twin_on_the_card(cuda_device, n, L, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (77, 64, 3)])
+@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (77, 64, 3), (1024, 3, 7), (333, 16, 8)])
 def test_k1_is_bitwise_repeatable(cuda_device, n, L, C):
     """No atomics: the gradient sums run in a fixed order."""
     X = _paths(cuda_device, n, L, C, seed=1)
@@ -162,7 +172,11 @@ def test_k1_raises_outside_its_envelope(cuda_device):
                                    (2, 49, 3), (19, 30, 1), (6, 64, 3),
                                    # one coarse column; 37 columns (a prime) over 8
                                    # lanes; L = 64 at C = 3 over 16 lanes; n = 2
-                                   (9, 2, 2), (50, 38, 2), (33, 64, 3), (2, 40, 2)])
+                                   (9, 2, 2), (50, 38, 2), (33, 64, 3), (2, 40, 2),
+                                   # C = 4..8 (span template 3): the planner's
+                                   # knots, each C at L·C = 128, n = 2
+                                   (128, 3, 7), (40, 16, 8), (33, 32, 4), (77, 18, 7),
+                                   (20, 25, 5), (19, 21, 6), (2, 2, 8), (30, 9, 4)])
 def test_k2_matches_plain_twin_on_the_card(cuda_device, n, L, C):
     X = _paths(cuda_device, n, L, C)
     before = kb3.block3_gram_and_grad.launches
@@ -178,7 +192,8 @@ def test_k2_matches_plain_twin_on_the_card(cuda_device, n, L, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L,C", [(1024, 9, 2), (777, 13, 3), (1023, 40, 2)])
+@pytest.mark.parametrize("n,L,C", [(1024, 9, 2), (777, 13, 3), (1023, 40, 2), (1024, 16, 8),
+                                   (1024, 32, 4)])
 def test_k2_blocks_taking_many_tiles_match_plain_twin(cuda_device, n, L, C):
     """More tiles than resident blocks: each persistent block reuses its
     scratch and shared slots from one tile to the next (at n = 1023 the
@@ -196,7 +211,7 @@ def test_k2_blocks_taking_many_tiles_match_plain_twin(cuda_device, n, L, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (77, 41, 3)])
+@pytest.mark.parametrize("n,L,C", [(1024, 40, 2), (77, 41, 3), (1024, 3, 7), (130, 32, 4)])
 def test_k2_is_bitwise_repeatable(cuda_device, n, L, C):
     """No atomics and fixed-order sums: two calls give the same K and dX bit
     for bit."""
@@ -795,15 +810,15 @@ def test_k7_backward_is_bitwise_repeatable(cuda_device, Lx, Ly, C):
     (9, 41, 3), (5, 2, 8), (130, 17, 4)])
 def test_k3_equals_k1_and_its_twin_on_the_card(cuda_device, n, L, C):
     """K3 gives the twin's K bit for bit at every instantiation's shapes
-    (the statics and the sweep round as the twin does), and K1's where K1
-    takes the shape (C ≤ 3)."""
+    (the statics and the sweep round as the twin does), and K1's: K1 takes
+    every shape of K3's envelope, C = 4..8 included."""
     X = _paths(cuda_device, n, L, C)
     before = kb.block_gram.launches
     K = kb.block_gram(X, 4.0)
     assert kb.block_gram.launches == before + 1
-    if C <= kb.MAX_C:
-        K1, _ = kb.block_gram_and_grad(X, 4.0)
-        torch.testing.assert_close(K, K1, atol=0, rtol=0)
+    assert kb.block_supported(n, L, C, 4.0)
+    K1, _ = kb.block_gram_and_grad(X, 4.0)
+    torch.testing.assert_close(K, K1, atol=0, rtol=0)
     torch.testing.assert_close(K, kb.block_gram_plain(X, 4.0), atol=0, rtol=0)
 
 
@@ -817,7 +832,7 @@ def test_k3_is_bitwise_repeatable(cuda_device, n, L, C):
 def _launches():
     return {f.__name__: f.launches for f in (
         ks.small_forward, ks.small_backward, kb.block_gram, kb.block_gram_and_grad,
-        kf.fused_forward, kf.fused_backward)}
+        kb3.block3_gram_and_grad, kf.fused_forward, kf.fused_backward)}
 
 
 def _delta(before):
@@ -876,18 +891,83 @@ def test_gram_sym_launches_k3_at_lambda0_and_k7_outside_the_block(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L,C,scale", [(1024, 3, 7, 10.0), (64, 41, 4, 1.0)])
+@pytest.mark.parametrize("n,L,C,scale", [(64, 41, 4, 1.0)])
 def test_lambda0_gram_and_grad_outside_k1_runs_k7(cuda_device, n, L, C, scale):
-    """Bench's planning knots at depth 0 ([1024, 3, 7]: inside the JAX
-    package's block envelope, outside K1's) and an L·C > 128 shape: K7's
-    forward and backward once each, no K1, and the result the CPU's (the
-    twins). The knots span ±1 rad, as joint-angle knots do."""
+    """An L·C > 128 shape (outside both block envelopes): K7's forward and
+    backward once each, no K1, and the result the CPU's (the twins)."""
     X = _paths(cuda_device, n, L, C) * scale
     before = _launches()
     K, dX = SignatureKernel(0, 4.0).gram_and_grad(X)
     torch.cuda.synchronize()
     assert _delta(before) == {"small_forward": 1, "small_backward": 1}
     _assert_k_dx(K.cpu(), dX.cpu(), *SignatureKernel(0, 4.0).gram_and_grad(X.cpu()))
+
+
+def _assert_route_result(kern, X, K, dX, monkeypatch):
+    """A route's card result against the same route with the twins in the
+    kernels' place: at λ=0 on the CPU, K atol 3e-5 and dX scaled 5e-5; at
+    λ=3 on the card (the CPU's and the card's exp move a 33-node λ=3
+    sweep's fp32 K by ~1.5e-4), K atol 1e-4 against the fp32 route and dX
+    scaled 4e-4 against the route in fp64 (the fp32 twin's own dX may sit
+    ~4e-4 from it)."""
+    if kern.dyadic_order == 0:
+        _assert_k_dx(K.cpu(), dX.cpu(), *kern.gram_and_grad(X.cpu()))
+        return
+    monkeypatch.setattr(sk, "block3_gram_and_grad", kb3.block3_gram_and_grad_plain)
+    monkeypatch.setattr(kf, "fused_forward", kf.fused_forward_plain)
+    monkeypatch.setattr(kf, "fused_backward",
+                        lambda xt, yt, ck, rc, g: kf.fused_backward_plain(xt, yt, g))
+    Kp = kern.gram_and_grad(X)[0]
+    dX64 = kern.gram_and_grad(X.double())[1]
+    monkeypatch.undo()
+    _assert_k_dx(K, dX.double(), Kp, dX64, 1e-4, 4e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 3])
+def test_gram_and_grad_on_planner_knots_runs_the_block_kernel(cuda_device, order, monkeypatch):
+    """Bench's planning knots at depth 0 and 3 ([1024, 3, 7], inside the
+    JAX package's block envelopes; uniform joint-limit-like draws at h =
+    1.5): one K1 (K2) launch, no pair-list kernel, and the result the CPU's
+    (the twin) at K1's (K2's) tolerance."""
+    g = torch.Generator(device=cuda_device).manual_seed(order)
+    X = (torch.rand((1024, 3, 7), generator=g, device=cuda_device) * 5.0 - 2.5).contiguous()
+    kern = SignatureKernel(order, 1.5)
+    before = _launches()
+    K, dX = kern.gram_and_grad(X)
+    torch.cuda.synchronize()
+    name = "block_gram_and_grad" if order == 0 else "block3_gram_and_grad"
+    assert _delta(before) == {name: 1}
+    _assert_route_result(kern, X, K, dX, monkeypatch)
+
+
+@pytest.mark.cuda
+def test_lambda3_gram_and_grad_beyond_the_block_envelope_runs_k4(cuda_device, monkeypatch):
+    """λ=3 at [64, 33, 4] (L·C = 132 > 128, ly1 = 32 ≤ 48): the pair list's
+    K4 forward and backward once each, no K2, and the result the same
+    route's with the twins on the card, at K4's tolerance."""
+    X = _paths(cuda_device, 64, 33, 4)
+    kern = SignatureKernel(3, 4.0)
+    before = _launches()
+    K, dX = kern.gram_and_grad(X)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"fused_forward": 1, "fused_backward": 1}
+    _assert_route_result(kern, X, K, dX, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 17, 8), (8, 33, 4), (8, 65, 2), (8, 5, 9)])
+def test_block_kernels_raise_just_past_their_envelope(cuda_device, shape):
+    """One node (or channel) past K1's and K2's envelope each wrapper raises
+    ``NotImplementedError`` naming the route that takes the shape; nothing
+    launches."""
+    X = torch.zeros(shape, device=cuda_device)
+    before = _launches()
+    with pytest.raises(NotImplementedError, match="K7"):
+        kb.block_gram_and_grad(X, 4.0)
+    with pytest.raises(NotImplementedError, match="K4"):
+        kb3.block3_gram_and_grad(X, 4.0)
+    assert _delta(before) == {}
 
 
 @pytest.mark.cuda
@@ -1186,8 +1266,8 @@ def test_sweep_cell_matches_cpu(cuda_device):
     """A quick sweep cell (``pillars_4``'s first request, pathsig at depth 3
     on knots [4, 3, 7], T = 20, 3 iterations) on the card and on the CPU
     from the same knots: the requests equal, the knots and losses rtol 1e-4,
-    atol 1e-5 (the chained planning runs' tolerance); K4 forward and
-    backward once an iteration on the card, no other kernel."""
+    atol 1e-5 (the chained planning runs' tolerance); K2 once an iteration
+    on the card (the knots are inside its envelope), no other kernel."""
     from sigsvgd_tpu_torch.experiments import robot_planning as rp
     from sigsvgd_tpu_torch.experiments.planning import PlannerConfig, run_optimisation
     from sigsvgd_tpu_torch.models.robot.panda import PandaRobot
@@ -1209,7 +1289,7 @@ def test_sweep_cell_matches_cpu(cuda_device):
     assert rg == rc
     torch.testing.assert_close(xg, xc, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
-    assert cg == dict.fromkeys(cg, 0) | {"fused_forward": 3, "fused_backward": 3}
+    assert cg == dict.fromkeys(cg, 0) | {"block3_gram_and_grad": 3}
     assert cc == dict.fromkeys(cc, 0)
 
 
@@ -1255,8 +1335,8 @@ def test_learned_cost_gradient_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_planning_paths_launch_their_kernels(cuda_device):
     """The launch counts of the new paths: a quick sweep's pathsig cell
-    (``run_experiment`` at depth 3, 2 iterations: 2 K4 forward and 2
-    backward), the obstacle field's pathsig run (3 iterations: 3 K2) and a
+    (``run_experiment`` at depth 3 on knots [8, 3, 7], 2 iterations: 2 K2),
+    the obstacle field's pathsig run (3 iterations: 3 K2) and a
     ``PlannerConfig()``-depth cell (order 6, ``mxu_precision="default"``, 2
     iterations: 2 K8 forward and 2 backward); no other kernel."""
     from sigsvgd_tpu_torch.experiments import obstacle_field as of
@@ -1269,7 +1349,7 @@ def test_planning_paths_launch_their_kernels(cuda_device):
                              PlannerConfig(n_iter=2, batch=8, depth=3, timesteps=20),
                              n_requests=1)
     assert len(rows) == 1 and np.isfinite(rows[0]["best_ee_length"])
-    assert _grown(before) == zero | {"fused_forward": 2, "fused_backward": 2}
+    assert _grown(before) == zero | {"block3_gram_and_grad": 2}
     before = _planning_launches()
     res = of.run(method="pathsig", n_iter=3)
     assert np.isfinite(res["final_costs"]).all()

@@ -7,10 +7,11 @@ with the kernels' plain twins in the port:
   gradient (K6's twin tolerance, ``test_torch_fused.py``);
 * the same at [4, 8, 5], outside the bf16 envelope: the fp32 fused adjoint
   (K4) on both sides, K atol 1e-4 and dX scaled atol 4e-4, and the port's
-  result equal to its fp32 route's;
-* the C = 7 repair: [6, 17, 7] is inside JAX's block3 envelope (L·C = 119)
-  but outside K2's (C ≤ 3), so the port takes K4's pair list: K atol 1e-4,
-  dX scaled 4e-4, the tolerances of ``tests/test_torch_dust.py``'s λ=3 mode;
+  result equal to its fp32 pair list's (at fp32 ``gram_and_grad`` takes
+  K2 there, as JAX takes its block3 route);
+* seven channels: [6, 17, 7] is inside JAX's block3 envelope (L·C = 119)
+  and K2's, so both packages take their block route: K atol 1e-4, dX
+  scaled 4e-4, the tolerances of ``tests/test_torch_dust.py``'s λ=3 mode;
 * ``gram(X, Y)`` above a lowered ``_DENSE_LIMIT`` (patched on both classes
   inside the test), on normal draws with the bandwidth from the 256×256
   block's median: K atol 1e-4, the λ=3 K tolerance of
@@ -66,8 +67,9 @@ def test_bf16_oversize_shape_takes_the_fp32_fused_adjoint(rng):
     K, dX, Kj, dXj = _both(X, 2.0, "bf16")
     np.testing.assert_allclose(K, Kj, atol=1e-4)
     _scaled_close(dX, dXj, 4e-4)
-    K32, dX32 = SignatureKernel(dyadic_order=3, bandwidth=2.0).gram_and_grad(
-        torch.from_numpy(X))
+    kern = SignatureKernel(dyadic_order=3, bandwidth=2.0)
+    Xt = torch.from_numpy(X)
+    K32, dX32 = kern._pair_gram_and_grad(Xt, kern._subsampled_bandwidth(Xt, Xt))
     np.testing.assert_array_equal(K, K32.numpy())
     np.testing.assert_array_equal(dX, dX32.numpy())
 

@@ -2,15 +2,21 @@
 
 K1's plain twin is held against JAX ``block_gram_and_grad`` (the Pallas
 kernel in interpret mode) and against ``SignatureKernel(solver="wavefront")``
-at the four shapes of ``tests/test_pallas_block.py``, with that file's
+at the four shapes of ``tests/test_pallas_block.py`` and at three of the
+block envelope's C = 4..8 (the planner's knots [9, 3, 7] at h = 1.5, and
+its edges L = 16 at C = 8 and L = 32 at C = 4), with that file's
 tolerances: K atol 3e-5, dX scaled by max|dX| atol 5e-5. K1 itself is held
-against the twin on the card in ``test_torch_cuda.py``.
+against the twin on the card in ``test_torch_cuda.py``. Wherever the JAX
+package takes its block routes (``block_supported``, ``block3_supported``)
+the port's ``_block_route`` takes K1 or K2.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sigsvgd_tpu.kernels import pallas_sigkernel_block as jblock
+from sigsvgd_tpu.kernels import pallas_sigkernel_block3 as jblock3
 from sigsvgd_tpu.kernels.pallas_sigkernel_block import block_gram_and_grad as j_block
 from sigsvgd_tpu.kernels.sigkernel import SignatureKernel as JSignatureKernel
 from sigsvgd_tpu.kernels.sigkernel import gram_increments as j_gram_increments
@@ -26,6 +32,9 @@ SHAPES = [
     (7, 5, 3, 2.0),      # n < one row block
     (130, 6, 2, 3.0),    # n > one column block
     (33, 21, 3, 4.0),    # odd n, long paths
+    (9, 3, 7, 1.5),      # the planner's 7-joint knots at its bandwidth
+    (3, 16, 8, 8.0),     # C = 8 at the envelope's L·C = 128
+    (3, 32, 4, 8.0),     # C = 4 at L·C = 128 (16 lanes a pair)
 ]
 
 
@@ -135,9 +144,55 @@ def test_block_supported_envelope():
     assert kb.block_supported(1024, 40, 2, 4.0)
     assert kb.block_supported(2, 64, 3, 1.0)
     assert not kb.block_supported(64, 40, 2, None)      # bandwidth
-    assert not kb.block_supported(64, 40, 4, 4.0)       # channels
     assert not kb.block_supported(64, 65, 2, 4.0)       # path length
     assert not kb.block_supported(1, 40, 2, 4.0)        # one particle
+    assert not kb.block_supported(64, 5, 9, 4.0)        # channels
+    # C = 4..8 up to L·C = 128, and not one node further
+    for C, L in ((4, 32), (5, 25), (6, 21), (7, 18), (8, 16)):
+        assert kb.block_supported(1024, L, C, 4.0) and kb.block_supported(2, 2, C, 4.0)
+        assert not kb.block_supported(1024, L + 1, C, 4.0), (L + 1, C)
+    assert kb.block_supported(1024, 3, 7, 1.5)          # the planner's knots
+
+
+@pytest.mark.parametrize("order", [0, 3])
+def test_block_route_covers_the_jax_block_envelopes(order):
+    """At every C ≤ 8 and 2 ≤ L ≤ 64 where the JAX package's
+    ``gram_and_grad`` takes its block kernel (``block_supported`` at λ=0,
+    ``block3_supported`` at λ=3), the port's ``_block_route`` takes K1 or
+    K2: the planner's [n, 3, 7] knots included."""
+    kern = SignatureKernel(dyadic_order=order, bandwidth=1.0)
+    want = "k1" if order == 0 else "k2"
+    jax_takes = (jblock.block_supported if order == 0 else jblock3.block3_supported)
+    covered = set()
+    for C in range(1, 9):
+        for L in range(2, 65):
+            if jax_takes(64, L, C, "rbf", 1.0):
+                assert kern._block_route(64, L, C, 1.0) == want, (L, C)
+                covered.add(C)
+    assert covered == set(range(1, 9)) and kern._block_route(64, 3, 7, 1.5) == want
+
+
+@pytest.mark.parametrize("order", [0, 3])
+def test_gram_and_grad_takes_the_block_twin_on_planner_knots(rng, order, monkeypatch):
+    """``SignatureKernel(order).gram_and_grad`` on the planner's [9, 3, 7]
+    knots (joint-limit-like draws, h = 1.5) takes the block twin (K1's at
+    λ=0, K2's at λ=3) and matches the JAX package's ``gram_and_grad``, which
+    takes its block route there: K atol 3e-5 / 1e-4, dX scaled 5e-5 / 4e-4,
+    the block kernels' tolerances."""
+    mod, name = (kb, "block_gram_and_grad_plain") if order == 0 else (
+        kb3, "block3_gram_and_grad_plain")
+    calls = []
+    plain = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda X, h, **kw: calls.append(X.shape) or plain(X, h, **kw))
+    X = rng.uniform(-2.5, 2.5, size=(9, 3, 7)).astype(np.float32)
+    K, dX = SignatureKernel(dyadic_order=order, bandwidth=1.5).gram_and_grad(
+        torch.from_numpy(X))
+    assert calls == [(9, 3, 7)]
+    Kj, dXj = JSignatureKernel(dyadic_order=order, bandwidth=1.5).gram_and_grad(jnp.asarray(X))
+    k_tol, dx_tol = (3e-5, 5e-5) if order == 0 else (1e-4, 4e-4)
+    np.testing.assert_allclose(K.numpy(), np.asarray(Kj), atol=k_tol)
+    scale = float(np.abs(np.asarray(dXj)).max())
+    np.testing.assert_allclose(dX.numpy() / scale, np.asarray(dXj) / scale, atol=dx_tol)
 
 
 def test_kernel_bound_counts():

@@ -23,9 +23,9 @@ twins in the port:
 * the streamed λ=0 ``gram(X, Y)`` and its gradient under a lowered
   ``_DENSE_LIMIT``, paths of different lengths, against JAX's
   ``solver="pallas_small"``;
-* λ=0 ``gram_and_grad`` at [6, 3, 7] (JAX's block route, the port's K7: the
-  C = 7 repair) and at [5, 41, 4] (JAX's K7 route), K atol 3e-5 and dX
-  scaled 5e-5;
+* λ=0 ``gram_and_grad`` at [6, 3, 7] (the block route in both packages,
+  the port's K1) and at [5, 41, 4] (the K7 route in both), K atol 3e-5 and
+  dX scaled 5e-5;
 * K7's twin run first thing in fresh processes gives one result in each.
 """
 import subprocess
@@ -237,24 +237,31 @@ def test_streamed_lambda0_gram_matches_jax(rng, monkeypatch):
 @pytest.mark.parametrize("shape", [(6, 3, 7), (5, 41, 4)], ids=["c7_block", "lc164_k7"])
 def test_lambda0_gram_and_grad_matches_jax(rng, shape, monkeypatch):
     """[6, 3, 7] is inside JAX's block envelope (C ≤ 8, L·C ≤ 128), where
-    the JAX package runs its block kernel, but outside K1's (C ≤ 3): the port
-    takes K7's pair list, the same function. [5, 41, 4] is outside both
-    block envelopes: both packages take the pair list. K is held at the
+    the JAX package runs its block kernel, and K1's: the port takes K1 (its
+    twin here), and no pair list. [5, 41, 4] is outside both block
+    envelopes: both packages take the pair list, the port's through K7 (its
+    twin here). K is held at the
     tolerance of the JAX package's own K7 test (``test_pallas_small.py``:
     rtol 3e-5, atol 2e-5), against JAX and, each of them, against the port's
     route in fp64: at [5, 41, 4] K reaches 14.6, where fp32 rounds to ~1e-6
     and the two packages' K lie ~3e-5 from fp64 on opposite sides."""
     X = _paths(rng, *shape, 0.15)
-    calls = []
+    calls, block_calls = [], []
     plain = ks.small_backward_plain
     monkeypatch.setattr(ks, "small_backward_plain",
                         lambda *a: calls.append(a[0].shape) or plain(*a))
+    block_plain = kb.block_gram_and_grad_plain
+    monkeypatch.setattr(kb, "block_gram_and_grad_plain",
+                        lambda X, h, **kw: block_calls.append(X.shape) or block_plain(X, h, **kw))
     kern = SignatureKernel(dyadic_order=0, bandwidth=2.0)
     K, dX = kern.gram_and_grad(torch.from_numpy(X))
     Kj, dXj = JSignatureKernel(dyadic_order=0, bandwidth=2.0,
                                solver="pallas_small").gram_and_grad(jnp.asarray(X))
     n = shape[0]
-    assert calls == [(shape[1], shape[2], n * (n + 1) // 2)]  # one chunk through K7
+    if shape[1] * shape[2] <= 128:                            # K1, one call
+        assert calls == [] and block_calls == [shape]
+    else:                                                     # one chunk through K7
+        assert calls == [(shape[1], shape[2], n * (n + 1) // 2)] and block_calls == []
     np.testing.assert_allclose(K.numpy(), np.asarray(Kj), rtol=3e-5, atol=2e-5)
     K64 = kern.gram_and_grad(torch.from_numpy(X).double())[0].numpy()
     for got in (K.numpy(), np.asarray(Kj)):
